@@ -2,27 +2,42 @@
 """Drive diffdrr_tpu_torch on one CUDA card and check it end to end.
 
     python3 chip_smoke.py                    # all phases, one card, ~a minute
-    python3 chip_smoke.py --profile OUT.txt  # also profile registration steps:
-                                             # the device's busy share, and
-                                             # the profiler's table in OUT.txt
+    python3 chip_smoke.py --profile OUT.txt  # also profile registration and
+                                             # reconstruction steps: the
+                                             # device's busy share, and the
+                                             # profiler's tables in OUT.txt
 
 Phases (any failure raises and the exit code is non-zero):
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
   2. build: nvcc builds the kernels from diffdrr_tpu_torch/csrc for sm_90a;
-  3. kernels vs plain: siddon_fwd and siddon_fwdgrad against their plain
-     PyTorch versions on the card, random 128x128x64 volume, 64x64 detector,
-     an off-grid pose;
+  3. kernels vs plain: every kernel against its plain PyTorch version on
+     the card, random 128x128x64 volume, 64x64 detector, an off-grid pose, a
+     random cotangent g; siddon_bwd_rays and siddon_bwd_vol in sum and MIP
+     modes (value and argmax exact or value atol 1e-4 * max, rows atol
+     1e-3 * max|row|, gradient volume atol 1e-4 * max|ref|);
   4. main path at full size: the 512x512x133 example CT, a 200x200 detector
      (sdd 1020 mm, 2 mm pixels), the bench pose; renders with the march axis
      pinned to 2 and chosen automatically, held against the plain version;
      then registration steps from translation + 5 mm (Adam, multiscale NCC),
-     with the score rising. Launch counts are zeroed before and read after;
+     with the score rising and no density-gradient or two-pass launch.
+     Launch counts are zeroed before each path and read after it;
+  4b. MIP at full size, same CT, detector and pose: a reducefn="max" render
+     and one backward of sum(img**2) to the density and the pose, each
+     kernel held against its plain version; a sum-mode pose backward with
+     fused_pose_bwd=False, equal to the fused one;
+  4c. reconstruction at full size: 8 views of the same CT and detector on
+     the reconstruction CLI's trajectory (the detector turned about its
+     central ray, so every view marches axis 2), measured images rendered
+     from the true density, 20 Adam steps (lr 5e-2) from a zero density
+     with the loss falling and exact launch counts; siddon_fwd and
+     siddon_bwd_vol held against their plain versions at all 320,000 rays;
   5. the 512^3 isotropic CT (the volume the TPU had to stream plane by
      plane): a 200x200 and a 1000x1000 render, each against the plain version;
   6. timings: median CUDA-event times of each kernel and its plain version
-     at the main path's shapes, a render and a registration step, the host
-     time of the auto axis choice (it reads back to the host), and each
-     kernel's bound (the least time the card could take for the same work).
+     at the shapes of the path that launches it, a render, a registration
+     step and a reconstruction step, the host time of the auto axis choice
+     (it reads back to the host), and each kernel's bound (the least time
+     the card could take for the same work).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -46,15 +61,27 @@ sys.path.insert(0, str(ROOT))
 # float32 (non-tensor-core) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# Float32 operations per (ray, slab) step, counted by hand from
-# csrc/siddon.cuh: slab_segments ~94, plus ~14 (trace_fwd) or ~84
-# (trace_fwdgrad) for the accumulation and gradient routing.
+# Float32 operations per non-empty (ray, slab) step, counted by hand from
+# csrc/siddon.cuh: slab_segments ~94, plus ~14 (trace_fwd), ~84
+# (trace_fwdgrad), ~18 (trace_fwd_max: a length test, two products, a
+# compare and two selects per segment), ~82 (trace_bwd_rays: slab_rows
+# without the value row; 9 products by g per ray on top) or ~30
+# (trace_bwd_vol: a length test, two position sums, four bounds tests, two
+# products and the atomic add per segment). A MIP backward visits one slab.
 FWD_OPS_PER_SLAB = 108
 FWDGRAD_OPS_PER_SLAB = 178
+FWD_MAX_OPS_PER_SLAB = 112
+BWD_RAYS_OPS_PER_SLAB = 176
+BWD_VOL_OPS_PER_SLAB = 124
 
 N_REG_STEPS = 60
 BENCH_ROT = [[0.01, 3.141592653589793 / 2 + 0.02, -0.01]]
 BENCH_TRANS = [[0.0, 850.0, 0.0]]
+# Reconstruction (experiments/reconstruction.py:62-68): 8 views, rotation
+# [theta, pi/2, 0] for theta in linspace(0, pi, 8, endpoint=False).
+N_VIEWS = 8
+N_RECON_STEPS = 20
+RECON_LR = 5e-2
 
 
 def log(msg: str) -> None:
@@ -101,11 +128,12 @@ def median_host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def slab_work(rows, density, axis):
-    """(non-empty ray-slab steps, distinct voxels read) of one ray set.
+def slab_work(rows, density, axis, arg=None):
+    """(non-empty ray-slab steps, distinct voxels touched) of one ray set.
 
     What the data needs, not what a kernel does: empty slabs and zero-length
-    segments are not counted, and a voxel read by many rays counts once.
+    segments are not counted, and a voxel touched by many rays counts once.
+    With a MIP argmax ``arg``, only each ray's argmax slab and segment.
     """
     import torch
 
@@ -119,22 +147,67 @@ def slab_work(rows, density, axis):
     steps = 0
     for s in range(X):
         sl = K._slab(r, s)
-        steps += int(torch.count_nonzero(sl["ahi_raw"] >= sl["alo"]))
-        for (iy, iz), length in zip(sl["sel"], sl["lens"]):
+        if arg is None:
+            steps += int(torch.count_nonzero(sl["ahi_raw"] >= sl["alo"]))
+        else:
+            steps += int(torch.count_nonzero((arg >= 0) & (arg // 4 == s)))
+        for j, ((iy, iz), length) in enumerate(zip(sl["sel"], sl["lens"])):
             fy, fz = sl["y0"] + iy, sl["z0"] + iz
             ok = (length > 0) & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
+            if arg is not None:
+                ok = ok & (arg == s * 4 + j)
             seen[s, fy[ok].long(), fz[ok].long()] = True
     return steps, int(torch.count_nonzero(seen))
 
 
-def bound(rows, density, axis, fused: bool):
-    """(bound_ms, bound_by): bytes or operations over the card's peak rate."""
-    steps, voxels = slab_work(rows, density, axis)
+def bound(rows, density, axis, *, ray_bytes, ops_per_step, voxel_bytes=4, ops_per_ray=0,
+          arg=None):
+    """(bound_ms, bound_by): bytes or operations over the card's peak rate.
+
+    Bytes: ``ray_bytes`` per ray (rows, cotangent, argmax and outputs) plus
+    ``voxel_bytes`` per distinct voxel touched; operations: ``ops_per_step``
+    per non-empty ray-slab step plus ``ops_per_ray``.
+    """
+    steps, voxels = slab_work(rows, density, axis, arg)
     R = rows.shape[1]
-    n_bytes = 4 * (9 * R + (10 if fused else 1) * R + voxels)
-    ops = steps * (FWDGRAD_OPS_PER_SLAB if fused else FWD_OPS_PER_SLAB)
+    n_bytes = ray_bytes * R + voxel_bytes * voxels
+    ops = steps * ops_per_step + ops_per_ray * R
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ray_bytes of each kernel: 36 B of rows in, 4 B of g, 4 B of argmax, and
+# 4 (fwd), 40 (fwdgrad), 8 (fwd_max) or 36 (bwd_rays) B out per ray.
+FWD_BOUND = dict(ray_bytes=36 + 4, ops_per_step=FWD_OPS_PER_SLAB)
+FWDGRAD_BOUND = dict(ray_bytes=36 + 40, ops_per_step=FWDGRAD_OPS_PER_SLAB)
+FWD_MAX_BOUND = dict(ray_bytes=36 + 8, ops_per_step=FWD_MAX_OPS_PER_SLAB)
+BWD_RAYS_BOUND = dict(ray_bytes=36 + 4 + 36, ops_per_step=BWD_RAYS_OPS_PER_SLAB, ops_per_ray=9)
+# The gradient volume: a read-modify-write (8 B) of each voxel touched.
+BWD_VOL_BOUND = dict(ray_bytes=36 + 4, ops_per_step=BWD_VOL_OPS_PER_SLAB, voxel_bytes=8)
+
+
+def profile_steps(step, label: str, t_step: float, out: Path, n: int = 5) -> None:
+    """Profile ``n`` calls of ``step``: log the device's busy time per step
+    against ``t_step`` (its measured median) and append the table to ``out``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    # Kernels of one stream do not overlap, so their durations add up to
+    # the device's busy time; user annotations span kernels and are left out.
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    busy_ms = busy_us / 1e3 / n
+    with out.open("a") as f:
+        f.write(f"\n== {label} step, {n} steps ==\n")
+        f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    log(f"[profile] {label} step: device busy {busy_ms:.3f} ms of a {t_step:.3f} ms step "
+        f"({100 * busy_ms / t_step:.1f}% busy); table in {out}")
 
 
 def check_close(name, got, ref, rel):
@@ -150,8 +223,18 @@ def check_close(name, got, ref, rel):
 def check_fused(name, got, ref):
     """Rows 0..8 to 1e-3 * max|row|, the value row to 1e-4 * max|value|."""
     errs = [check_close(f"{name} row {k}", got[k], ref[k], 1e-3 if k < 9 else 1e-4)
-            for k in range(10)]
+            for k in range(ref.shape[0])]
     return max(errs)
+
+
+def check_max(name, got, ref):
+    """MIP (value, argmax): the argmax exact, the value to 1e-4 * max."""
+    import torch
+
+    n_diff = int(torch.count_nonzero(got[1] != ref[1]))
+    if n_diff:
+        raise AssertionError(f"{name}: argmax differs on {n_diff} rays")
+    return check_close(f"{name} value", got[0], ref[0], 1e-4)
 
 
 def rays_of(drr, rot, trans, axis=None):
@@ -173,7 +256,8 @@ def rays_of(drr, rot, trans, axis=None):
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
-                        help="profile registration steps; write the table to OUT")
+                        help="profile registration and reconstruction steps; write "
+                             "the tables to OUT")
     args = parser.parse_args(argv)
     import torch
 
@@ -186,6 +270,7 @@ def main(argv) -> int:
     from diffdrr_tpu_torch.data import Image, Subject, _REORIENT, canonicalize
     from diffdrr_tpu_torch.ops.kernels import build
     from diffdrr_tpu_torch.ops.kernels import siddon as K
+    from diffdrr_tpu_torch.parallel import make_reconstruction_step
     from diffdrr_tpu_torch.registration import make_registration_step
 
     dev = torch.device("cuda")
@@ -217,9 +302,24 @@ def main(argv) -> int:
                      K.siddon_fwd_plain(rows, small.density, ax), 1e-4)
     e2 = check_fused("siddon_fwdgrad 128x128x64", K.siddon_fwdgrad(rows, small.density, ax),
                      K.siddon_fwdgrad_plain(rows, small.density, ax))
+    dens_s = small.density
+    g_s = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device=dev)
+    mip_s = K.siddon_fwd_max(rows, dens_s, ax)
+    e3 = check_max("siddon_fwd_max 128x128x64", mip_s, K.siddon_fwd_max_plain(rows, dens_s, ax))
+    e4, e5 = {}, {}
+    for mode, arg_s in (("sum", None), ("mip", mip_s[1])):
+        e4[mode] = check_fused(f"siddon_bwd_rays[{mode}] 128x128x64",
+                               K.siddon_bwd_rays(rows, dens_s, ax, g_s, arg_s),
+                               K.siddon_bwd_rays_plain(rows, dens_s, ax, g_s, arg_s))
+        e5[mode] = check_close(f"siddon_bwd_vol[{mode}] 128x128x64",
+                               K.siddon_bwd_vol(rows, g_s, dens_s.shape, ax, arg_s),
+                               K.siddon_bwd_vol_plain(rows, g_s, dens_s.shape, ax, arg_s), 1e-4)
     torch.cuda.synchronize()
     log(f"[kernels] axis {ax}: siddon_fwd max abs err {e1:.3e}, "
-        f"siddon_fwdgrad max abs err {e2:.3e}")
+        f"siddon_fwdgrad max abs err {e2:.3e}, siddon_fwd_max {e3:.3e} (argmax exact, "
+        f"{int((mip_s[1] >= 0).sum())} rays with a maximum), siddon_bwd_rays sum "
+        f"{e4['sum']:.3e} mip {e4['mip']:.3e}, siddon_bwd_vol sum {e5['sum']:.3e} "
+        f"mip {e5['mip']:.3e}")
 
     # 4. Main path at full size ----------------------------------------------
     t0 = time.perf_counter()
@@ -247,13 +347,15 @@ def main(argv) -> int:
         scores.append(score)
         step_ms.append((start, end))
     torch.cuda.synchronize()
-    main_launches = {"siddon_fwd": K.siddon_fwd.launches,
-                     "siddon_fwdgrad": K.siddon_fwdgrad.launches}
+    main_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
     step_ms = [s.elapsed_time(e) for s, e in step_ms]
     scores = torch.stack(scores).tolist()
     log(f"[main] launches {main_launches}, slab escapes {drr.siddon_escapes}")
-    if min(main_launches.values()) < 1 or drr.siddon_escapes != 0:
+    if (min(main_launches["siddon_fwd"], main_launches["siddon_fwdgrad"]) < 1
+            or drr.siddon_escapes != 0):
         raise AssertionError("the main path did not run through every kernel")
+    if main_launches["siddon_bwd_vol"] or main_launches["siddon_bwd_rays"]:
+        raise AssertionError("registration launched a density or two-pass backward")
     if target.shape != (1, 1, 200, 200) or not torch.isfinite(target).all():
         raise AssertionError(f"bad render {tuple(target.shape)}")
     check_close("auto-axis render", auto, target, 1e-6)
@@ -286,8 +388,8 @@ def main(argv) -> int:
     src0, tgt0 = drr.detector(T.convert(rot0, trans, **kw))
     sv0, tv0 = drr.affine_inverse(src0), drr.affine_inverse(tgt0)
     t_axis = median_host_ms(lambda: drr.worst_ratios(sv0, tv0).tolist(), 50)
-    b_fwd, by_fwd = bound(rows_m, drr.density, ax_m, fused=False)
-    b_fg, by_fg = bound(rows_r, drr.density, ax_r, fused=True)
+    b_fwd, by_fwd = bound(rows_m, drr.density, ax_m, **FWD_BOUND)
+    b_fg, by_fg = bound(rows_r, drr.density, ax_r, **FWDGRAD_BOUND)
     t_step = statistics.median(step_ms[5:])
     log(f"[time] siddon_fwd axis {ax_m} {t_fwd:.4f} ms (plain {t_fwd_plain:.2f}, bound "
         f"{b_fwd:.4f} by {by_fwd}); siddon_fwdgrad axis {ax_r} {t_fg:.4f} ms (plain "
@@ -297,26 +399,141 @@ def main(argv) -> int:
         f"(steps 6..{N_REG_STEPS})")
 
     if args.profile is not None:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        n_prof = 5
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_prof):
-                params, opt, _ = step_fn(params, opt)
-            torch.cuda.synchronize()
-        # Kernels of one stream do not overlap, so their durations add up to
-        # the device's busy time; user annotations span kernels and are left out.
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False))
-        busy_ms = busy_us / 1e3 / n_prof
         args.profile.parent.mkdir(parents=True, exist_ok=True)
-        args.profile.write_text(
-            card + "\n" + prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
-        log(f"[profile] registration step: device busy {busy_ms:.3f} ms of a "
-            f"{t_step:.3f} ms step ({100 * busy_ms / t_step:.1f}% busy); table in "
-            f"{args.profile}")
+        args.profile.write_text(card + "\n")
+
+        def reg_step():
+            nonlocal params, opt
+            params, opt, _ = step_fn(params, opt)
+
+        profile_steps(reg_step, "registration", t_step, args.profile)
+    # 4b. MIP at full size ---------------------------------------------------
+    K.reset_launch_counts()
+    rot_p = rot0.clone().requires_grad_(True)
+    trans_p = trans.clone().requires_grad_(True)
+    dens_p = drr.density.clone().requires_grad_(True)
+    src_p, tgt_p = drr.detector(T.convert(rot_p, trans_p, **kw))
+    mip = drr.render(dens_p, src_p, tgt_p, reducefn="max")
+    torch.sum(mip ** 2).backward()
+
+    def pose_grad(fused):
+        r, t = rot0.clone().requires_grad_(True), trans.clone().requires_grad_(True)
+        torch.sum(drr(r, t, fused_pose_bwd=fused, **kw) ** 2).backward()
+        return torch.cat([r.grad, t.grad], -1)
+
+    pg_fused, pg_two = pose_grad(True), pose_grad(False)
+    torch.cuda.synchronize()
+    mip_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    log(f"[mip] launches {mip_launches}, slab escapes {drr.siddon_escapes}")
+    if drr.siddon_escapes != 0 or min(mip_launches[n] for n in (
+            "siddon_fwd_max", "siddon_bwd_rays", "siddon_bwd_vol")) < 1:
+        raise AssertionError("the MIP path did not run through its kernels")
+    if not (torch.isfinite(mip).all() and torch.isfinite(dens_p.grad).all()
+            and torch.isfinite(rot_p.grad).all() and torch.isfinite(trans_p.grad).all()):
+        raise AssertionError("MIP render or gradients not finite")
+    mip_ref = K.siddon_fwd_max_plain(rows_m, drr.density, ax_m)
+    err_max = check_close("MIP render 512x512x133 @200^2", mip.reshape(-1).detach(),
+                          mip_ref[0], 1e-4)
+    err_max = max(err_max, check_max("siddon_fwd_max 512x512x133 @200^2",
+                                     K.siddon_fwd_max(rows_m, drr.density, ax_m), mip_ref))
+    g_mip = (2 * mip).reshape(-1).detach()
+    arg_m = mip_ref[1]
+    err_br = check_fused("siddon_bwd_rays[mip] 512x512x133 @200^2",
+                         K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_mip, arg_m),
+                         K.siddon_bwd_rays_plain(rows_m, drr.density, ax_m, g_mip, arg_m))
+    ref_vol = K.siddon_bwd_vol_plain(rows_m, g_mip, drr.density.shape, ax_m, arg_m)
+    err_bv_mip = check_close("MIP density gradient 512x512x133", dens_p.grad, ref_vol, 1e-4)
+    err_pose = check_close("pose gradient, fused_pose_bwd=False vs fused", pg_two, pg_fused,
+                           1e-5)
+    log(f"[mip] render vs plain max abs err {err_max:.3e} (image max "
+        f"{mip.max().item():.3f}, {int((arg_m >= 0).sum())} of {arg_m.numel()} rays with a "
+        f"maximum); rows vs plain {err_br:.3e}; density gradient vs plain "
+        f"{err_bv_mip:.3e}; two-pass vs fused pose gradient {err_pose:.3e} (max "
+        f"{pg_fused.abs().max().item():.3e})")
+    del rot_p, trans_p, dens_p, src_p, tgt_p, mip, ref_vol
+
+    # 4c. Reconstruction at full size ---------------------------------------
+    thetas = np.linspace(0, np.pi, N_VIEWS, endpoint=False)
+    rot_v = torch.tensor(np.stack([thetas, np.full(N_VIEWS, np.pi / 2), np.zeros(N_VIEWS)], 1),
+                         dtype=torch.float32, device=dev)
+    trans_v = torch.tensor(BENCH_TRANS * N_VIEWS, device=dev)
+    K.reset_launch_counts()
+    measured = drr(rot_v, trans_v, **kw)
+    init_fn, recon_step = make_reconstruction_step(drr, lr=RECON_LR)
+    dens_r, opt_r = init_fn(torch.zeros_like(drr.density))
+    losses, recon_ms = [], []
+    for _ in range(N_RECON_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dens_r, opt_r, loss = recon_step(dens_r, opt_r, rot_v, trans_v, measured)
+        end.record()
+        losses.append(loss)
+        recon_ms.append((start, end))
+    torch.cuda.synchronize()
+    recon_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    recon_ms = [s.elapsed_time(e) for s, e in recon_ms]
+    losses = torch.stack(losses).tolist()
+    log(f"[recon] launches {recon_launches}, slab escapes {drr.siddon_escapes}")
+    want = {"siddon_fwd": N_RECON_STEPS + 1, "siddon_bwd_vol": N_RECON_STEPS,
+            "siddon_fwdgrad": 0}
+    if drr.siddon_escapes != 0 or any(recon_launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"reconstruction launches {recon_launches}, want {want}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and torch.isfinite(dens_r).all()):
+        raise AssertionError(f"reconstruction loss did not fall: {losses[0]} -> {losses[-1]}")
+    rmse = torch.sqrt(torch.mean((dens_r.detach() - drr.density) ** 2)).item()
+    t_recon = statistics.median(recon_ms[2:])
+    if args.profile is not None:
+        def rec_step():
+            nonlocal dens_r, opt_r
+            dens_r, opt_r, _ = recon_step(dens_r, opt_r, rot_v, trans_v, measured)
+
+        profile_steps(rec_step, "reconstruction", t_recon, args.profile)
+    # Its kernels against their plain versions at all 8 views (320,000 rays).
+    rows_v, ax_v = rays_of(drr, rot_v, trans_v)
+    with torch.no_grad():
+        img_v = drr.render(dens_r, *drr.detector(T.convert(rot_v, trans_v, **kw)))
+    g_v = (2 * (img_v.reshape(measured.shape) - measured) / measured.numel()).reshape(-1)
+    err_fv = check_close("siddon_fwd 8 views", K.siddon_fwd(rows_v, dens_r.detach(), ax_v),
+                         K.siddon_fwd_plain(rows_v, dens_r.detach(), ax_v), 1e-4)
+    err_bv = check_close("siddon_bwd_vol 8 views",
+                         K.siddon_bwd_vol(rows_v, g_v, drr.density.shape, ax_v),
+                         K.siddon_bwd_vol_plain(rows_v, g_v, drr.density.shape, ax_v), 1e-4)
+    log(f"[recon] {N_VIEWS} views x 200^2 rays, axis {ax_v}, {N_RECON_STEPS} Adam steps "
+        f"(lr {RECON_LR}) from zero: loss {losses[0]:.5g} -> {losses[-1]:.5g}; voxel RMSE "
+        f"vs the true density {rmse:.5g} (true density RMS "
+        f"{torch.sqrt(torch.mean(drr.density ** 2)).item():.5g}); step median "
+        f"{t_recon:.3f} ms (steps 3..{N_RECON_STEPS}); siddon_fwd vs plain {err_fv:.3e}, "
+        f"siddon_bwd_vol vs plain {err_bv:.3e}")
+
+    # 6b. Timings of the new kernels ----------------------------------------
+    g_m = torch.tensor(rng.normal(size=rows_m.shape[1]), dtype=torch.float32, device=dev)
+    t_max = median_ms(lambda: K.siddon_fwd_max(rows_m, drr.density, ax_m), 20)
+    t_max_plain = median_ms(lambda: K.siddon_fwd_max_plain(rows_m, drr.density, ax_m), 3, 1)
+    t_br = median_ms(lambda: K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_m), 20)
+    t_br_plain = median_ms(lambda: K.siddon_bwd_rays_plain(rows_m, drr.density, ax_m, g_m), 3, 1)
+    t_br_mip = median_ms(lambda: K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_m, arg_m), 20)
+    shape = drr.density.shape
+    t_bv = median_ms(lambda: K.siddon_bwd_vol(rows_v, g_v, shape, ax_v), 20)
+    t_bv_plain = median_ms(lambda: K.siddon_bwd_vol_plain(rows_v, g_v, shape, ax_v), 2, 1)
+    t_zero = median_ms(lambda: torch.zeros(shape, device=dev), 20)
+    b_max, by_max = bound(rows_m, drr.density, ax_m, **FWD_MAX_BOUND)
+    b_br, by_br = bound(rows_m, drr.density, ax_m, **BWD_RAYS_BOUND)
+    b_br_mip, by_br_mip = bound(rows_m, drr.density, ax_m, arg=arg_m,
+                                **dict(BWD_RAYS_BOUND, ray_bytes=36 + 4 + 4 + 36))
+    b_bv, by_bv = bound(rows_v, drr.density, ax_v, **BWD_VOL_BOUND)
+    zero_bytes = drr.density.numel() * 4
+    log(f"[time] siddon_fwd_max {t_max:.4f} ms (plain {t_max_plain:.2f}, bound {b_max:.4f} by "
+        f"{by_max}); siddon_bwd_rays sum {t_br:.4f} ms (plain {t_br_plain:.2f}, bound "
+        f"{b_br:.4f} by {by_br}), mip {t_br_mip:.4f} ms (bound {b_br_mip:.4f} by {by_br_mip}); "
+        f"all at 200^2 rays, axis {ax_m}")
+    log(f"[time] siddon_bwd_vol at {rows_v.shape[1]} rays {t_bv:.4f} ms with its zero fill "
+        f"(plain {t_bv_plain:.2f}, bound {b_bv:.4f} by {by_bv}); the zero fill alone "
+        f"{t_zero:.4f} ms ({zero_bytes / 1e6:.1f} MB, bound "
+        f"{zero_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); reconstruction step median "
+        f"{t_recon:.3f} ms")
+    del dens_r, opt_r, measured, img_v, rows_v, g_v
     del drr, subject, target, auto, params, opt
 
     # 5. The 512^3 isotropic CT ----------------------------------------------
@@ -335,7 +552,7 @@ def main(argv) -> int:
                         K.siddon_fwd_plain(rows_c, drr_c.density, ax_c), 1e-4)
     t_c = median_ms(lambda: K.siddon_fwd(rows_c, drr_c.density, ax_c), 20)
     t_c_plain = median_ms(lambda: K.siddon_fwd_plain(rows_c, drr_c.density, ax_c), 2, 1)
-    b_c, by_c = bound(rows_c, drr_c.density, ax_c, fused=False)
+    b_c, by_c = bound(rows_c, drr_c.density, ax_c, **FWD_BOUND)
     log(f"[cube] 200^2: max abs err {err_c:.3e}; siddon_fwd {t_c:.4f} ms (plain "
         f"{t_c_plain:.2f}, bound {b_c:.4f} by {by_c})")
 
@@ -365,6 +582,21 @@ def main(argv) -> int:
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:573",
          "launches": cube_launches, "max_abs_err": err_c,
          "ms": t_c, "plain_ms": t_c_plain, "bound_ms": b_c, "bound_by": by_c,
+         "library_ms": None},
+        {"name": "siddon_fwd_max", "route": "cuda", "source": src,
+         "replaces": "diffdrr_tpu/ops/pallas/siddon.py:189",
+         "launches": mip_launches["siddon_fwd_max"], "max_abs_err": err_max,
+         "ms": t_max, "plain_ms": t_max_plain, "bound_ms": b_max, "bound_by": by_max,
+         "library_ms": None},
+        {"name": "siddon_bwd_rays", "route": "cuda", "source": src,
+         "replaces": "diffdrr_tpu/ops/pallas/siddon.py:248",
+         "launches": mip_launches["siddon_bwd_rays"], "max_abs_err": max(err_br, err_pose),
+         "ms": t_br, "plain_ms": t_br_plain, "bound_ms": b_br, "bound_by": by_br,
+         "library_ms": None},
+        {"name": "siddon_bwd_vol", "route": "cuda", "source": src,
+         "replaces": "diffdrr_tpu/ops/pallas/siddon.py:501",
+         "launches": recon_launches["siddon_bwd_vol"], "max_abs_err": err_bv,
+         "ms": t_bv, "plain_ms": t_bv_plain, "bound_ms": b_bv, "bound_by": by_bv,
          "library_ms": None},
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

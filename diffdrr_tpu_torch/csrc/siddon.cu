@@ -5,29 +5,44 @@
 // the same line integral, the TPU choosing between them by whether the
 // volume fits its VMEM. siddon_fwdgrad replaces _fwdgrad_kernel: one march
 // that emits the value and the 9 cotangent-free gradient rows, so the pose
-// backward is an elementwise rows * g.
+// backward is an elementwise rows * g. siddon_fwd_max replaces _fwd_kernel's
+// max mode (the MIP value and its argmax), siddon_bwd_rays replaces
+// _bwd_rays_kernel (the two-pass pose backward, sum or MIP) and
+// siddon_bwd_vol replaces _bwd_vol_kernel (the density gradient).
 //
 // Design: one thread per ray, walking only its own slabs (slab_range in
 // siddon.cuh) and reading the <= 3 voxels of each slab straight from the
 // float32 volume through its strides. The TPU needed tile windows, a starts
 // table, one-hot matmuls and a permuted, padded copy of the volume to turn
 // these gathers into MXU work; on the H100 a gather is a load, so none of
-// that is carried over.
+// that is carried over. A MIP backward visits only the argmax slab.
 //
-// What bounds it: per ray and slab, one to three 4-byte gathers at
-// data-dependent addresses (about 150 flops of per-slab algebra for the
-// fused kernel, about 50 for the value-only one). The bytes a render must
+// What bounds the gathering kernels: per ray and slab, one to three 4-byte
+// gathers at data-dependent addresses (about 175 flops of per-slab algebra
+// for the gradient rows, about 50 for a value). The bytes a render must
 // move are the voxels its rays touch (at most the volume: 139 MB for the
 // 512x512x133 CT, 537 MB for 512^3, both above the 50 MB L2) plus 36 bytes
-// of rows in and 4 (fwd) or 40 (fwdgrad) bytes out per ray; against 3.35
-// TB/s that is tens of microseconds. The simple design is instead bound by
-// gather latency: neighbouring threads are neighbouring detector pixels, so
-// a warp's 32 rays read neighbouring voxels of the same slab at the same
-// step (the rays of a warp advance in lock step through the slabs) and L1/L2
-// serve most of those reads, but each thread waits on its own dependent
-// loads, and a 200x200 detector gives only 40,000 threads, a small fraction
-// of the card's 270,336 resident threads. Tiling rays per block and staging
-// slab windows in shared memory is later work (PERF.md).
+// of rows in and 4 (fwd), 8 (fwd_max), 36 (bwd_rays) or 40 (fwdgrad) bytes
+// out per ray; against 3.35 TB/s that is tens of microseconds. The simple
+// design is instead bound by gather latency: neighbouring threads are
+// neighbouring detector pixels, so a warp's 32 rays read neighbouring
+// voxels of the same slab at the same step (the rays of a warp advance in
+// lock step through the slabs) and L1/L2 serve most of those reads, but
+// each thread waits on its own dependent loads, and a 200x200 detector
+// gives only 40,000 threads, a small fraction of the card's 270,336
+// resident threads. Tiling rays per block and staging slab windows in
+// shared memory is later work (PERF.md).
+//
+// What bounds the scatter (siddon_bwd_vol): per ray and non-empty segment
+// one float atomicAdd into the f32 gradient volume, which the wrapper
+// zero-fills (the density's size x 4 bytes, a separate memset). The bytes
+// it must move are a read-modify-write of each voxel its rays touch. The
+// atomics resolve in L2; a reconstruction batch (8 views of 200x200 rays
+// over 512x133 transverse planes) puts only a few rays on each voxel, so
+// they rarely contend, and their latency, like the gathers', is hidden only
+// by the number of rays in flight. The order in which the atomics land
+// changes from run to run, so the gradient is nondeterministic in its last
+// bits: compare it with a tolerance, never bit for bit.
 #include <cuda_runtime.h>
 
 #include "siddon.cuh"
@@ -57,6 +72,39 @@ siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Vo
   for (int k = 0; k < siddon::kFusedRows; ++k) out[k * n_rays + r] = acc[k];
 }
 
+__global__ void __launch_bounds__(kThreads)
+siddon_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
+                      float* __restrict__ out, int* __restrict__ arg) {
+  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rays) return;
+  siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
+  siddon::trace_fwd_max(ray, vol, out + r, arg + r);
+}
+
+// arg == nullptr: sum mode; else MIP, gated to arg[r].
+__global__ void __launch_bounds__(kThreads)
+siddon_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
+                       const float* __restrict__ g, const int* __restrict__ arg,
+                       float* __restrict__ out) {
+  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rays) return;
+  siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
+  float acc[siddon::kRows];
+  siddon::trace_bwd_rays(ray, vol, g[r], arg ? arg[r] : -1, arg != nullptr, acc);
+#pragma unroll
+  for (int k = 0; k < siddon::kRows; ++k) out[k * n_rays + r] = acc[k];
+}
+
+__global__ void __launch_bounds__(kThreads)
+siddon_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays,
+                      const float* __restrict__ g, const int* __restrict__ arg,
+                      siddon::GradVolume grad) {
+  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rays) return;
+  siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
+  siddon::trace_bwd_vol(ray, grad, g[r], arg ? arg[r] : -1, arg != nullptr);
+}
+
 siddon::Volume make_volume(const float* vol, int64_t ss, int64_t sy, int64_t sz,
                            int X, int Y, int Z) {
   siddon::Volume v;
@@ -77,8 +125,12 @@ unsigned int n_blocks(int64_t n_rays) { return (unsigned int)((n_rays + kThreads
 // Plain C interface (loaded with ctypes). rows: (9, n_rays) float32; vol: the
 // density with element strides (ss, sy, sz) of the march-permuted axes and
 // extents (X, Y, Z); out: (n_rays,) for siddon_fwd, (10, n_rays) for
-// siddon_fwdgrad. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError().
+// siddon_fwdgrad, (n_rays,) values and (n_rays,) int32 codes for
+// siddon_fwd_max, (9, n_rays) for siddon_bwd_rays; g: (n_rays,) float32;
+// arg: (n_rays,) int32 argmax codes for MIP, or NULL for sum mode; grad: a
+// zero-filled float32 volume with the density's extents and its own strides
+// (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
+// not synchronise, and returns cudaGetLastError().
 extern "C" int siddon_fwd(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
                           int64_t sy, int64_t sz, int X, int Y, int Z, float* out,
                           void* stream) {
@@ -95,6 +147,44 @@ extern "C" int siddon_fwdgrad(const float* rows, int64_t n_rays, const float* vo
   if (n_rays > 0) {
     siddon_fwdgrad_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
         rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int siddon_fwd_max(const float* rows, int64_t n_rays, const float* vol,
+                              int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
+                              float* out, int* arg, void* stream) {
+  if (n_rays > 0) {
+    siddon_fwd_max_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), out, arg);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int siddon_bwd_rays(const float* rows, int64_t n_rays, const float* vol,
+                               int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
+                               const float* g, const int* arg, float* out, void* stream) {
+  if (n_rays > 0) {
+    siddon_bwd_rays_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), g, arg, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int siddon_bwd_vol(const float* rows, int64_t n_rays, const float* g,
+                              const int* arg, float* grad, int64_t gs, int64_t gy,
+                              int64_t gz, int X, int Y, int Z, void* stream) {
+  if (n_rays > 0) {
+    siddon::GradVolume gv;
+    gv.data = grad;
+    gv.ss = gs;
+    gv.sy = gy;
+    gv.sz = gz;
+    gv.X = X;
+    gv.Y = Y;
+    gv.Z = Z;
+    siddon_bwd_vol_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, g, arg, gv);
   }
   return (int)cudaGetLastError();
 }

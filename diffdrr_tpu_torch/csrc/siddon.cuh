@@ -15,8 +15,14 @@
 // the volume reads 0.
 //
 // Every expression below follows diffdrr_tpu/ops/pallas/siddon.py
-// (_slab_segments, _fwd_kernel and _fwdgrad_kernel) operation for operation,
-// in float32, with rintf for jnp.round (both round half to even).
+// (_slab_segments, _fwd_kernel, _fwdgrad_kernel, _bwd_rays_kernel and
+// _bwd_vol_kernel) operation for operation, in float32, with rintf for
+// jnp.round (both round half to even).
+//
+// MIP (reducefn="max"): the value is the largest len_j * w * V_j over the
+// ray's segments, and the argmax codes the winning segment as slab * 4 +
+// segment (-1 when no segment beats 0). Every other segment's gradient is
+// gated to zero, so a MIP backward only has to visit the argmax slab.
 #pragma once
 
 #include <math.h>
@@ -32,6 +38,7 @@ namespace siddon {
 
 // Packed input rows are (9, R) row-major: a b gy dy gz dz sc amin amax.
 // Fused output rows, (10, R): the 9 gradient rows in input order, then the value.
+constexpr int kRows = 9;
 constexpr int kFusedRows = 10;
 constexpr int kValueRow = 9;
 
@@ -39,6 +46,14 @@ struct Volume {
   const float* data;
   int64_t ss, sy, sz;  // element strides of the permuted (s, y, z) axes
   int X, Y, Z;         // extents of the permuted axes
+};
+
+// The density gradient, read through its own strides in the same (s, y, z)
+// order, so it lands in the density's layout.
+struct GradVolume {
+  float* data;
+  int64_t ss, sy, sz;
+  int X, Y, Z;
 };
 
 struct Ray {
@@ -155,6 +170,78 @@ SIDDON_HD void route(float t, float d_t, float d_pos, float alo, float ahi,
   *d_hi = at_hi ? d_t : 0.f;
 }
 
+// MIP: the largest len_j * w * V_j and its code s * 4 + j. A strict > keeps
+// the first maximum in slab, then segment, order; the running max starts at
+// 0 and the code at -1, so a ray that never beats 0 has no gradient. A
+// zero-length segment gives 0, which cannot beat the running max: skip it.
+SIDDON_HD void trace_fwd_max(const Ray& r, const Volume& v, float* val, int* arg) {
+  int lo, hi;
+  slab_range(r, v.X, &lo, &hi);
+  float best = 0.f;
+  int best_arg = -1;
+  for (int s = lo; s < hi; ++s) {
+    Slab sl = slab_segments(r, s);
+    for (int j = 0; j < 3; ++j) {
+      if (!(sl.len[j] > 0.f)) continue;
+      float V = voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]);
+      float x = sl.len[j] * r.w * V;
+      if (x > best) {
+        best = x;
+        best_arg = s * 4 + j;
+      }
+    }
+  }
+  *val = best;
+  *arg = best_arg;
+}
+
+// Adds slab s's d(value)/d(row) to acc[0..8] for the segment values V (the
+// voxel values, or in MIP those gated to the argmax segment) and returns
+// sum_j V_j len_j.
+SIDDON_HD float slab_rows(const Ray& r, const Slab& sl, int s, const float V[3], float acc[]) {
+  float w = r.w;
+  float d_t1 = w * (V[0] - V[1]);
+  float d_t2 = w * (V[1] - V[2]);
+  float d_alo = -w * V[0];
+  float d_ahi = w * V[2];
+
+  bool ty_is_min = sl.ty <= sl.tz;
+  float d_ty = ty_is_min ? d_t1 : d_t2;
+  float d_tz = ty_is_min ? d_t2 : d_t1;
+  float d_gy, d_dy, d_alo_y, d_ahi_y, d_gz, d_dz, d_alo_z, d_ahi_z;
+  route(sl.ty, d_ty, r.dy, sl.alo, sl.ahi, &d_gy, &d_dy, &d_alo_y, &d_ahi_y);
+  route(sl.tz, d_tz, r.dz, sl.alo, sl.ahi, &d_gz, &d_dz, &d_alo_z, &d_ahi_z);
+  float d_alo_tot = d_alo + d_alo_y + d_alo_z;
+  float d_ahi_tot = d_ahi + d_ahi_y + d_ahi_z;
+
+  // alo comes from a slab plane (a1 or a2) when interior, else from amin;
+  // ahi likewise from a plane or amax. An empty slab (ahi clamped to alo)
+  // routes its ahi term through alo, where it cancels.
+  bool empty = sl.ahi_raw < sl.alo;
+  float d_alo_eff = d_alo_tot + (empty ? d_ahi_tot : 0.f);
+  float d_ahi_eff = empty ? 0.f : d_ahi_tot;
+  bool lo_is_a1 = sl.a1 <= sl.a2;
+  bool lo_interior = sl.alo > r.amin;
+  bool hi_interior = sl.ahi_raw < r.amax;
+  float d_a1 = ((lo_is_a1 && lo_interior) ? d_alo_eff : 0.f) +
+               ((!lo_is_a1 && hi_interior) ? d_ahi_eff : 0.f);
+  float d_a2 = ((!lo_is_a1 && lo_interior) ? d_alo_eff : 0.f) +
+               ((lo_is_a1 && hi_interior) ? d_ahi_eff : 0.f);
+
+  float sf = (float)s;
+  float seg = V[0] * sl.len[0] + V[1] * sl.len[1] + V[2] * sl.len[2];
+  acc[0] += d_a1 * (sf - 0.5f) + d_a2 * (sf + 0.5f);
+  acc[1] += d_a1 + d_a2;
+  acc[2] += d_gy;
+  acc[3] += d_dy;
+  acc[4] += d_gz;
+  acc[5] += d_dz;
+  acc[6] += seg;
+  acc[7] += lo_interior ? 0.f : d_alo_eff;
+  acc[8] += hi_interior ? 0.f : d_ahi_eff;
+  return seg;
+}
+
 // The fused march: acc[0..8] += d(value)/d(row), acc[9] += value. The rows
 // do not depend on the output cotangent, so the backward is rows * g.
 SIDDON_HD void trace_fwdgrad(const Ray& r, const Volume& v, float acc[kFusedRows]) {
@@ -165,47 +252,71 @@ SIDDON_HD void trace_fwdgrad(const Ray& r, const Volume& v, float acc[kFusedRows
     Slab sl = slab_segments(r, s);
     float V[3];
     for (int j = 0; j < 3; ++j) V[j] = voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]);
-    float w = r.w;
-    float d_t1 = w * (V[0] - V[1]);
-    float d_t2 = w * (V[1] - V[2]);
-    float d_alo = -w * V[0];
-    float d_ahi = w * V[2];
+    float seg = slab_rows(r, sl, s, V, acc);
+    acc[kValueRow] += r.w * seg;
+  }
+}
 
-    bool ty_is_min = sl.ty <= sl.tz;
-    float d_ty = ty_is_min ? d_t1 : d_t2;
-    float d_tz = ty_is_min ? d_t2 : d_t1;
-    float d_gy, d_dy, d_alo_y, d_ahi_y, d_gz, d_dz, d_alo_z, d_ahi_z;
-    route(sl.ty, d_ty, r.dy, sl.alo, sl.ahi, &d_gy, &d_dy, &d_alo_y, &d_ahi_y);
-    route(sl.tz, d_tz, r.dz, sl.alo, sl.ahi, &d_gz, &d_dz, &d_alo_z, &d_ahi_z);
-    float d_alo_tot = d_alo + d_alo_y + d_alo_z;
-    float d_ahi_tot = d_ahi + d_ahi_y + d_ahi_z;
+// The two-pass pose backward: acc[0..8] = g * d(value)/d(row). In MIP mode
+// only the argmax slab carries a gradient (none when arg is -1), and
+// inside it V is gated to the argmax segment before any term is formed, the
+// boundary terms d_alo = -w V1 and d_ahi = w V3 included.
+SIDDON_HD void trace_bwd_rays(const Ray& r, const Volume& v, float g, int arg, bool mip,
+                              float acc[kRows]) {
+  for (int k = 0; k < kRows; ++k) acc[k] = 0.f;
+  int lo, hi;
+  if (mip) {
+    if (arg < 0 || arg / 4 >= v.X) return;  // no maximum, or not a slab of v
+    lo = arg / 4;
+    hi = lo + 1;
+  } else {
+    slab_range(r, v.X, &lo, &hi);
+  }
+  for (int s = lo; s < hi; ++s) {
+    Slab sl = slab_segments(r, s);
+    float V[3];
+    for (int j = 0; j < 3; ++j) {
+      V[j] = voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]);
+      if (mip && arg != s * 4 + j) V[j] = 0.f;
+    }
+    slab_rows(r, sl, s, V, acc);
+  }
+  for (int k = 0; k < kRows; ++k) acc[k] *= g;
+}
 
-    // alo comes from a slab plane (a1 or a2) when interior, else from amin;
-    // ahi likewise from a plane or amax. An empty slab (ahi clamped to alo)
-    // routes its ahi term through alo, where it cancels.
-    bool empty = sl.ahi_raw < sl.alo;
-    float d_alo_eff = d_alo_tot + (empty ? d_ahi_tot : 0.f);
-    float d_ahi_eff = empty ? 0.f : d_ahi_tot;
-    bool lo_is_a1 = sl.a1 <= sl.a2;
-    bool lo_interior = sl.alo > r.amin;
-    bool hi_interior = sl.ahi_raw < r.amax;
-    float d_a1 = ((lo_is_a1 && lo_interior) ? d_alo_eff : 0.f) +
-                 ((!lo_is_a1 && hi_interior) ? d_ahi_eff : 0.f);
-    float d_a2 = ((!lo_is_a1 && lo_interior) ? d_alo_eff : 0.f) +
-                 ((lo_is_a1 && hi_interior) ? d_ahi_eff : 0.f);
+// One write of the density gradient: an atomic add on the device, where
+// many rays may hit one voxel at once; a plain add in a serial host build.
+SIDDON_HD void add_grad(float* p, float x) {
+#if defined(__CUDA_ARCH__)
+  atomicAdd(p, x);
+#else
+  *p += x;
+#endif
+}
 
-    float sf = (float)s;
-    float seg = V[0] * sl.len[0] + V[1] * sl.len[1] + V[2] * sl.len[2];
-    acc[0] += d_a1 * (sf - 0.5f) + d_a2 * (sf + 0.5f);
-    acc[1] += d_a1 + d_a2;
-    acc[2] += d_gy;
-    acc[3] += d_dy;
-    acc[4] += d_gz;
-    acc[5] += d_dz;
-    acc[6] += seg;
-    acc[7] += lo_interior ? 0.f : d_alo_eff;
-    acc[8] += hi_interior ? 0.f : d_ahi_eff;
-    acc[kValueRow] += w * seg;
+// d(loss)/d(volume): adds len_j * w * g to each non-empty segment's voxel
+// (s, y0 + iy_j, z0 + iz_j) inside the volume; in MIP mode only to the
+// argmax segment's. Zero-length segments (the slab range's margin, empty
+// slabs) write nothing.
+SIDDON_HD void trace_bwd_vol(const Ray& r, const GradVolume& gv, float g, int arg, bool mip) {
+  int lo, hi;
+  if (mip) {
+    if (arg < 0 || arg / 4 >= gv.X) return;
+    lo = arg / 4;
+    hi = lo + 1;
+  } else {
+    slab_range(r, gv.X, &lo, &hi);
+  }
+  for (int s = lo; s < hi; ++s) {
+    Slab sl = slab_segments(r, s);
+    for (int j = 0; j < 3; ++j) {
+      if (!(sl.len[j] > 0.f) || (mip && arg != s * 4 + j)) continue;
+      float fy = sl.y0 + sl.iy[j];
+      float fz = sl.z0 + sl.iz[j];
+      if (!(fy >= 0.f && fy < (float)gv.Y && fz >= 0.f && fz < (float)gv.Z)) continue;
+      add_grad(gv.data + (int64_t)s * gv.ss + (int64_t)fy * gv.sy + (int64_t)fz * gv.sz,
+               sl.len[j] * r.w * g);
+    }
   }
 }
 

@@ -16,7 +16,15 @@ Dispatch for a full-frame render (the path a registration runs):
      (``ops/siddon.py``), as the JAX package's slab guard does; each such
      render adds one to ``siddon_escapes``;
   3. otherwise ``prep_rays`` packs the rays and ``SiddonSlab`` runs the
-     CUDA kernels (the plain versions on the CPU).
+     CUDA kernels (the plain versions on the CPU), by sum or, with
+     ``reducefn="max"``, by max (the MIP).
+
+``render(density, source, target)`` differentiates with respect to the
+density it is given, so a free density leaf receives its gradient
+(reconstruction); ``stop_gradients_through_grid_sample`` detaches it.
+``fused_pose_bwd`` (default True) takes the pose gradient from the fused
+forward; False runs the value-only forward and the two-pass pose backward,
+the cheaper choice when only the density needs a gradient.
 
 Ray sets that are not the full detector frame render on the oracle, in
 ``patch_size`` chunks when that is set. None of the JAX package's TPU
@@ -24,7 +32,7 @@ planning (tile windows, the footprint guard, bf16 storage) exists here: the
 volume is stored once, in float32.
 
 Not ported yet (ROADMAP.md): ``renderer="joseph"``/``"trilinear"``,
-``mask_to_channels``, ``p_subsample`` and ``reducefn="max"``.
+``mask_to_channels`` and ``p_subsample``.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ __all__ = ["DRR"]
 _TODO = "{} is not ported to diffdrr_tpu_torch yet; see ROADMAP.md"
 # Render options the Siddon path understands; anything else raises.
 _OPTIONS = {"axis", "eps", "reducefn", "mode", "align_corners",
-            "stop_gradients_through_grid_sample", "slab_guard"}
+            "stop_gradients_through_grid_sample", "slab_guard", "fused_pose_bwd"}
 
 
 class DRR:
@@ -167,11 +175,11 @@ class DRR:
         unknown = set(opts) - _OPTIONS
         if unknown:
             raise TypeError(f"unexpected renderer option(s) {sorted(unknown)}")
-        if opts.get("reducefn", "sum") != "sum":
-            raise NotImplementedError(_TODO.format(f"reducefn={opts['reducefn']!r}"))
         axis = opts.pop("axis", None)
         eps = opts.get("eps", 1e-8)
         slab_guard = opts.pop("slab_guard", True)
+        fused = opts.pop("fused_pose_bwd", True)
+        reducefn = opts.get("reducefn", "sum")
 
         weights = torch.linalg.vector_norm(target - source, dim=-1)[:, None, :]
         source = self.affine_inverse(source)
@@ -179,6 +187,7 @@ class DRR:
 
         H, W = self.detector.height, self.detector.width
         slab_ok = (target.shape[1] == H * W
+                   and reducefn in ("sum", "max")
                    and opts.get("mode", "nearest") == "nearest"
                    and not opts.get("align_corners", False))
         if slab_ok:
@@ -192,7 +201,7 @@ class DRR:
             if not slab_guard or ratios[axis] <= 1.0 + 1e-6:
                 return siddon_slab_raycast(density, source, target, weights,
                                            axis=axis, voxel_shift=self.voxel_shift,
-                                           eps=eps)
+                                           eps=eps, reduce=reducefn, fused=fused)
             self.siddon_escapes += 1
         return self._render_oracle(density, source, target, weights, opts)
 

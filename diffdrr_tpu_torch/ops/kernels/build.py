@@ -40,6 +40,12 @@ _SIGNATURES = {
     "siddon": {
         "siddon_fwd": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID, _VOID],
         "siddon_fwdgrad": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID, _VOID],
+        "siddon_fwd_max": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID,
+                           _VOID, _VOID],
+        "siddon_bwd_rays": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID,
+                            _VOID, _VOID, _VOID],
+        "siddon_bwd_vol": [_VOID, _I64, _VOID, _VOID, _VOID, _I64, _I64, _I64, _INT, _INT,
+                           _INT, _VOID],
     },
 }
 

@@ -1,6 +1,6 @@
 """Exact Siddon slab-march kernels: wrappers, plain versions, autograd.
 
-Counterpart of ``diffdrr_tpu/ops/pallas/siddon.py``. Two functions of the
+Counterpart of ``diffdrr_tpu/ops/pallas/siddon.py``. Five functions of the
 packed rays (``prep.py``) and the density:
 
   * ``siddon_fwd(rows, density, axis) -> (R,)``: the line integrals, the
@@ -8,7 +8,15 @@ packed rays (``prep.py``) and the density:
     ``_fwd_plane_major_kernel``;
   * ``siddon_fwdgrad(rows, density, axis) -> (10, R)``: the 9 gradient rows
     d(value)/d(row) in row order, then the value, the function of
-    ``_fwdgrad_kernel``.
+    ``_fwdgrad_kernel``;
+  * ``siddon_fwd_max(rows, density, axis) -> ((R,), (R,) int32)``: the MIP
+    value (the largest segment contribution) and its argmax, coded slab * 4
+    + segment and -1 for none, the max mode of ``_fwd_kernel``;
+  * ``siddon_bwd_rays(rows, density, axis, g, arg=None) -> (9, R)``:
+    g * d(value)/d(row), gated to the argmax in MIP, the function of
+    ``_bwd_rays_kernel``;
+  * ``siddon_bwd_vol(rows, g, shape, axis, arg=None) -> shape``: the density
+    gradient, the function of ``_bwd_vol_kernel``.
 
 Each wrapper launches its CUDA kernel (``csrc/siddon.cu``) on a CUDA tensor
 and counts the launch in its ``launches`` attribute; on a CPU tensor it runs
@@ -16,9 +24,9 @@ the plain PyTorch version beside it, which repeats the kernel's arithmetic
 slab by slab for all rays at once. Any other device raises; so does a build
 or launch failure. There is no fallback from the kernel to the plain version.
 
-``SiddonSlab`` is the autograd boundary: with a ray gradient requested its
-forward runs the fused kernel and saves the rows, and its backward is
-``rows * g``. The density gradient belongs to the reconstruction slice.
+``SiddonSlab`` is the autograd boundary, in sum or max mode. It computes
+each gradient only when autograd asks for it: a pose-only backward never
+launches ``siddon_bwd_vol``, a density-only one never ``siddon_fwdgrad``.
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ import torch
 from .prep import NROWS, ROW_NAMES, march_perm, prep_rays
 
 __all__ = [
-    "siddon_fwd", "siddon_fwdgrad", "siddon_fwd_plain", "siddon_fwdgrad_plain",
+    "siddon_fwd", "siddon_fwdgrad", "siddon_fwd_max", "siddon_bwd_rays", "siddon_bwd_vol",
+    "siddon_fwd_plain", "siddon_fwdgrad_plain", "siddon_fwd_max_plain",
+    "siddon_bwd_rays_plain", "siddon_bwd_vol_plain",
     "SiddonSlab", "siddon_slab_raycast", "reset_launch_counts",
 ]
 
@@ -107,60 +117,126 @@ def siddon_fwd_plain(rows: torch.Tensor, density: torch.Tensor, axis: int) -> to
     return acc
 
 
+def _slab_rows(r, sl, s, V1, V2, V3):
+    """Slab ``s``'s 9 terms d(value)/d(row) for segment values V1..V3, and
+    sum_j V_j len_j (``slab_rows`` in ``csrc/siddon.cuh``)."""
+    w = r["sc"]
+    d_t1 = w * (V1 - V2)
+    d_t2 = w * (V2 - V3)
+    d_alo = -w * V1
+    d_ahi = w * V3
+
+    ty, tz = sl["ty"], sl["tz"]
+    ty_is_min = (ty <= tz).float()
+    d_ty = d_t1 * ty_is_min + d_t2 * (1 - ty_is_min)
+    d_tz = d_t1 * (1 - ty_is_min) + d_t2 * ty_is_min
+    alo, ahi = sl["alo"], sl["ahi"]
+
+    def route(t, d_t, d_pos):
+        interior = ((t > alo) & (t < ahi)).float()
+        at_hi = (t >= ahi).float()
+        at_lo = 1.0 - interior - at_hi
+        sd = _safe_d(d_pos)
+        return (d_t * interior * (-1.0 / sd), d_t * interior * (-t / sd),
+                d_t * at_lo, d_t * at_hi)
+
+    d_gy, d_dy, d_alo_y, d_ahi_y = route(ty, d_ty, r["dy"])
+    d_gz, d_dz, d_alo_z, d_ahi_z = route(tz, d_tz, r["dz"])
+    d_alo_tot = d_alo + d_alo_y + d_alo_z
+    d_ahi_tot = d_ahi + d_ahi_y + d_ahi_z
+
+    empty = (sl["ahi_raw"] < alo).float()
+    d_alo_eff = d_alo_tot + empty * d_ahi_tot
+    d_ahi_eff = (1.0 - empty) * d_ahi_tot
+    lo_is_a1 = (sl["a1"] <= sl["a2"]).float()
+    lo_interior = (alo > r["amin"]).float()
+    hi_interior = (sl["ahi_raw"] < r["amax"]).float()
+    d_a1 = (d_alo_eff * lo_is_a1 * lo_interior
+            + d_ahi_eff * (1 - lo_is_a1) * hi_interior)
+    d_a2 = (d_alo_eff * (1 - lo_is_a1) * lo_interior
+            + d_ahi_eff * lo_is_a1 * hi_interior)
+
+    sf = float(s)
+    lens = sl["lens"]
+    seg = V1 * lens[0] + V2 * lens[1] + V3 * lens[2]
+    terms = (d_a1 * (sf - 0.5) + d_a2 * (sf + 0.5), d_a1 + d_a2,
+             d_gy, d_dy, d_gz, d_dz, seg,
+             d_alo_eff * (1.0 - lo_interior), d_ahi_eff * (1.0 - hi_interior))
+    return terms, seg
+
+
+def _gate(V, arg, s):
+    """MIP: each segment value kept only where the argmax is its code."""
+    return [torch.where(arg == s * 4 + j, v, torch.zeros_like(v)) for j, v in enumerate(V)]
+
+
 @torch.no_grad()
 def siddon_fwdgrad_plain(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
     """Plain version of :func:`siddon_fwdgrad`: (10, R) rows, then the value."""
     r = _rows_dict(rows)
     vol_p = density.permute(march_perm(axis))
     acc = [torch.zeros_like(r["a"]) for _ in range(FUSED_ROWS)]
-    w = r["sc"]
     for s in range(vol_p.shape[0]):
         sl = _slab(r, s)
-        V1, V2, V3 = _segment_values(vol_p, s, sl)
-        d_t1 = w * (V1 - V2)
-        d_t2 = w * (V2 - V3)
-        d_alo = -w * V1
-        d_ahi = w * V3
-
-        ty, tz = sl["ty"], sl["tz"]
-        ty_is_min = (ty <= tz).float()
-        d_ty = d_t1 * ty_is_min + d_t2 * (1 - ty_is_min)
-        d_tz = d_t1 * (1 - ty_is_min) + d_t2 * ty_is_min
-        alo, ahi = sl["alo"], sl["ahi"]
-
-        def route(t, d_t, d_pos):
-            interior = ((t > alo) & (t < ahi)).float()
-            at_hi = (t >= ahi).float()
-            at_lo = 1.0 - interior - at_hi
-            sd = _safe_d(d_pos)
-            return (d_t * interior * (-1.0 / sd), d_t * interior * (-t / sd),
-                    d_t * at_lo, d_t * at_hi)
-
-        d_gy, d_dy, d_alo_y, d_ahi_y = route(ty, d_ty, r["dy"])
-        d_gz, d_dz, d_alo_z, d_ahi_z = route(tz, d_tz, r["dz"])
-        d_alo_tot = d_alo + d_alo_y + d_alo_z
-        d_ahi_tot = d_ahi + d_ahi_y + d_ahi_z
-
-        empty = (sl["ahi_raw"] < alo).float()
-        d_alo_eff = d_alo_tot + empty * d_ahi_tot
-        d_ahi_eff = (1.0 - empty) * d_ahi_tot
-        lo_is_a1 = (sl["a1"] <= sl["a2"]).float()
-        lo_interior = (alo > r["amin"]).float()
-        hi_interior = (sl["ahi_raw"] < r["amax"]).float()
-        d_a1 = (d_alo_eff * lo_is_a1 * lo_interior
-                + d_ahi_eff * (1 - lo_is_a1) * hi_interior)
-        d_a2 = (d_alo_eff * (1 - lo_is_a1) * lo_interior
-                + d_ahi_eff * lo_is_a1 * hi_interior)
-
-        sf = float(s)
-        lens = sl["lens"]
-        seg = V1 * lens[0] + V2 * lens[1] + V3 * lens[2]
-        terms = (d_a1 * (sf - 0.5) + d_a2 * (sf + 0.5), d_a1 + d_a2,
-                 d_gy, d_dy, d_gz, d_dz, seg,
-                 d_alo_eff * (1.0 - lo_interior), d_ahi_eff * (1.0 - hi_interior),
-                 w * seg)
-        acc = [a + t for a, t in zip(acc, terms)]
+        terms, seg = _slab_rows(r, sl, s, *_segment_values(vol_p, s, sl))
+        acc = [a + t for a, t in zip(acc, terms + (r["sc"] * seg,))]
     return torch.stack(acc)
+
+
+@torch.no_grad()
+def siddon_fwd_max_plain(rows: torch.Tensor, density: torch.Tensor, axis: int):
+    """Plain version of :func:`siddon_fwd_max`: (value, int32 argmax)."""
+    r = _rows_dict(rows)
+    vol_p = density.permute(march_perm(axis))
+    best = torch.zeros_like(r["a"])
+    arg = torch.full(best.shape, -1, dtype=torch.int32, device=best.device)
+    for s in range(vol_p.shape[0]):
+        sl = _slab(r, s)
+        for j, (V, length) in enumerate(zip(_segment_values(vol_p, s, sl), sl["lens"])):
+            x = length * r["sc"] * V
+            better = x > best
+            arg = torch.where(better, torch.full_like(arg, s * 4 + j), arg)
+            best = torch.where(better, x, best)
+    return best, arg
+
+
+@torch.no_grad()
+def siddon_bwd_rays_plain(rows: torch.Tensor, density: torch.Tensor, axis: int,
+                          g: torch.Tensor, arg=None) -> torch.Tensor:
+    """Plain version of :func:`siddon_bwd_rays`: (9, R)."""
+    r = _rows_dict(rows)
+    vol_p = density.permute(march_perm(axis))
+    acc = [torch.zeros_like(r["a"]) for _ in range(NROWS)]
+    for s in range(vol_p.shape[0]):
+        sl = _slab(r, s)
+        V = _segment_values(vol_p, s, sl)
+        if arg is not None:
+            V = _gate(V, arg, s)
+        terms, _ = _slab_rows(r, sl, s, *V)
+        acc = [a + t for a, t in zip(acc, terms)]
+    return torch.stack(acc) * g
+
+
+@torch.no_grad()
+def siddon_bwd_vol_plain(rows: torch.Tensor, g: torch.Tensor, shape, axis: int,
+                         arg=None) -> torch.Tensor:
+    """Plain version of :func:`siddon_bwd_vol`: a float32 volume of ``shape``."""
+    r = _rows_dict(rows)
+    grad = torch.zeros(tuple(shape), dtype=torch.float32, device=rows.device)
+    grad_p = grad.permute(march_perm(axis))  # a view: writes land in ``grad``
+    X, Y, Z = grad_p.shape
+    for s in range(X):
+        sl = _slab(r, s)
+        for j, ((iy, iz), length) in enumerate(zip(sl["sel"], sl["lens"])):
+            fy, fz = sl["y0"] + iy, sl["z0"] + iz
+            ok = (length > 0) & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
+            if arg is not None:
+                ok = ok & (arg == s * 4 + j)
+            x = torch.where(ok, length * r["sc"] * g, torch.zeros_like(g))
+            iy_ = torch.clamp(fy, 0, Y - 1).to(torch.int64)
+            iz_ = torch.clamp(fz, 0, Z - 1).to(torch.int64)
+            grad_p[s].index_put_((iy_, iz_), x, accumulate=True)
+    return grad
 
 
 # -----------------------------------------------------------------------------
@@ -168,45 +244,82 @@ def siddon_fwdgrad_plain(rows: torch.Tensor, density: torch.Tensor, axis: int) -
 # -----------------------------------------------------------------------------
 
 
-def _check(rows: torch.Tensor, density: torch.Tensor, axis: int) -> None:
-    if rows.dtype != torch.float32 or density.dtype != torch.float32:
-        raise TypeError(f"siddon kernels take float32, got {rows.dtype}/{density.dtype}")
+def _check_rows(rows: torch.Tensor, axis: int) -> None:
+    if rows.dtype != torch.float32:
+        raise TypeError(f"siddon kernels take float32 rows, got {rows.dtype}")
     if rows.dim() != 2 or rows.shape[0] != NROWS:
         raise ValueError(f"rows must be ({NROWS}, R), got {tuple(rows.shape)}")
-    if density.dim() != 3:
-        raise ValueError(f"density must be (X, Y, Z), got {tuple(density.shape)}")
-    if rows.device != density.device:
-        raise ValueError(f"rows on {rows.device}, density on {density.device}")
     if axis not in (0, 1, 2):
         raise ValueError(f"axis must be 0, 1 or 2, not {axis}")
 
 
-def _launch(fn_name: str, rows: torch.Tensor, density: torch.Tensor, axis: int,
-            out: torch.Tensor) -> None:
+def _check(rows: torch.Tensor, density: torch.Tensor, axis: int) -> None:
+    _check_rows(rows, axis)
+    if density.dtype != torch.float32:
+        raise TypeError(f"siddon kernels take a float32 density, got {density.dtype}")
+    if density.dim() != 3:
+        raise ValueError(f"density must be (X, Y, Z), got {tuple(density.shape)}")
+    if rows.device != density.device:
+        raise ValueError(f"rows on {rows.device}, density on {density.device}")
+
+
+def _check_cotangent(rows: torch.Tensor, g: torch.Tensor, arg) -> torch.Tensor:
+    """``g`` as a contiguous (R,) float32 tensor; checks the MIP argmax."""
+    R = rows.shape[1]
+    if g.dtype != torch.float32 or g.shape != (R,) or g.device != rows.device:
+        raise ValueError(f"g must be float32 ({R},) on {rows.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if arg is not None and (arg.dtype != torch.int32 or arg.shape != (R,)
+                            or arg.device != rows.device or not arg.is_contiguous()):
+        raise ValueError(f"arg must be contiguous int32 ({R},) on {rows.device}")
+    return g.contiguous()
+
+
+def _runs_plain(name: str, t: torch.Tensor) -> bool:
+    """True on the CPU (the plain version), False on CUDA (the kernel)."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda or cpu, not {t.device}")
+    return False
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _call(fn_name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn_name(*args, stream)``; raise on a CUDA error."""
     from .build import load
 
-    rows = rows.contiguous()
-    perm = march_perm(axis)
-    X, Y, Z = (density.shape[p] for p in perm)
-    ss, sy, sz = (density.stride(p) for p in perm)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = getattr(load("siddon"), fn_name)(
-            rows.data_ptr(), rows.shape[1], density.data_ptr(), ss, sy, sz,
-            X, Y, Z, out.data_ptr(), stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(load("siddon"), fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
+
+
+def _strides_extents(t: torch.Tensor, axis: int) -> list:
+    """Element strides, then extents, of ``t``'s march-permuted (s, y, z) axes."""
+    perm = march_perm(axis)
+    return [t.stride(p) for p in perm] + [t.shape[p] for p in perm]
+
+
+def _launch(fn_name: str, rows: torch.Tensor, density: torch.Tensor, axis: int,
+            *args) -> None:
+    """``fn_name(rows, R, density, strides, extents, *args, stream)``."""
+    rows = rows.contiguous()
+    _call(fn_name, rows.device, rows.data_ptr(), rows.shape[1], density.data_ptr(),
+          *_strides_extents(density, axis), *args)
 
 
 def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
     """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``."""
     _check(rows, density, axis)
-    if rows.device.type == "cpu":
+    if _runs_plain("siddon_fwd", rows):
         return siddon_fwd_plain(rows, density, axis)
-    if rows.device.type != "cuda":
-        raise RuntimeError(f"siddon_fwd runs on cuda or cpu, not {rows.device}")
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
-    _launch("siddon_fwd", rows, density, axis, out)
+    _launch("siddon_fwd", rows, density, axis, out.data_ptr())
     siddon_fwd.launches += 1
     return out
 
@@ -214,23 +327,68 @@ def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Te
 def siddon_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
     """``(10, R)``: d(value)/d(row) for the 9 rows, then the value."""
     _check(rows, density, axis)
-    if rows.device.type == "cpu":
+    if _runs_plain("siddon_fwdgrad", rows):
         return siddon_fwdgrad_plain(rows, density, axis)
-    if rows.device.type != "cuda":
-        raise RuntimeError(f"siddon_fwdgrad runs on cuda or cpu, not {rows.device}")
     out = torch.empty((FUSED_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    _launch("siddon_fwdgrad", rows, density, axis, out)
+    _launch("siddon_fwdgrad", rows, density, axis, out.data_ptr())
     siddon_fwdgrad.launches += 1
     return out
 
 
-siddon_fwd.launches = 0
-siddon_fwdgrad.launches = 0
+def siddon_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int):
+    """MIP ``(value (R,), argmax (R,) int32)``: the largest len * w * V over
+    each ray's segments and its code slab * 4 + segment (-1: none beat 0)."""
+    _check(rows, density, axis)
+    if _runs_plain("siddon_fwd_max", rows):
+        return siddon_fwd_max_plain(rows, density, axis)
+    val = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
+    arg = torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
+    _launch("siddon_fwd_max", rows, density, axis, val.data_ptr(), arg.data_ptr())
+    siddon_fwd_max.launches += 1
+    return val, arg
+
+
+def siddon_bwd_rays(rows: torch.Tensor, density: torch.Tensor, axis: int,
+                    g: torch.Tensor, arg=None) -> torch.Tensor:
+    """``(9, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given."""
+    _check(rows, density, axis)
+    g = _check_cotangent(rows, g, arg)
+    if _runs_plain("siddon_bwd_rays", rows):
+        return siddon_bwd_rays_plain(rows, density, axis, g, arg)
+    out = torch.empty((NROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    _launch("siddon_bwd_rays", rows, density, axis, g.data_ptr(), _ptr(arg), out.data_ptr())
+    siddon_bwd_rays.launches += 1
+    return out
+
+
+def siddon_bwd_vol(rows: torch.Tensor, g: torch.Tensor, shape, axis: int,
+                   arg=None) -> torch.Tensor:
+    """d(loss)/d(density): a contiguous float32 volume of the density's
+    ``shape``; MIP when the argmax ``arg`` is given. The kernel adds with
+    float atomics, so its last bits vary from run to run."""
+    _check_rows(rows, axis)
+    g = _check_cotangent(rows, g, arg)
+    if len(shape) != 3:
+        raise ValueError(f"shape must be (X, Y, Z), got {tuple(shape)}")
+    if _runs_plain("siddon_bwd_vol", rows):
+        return siddon_bwd_vol_plain(rows, g, shape, axis, arg)
+    rows = rows.contiguous()
+    grad = torch.zeros(tuple(shape), dtype=torch.float32, device=rows.device)
+    _call("siddon_bwd_vol", rows.device, rows.data_ptr(), rows.shape[1], g.data_ptr(),
+          _ptr(arg), grad.data_ptr(), *_strides_extents(grad, axis))
+    siddon_bwd_vol.launches += 1
+    return grad
+
+
+KERNELS = (siddon_fwd, siddon_fwdgrad, siddon_fwd_max, siddon_bwd_rays, siddon_bwd_vol)
 
 
 def reset_launch_counts() -> None:
-    siddon_fwd.launches = 0
-    siddon_fwdgrad.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+reset_launch_counts()
 
 
 # -----------------------------------------------------------------------------
@@ -239,35 +397,59 @@ def reset_launch_counts() -> None:
 
 
 class SiddonSlab(torch.autograd.Function):
-    """``value (R,) = siddon(density, rows)`` with the pose backward ``rows * g``."""
+    """``value (R,) = siddon(density, rows)``, by sum or by max (MIP).
+
+    Forward: in sum mode ``siddon_fwdgrad`` when the rays need a gradient and
+    ``fused`` (their backward is then ``rows * g``), else ``siddon_fwd``; in
+    max mode ``siddon_fwd_max``, whose argmax gates the backward. Backward:
+    the rays' cotangent from the fused rows or ``siddon_bwd_rays``, the
+    density's from ``siddon_bwd_vol``, each only when asked for.
+    """
 
     @staticmethod
-    def forward(ctx, density, rows, axis):
-        if ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "the density gradient of the Siddon kernels belongs to the "
-                "reconstruction slice (_bwd_vol_kernel), which is not ported "
-                "yet; see ROADMAP.md")
-        if ctx.needs_input_grad[1]:
-            fused = siddon_fwdgrad(rows, density, axis)
-            ctx.save_for_backward(fused[:NROWS])
-            return fused[NROWS]
-        return siddon_fwd(rows, density, axis)
+    def forward(ctx, density, rows, axis, reduce="sum", fused=True):
+        if reduce not in ("sum", "max"):
+            raise ValueError(f"reduce must be 'sum' or 'max', not {reduce!r}")
+        ray_grad = ctx.needs_input_grad[1]
+        ctx.axis, ctx.shape = axis, tuple(density.shape)
+        ctx.fused = reduce == "sum" and fused and ray_grad
+        arg = grad_rows = None
+        if reduce == "max":
+            out, arg = siddon_fwd_max(rows, density, axis)
+        elif ctx.fused:
+            allrows = siddon_fwdgrad(rows, density, axis)
+            out, grad_rows = allrows[NROWS], allrows[:NROWS]
+        else:
+            out = siddon_fwd(rows, density, axis)
+        # siddon_bwd_rays re-reads the density; the other backwards need only rows.
+        ctx.save_for_backward(rows, density if ray_grad and not ctx.fused else None,
+                              arg, grad_rows)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (grad_rows,) = ctx.saved_tensors
-        return None, grad_rows * g, None
+        rows, density, arg, grad_rows = ctx.saved_tensors
+        d_density = d_rows = None
+        if ctx.needs_input_grad[1]:
+            d_rows = (grad_rows * g if ctx.fused
+                      else siddon_bwd_rays(rows, density, ctx.axis, g, arg))
+        if ctx.needs_input_grad[0]:
+            d_density = siddon_bwd_vol(rows, g, ctx.shape, ctx.axis, arg)
+        return d_density, d_rows, None, None, None
 
 
 def siddon_slab_raycast(density: torch.Tensor, source: torch.Tensor,
                         target: torch.Tensor, weights: torch.Tensor, *, axis: int,
-                        voxel_shift: float = 0.5, eps: float = 1e-8) -> torch.Tensor:
+                        voxel_shift: float = 0.5, eps: float = 1e-8,
+                        reduce: str = "sum", fused: bool = True) -> torch.Tensor:
     """Exact Siddon ``(B, 1, N)`` by slab march along ``axis`` (voxel space).
 
-    Exact for rays whose transverse slopes along ``axis`` are at most 1;
-    ``DRR.render`` checks that and sends other poses to the sort oracle.
+    ``reduce="max"`` renders the MIP. ``fused=False`` takes the pose
+    gradient from the two-pass ``siddon_bwd_rays`` instead of the fused
+    forward. Exact for rays whose transverse slopes along ``axis`` are at
+    most 1; ``DRR.render`` checks that and sends other poses to the sort
+    oracle.
     """
     B, N, _ = target.shape
     rows = prep_rays(source, target, weights, axis, density.shape, voxel_shift, eps)
-    return SiddonSlab.apply(density, rows, axis).reshape(B, 1, N)
+    return SiddonSlab.apply(density, rows, axis, reduce, fused).reshape(B, 1, N)

@@ -18,7 +18,7 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, diffdrr_tpu_torch, diffdrr_tpu_torch.drr, diffdrr_tpu_torch.interop, "
         "diffdrr_tpu_torch.registration, diffdrr_tpu_torch.metrics, "
-        "diffdrr_tpu_torch.ops.kernels.build\n"
+        "diffdrr_tpu_torch.ops.kernels.build, diffdrr_tpu_torch.parallel\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'diffdrr_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

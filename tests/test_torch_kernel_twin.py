@@ -11,7 +11,10 @@ range (the partially entered slab included).
 Tolerance: both sides do the same float32 operations in the same order
 (rintf and torch.round both round half to even, FMA contraction is off), so
 they agree to the last bit except for the sign of zero terms; the asserts
-allow 1e-6 relative to the largest value to stay robust to that.
+allow 1e-6 relative to the largest value to stay robust to that. The MIP
+argmax must match exactly. The density gradient gets 1e-5: the twin adds
+ray by ray (where the kernel adds with atomics), the plain version slab by
+slab, so the summation order differs.
 """
 
 import ctypes
@@ -25,7 +28,9 @@ import torch
 from diffdrr_tpu_torch.ops.kernels import build
 from diffdrr_tpu_torch.ops.kernels.prep import march_perm, prep_rays
 from diffdrr_tpu_torch.ops.kernels import siddon as K
-from diffdrr_tpu_torch.ops.kernels.siddon import siddon_fwd_plain, siddon_fwdgrad_plain
+from diffdrr_tpu_torch.ops.kernels.siddon import (
+    siddon_bwd_rays_plain, siddon_bwd_vol_plain, siddon_fwd_max_plain, siddon_fwd_plain,
+    siddon_fwdgrad_plain)
 
 _TWIN_SRC = r"""
 #include "siddon.cuh"
@@ -43,6 +48,32 @@ extern "C" void twin_fwdgrad(const float* rows, int64_t R, const float* vol, int
     for (int k = 0; k < siddon::kFusedRows; ++k) out[k * R + r] = acc[k];
   }
 }
+extern "C" void twin_fwd_max(const float* rows, int64_t R, const float* vol, int64_t ss,
+                             int64_t sy, int64_t sz, int X, int Y, int Z, float* out,
+                             int* arg) {
+  siddon::Volume v{vol, ss, sy, sz, X, Y, Z};
+  for (int64_t r = 0; r < R; ++r)
+    siddon::trace_fwd_max(siddon::load_ray(rows, R, r), v, out + r, arg + r);
+}
+extern "C" void twin_bwd_rays(const float* rows, int64_t R, const float* vol, int64_t ss,
+                              int64_t sy, int64_t sz, int X, int Y, int Z, const float* g,
+                              const int* arg, float* out) {
+  siddon::Volume v{vol, ss, sy, sz, X, Y, Z};
+  float acc[siddon::kRows];
+  for (int64_t r = 0; r < R; ++r) {
+    siddon::trace_bwd_rays(siddon::load_ray(rows, R, r), v, g[r], arg ? arg[r] : -1,
+                           arg != nullptr, acc);
+    for (int k = 0; k < siddon::kRows; ++k) out[k * R + r] = acc[k];
+  }
+}
+extern "C" void twin_bwd_vol(const float* rows, int64_t R, const float* g, const int* arg,
+                             float* grad, int64_t gs, int64_t gy, int64_t gz, int X, int Y,
+                             int Z) {
+  siddon::GradVolume gv{grad, gs, gy, gz, X, Y, Z};
+  for (int64_t r = 0; r < R; ++r)
+    siddon::trace_bwd_vol(siddon::load_ray(rows, R, r), gv, g[r], arg ? arg[r] : -1,
+                          arg != nullptr);
+}
 """
 
 
@@ -59,24 +90,68 @@ def twin(tmp_path_factory):
                     f"-I{build.CSRC}", "-o", str(lib), str(src)],
                    check=True, timeout=60)
     so = ctypes.CDLL(str(lib))
-    for fn in (so.twin_fwd, so.twin_fwdgrad):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+    vol_args = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    ptr = ctypes.c_void_p
+    so.twin_fwd.argtypes = vol_args + [ptr]
+    so.twin_fwdgrad.argtypes = vol_args + [ptr]
+    so.twin_fwd_max.argtypes = vol_args + [ptr, ptr]
+    so.twin_bwd_rays.argtypes = vol_args + [ptr, ptr, ptr]
+    so.twin_bwd_vol.argtypes = [ptr, ctypes.c_int64, ptr, ptr, ptr, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int]
+    for fn in (so.twin_fwd, so.twin_fwdgrad, so.twin_fwd_max, so.twin_bwd_rays,
+               so.twin_bwd_vol):
         fn.restype = None
     return so
 
 
+def _geom(t, axis):
+    """Strides, then extents, of ``t``'s march-permuted axes."""
+    perm = march_perm(axis)
+    return [t.stride(p) for p in perm] + [t.shape[p] for p in perm]
+
+
 def _run_twin(so, fused, rows, vol, axis):
     rows = rows.contiguous()
-    perm = march_perm(axis)
-    X, Y, Z = (vol.shape[p] for p in perm)
-    ss, sy, sz = (vol.stride(p) for p in perm)
     R = rows.shape[1]
     out = torch.empty((10, R) if fused else (R,), dtype=torch.float32)
     fn = so.twin_fwdgrad if fused else so.twin_fwd
-    fn(rows.data_ptr(), R, vol.data_ptr(), ss, sy, sz, X, Y, Z, out.data_ptr())
+    fn(rows.data_ptr(), R, vol.data_ptr(), *_geom(vol, axis), out.data_ptr())
     return out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _run_twin_fwd_max(so, rows, vol, axis):
+    R = rows.shape[1]
+    val = torch.empty(R, dtype=torch.float32)
+    arg = torch.empty(R, dtype=torch.int32)
+    so.twin_fwd_max(rows.data_ptr(), R, vol.data_ptr(), *_geom(vol, axis), val.data_ptr(),
+                    arg.data_ptr())
+    return val, arg
+
+
+def _run_twin_bwd_rays(so, rows, vol, axis, g, arg):
+    R = rows.shape[1]
+    out = torch.empty((9, R), dtype=torch.float32)
+    so.twin_bwd_rays(rows.data_ptr(), R, vol.data_ptr(), *_geom(vol, axis), g.data_ptr(),
+                     _ptr(arg), out.data_ptr())
+    return out
+
+
+def _run_twin_bwd_vol(so, rows, g, shape, axis, arg):
+    grad = torch.zeros(shape, dtype=torch.float32)
+    so.twin_bwd_vol(rows.data_ptr(), rows.shape[1], g.data_ptr(), _ptr(arg), grad.data_ptr(),
+                    *_geom(grad, axis))
+    return grad
+
+
+def _assert_rows_close(got, ref, rel=1e-6):
+    for k in range(ref.shape[0]):
+        np.testing.assert_allclose(got[k], ref[k], atol=rel * ref[k].abs().max().item() + 1e-30)
 
 
 def _random_rays(rng, dims, axis, n):
@@ -112,6 +187,46 @@ def test_twin_matches_plain_random_rays(twin, axis):
     for k in range(10):
         np.testing.assert_allclose(got_g[k], ref_g[k],
                                    atol=1e-6 * ref_g[k].abs().max().item() + 1e-30)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mip"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_backward_matches_plain_random_rays(twin, axis, mode):
+    """trace_fwd_max, trace_bwd_rays and trace_bwd_vol against the plain
+    versions, at the random rays above and a random cotangent g."""
+    rng = np.random.default_rng(20 + axis)
+    dims = (20, 24, 16)
+    vol = torch.tensor(rng.uniform(0.1, 1.0, dims), dtype=torch.float32)
+    src, tgt, w = _random_rays(rng, dims, axis, 200)
+    rows = prep_rays(src, tgt, w, axis, dims)
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32)
+    val, arg = siddon_fwd_max_plain(rows, vol, axis)
+    got_val, got_arg = _run_twin_fwd_max(twin, rows, vol, axis)
+    assert torch.equal(got_arg, arg)
+    np.testing.assert_allclose(got_val, val, atol=1e-6 * val.abs().max().item())
+    assert (arg >= 0).sum() > 150  # most rays cross the volume
+    arg = arg if mode == "mip" else None
+    _assert_rows_close(_run_twin_bwd_rays(twin, rows, vol, axis, g, arg),
+                       siddon_bwd_rays_plain(rows, vol, axis, g, arg))
+    ref = siddon_bwd_vol_plain(rows, g, dims, axis, arg)
+    got = _run_twin_bwd_vol(twin, rows, g, dims, axis, arg)
+    assert torch.count_nonzero(ref) > 0
+    np.testing.assert_allclose(got, ref, atol=1e-5 * ref.abs().max().item())
+
+
+def test_twin_bwd_vol_writes_the_density_layout(twin):
+    """The scatter goes through the gradient's own strides: a gradient
+    volume of another memory order gets the same values."""
+    rng = np.random.default_rng(30)
+    dims = (20, 24, 16)
+    src, tgt, w = _random_rays(rng, dims, 1, 100)
+    rows = prep_rays(src, tgt, w, 1, dims)
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32)
+    ref = _run_twin_bwd_vol(twin, rows, g, dims, 1, None)
+    grad_t = torch.zeros(dims[::-1], dtype=torch.float32).permute(2, 1, 0)  # Fortran order
+    twin.twin_bwd_vol(rows.data_ptr(), rows.shape[1], g.data_ptr(), None, grad_t.data_ptr(),
+                      *_geom(grad_t, 1))
+    np.testing.assert_allclose(grad_t, ref, atol=1e-6 * ref.abs().max().item())
 
 
 def test_twin_partial_entry_slab(twin):
@@ -167,3 +282,48 @@ def test_cuda_kernels_match_plain_versions():
     for k in range(10):
         torch.testing.assert_close(got_g[k], ref_g[k], rtol=0,
                                    atol=1e-3 * ref_g[k].abs().max().item() + 1e-30)
+
+
+def _gpu_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(6)
+    vol = torch.tensor(rng.uniform(0.1, 1.0, (48, 40, 32)), dtype=torch.float32, device="cuda")
+    u, v = np.meshgrid(np.linspace(-3.3, 43.1, 32), np.linspace(-2.7, 35.9, 32), indexing="ij")
+    tv = np.stack([u, v, np.full_like(u, 80.37)], -1).reshape(1, -1, 3)
+    sv = np.array([[[20.3, 18.1, -50.2]]])
+    w = np.linalg.norm(tv - sv, axis=-1)[:, None, :]
+    rows = prep_rays(*(torch.tensor(x, dtype=torch.float32, device="cuda") for x in (sv, tv, w)),
+                     2, vol.shape)
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device="cuda")
+    return vol, rows, g
+
+
+@pytest.mark.gpu
+def test_cuda_fwd_max_matches_plain_version():
+    """On a card: siddon_fwd_max against its plain version (value and argmax)."""
+    vol, rows, _ = _gpu_scene()
+    val, arg = K.siddon_fwd_max(rows, vol, 2)
+    ref_val, ref_arg = K.siddon_fwd_max_plain(rows, vol, 2)
+    assert torch.equal(arg, ref_arg)
+    torch.testing.assert_close(val, ref_val, rtol=0, atol=1e-4 * ref_val.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sum", "mip"])
+def test_cuda_backward_kernels_match_plain_versions(mode):
+    """On a card: siddon_bwd_rays (rows atol 1e-3 * max|row|) and
+    siddon_bwd_vol (atol 1e-4 * max, float atomics) against their plain
+    versions, in sum and MIP modes."""
+    vol, rows, g = _gpu_scene()
+    arg = K.siddon_fwd_max_plain(rows, vol, 2)[1] if mode == "mip" else None
+    got = K.siddon_bwd_rays(rows, vol, 2, g, arg)
+    ref = K.siddon_bwd_rays_plain(rows, vol, 2, g, arg)
+    for k in range(9):
+        torch.testing.assert_close(got[k], ref[k], rtol=0,
+                                   atol=1e-3 * ref[k].abs().max().item() + 1e-30)
+    got_v = K.siddon_bwd_vol(rows, g, vol.shape, 2, arg)
+    ref_v = K.siddon_bwd_vol_plain(rows, g, vol.shape, 2, arg)
+    torch.cuda.synchronize()
+    assert got_v.is_contiguous() and got_v.shape == vol.shape
+    torch.testing.assert_close(got_v, ref_v, rtol=0, atol=1e-4 * ref_v.abs().max().item())

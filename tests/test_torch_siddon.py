@@ -215,8 +215,8 @@ def test_detector_inside_volume_full_line_semantics():
 
 
 def test_wrappers_dispatch_by_device():
-    """CPU tensors run the plain versions (no launch counted); a density
-    gradient and a device that is neither CPU nor CUDA raise."""
+    """CPU tensors run the plain versions (no launch counted); the density
+    gets its gradient; a device that is neither CPU nor CUDA raises."""
     vol = torch.ones((4, 4, 4))
     rows = prep_rays(torch.tensor([[[-9.0, 1.2, 1.7]]]), torch.tensor([[[9.0, 1.9, 2.1]]]),
                      torch.ones((1, 1, 1)), 0, vol.shape)
@@ -224,7 +224,11 @@ def test_wrappers_dispatch_by_device():
     K.siddon_fwd(rows, vol, 0)
     K.siddon_fwdgrad(rows, vol, 0)
     assert (K.siddon_fwd.launches, K.siddon_fwdgrad.launches) == before
-    with pytest.raises(NotImplementedError, match="reconstruction"):
-        K.SiddonSlab.apply(vol.clone().requires_grad_(True), rows, 0)
+    leaf = vol.clone().requires_grad_(True)
+    K.SiddonSlab.apply(leaf, rows, 0).sum().backward()
+    assert leaf.grad is not None and leaf.grad.shape == vol.shape
+    # One unit-weight ray through an all-ones volume: the gradient holds its
+    # path length in each voxel, and these sum to the value.
+    torch.testing.assert_close(leaf.grad.sum(), K.siddon_fwd(rows, vol, 0)[0])
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         K.siddon_fwd(rows.to("meta"), vol.to("meta"), 0)
