@@ -37,7 +37,27 @@ Phases (any failure raises and the exit code is non-zero):
      at the shapes of the path that launches it, a render, a registration
      step and a reconstruction step, the host time of the auto axis choice
      (it reads back to the host), and each kernel's bound (the least time
-     the card could take for the same work).
+     the card could take for the same work);
+  7. the Joseph and trilinear renderers (csrc/joseph.cu):
+  7a. every Joseph kernel against its plain version on the random volume of
+     phase 3, at strides h = 1, 4 (axis 0 pinned), ~1.37 and ~0.26, in sum
+     and MIP modes (the tolerances of phase 3);
+  7b. trilinear registration at full size: phase 4's CT, detector, pose and
+     60 Adam steps with renderer="trilinear" (n_points 500, capped at the
+     133 planes: h = 1), exactly joseph_fwd 2 and joseph_fwdgrad 60;
+  7c. joseph MIP at the main pose: one backward to density and pose (fused:
+     joseph_fwdgrad max + joseph_bwd_vol), one two-pass pose backward
+     (joseph_fwd_max + joseph_bwd_rays), the two pose gradients equal;
+  7d. trilinear reconstruction through the port's CLI
+     (diffdrr_tpu_torch.experiments.reconstruction): a 512x512x128 CT, 8
+     views of 200x200, 20 steps with checkpoints every 10, exactly
+     joseph_fwd 21 and joseph_bwd_vol 20, the loss falling tenfold; a second
+     call resumes at step 20 and runs no step;
+  7e. fractional strides at full size: trilinear with n_points=100 and with
+     allow_oversample at 500, joseph pinned to axis 0 (h = 4);
+  7f. the 512^3 CT with joseph_fwd at 200x200 and 1000x1000;
+  7g. timings of every Joseph kernel beside its bound and plain version, and
+     F.grid_sample over the same sample points as the library yardstick.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -61,18 +81,20 @@ sys.path.insert(0, str(ROOT))
 # float32 (non-tensor-core) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# Float32 operations per non-empty (ray, slab) step, counted by hand from
-# csrc/siddon.cuh: slab_segments ~94, plus ~14 (trace_fwd), ~84
-# (trace_fwdgrad), ~18 (trace_fwd_max: a length test, two products, a
-# compare and two selects per segment), ~82 (trace_bwd_rays: slab_rows
-# without the value row; 9 products by g per ray on top) or ~30
-# (trace_bwd_vol: a length test, two position sums, four bounds tests, two
-# products and the atomic add per segment). A MIP backward visits one slab.
-FWD_OPS_PER_SLAB = 108
-FWDGRAD_OPS_PER_SLAB = 178
-FWD_MAX_OPS_PER_SLAB = 112
-BWD_RAYS_OPS_PER_SLAB = 176
-BWD_VOL_OPS_PER_SLAB = 124
+# A bound's operations are the float32 arithmetic the kernel does on the
+# data (add, subtract, multiply, divide, abs, floor and rint; comparisons,
+# min/max and selects are not counted), counted by hand from its header.
+# csrc/siddon.cuh, per non-empty (ray, slab) step: slab_segments 59 (the
+# slab's two alphas 6, two crossings 20, lengths and midpoints 9, the
+# segments' voxels 24); then 2 per slab and 4 per non-empty segment
+# (trace_fwd: the voxel's position, len * V and the sums), 4 per segment
+# (trace_fwd_max), 54 per slab (trace_fwdgrad: three positions 6, slab_rows
+# 46, w * seg 2), 52 per slab and 9 products by g per ray (trace_bwd_rays),
+# or 5 per segment (trace_bwd_vol: the position 2, len * w * g 2, the atomic
+# add). slab_range costs 10 per ray; a MIP backward skips it and visits only
+# the argmax slab and segment.
+SLAB_OPS = 59
+SLAB_RANGE_OPS = 10
 
 N_REG_STEPS = 60
 BENCH_ROT = [[0.01, 3.141592653589793 / 2 + 0.02, -0.01]]
@@ -82,6 +104,10 @@ BENCH_TRANS = [[0.0, 850.0, 0.0]]
 N_VIEWS = 8
 N_RECON_STEPS = 20
 RECON_LR = 5e-2
+# The trilinear reconstruction through the port's CLI: a 512x512x128 CT
+# (its shape rule (vs, vs, max(16, vs // 4))) and 200x200 views.
+CLI_VOLUME_SIZE = 512
+CLI_HEIGHT = 200
 
 
 def log(msg: str) -> None:
@@ -129,10 +155,10 @@ def median_host_ms(fn, reps: int) -> float:
 
 
 def slab_work(rows, density, axis, arg=None):
-    """(non-empty ray-slab steps, distinct voxels touched) of one ray set.
+    """(non-empty ray-slab steps, non-empty segments, distinct voxels read).
 
     What the data needs, not what a kernel does: empty slabs and zero-length
-    segments are not counted, and a voxel touched by many rays counts once.
+    segments are not counted, and a voxel read by many rays counts once.
     With a MIP argmax ``arg``, only each ray's argmax slab and segment.
     """
     import torch
@@ -144,7 +170,7 @@ def slab_work(rows, density, axis, arg=None):
     vol_p = density.permute(march_perm(axis))
     X, Y, Z = vol_p.shape
     seen = torch.zeros((X, Y, Z), dtype=torch.bool, device=density.device)
-    steps = 0
+    steps = segments = 0
     for s in range(X):
         sl = K._slab(r, s)
         if arg is None:
@@ -153,37 +179,108 @@ def slab_work(rows, density, axis, arg=None):
             steps += int(torch.count_nonzero((arg >= 0) & (arg // 4 == s)))
         for j, ((iy, iz), length) in enumerate(zip(sl["sel"], sl["lens"])):
             fy, fz = sl["y0"] + iy, sl["z0"] + iz
-            ok = (length > 0) & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
+            nonempty = length > 0
             if arg is not None:
-                ok = ok & (arg == s * 4 + j)
+                nonempty = nonempty & (arg == s * 4 + j)
+            segments += int(torch.count_nonzero(nonempty))
+            ok = nonempty & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
             seen[s, fy[ok].long(), fz[ok].long()] = True
-    return steps, int(torch.count_nonzero(seen))
+    return steps, segments, int(torch.count_nonzero(seen))
 
 
-def bound(rows, density, axis, *, ray_bytes, ops_per_step, voxel_bytes=4, ops_per_ray=0,
-          arg=None):
-    """(bound_ms, bound_by): bytes or operations over the card's peak rate.
-
-    Bytes: ``ray_bytes`` per ray (rows, cotangent, argmax and outputs) plus
-    ``voxel_bytes`` per distinct voxel touched; operations: ``ops_per_step``
-    per non-empty ray-slab step plus ``ops_per_ray``.
-    """
-    steps, voxels = slab_work(rows, density, axis, arg)
-    R = rows.shape[1]
-    n_bytes = ray_bytes * R + voxel_bytes * voxels
-    ops = steps * ops_per_step + ops_per_ray * R
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+def roofline(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes and operations over peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def io_bytes(rows, density, ray_bytes, voxels, writes_volume):
+    """Each ray's ``ray_bytes`` (rows, cotangent, argmax, outputs) plus 4 B
+    per distinct voxel read, or, for a density gradient, 4 B per voxel of
+    the whole volume written once (its zero fill is part of the call)."""
+    return ray_bytes * rows.shape[1] + 4 * (density.numel() if writes_volume else voxels)
+
+
+def bound(rows, density, axis, *, ray_bytes, slab_ops=0, segment_ops=0, ray_ops=0,
+          writes_volume=False, arg=None):
+    """(bound_ms, bound_by) of a Siddon kernel on this run's rays: ``slab_ops``
+    per non-empty slab step, ``segment_ops`` per non-empty segment, and
+    ``ray_ops`` (plus the slab range's, outside MIP) per ray."""
+    steps, segments, voxels = slab_work(rows, density, axis, arg)
+    ray_ops += SLAB_RANGE_OPS if arg is None else 0
+    n_ops = steps * (SLAB_OPS + slab_ops) + segments * segment_ops + ray_ops * rows.shape[1]
+    return roofline(io_bytes(rows, density, ray_bytes, voxels, writes_volume), n_ops)
 
 
 # ray_bytes of each kernel: 36 B of rows in, 4 B of g, 4 B of argmax, and
 # 4 (fwd), 40 (fwdgrad), 8 (fwd_max) or 36 (bwd_rays) B out per ray.
-FWD_BOUND = dict(ray_bytes=36 + 4, ops_per_step=FWD_OPS_PER_SLAB)
-FWDGRAD_BOUND = dict(ray_bytes=36 + 40, ops_per_step=FWDGRAD_OPS_PER_SLAB)
-FWD_MAX_BOUND = dict(ray_bytes=36 + 8, ops_per_step=FWD_MAX_OPS_PER_SLAB)
-BWD_RAYS_BOUND = dict(ray_bytes=36 + 4 + 36, ops_per_step=BWD_RAYS_OPS_PER_SLAB, ops_per_ray=9)
-# The gradient volume: a read-modify-write (8 B) of each voxel touched.
-BWD_VOL_BOUND = dict(ray_bytes=36 + 4, ops_per_step=BWD_VOL_OPS_PER_SLAB, voxel_bytes=8)
+FWD_BOUND = dict(ray_bytes=36 + 4, slab_ops=2, segment_ops=4)
+FWDGRAD_BOUND = dict(ray_bytes=36 + 40, slab_ops=54)
+FWD_MAX_BOUND = dict(ray_bytes=36 + 8, segment_ops=4)
+BWD_RAYS_BOUND = dict(ray_bytes=36 + 4 + 36, slab_ops=52, ray_ops=9)
+BWD_VOL_BOUND = dict(ray_bytes=36 + 4, segment_ops=5, writes_volume=True)
+
+# csrc/joseph.cuh, per in-slab (ray, step) sample, by the rule above:
+# step_at 21 (k, alpha and the transverse position 7, its floors and
+# offsets 4, four tent weights 10); then 19 (trace_fwd: four neighbour
+# positions 8, bilinear 9, the weighted sum 2), 18 (trace_fwd_max), 58
+# (trace_fwdgrad: positions 8, step_terms 42, eight sums), 57 and 7
+# products by g per ray (trace_bwd_rays), or 22 (trace_bwd_vol: wy * g 2,
+# then per neighbour its position 2, the product 2 and the atomic add). A
+# fractional stride adds 18 to each: k's floor and fraction 2, and per
+# neighbour a second plane's lerp (or weight and scatter) 4. step_range
+# costs 9 per ray; a MIP backward skips it and visits only the argmax step.
+J_STEP_OPS = 21
+J_BLEND_OPS = 18
+J_RANGE_OPS = 9
+
+
+def march_work(rows, density, axis, h, n_steps, arg=None):
+    """(in-slab samples, distinct voxels read) of one Joseph march.
+
+    What the data needs: samples outside a ray's [amin, amax] are not
+    counted, and a voxel read by many samples counts once. With a MIP argmax
+    ``arg``, only each ray's argmax step.
+    """
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.prep import march_perm
+
+    X, Y, Z = density.permute(march_perm(axis)).shape
+    seen = torch.zeros((X, Y, Z), dtype=torch.bool, device=density.device)
+    samples = 0
+    for st in J.march_steps(rows, h, X, n_steps):
+        ok = st["inslab"] if arg is None else st["inslab"] & (arg == st["p"])
+        samples += int(torch.count_nonzero(ok))
+        for _, _, fy, fz in J.corners(st):
+            v = ok & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
+            for k, _ in st["planes"]:
+                if 0 <= k < X:
+                    seen[k, fy[v].long(), fz[v].long()] = True
+    return samples, int(torch.count_nonzero(seen))
+
+
+def march_bound(rows, density, axis, h, n_steps, *, ray_bytes, sample_ops, ray_ops=0,
+                writes_volume=False, arg=None):
+    """(bound_ms, bound_by) of a Joseph kernel, as ``bound`` is for Siddon's."""
+    from diffdrr_tpu_torch.ops.kernels.joseph import is_blend
+
+    samples, voxels = march_work(rows, density, axis, h, n_steps, arg)
+    ray_ops += J_RANGE_OPS if arg is None else 0
+    per_sample = J_STEP_OPS + sample_ops + (J_BLEND_OPS if is_blend(h) else 0)
+    n_ops = samples * per_sample + ray_ops * rows.shape[1]
+    return roofline(io_bytes(rows, density, ray_bytes, voxels, writes_volume), n_ops)
+
+
+# ray_bytes of each Joseph kernel: 36 B of rows in, 4 B of g and 4 B of
+# argmax where they are read, and 4 (fwd), 8 (fwd_max), 32 (fwdgrad; 36
+# with its argmax) or 28 (bwd_rays) B out per ray.
+J_FWD_BOUND = dict(ray_bytes=36 + 4, sample_ops=19)
+J_FWD_MAX_BOUND = dict(ray_bytes=36 + 8, sample_ops=18)
+J_FWDGRAD_BOUND = dict(ray_bytes=36 + 32, sample_ops=58)
+J_BWD_RAYS_BOUND = dict(ray_bytes=36 + 4 + 28, sample_ops=57, ray_ops=7)
+J_BWD_VOL_BOUND = dict(ray_bytes=36 + 4, sample_ops=22, writes_volume=True)
 
 
 def profile_steps(step, label: str, t_step: float, out: Path, n: int = 5) -> None:
@@ -253,6 +350,356 @@ def rays_of(drr, rot, trans, axis=None):
     return prep_rays(sv, tv, w, axis, drr.density.shape), axis
 
 
+def jrays_of(drr, rot, trans, axis, h):
+    """Voxel-space rows of a DRR's full frame with the Joseph quadrature at stride h."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels.prep import prep_rays
+    from diffdrr_tpu_torch.pose import convert
+
+    pose = convert(rot, trans, parameterization="euler_angles", convention="ZXY")
+    src, tgt = drr.detector(pose)
+    w = torch.linalg.vector_norm(tgt - src, dim=-1)[:, None, :]
+    return prep_rays(drr.affine_inverse(src), drr.affine_inverse(tgt), w, axis,
+                     drr.density.shape, quadrature="joseph", h=h)
+
+
+def check_rows(name, got, ref, value_row=None):
+    """Gradient rows to 1e-3 * max|row|, the value row to 1e-4 * max|value|."""
+    return max(check_close(f"{name} row {k}", got[k], ref[k], 1e-4 if k == value_row else 1e-3)
+               for k in range(ref.shape[0]))
+
+
+def check_joseph(label, rows, dens, axis, h, n, g):
+    """All five Joseph kernels against their plain versions, sum and MIP."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    e = {"fwd": check_close(f"joseph_fwd {label}", J.joseph_fwd(rows, dens, axis, h, n),
+                            J.joseph_fwd_plain(rows, dens, axis, h, n), 1e-4)}
+    mip = J.joseph_fwd_max(rows, dens, axis, h, n)
+    e["fwd_max"] = check_max(f"joseph_fwd_max {label}", mip,
+                             J.joseph_fwd_max_plain(rows, dens, axis, h, n))
+    for reduce in ("sum", "max"):
+        got, arg = J.joseph_fwdgrad(rows, dens, axis, h, n, reduce)
+        ref, ref_arg = J.joseph_fwdgrad_plain(rows, dens, axis, h, n, reduce)
+        if reduce == "max" and not (torch.equal(arg, ref_arg) and torch.equal(arg, mip[1])):
+            raise AssertionError(f"joseph_fwdgrad[max] {label}: argmax differs")
+        e[f"fwdgrad_{reduce}"] = check_rows(f"joseph_fwdgrad[{reduce}] {label}", got, ref, 7)
+    for mode, a in (("sum", None), ("mip", mip[1])):
+        e[f"bwd_rays_{mode}"] = check_rows(
+            f"joseph_bwd_rays[{mode}] {label}", J.joseph_bwd_rays(rows, dens, axis, h, n, g, a),
+            J.joseph_bwd_rays_plain(rows, dens, axis, h, n, g, a))
+        e[f"bwd_vol_{mode}"] = check_close(
+            f"joseph_bwd_vol[{mode}] {label}", J.joseph_bwd_vol(rows, g, dens.shape, axis, h, n, a),
+            J.joseph_bwd_vol_plain(rows, g, dens.shape, axis, h, n, a), 1e-4)
+    e["rays_with_max"] = int((mip[1] >= 0).sum())
+    return e
+
+
+def joseph_launches():
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    return {fn.__name__: fn.launches for fn in J.KERNELS}
+
+
+def expect_launches(phase, got, want):
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"{phase}: launches (got, want) {bad}")
+
+
+def events_step(step, n):
+    """Run ``step()`` n times with CUDA events around each; (results, ms list)."""
+    import torch
+
+    out, marks = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(step())
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in marks]
+
+
+def joseph_small(small, rot_g, trans_g, rng):
+    """Phase 7a: the Joseph kernels against their plain versions on the
+    random volume, at strides 1, 4 (axis 0 pinned), ~1.37 and ~0.26."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
+
+    dens = small.density
+    _, ax = rays_of(small, rot_g, trans_g)
+    X = dens.shape[ax]
+    cases = [("h=1", ax, 1.0, X), ("h=4 axis 0", 0, 4.0, -(-dens.shape[0] // 4)),
+             ("h~1.37", ax, *raymarch_steps(X, 47)),
+             ("h~0.26", ax, *raymarch_steps(X, 243, allow_oversample=True))]
+    worst = {}
+    for label, axis, h, n in cases:
+        rows = jrays_of(small, rot_g, trans_g, axis, h)
+        g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device=rows.device)
+        errs = check_joseph(f"{label} 128x128x64", rows, dens, axis, h, n, g)
+        torch.cuda.synchronize()
+        log(f"[joseph kernels] {label}: axis {axis}, h {h:.6f}, {n} steps: "
+            + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in errs.items()))
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, 0), v)
+    return worst
+
+
+def trilinear_registration(T, subject, rot0, trans, kw, profile):
+    """Phase 7b: 60 trilinear registration steps at full size."""
+    import numpy as np
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.registration import make_registration_step
+
+    drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="trilinear")
+    J.reset_launch_counts()
+    target = drr(rot0, trans, axis=2, **kw)
+    auto = drr(rot0, trans, **kw)
+    init_fn, step_fn = make_registration_step(drr, target, "euler_angles", "ZXY",
+                                              lr_rotation=1e-3, lr_translation=1e-1)
+    params, opt = init_fn(rot0, trans + 5.0)
+    state = {"params": params, "opt": opt}
+
+    def step():
+        state["params"], state["opt"], score = step_fn(state["params"], state["opt"])
+        return score
+
+    scores, step_ms = events_step(step, N_REG_STEPS)
+    launches = joseph_launches()
+    log(f"[trilinear] registration launches {launches}")
+    expect_launches("trilinear registration", launches,
+                    {"joseph_fwd": 2, "joseph_fwdgrad": N_REG_STEPS, "joseph_fwd_max": 0,
+                     "joseph_bwd_rays": 0, "joseph_bwd_vol": 0})
+    scores = torch.stack(scores).tolist()
+    if not (scores[-1] > scores[0] and np.isfinite(scores).all()):
+        raise AssertionError(f"trilinear registration NCC did not rise: {scores[0]} -> {scores[-1]}")
+    if target.shape != (1, 1, 200, 200) or not torch.isfinite(target).all():
+        raise AssertionError(f"bad trilinear render {tuple(target.shape)}")
+    check_close("trilinear auto-axis render", auto, target, 1e-6)
+    X = drr.density.shape[2]
+    rows_m = jrays_of(drr, rot0, trans, 2, 1.0)
+    err_fwd = check_close("joseph_fwd (trilinear h=1) 512x512x133 @200^2", target.reshape(-1),
+                          J.joseph_fwd_plain(rows_m, drr.density, 2, 1.0, X), 1e-4)
+    p = state["params"]
+    rows_r = jrays_of(drr, p["rotation"].detach(), p["translation"].detach(), 2, 1.0)
+    got, _ = J.joseph_fwdgrad(rows_r, drr.density, 2, 1.0, X)
+    err_fg = check_rows("joseph_fwdgrad 512x512x133 @200^2", got,
+                        J.joseph_fwdgrad_plain(rows_r, drr.density, 2, 1.0, X)[0], 7)
+    t_err = (p["translation"].detach() - trans)[0].tolist()
+    t_step = statistics.median(step_ms[5:])
+    if profile is not None:
+        profile_steps(step, "trilinear registration", t_step, profile)
+    log(f"[trilinear] registration {N_REG_STEPS} steps: NCC {scores[0]:.5f} -> {scores[-1]:.5f}; "
+        f"translation error from (5, 5, 5) to ({t_err[0]:.3f}, {t_err[1]:.3f}, {t_err[2]:.3f}) "
+        f"mm; step median {t_step:.3f} ms (steps 6..{N_REG_STEPS}); render vs plain "
+        f"{err_fwd:.3e}, fused rows vs plain {err_fg:.3e}")
+    return dict(drr=drr, launches=launches, rows_m=rows_m, rows_r=rows_r, err_fwd=err_fwd,
+                err_fg=err_fg, t_step=t_step, target=target)
+
+
+def joseph_mip(T, subject, rot0, trans, kw, rows_m):
+    """Phase 7c: the joseph MIP at the main pose, fused and two-pass."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="joseph")
+    J.reset_launch_counts()
+    rot_p = rot0.clone().requires_grad_(True)
+    trans_p = trans.clone().requires_grad_(True)
+    dens_p = drr.density.clone().requires_grad_(True)
+    mip = drr.render(dens_p, *drr.detector(T.convert(rot_p, trans_p, **kw)), reducefn="max")
+    torch.sum(mip ** 2).backward()
+    pg_fused = torch.cat([rot_p.grad, trans_p.grad], -1)
+    r, t = rot0.clone().requires_grad_(True), trans.clone().requires_grad_(True)
+    torch.sum(drr(r, t, reducefn="max", fused_pose_bwd=False, **kw) ** 2).backward()
+    pg_two = torch.cat([r.grad, t.grad], -1)
+    torch.cuda.synchronize()
+    launches = joseph_launches()
+    log(f"[joseph mip] launches {launches}")
+    expect_launches("joseph MIP", launches,
+                    {"joseph_fwdgrad": 1, "joseph_bwd_vol": 1, "joseph_fwd_max": 1,
+                     "joseph_bwd_rays": 1, "joseph_fwd": 0})
+    if not (torch.isfinite(mip).all() and torch.isfinite(dens_p.grad).all()
+            and torch.isfinite(pg_fused).all()):
+        raise AssertionError("joseph MIP render or gradients not finite")
+    X = drr.density.shape[2]  # joseph_steps[2] = 1: the same rows as trilinear h = 1
+    ref = J.joseph_fwd_max_plain(rows_m, drr.density, 2, 1.0, X)
+    err_max = max(check_close("joseph MIP render @200^2", mip.reshape(-1).detach(), ref[0], 1e-4),
+                  check_max("joseph_fwd_max @200^2",
+                            J.joseph_fwd_max(rows_m, drr.density, 2, 1.0, X), ref))
+    g = (2 * mip).reshape(-1).detach()
+    arg = ref[1]
+    err_br = check_rows("joseph_bwd_rays[mip] @200^2",
+                        J.joseph_bwd_rays(rows_m, drr.density, 2, 1.0, X, g, arg),
+                        J.joseph_bwd_rays_plain(rows_m, drr.density, 2, 1.0, X, g, arg))
+    err_bv = check_close("joseph MIP density gradient", dens_p.grad,
+                         J.joseph_bwd_vol_plain(rows_m, g, drr.density.shape, 2, 1.0, X, arg), 1e-4)
+    err_pose = check_close("joseph MIP pose gradient, two-pass vs fused", pg_two, pg_fused, 1e-5)
+    log(f"[joseph mip] render vs plain {err_max:.3e} ({int((arg >= 0).sum())} of {arg.numel()} "
+        f"rays with a maximum); bwd_rays vs plain {err_br:.3e}; density gradient vs plain "
+        f"{err_bv:.3e}; two-pass vs fused pose gradient {err_pose:.3e} (max "
+        f"{pg_fused.abs().max().item():.3e})")
+    return dict(drr=drr, launches=launches, arg=arg, err_max=err_max,
+                err_br=max(err_br, err_pose), err_bv_mip=err_bv)
+
+
+def trilinear_reconstruction(profile):
+    """Phase 7d: the port's reconstruction CLI at full size, then its resume."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffdrr_tpu_torch.experiments import reconstruction as recon_cli
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
+
+    argv = ["--volume-size", str(CLI_VOLUME_SIZE), "--height", str(CLI_HEIGHT),
+            "--n-views", str(N_VIEWS), "--n-iters", str(N_RECON_STEPS)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        argv += ["--ckpt-dir", ckpt, "--ckpt-every", "10"]
+        J.reset_launch_counts()
+        res = recon_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = joseph_launches()
+        log(f"[trilinear recon] launches {launches}")
+        expect_launches("trilinear reconstruction", launches,
+                        {"joseph_fwd": N_RECON_STEPS + 1, "joseph_bwd_vol": N_RECON_STEPS,
+                         "joseph_fwdgrad": 0, "joseph_fwd_max": 0, "joseph_bwd_rays": 0})
+        losses = res["losses"]
+        if not (len(losses) == N_RECON_STEPS and np.isfinite(losses).all()
+                and losses[-1] * 10 <= losses[0]):
+            raise AssertionError(f"reconstruction loss did not fall tenfold: {losses}")
+        again = recon_cli.main(argv)
+        if again["start"] != N_RECON_STEPS or again["losses"]:
+            raise AssertionError(f"resume ran from {again['start']}: {again['losses']}")
+        del again
+    t_step = statistics.median(res["step_ms"][2:])
+    if profile is not None:
+        state = list(res["state"])
+
+        def step():
+            state[0], state[1], _ = res["step"](*state)
+
+        profile_steps(step, "trilinear reconstruction", t_step, profile)
+    drr = res["drr"]
+    thetas = np.linspace(0, np.pi, N_VIEWS, endpoint=False)
+    rot_v = torch.tensor(np.stack([thetas, np.full(N_VIEWS, np.pi / 2), np.zeros(N_VIEWS)], 1),
+                         dtype=torch.float32, device=drr.device)
+    trans_v = torch.tensor(BENCH_TRANS * N_VIEWS, device=drr.device)
+    X = drr.density.shape[2]
+    h, n = raymarch_steps(X, 500)
+    rows_v = jrays_of(drr, rot_v, trans_v, 2, h)
+    dens = res["state"][0].detach()
+    g_v = torch.tensor(np.random.default_rng(2).normal(size=rows_v.shape[1]) * 1e-5,
+                       dtype=torch.float32, device=drr.device)
+    err_fv = check_close("joseph_fwd 8 views", J.joseph_fwd(rows_v, dens, 2, h, n),
+                         J.joseph_fwd_plain(rows_v, dens, 2, h, n), 1e-4)
+    err_bv = check_close("joseph_bwd_vol 8 views", J.joseph_bwd_vol(rows_v, g_v, dens.shape, 2, h, n),
+                         J.joseph_bwd_vol_plain(rows_v, g_v, dens.shape, 2, h, n), 1e-4)
+    log(f"[trilinear recon] {N_VIEWS} views x {CLI_HEIGHT}^2 rays of a {tuple(drr.density.shape)} CT "
+        f"(h = {h}), {N_RECON_STEPS} steps: loss {losses[0]:.5g} -> {losses[-1]:.5g} "
+        f"({losses[0] / losses[-1]:.1f}-fold); voxel RMSE {res['rmse']:.5g} (true RMS "
+        f"{res['rms']:.5g}); step median {t_step:.3f} ms (steps 3..{N_RECON_STEPS}); resumed "
+        f"at step {N_RECON_STEPS} with no step run; joseph_fwd vs plain {err_fv:.3e}, "
+        f"joseph_bwd_vol vs plain {err_bv:.3e}")
+    return dict(launches=launches, rows_v=rows_v, g_v=g_v, dens_shape=dens.shape, h=h, n=n,
+                density=drr.density, err_fv=err_fv, err_bv=err_bv, t_step=t_step)
+
+
+def fractional_strides(drr_t, drr_j, rot0, trans, kw):
+    """Phase 7e: full-size renders at fractional strides and at h = 4."""
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
+
+    X = drr_t.density.shape[2]
+    errs = {}
+    for label, opts, (h, n) in (
+            ("n_points=100", dict(n_points=100), raymarch_steps(X, 100)),
+            ("allow_oversample n_points=500", dict(n_points=500, allow_oversample=True),
+             raymarch_steps(X, 500, True))):
+        img = drr_t(rot0, trans, axis=2, **opts, **kw)
+        rows = jrays_of(drr_t, rot0, trans, 2, h)
+        errs[label] = check_close(f"trilinear {label} (h={h:.4f})", img.reshape(-1),
+                                  J.joseph_fwd_plain(rows, drr_t.density, 2, h, n), 1e-4)
+    h = float(drr_j.joseph_steps[0])
+    n = int(-(-drr_j.density.shape[0] // h))
+    img = drr_j(rot0, trans, axis=0, **kw)
+    rows = jrays_of(drr_j, rot0, trans, 0, h)
+    errs[f"joseph axis 0 h={h:g}"] = check_close(
+        "joseph axis 0", img.reshape(-1), J.joseph_fwd_plain(rows, drr_j.density, 0, h, n), 1e-4)
+    log("[fractional] renders vs plain at 200^2: " + "; ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()))
+    return max(errs.values())
+
+
+def joseph_cube(T, cube, rot0, trans, kw):
+    """Phase 7f: joseph_fwd (#7's function) on the 512^3 CT."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    drr = T.DRR(cube, sdd=1020.0, height=200, delx=2.0, renderer="joseph")
+    J.reset_launch_counts()
+    img = drr(rot0, trans, axis=2, **kw)
+    torch.cuda.synchronize()
+    launches = J.joseph_fwd.launches
+    if launches < 1 or not torch.isfinite(img).all():
+        raise AssertionError("512^3 joseph render did not run through joseph_fwd")
+    X = drr.density.shape[2]
+    h = float(drr.joseph_steps[2])
+    rows = jrays_of(drr, rot0, trans, 2, h)
+    err = check_close("joseph_fwd 512^3 @200^2", img.reshape(-1),
+                      J.joseph_fwd_plain(rows, drr.density, 2, h, X), 1e-4)
+    t = median_ms(lambda: J.joseph_fwd(rows, drr.density, 2, h, X), 20)
+    t_plain = median_ms(lambda: J.joseph_fwd_plain(rows, drr.density, 2, h, X), 2, 1)
+    b, by = march_bound(rows, drr.density, 2, h, X, **J_FWD_BOUND)
+    drr_k = T.DRR(cube, sdd=1020.0, height=1000, delx=0.4, renderer="joseph")
+    img_k = drr_k(rot0, trans, axis=2, **kw)
+    rows_k = jrays_of(drr_k, rot0, trans, 2, h)
+    if not torch.isfinite(img_k).all():
+        raise AssertionError("512^3 joseph render at 1000^2 not finite")
+    t_k = median_ms(lambda: J.joseph_fwd(rows_k, drr_k.density, 2, h, X), 10)
+    log(f"[cube] joseph 200^2: max abs err {err:.3e}; joseph_fwd {t:.4f} ms (plain "
+        f"{t_plain:.2f}, bound {b:.4f} by {by}); 1000^2: joseph_fwd {t_k:.4f} ms")
+    return dict(launches=launches, err=err, t=t, t_plain=t_plain, b=b, by=by, t_k=t_k)
+
+
+def grid_sample_ms(rows, density, axis, h, n):
+    """One F.grid_sample (trilinear, zero padding) over the march's sample
+    points: the library yardstick of joseph_fwd, without its weighted sum."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.prep import march_perm
+
+    vol = density.permute(march_perm(axis)).contiguous()
+    X, Y, Z = vol.shape
+    cols = []
+    for st in J.march_steps(rows, h, X, n):
+        y, z = st["y"], st["z"]
+        x = torch.full_like(y, st["k"])
+        # grid_sample's (x, y, z) index (W, H, D) = the volume's (z, y, s) axes.
+        cols.append(torch.stack([2 * z / (Z - 1) - 1, 2 * y / (Y - 1) - 1,
+                                 2 * x / (X - 1) - 1], -1))
+    grid = torch.stack(cols, 1)[None, :, :, None, :]  # (1, R, n, 1, 3)
+    inp = vol[None, None]
+    return median_ms(lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=True), 20)
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -320,6 +767,7 @@ def main(argv) -> int:
         f"{int((mip_s[1] >= 0).sum())} rays with a maximum), siddon_bwd_rays sum "
         f"{e4['sum']:.3e} mip {e4['mip']:.3e}, siddon_bwd_vol sum {e5['sum']:.3e} "
         f"mip {e5['mip']:.3e}")
+    jsmall = joseph_small(small, rot_g, trans_g, rng)
 
     # 4. Main path at full size ----------------------------------------------
     t0 = time.perf_counter()
@@ -534,7 +982,7 @@ def main(argv) -> int:
         f"{zero_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); reconstruction step median "
         f"{t_recon:.3f} ms")
     del dens_r, opt_r, measured, img_v, rows_v, g_v
-    del drr, subject, target, auto, params, opt
+    del drr, target, auto, params, opt
 
     # 5. The 512^3 isotropic CT ----------------------------------------------
     t0 = time.perf_counter()
@@ -564,6 +1012,57 @@ def main(argv) -> int:
     t_k = median_ms(lambda: K.siddon_fwd(rows_k, drr_k.density, ax_k), 10)
     log(f"[cube] 1000^2: shape {tuple(img_k.shape)}, max abs err {err_k:.3e}; "
         f"siddon_fwd {t_k:.4f} ms")
+
+    # 7. Joseph and trilinear renderers ---------------------------------------
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    tri = trilinear_registration(T, subject, rot0, trans, kw, args.profile)
+    jm = joseph_mip(T, subject, rot0, trans, kw, tri["rows_m"])
+    err_frac = fractional_strides(tri["drr"], jm["drr"], rot0, trans, kw)
+    jc = joseph_cube(T, cube, rot0, trans, kw)
+    del drr_c, drr_k, img_c, img_k, rows_c, rows_k, cube, subject
+    rec = trilinear_reconstruction(args.profile)
+
+    # 7g. Timings of the Joseph kernels at their paths' shapes
+    dens_m, rows_m, rows_r = tri["drr"].density, tri["rows_m"], tri["rows_r"]
+    X = dens_m.shape[2]
+    arg_j = jm["arg"]
+    g_j = torch.tensor(rng.normal(size=rows_m.shape[1]), dtype=torch.float32, device=dev)
+    jt = {
+        "fwd": (lambda: J.joseph_fwd(rows_m, dens_m, 2, 1.0, X),
+                lambda: J.joseph_fwd_plain(rows_m, dens_m, 2, 1.0, X),
+                march_bound(rows_m, dens_m, 2, 1.0, X, **J_FWD_BOUND)),
+        "fwdgrad": (lambda: J.joseph_fwdgrad(rows_r, dens_m, 2, 1.0, X),
+                    lambda: J.joseph_fwdgrad_plain(rows_r, dens_m, 2, 1.0, X),
+                    march_bound(rows_r, dens_m, 2, 1.0, X, **J_FWDGRAD_BOUND)),
+        "fwd_max": (lambda: J.joseph_fwd_max(rows_m, dens_m, 2, 1.0, X),
+                    lambda: J.joseph_fwd_max_plain(rows_m, dens_m, 2, 1.0, X),
+                    march_bound(rows_m, dens_m, 2, 1.0, X, **J_FWD_MAX_BOUND)),
+        "bwd_rays": (lambda: J.joseph_bwd_rays(rows_m, dens_m, 2, 1.0, X, g_j),
+                     lambda: J.joseph_bwd_rays_plain(rows_m, dens_m, 2, 1.0, X, g_j),
+                     march_bound(rows_m, dens_m, 2, 1.0, X, **J_BWD_RAYS_BOUND)),
+        "bwd_rays_mip": (lambda: J.joseph_bwd_rays(rows_m, dens_m, 2, 1.0, X, g_j, arg_j),
+                         lambda: J.joseph_bwd_rays_plain(rows_m, dens_m, 2, 1.0, X, g_j, arg_j),
+                         march_bound(rows_m, dens_m, 2, 1.0, X, arg=arg_j,
+                                     **dict(J_BWD_RAYS_BOUND, ray_bytes=36 + 4 + 4 + 28))),
+        "bwd_vol": (lambda: J.joseph_bwd_vol(rec["rows_v"], rec["g_v"], rec["dens_shape"], 2,
+                                             rec["h"], rec["n"]),
+                    lambda: J.joseph_bwd_vol_plain(rec["rows_v"], rec["g_v"], rec["dens_shape"],
+                                                   2, rec["h"], rec["n"]),
+                    march_bound(rec["rows_v"], rec["density"], 2, rec["h"], rec["n"],
+                                **J_BWD_VOL_BOUND)),
+    }
+    jtimes = {}
+    for name, (kernel, plain, (b, by)) in jt.items():
+        jtimes[name] = (median_ms(kernel, 20), median_ms(plain, 2, 1), b, by)
+        log(f"[time] joseph_{name} {jtimes[name][0]:.4f} ms (plain {jtimes[name][1]:.2f}, bound "
+            f"{b:.4f} by {by})")
+    t_lib = grid_sample_ms(rows_m, dens_m, 2, 1.0, X)
+    log(f"[time] joseph_fwd and the rest at 200^2 rays of the main CT, axis 2, h = 1; "
+        f"joseph_bwd_vol at {rec['rows_v'].shape[1]} rays with its zero fill; F.grid_sample "
+        f"over the {rows_m.shape[1]} x {X} sample points (no weighted sum) {t_lib:.4f} ms; "
+        f"trilinear registration step median {tri['t_step']:.3f} ms, trilinear reconstruction "
+        f"step median {rec['t_step']:.3f} ms")
 
     # Records ----------------------------------------------------------------
     src = "diffdrr_tpu_torch/csrc/siddon.cu"
@@ -598,6 +1097,31 @@ def main(argv) -> int:
          "launches": recon_launches["siddon_bwd_vol"], "max_abs_err": err_bv,
          "ms": t_bv, "plain_ms": t_bv_plain, "bound_ms": b_bv, "bound_by": by_bv,
          "library_ms": None},
+    ]
+    jsrc = "diffdrr_tpu_torch/csrc/joseph.cu"
+    jpal = "diffdrr_tpu/ops/pallas/joseph.py"
+
+    def jrec(name, key, replaces, launches, err, library_ms=None):
+        ms, plain_ms, b, by = jtimes[key]
+        return {"name": name, "route": "cuda", "source": jsrc, "replaces": f"{jpal}:{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": by, "library_ms": library_ms}
+
+    kernels += [
+        jrec("joseph_fwd", "fwd", 376, tri["launches"]["joseph_fwd"],
+             max(tri["err_fwd"], err_frac, jsmall["fwd"]), library_ms=t_lib),
+        {"name": "joseph_fwd[512^3]", "route": "cuda", "source": jsrc,
+         "replaces": f"{jpal}:487", "launches": jc["launches"], "max_abs_err": jc["err"],
+         "ms": jc["t"], "plain_ms": jc["t_plain"], "bound_ms": jc["b"], "bound_by": jc["by"],
+         "library_ms": None},
+        jrec("joseph_fwd_max", "fwd_max", 376, jm["launches"]["joseph_fwd_max"],
+             max(jm["err_max"], jsmall["fwd_max"])),
+        jrec("joseph_fwdgrad", "fwdgrad", 732, tri["launches"]["joseph_fwdgrad"],
+             max(tri["err_fg"], jsmall["fwdgrad_sum"], jsmall["fwdgrad_max"])),
+        jrec("joseph_bwd_rays", "bwd_rays", 600, jm["launches"]["joseph_bwd_rays"],
+             max(jm["err_br"], jsmall["bwd_rays_sum"], jsmall["bwd_rays_mip"])),
+        jrec("joseph_bwd_vol", "bwd_vol", 903, rec["launches"]["joseph_bwd_vol"],
+             max(rec["err_bv"], jm["err_bv_mip"], jsmall["bwd_vol_sum"], jsmall["bwd_vol_mip"])),
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

@@ -25,7 +25,7 @@ __all__ = ["load", "build_all", "SOURCES", "CSRC", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("siddon",)
+SOURCES = ("siddon", "joseph")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -35,17 +35,29 @@ NVCC_FLAGS = (
 _VOID = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-# C signatures of each library's entry points (argtypes; all return int).
+_F32 = ctypes.c_float
+# rows, n_rays, volume, its strides and extents, in march order
+_VOL = [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT]
+# rows, n_rays, g, arg, the gradient volume, its strides and extents
+_GRAD = [_VOID, _I64, _VOID, _VOID, _VOID, _I64, _I64, _I64, _INT, _INT, _INT]
+# the Joseph march: h (the float32 rounding of the stride), n_steps, blend
+_MARCH = [_F32, _INT, _INT]
+# C signatures of each library's entry points (argtypes, the stream last;
+# all return int).
 _SIGNATURES = {
     "siddon": {
-        "siddon_fwd": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID, _VOID],
-        "siddon_fwdgrad": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID, _VOID],
-        "siddon_fwd_max": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID,
-                           _VOID, _VOID],
-        "siddon_bwd_rays": [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT, _VOID,
-                            _VOID, _VOID, _VOID],
-        "siddon_bwd_vol": [_VOID, _I64, _VOID, _VOID, _VOID, _I64, _I64, _I64, _INT, _INT,
-                           _INT, _VOID],
+        "siddon_fwd": _VOL + [_VOID] * 2,
+        "siddon_fwdgrad": _VOL + [_VOID] * 2,
+        "siddon_fwd_max": _VOL + [_VOID] * 3,
+        "siddon_bwd_rays": _VOL + [_VOID] * 4,
+        "siddon_bwd_vol": _GRAD + [_VOID],
+    },
+    "joseph": {
+        "joseph_fwd": _VOL + _MARCH + [_VOID] * 2,
+        "joseph_fwd_max": _VOL + _MARCH + [_VOID] * 3,
+        "joseph_fwdgrad": _VOL + _MARCH + [_VOID] * 3,
+        "joseph_bwd_rays": _VOL + _MARCH + [_VOID] * 4,
+        "joseph_bwd_vol": _GRAD + _MARCH + [_VOID],
     },
 }
 

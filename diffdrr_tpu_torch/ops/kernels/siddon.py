@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+from ._launch import (call, check, check_cotangent, check_rows, ptr, runs_plain,
+                      strides_extents)
 from .prep import NROWS, ROW_NAMES, march_perm, prep_rays
 
 __all__ = [
@@ -244,79 +246,18 @@ def siddon_bwd_vol_plain(rows: torch.Tensor, g: torch.Tensor, shape, axis: int,
 # -----------------------------------------------------------------------------
 
 
-def _check_rows(rows: torch.Tensor, axis: int) -> None:
-    if rows.dtype != torch.float32:
-        raise TypeError(f"siddon kernels take float32 rows, got {rows.dtype}")
-    if rows.dim() != 2 or rows.shape[0] != NROWS:
-        raise ValueError(f"rows must be ({NROWS}, R), got {tuple(rows.shape)}")
-    if axis not in (0, 1, 2):
-        raise ValueError(f"axis must be 0, 1 or 2, not {axis}")
-
-
-def _check(rows: torch.Tensor, density: torch.Tensor, axis: int) -> None:
-    _check_rows(rows, axis)
-    if density.dtype != torch.float32:
-        raise TypeError(f"siddon kernels take a float32 density, got {density.dtype}")
-    if density.dim() != 3:
-        raise ValueError(f"density must be (X, Y, Z), got {tuple(density.shape)}")
-    if rows.device != density.device:
-        raise ValueError(f"rows on {rows.device}, density on {density.device}")
-
-
-def _check_cotangent(rows: torch.Tensor, g: torch.Tensor, arg) -> torch.Tensor:
-    """``g`` as a contiguous (R,) float32 tensor; checks the MIP argmax."""
-    R = rows.shape[1]
-    if g.dtype != torch.float32 or g.shape != (R,) or g.device != rows.device:
-        raise ValueError(f"g must be float32 ({R},) on {rows.device}, got "
-                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
-    if arg is not None and (arg.dtype != torch.int32 or arg.shape != (R,)
-                            or arg.device != rows.device or not arg.is_contiguous()):
-        raise ValueError(f"arg must be contiguous int32 ({R},) on {rows.device}")
-    return g.contiguous()
-
-
-def _runs_plain(name: str, t: torch.Tensor) -> bool:
-    """True on the CPU (the plain version), False on CUDA (the kernel)."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise RuntimeError(f"{name} runs on cuda or cpu, not {t.device}")
-    return False
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _call(fn_name: str, device: torch.device, *args) -> None:
-    """Call the C entry point ``fn_name(*args, stream)``; raise on a CUDA error."""
-    from .build import load
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(load("siddon"), fn_name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
-
-
-def _strides_extents(t: torch.Tensor, axis: int) -> list:
-    """Element strides, then extents, of ``t``'s march-permuted (s, y, z) axes."""
-    perm = march_perm(axis)
-    return [t.stride(p) for p in perm] + [t.shape[p] for p in perm]
-
-
 def _launch(fn_name: str, rows: torch.Tensor, density: torch.Tensor, axis: int,
             *args) -> None:
     """``fn_name(rows, R, density, strides, extents, *args, stream)``."""
     rows = rows.contiguous()
-    _call(fn_name, rows.device, rows.data_ptr(), rows.shape[1], density.data_ptr(),
-          *_strides_extents(density, axis), *args)
+    call("siddon", fn_name, rows.device, rows.data_ptr(), rows.shape[1], density.data_ptr(),
+         *strides_extents(density, axis), *args)
 
 
 def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
     """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``."""
-    _check(rows, density, axis)
-    if _runs_plain("siddon_fwd", rows):
+    check("siddon", rows, density, axis)
+    if runs_plain("siddon_fwd", rows):
         return siddon_fwd_plain(rows, density, axis)
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     _launch("siddon_fwd", rows, density, axis, out.data_ptr())
@@ -326,8 +267,8 @@ def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Te
 
 def siddon_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
     """``(10, R)``: d(value)/d(row) for the 9 rows, then the value."""
-    _check(rows, density, axis)
-    if _runs_plain("siddon_fwdgrad", rows):
+    check("siddon", rows, density, axis)
+    if runs_plain("siddon_fwdgrad", rows):
         return siddon_fwdgrad_plain(rows, density, axis)
     out = torch.empty((FUSED_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
     _launch("siddon_fwdgrad", rows, density, axis, out.data_ptr())
@@ -338,8 +279,8 @@ def siddon_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torc
 def siddon_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int):
     """MIP ``(value (R,), argmax (R,) int32)``: the largest len * w * V over
     each ray's segments and its code slab * 4 + segment (-1: none beat 0)."""
-    _check(rows, density, axis)
-    if _runs_plain("siddon_fwd_max", rows):
+    check("siddon", rows, density, axis)
+    if runs_plain("siddon_fwd_max", rows):
         return siddon_fwd_max_plain(rows, density, axis)
     val = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     arg = torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
@@ -351,12 +292,12 @@ def siddon_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int):
 def siddon_bwd_rays(rows: torch.Tensor, density: torch.Tensor, axis: int,
                     g: torch.Tensor, arg=None) -> torch.Tensor:
     """``(9, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given."""
-    _check(rows, density, axis)
-    g = _check_cotangent(rows, g, arg)
-    if _runs_plain("siddon_bwd_rays", rows):
+    check("siddon", rows, density, axis)
+    g = check_cotangent(rows, g, arg)
+    if runs_plain("siddon_bwd_rays", rows):
         return siddon_bwd_rays_plain(rows, density, axis, g, arg)
     out = torch.empty((NROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    _launch("siddon_bwd_rays", rows, density, axis, g.data_ptr(), _ptr(arg), out.data_ptr())
+    _launch("siddon_bwd_rays", rows, density, axis, g.data_ptr(), ptr(arg), out.data_ptr())
     siddon_bwd_rays.launches += 1
     return out
 
@@ -366,16 +307,16 @@ def siddon_bwd_vol(rows: torch.Tensor, g: torch.Tensor, shape, axis: int,
     """d(loss)/d(density): a contiguous float32 volume of the density's
     ``shape``; MIP when the argmax ``arg`` is given. The kernel adds with
     float atomics, so its last bits vary from run to run."""
-    _check_rows(rows, axis)
-    g = _check_cotangent(rows, g, arg)
+    check_rows("siddon", rows, axis)
+    g = check_cotangent(rows, g, arg)
     if len(shape) != 3:
         raise ValueError(f"shape must be (X, Y, Z), got {tuple(shape)}")
-    if _runs_plain("siddon_bwd_vol", rows):
+    if runs_plain("siddon_bwd_vol", rows):
         return siddon_bwd_vol_plain(rows, g, shape, axis, arg)
     rows = rows.contiguous()
     grad = torch.zeros(tuple(shape), dtype=torch.float32, device=rows.device)
-    _call("siddon_bwd_vol", rows.device, rows.data_ptr(), rows.shape[1], g.data_ptr(),
-          _ptr(arg), grad.data_ptr(), *_strides_extents(grad, axis))
+    call("siddon", "siddon_bwd_vol", rows.device, rows.data_ptr(), rows.shape[1], g.data_ptr(),
+         ptr(arg), grad.data_ptr(), *strides_extents(grad, axis))
     siddon_bwd_vol.launches += 1
     return grad
 

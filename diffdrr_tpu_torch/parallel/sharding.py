@@ -4,8 +4,11 @@ Counterpart of ``make_reconstruction_step`` in
 ``diffdrr_tpu/parallel/sharding.py`` on one device. The density is a leaf
 tensor optimized by Adam against measured views: each step renders the
 views from the current density (``DRR.render``, the explicit-density seam),
-takes ``mean((img - measured)**2)``, back-propagates to the density through
-``siddon_bwd_vol`` and updates it in place.
+takes ``mean((img - measured)**2)``, back-propagates to the density and
+updates it in place. The render is the value-only forward of the DRR's
+renderer and the backward its density-gradient kernel: ``siddon_fwd`` and
+``siddon_bwd_vol`` for ``renderer="siddon"``, ``joseph_fwd`` and
+``joseph_bwd_vol`` for ``"joseph"`` and ``"trilinear"``.
 
 ``torch.optim.Adam(lr)`` applies the same update as ``optax.adam(lr)``
 (``lr * m_hat / (sqrt(v_hat) + eps)``, betas 0.9 and 0.999, eps 1e-8).

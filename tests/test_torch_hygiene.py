@@ -10,6 +10,7 @@ import torch
 
 import diffdrr_tpu_torch as T
 from diffdrr_tpu_torch import registration
+from diffdrr_tpu_torch.experiments import reconstruction
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -18,7 +19,10 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, diffdrr_tpu_torch, diffdrr_tpu_torch.drr, diffdrr_tpu_torch.interop, "
         "diffdrr_tpu_torch.registration, diffdrr_tpu_torch.metrics, "
-        "diffdrr_tpu_torch.ops.kernels.build, diffdrr_tpu_torch.parallel\n"
+        "diffdrr_tpu_torch.ops.kernels.build, diffdrr_tpu_torch.parallel, "
+        "diffdrr_tpu_torch.ops.joseph, diffdrr_tpu_torch.ops.trilinear, "
+        "diffdrr_tpu_torch.ops.kernels.joseph, diffdrr_tpu_torch.ops.kernels.raymarch, "
+        "diffdrr_tpu_torch.checkpoint, diffdrr_tpu_torch.experiments.reconstruction\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'diffdrr_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -52,3 +56,8 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         drr, torch.zeros(1, 1, 4, 4), "euler_angles", "ZXY")
     params, _ = init_fn(torch.zeros(1, 3), torch.zeros(1, 3))
     assert params["rotation"].device.type == "cpu"
+    for renderer in ("joseph", "trilinear"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            T.DRR(subject, sdd=800.0, height=4, delx=2.0, renderer=renderer)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        reconstruction.main(["--volume-size", "16", "--height", "4", "--n-iters", "1"])

@@ -1,12 +1,13 @@
 """The CUDA kernels' own arithmetic, compiled for the host and checked here.
 
-``csrc/siddon.cuh`` holds all per-ray arithmetic of the kernels in
-``__host__ __device__`` functions; without nvcc the macro is empty, so g++
-compiles the very same code. A tiny test-only C++ loop walks over the rays
-where the kernel would launch one thread per ray. Its results are held
-against the plain PyTorch versions, which walk every slab of the volume for
-all rays at once, so the comparison also checks the kernels' per-ray slab
-range (the partially entered slab included).
+``csrc/siddon.cuh`` and ``csrc/joseph.cuh`` hold all per-ray arithmetic of
+the kernels in ``__host__ __device__`` functions; without nvcc the macros
+are empty, so g++ compiles the very same code. A tiny test-only C++ loop
+walks over the rays where a kernel would launch one thread per ray. Its
+results are held against the plain PyTorch versions, which walk every slab
+(every march step) of the volume for all rays at once, so the comparison
+also checks the kernels' per-ray slab and step ranges (the partially
+entered slab, the first and last in-slab steps).
 
 Tolerance: both sides do the same float32 operations in the same order
 (rintf and torch.round both round half to even, FMA contraction is off), so
@@ -27,6 +28,7 @@ import torch
 
 from diffdrr_tpu_torch.ops.kernels import build
 from diffdrr_tpu_torch.ops.kernels.prep import march_perm, prep_rays
+from diffdrr_tpu_torch.ops.kernels import joseph as J
 from diffdrr_tpu_torch.ops.kernels import siddon as K
 from diffdrr_tpu_torch.ops.kernels.siddon import (
     siddon_bwd_rays_plain, siddon_bwd_vol_plain, siddon_fwd_max_plain, siddon_fwd_plain,
@@ -77,19 +79,23 @@ extern "C" void twin_bwd_vol(const float* rows, int64_t R, const float* g, const
 """
 
 
-@pytest.fixture(scope="module")
-def twin(tmp_path_factory):
+def _build_twin(tmp_path_factory, name, source):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not available to build the host twin")
-    d = tmp_path_factory.mktemp("twin")
-    src = d / "twin.cpp"
-    src.write_text(_TWIN_SRC)
-    lib = d / "libtwin.so"
+    d = tmp_path_factory.mktemp(name)
+    src = d / f"{name}.cpp"
+    src.write_text(source)
+    lib = d / f"lib{name}.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
                     f"-I{build.CSRC}", "-o", str(lib), str(src)],
                    check=True, timeout=60)
-    so = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def twin(tmp_path_factory):
+    so = _build_twin(tmp_path_factory, "twin", _TWIN_SRC)
     vol_args = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     ptr = ctypes.c_void_p
@@ -324,6 +330,251 @@ def test_cuda_backward_kernels_match_plain_versions(mode):
                                    atol=1e-3 * ref[k].abs().max().item() + 1e-30)
     got_v = K.siddon_bwd_vol(rows, g, vol.shape, 2, arg)
     ref_v = K.siddon_bwd_vol_plain(rows, g, vol.shape, 2, arg)
+    torch.cuda.synchronize()
+    assert got_v.is_contiguous() and got_v.shape == vol.shape
+    torch.testing.assert_close(got_v, ref_v, rtol=0, atol=1e-4 * ref_v.abs().max().item())
+
+
+# -----------------------------------------------------------------------------
+# csrc/joseph.cuh: the Joseph and trilinear march
+# -----------------------------------------------------------------------------
+
+_JOSEPH_TWIN_SRC = r"""
+#include "joseph.cuh"
+using namespace joseph;
+static March mk(float h, int n, int blend) {
+  March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  return m;
+}
+#define VOL_ARGS const float* rows, int64_t R, const float* vol, int64_t ss, int64_t sy, \
+                 int64_t sz, int X, int Y, int Z, float h, int n, int blend
+#define SETUP Volume v{vol, ss, sy, sz, X, Y, Z}; March m = mk(h, n, blend)
+extern "C" void jt_fwd(VOL_ARGS, float* out) {
+  SETUP;
+  for (int64_t r = 0; r < R; ++r) out[r] = trace_fwd(load_ray(rows, R, r), v, m);
+}
+extern "C" void jt_fwd_max(VOL_ARGS, float* out, int* arg) {
+  SETUP;
+  for (int64_t r = 0; r < R; ++r) trace_fwd_max(load_ray(rows, R, r), v, m, out + r, arg + r);
+}
+extern "C" void jt_fwdgrad(VOL_ARGS, float* out, int* arg) {
+  SETUP;
+  float acc[kFusedRows];
+  for (int64_t r = 0; r < R; ++r) {
+    trace_fwdgrad(load_ray(rows, R, r), v, m, arg != nullptr, acc, arg ? arg + r : nullptr);
+    for (int i = 0; i < kFusedRows; ++i) out[i * R + r] = acc[i];
+  }
+}
+extern "C" void jt_bwd_rays(VOL_ARGS, const float* g, const int* arg, float* out) {
+  SETUP;
+  float acc[kRows];
+  for (int64_t r = 0; r < R; ++r) {
+    trace_bwd_rays(load_ray(rows, R, r), v, m, g[r], arg ? arg[r] : -1, arg != nullptr, acc);
+    for (int i = 0; i < kRows; ++i) out[i * R + r] = acc[i];
+  }
+}
+extern "C" void jt_bwd_vol(const float* rows, int64_t R, const float* g, const int* arg,
+                           float* grad, int64_t gs, int64_t gy, int64_t gz, int X, int Y,
+                           int Z, float h, int n, int blend) {
+  GradVolume gv{grad, gs, gy, gz, X, Y, Z};
+  March m = mk(h, n, blend);
+  for (int64_t r = 0; r < R; ++r)
+    trace_bwd_vol(load_ray(rows, R, r), gv, m, g[r], arg ? arg[r] : -1, arg != nullptr);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def jtwin(tmp_path_factory):
+    so = _build_twin(tmp_path_factory, "jtwin", _JOSEPH_TWIN_SRC)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    march = [ctypes.c_float, i32, i32]
+    vol_args = [ptr, i64, ptr, i64, i64, i64, i32, i32, i32] + march
+    so.jt_fwd.argtypes = vol_args + [ptr]
+    so.jt_fwd_max.argtypes = vol_args + [ptr, ptr]
+    so.jt_fwdgrad.argtypes = vol_args + [ptr, ptr]
+    so.jt_bwd_rays.argtypes = vol_args + [ptr, ptr, ptr]
+    so.jt_bwd_vol.argtypes = [ptr, i64, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32] + march
+    for fn in (so.jt_fwd, so.jt_fwd_max, so.jt_fwdgrad, so.jt_bwd_rays, so.jt_bwd_vol):
+        fn.restype = None
+    return so
+
+
+class _JosephTwin:
+    """The twin's five functions with the wrappers' signatures."""
+
+    def __init__(self, so, rows, vol, axis, h, n):
+        self.so, self.rows, self.vol, self.axis = so, rows.contiguous(), vol, axis
+        self.march = (h, n, int(J.is_blend(h)))
+        self.R = rows.shape[1]
+
+    def _args(self):
+        return (self.rows.data_ptr(), self.R, self.vol.data_ptr(),
+                *_geom(self.vol, self.axis), *self.march)
+
+    def fwd(self):
+        out = torch.empty(self.R)
+        self.so.jt_fwd(*self._args(), out.data_ptr())
+        return out
+
+    def fwd_max(self):
+        val, arg = torch.empty(self.R), torch.empty(self.R, dtype=torch.int32)
+        self.so.jt_fwd_max(*self._args(), val.data_ptr(), arg.data_ptr())
+        return val, arg
+
+    def fwdgrad(self, mip):
+        out = torch.empty((8, self.R))
+        arg = torch.empty(self.R, dtype=torch.int32) if mip else None
+        self.so.jt_fwdgrad(*self._args(), out.data_ptr(), _ptr(arg))
+        return out, arg
+
+    def bwd_rays(self, g, arg):
+        out = torch.empty((7, self.R))
+        self.so.jt_bwd_rays(*self._args(), g.data_ptr(), _ptr(arg), out.data_ptr())
+        return out
+
+    def bwd_vol(self, g, arg, grad=None):
+        grad = torch.zeros(self.vol.shape) if grad is None else grad
+        self.so.jt_bwd_vol(self.rows.data_ptr(), self.R, g.data_ptr(), _ptr(arg),
+                           grad.data_ptr(), *_geom(grad, self.axis), *self.march)
+        return grad
+
+
+def _check_joseph_twin(tw, rows, vol, axis, h, n, g):
+    """All five twin functions against the plain versions, sum and MIP."""
+    ref = J.joseph_fwd_plain(rows, vol, axis, h, n)
+    np.testing.assert_allclose(tw.fwd(), ref, atol=1e-6 * ref.abs().max().item())
+    val, arg = J.joseph_fwd_max_plain(rows, vol, axis, h, n)
+    got_val, got_arg = tw.fwd_max()
+    assert torch.equal(got_arg, arg)
+    np.testing.assert_allclose(got_val, val, atol=1e-6 * val.abs().max().item())
+    for mip in (False, True):
+        ref_rows, ref_arg = J.joseph_fwdgrad_plain(rows, vol, axis, h, n, "max" if mip else "sum")
+        got_rows, got_arg = tw.fwdgrad(mip)
+        _assert_rows_close(got_rows, ref_rows)
+        if mip:
+            assert torch.equal(got_arg, ref_arg) and torch.equal(got_arg, arg)
+        a = arg if mip else None
+        _assert_rows_close(tw.bwd_rays(g, a), J.joseph_bwd_rays_plain(rows, vol, axis, h, n, g, a))
+        ref_v = J.joseph_bwd_vol_plain(rows, g, vol.shape, axis, h, n, a)
+        assert torch.count_nonzero(ref_v) > 0
+        np.testing.assert_allclose(tw.bwd_vol(g, a), ref_v, atol=1e-5 * ref_v.abs().max().item())
+    return arg
+
+
+@pytest.mark.parametrize("h", [1.0, 2.0, 1.37, 0.6], ids=["h1", "h2", "h1.37", "h0.6"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_matches_plain(jtwin, axis, h):
+    """trace_fwd, trace_fwd_max, trace_fwdgrad (sum and max), trace_bwd_rays
+    and trace_bwd_vol (sum and MIP) at integer and fractional strides."""
+    rng = np.random.default_rng(40 + axis)
+    dims = (20, 24, 16)
+    vol = torch.tensor(rng.uniform(0.1, 1.0, dims), dtype=torch.float32)
+    src, tgt, w = _random_rays(rng, dims, axis, 200)
+    rows = prep_rays(src, tgt, w, axis, dims, quadrature="joseph", h=h)
+    n = int(-(-dims[axis] // h))
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32)
+    arg = _check_joseph_twin(_JosephTwin(jtwin, rows, vol, axis, h, n), rows, vol, axis, h, n, g)
+    assert (arg >= 0).sum() > 150  # most rays cross the volume
+
+
+@pytest.mark.parametrize("h", [1.0, 0.5, 1.5])
+def test_twin_joseph_step_range_margin(jtwin, h):
+    """Rays entering through the y = -0.5 face, and leaving through the
+    y = 15.5 face, at a march step: the in-slab decision of that step rests
+    on rounding, and the per-ray step range must still include it."""
+    vol = torch.tensor(np.random.default_rng(3).uniform(0.5, 1.0, (16, 16, 16)),
+                       dtype=torch.float32)
+    n = 32
+    slope = 0.5 + np.linspace(0.0, 0.01, n)
+    jit = np.linspace(0.0, 0.03, n)
+    x_in, x_out = 5.0, 11.0  # steps of every h above
+    y_in = -0.5 - slope * (x_in + 20.0)  # at x = -20, reaching y = -0.5 at x = x_in
+    y_out = 15.5 + slope * (x_out + 20.0)  # falling to y = 15.5 at x = x_out
+    src = np.concatenate([np.stack([np.full(n, -20.0), y_in, 8.0 + jit], 1),
+                          np.stack([np.full(n, -20.0), y_out, 8.0 - jit], 1)])
+    tgt = np.concatenate([np.stack([np.full(n, 40.0), y_in + 60.0 * slope, 8.3 + jit], 1),
+                          np.stack([np.full(n, 40.0), y_out - 60.0 * slope, 7.7 - jit], 1)])
+    src = torch.tensor(src, dtype=torch.float32)[:, None]
+    tgt = torch.tensor(tgt, dtype=torch.float32)[:, None]
+    rows = prep_rays(src, tgt, torch.ones((2 * n, 1, 1)), 0, vol.shape, quadrature="joseph",
+                     h=h)
+    steps = int(-(-16 // h))
+    g = torch.ones(2 * n)
+    tw = _JosephTwin(jtwin, rows, vol, 0, h, steps)
+    ref = J.joseph_fwdgrad_plain(rows, vol, 0, h, steps)[0]
+    assert (ref[7] > 0).all()
+    _assert_rows_close(tw.fwdgrad(False)[0], ref)
+    _check_joseph_twin(tw, rows, vol, 0, h, steps, g)
+
+
+@pytest.mark.parametrize("h", [1.0, 1.37])
+def test_twin_joseph_bwd_vol_writes_the_density_layout(jtwin, h):
+    rng = np.random.default_rng(31)
+    dims = (20, 24, 16)
+    src, tgt, w = _random_rays(rng, dims, 1, 100)
+    rows = prep_rays(src, tgt, w, 1, dims, quadrature="joseph", h=h)
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32)
+    tw = _JosephTwin(jtwin, rows, torch.zeros(dims), 1, h, int(-(-dims[1] // h)))
+    ref = tw.bwd_vol(g, None)
+    grad_t = torch.zeros(dims[::-1], dtype=torch.float32).permute(2, 1, 0)  # Fortran order
+    np.testing.assert_allclose(tw.bwd_vol(g, None, grad_t), ref,
+                               atol=1e-6 * ref.abs().max().item())
+
+
+def test_twin_joseph_missed_rays_are_zero(jtwin):
+    vol = torch.ones((8, 8, 8))
+    src = torch.tensor([[[-20.0, 50.0, 50.0]], [[-20.0, -30.0, 4.0]]])
+    tgt = torch.tensor([[[30.0, 52.0, 51.0]], [[30.0, -31.0, 4.5]]])
+    rows = prep_rays(src, tgt, torch.ones((2, 1, 1)), 0, vol.shape, quadrature="joseph")
+    out, _ = _JosephTwin(jtwin, rows, vol, 0, 1.0, 8).fwdgrad(False)
+    assert torch.count_nonzero(out) == 0
+
+
+def _gpu_joseph_scene(h):
+    vol, _, g = _gpu_scene()
+    u, v = np.meshgrid(np.linspace(-3.3, 43.1, 32), np.linspace(-2.7, 35.9, 32), indexing="ij")
+    tv = np.stack([u, v, np.full_like(u, 80.37)], -1).reshape(1, -1, 3)
+    sv = np.array([[[20.3, 18.1, -50.2]]])
+    w = np.linalg.norm(tv - sv, axis=-1)[:, None, :]
+    rows = prep_rays(*(torch.tensor(x, dtype=torch.float32, device="cuda") for x in (sv, tv, w)),
+                     2, vol.shape, quadrature="joseph", h=h)
+    return vol, rows, g, int(-(-vol.shape[2] // h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6])
+@pytest.mark.parametrize("mode", ["sum", "mip"])
+def test_cuda_joseph_kernels_match_plain_versions(mode, h):
+    """On a card: the five Joseph kernels against their plain versions
+    (values 1e-4 * max, argmax exact, rows 1e-3 * max|row|, density
+    gradient 1e-4 * max, float atomics)."""
+    vol, rows, g, n = _gpu_joseph_scene(h)
+    val, arg = J.joseph_fwd_max(rows, vol, 2, h, n)
+    ref_val, ref_arg = J.joseph_fwd_max_plain(rows, vol, 2, h, n)
+    assert torch.equal(arg, ref_arg)
+    torch.testing.assert_close(val, ref_val, rtol=0, atol=1e-4 * ref_val.abs().max().item())
+    ref = J.joseph_fwd_plain(rows, vol, 2, h, n)
+    torch.testing.assert_close(J.joseph_fwd(rows, vol, 2, h, n), ref, rtol=0,
+                               atol=1e-4 * ref.abs().max().item())
+    reduce = "max" if mode == "mip" else "sum"
+    got_rows, got_arg = J.joseph_fwdgrad(rows, vol, 2, h, n, reduce)
+    ref_rows, ref_arg = J.joseph_fwdgrad_plain(rows, vol, 2, h, n, reduce)
+    assert (got_arg is None) == (ref_arg is None)
+    if got_arg is not None:
+        assert torch.equal(got_arg, ref_arg)
+    a = arg if mode == "mip" else None
+    for got_k, ref_k in zip(got_rows, ref_rows):
+        torch.testing.assert_close(got_k, ref_k, rtol=0, atol=1e-3 * ref_k.abs().max().item() + 1e-30)
+    got_b = J.joseph_bwd_rays(rows, vol, 2, h, n, g, a)
+    ref_b = J.joseph_bwd_rays_plain(rows, vol, 2, h, n, g, a)
+    for got_k, ref_k in zip(got_b, ref_b):
+        torch.testing.assert_close(got_k, ref_k, rtol=0, atol=1e-3 * ref_k.abs().max().item() + 1e-30)
+    got_v = J.joseph_bwd_vol(rows, g, vol.shape, 2, h, n, a)
+    ref_v = J.joseph_bwd_vol_plain(rows, g, vol.shape, 2, h, n, a)
     torch.cuda.synchronize()
     assert got_v.is_contiguous() and got_v.shape == vol.shape
     torch.testing.assert_close(got_v, ref_v, rtol=0, atol=1e-4 * ref_v.abs().max().item())
