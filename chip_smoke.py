@@ -57,7 +57,23 @@ Phases (any failure raises and the exit code is non-zero):
      allow_oversample at 500, joseph pinned to axis 0 (h = 4);
   7f. the 512^3 CT with joseph_fwd at 200x200 and 1000x1000;
   7g. timings of every Joseph kernel beside its bound and plain version, and
-     F.grid_sample over the same sample points as the library yardstick.
+     F.grid_sample over the same sample points as the library yardstick;
+  8. per-structure channels (mask_to_channels) and p_subsample:
+  8a. the channel kernels (joseph_fwd_ch, joseph_bwd_rays_ch,
+     joseph_bwd_vol_ch) against their plain versions on phase 3's volume with
+     a random 5-label map, at 5 channels and at 3 (labels 3 and 4 drop),
+     strides 1, 4 (axis 0), ~1.37, 0.5 (plane-pair ties) and ~0.26;
+  8b. joseph and trilinear channel renders of phase 4's CT with its 7
+     labels: shape (1, 7, 200, 200), channel sum equal to the scalar render,
+     each kernel against its plain version at all 40,000 rays, one backward
+     of sum_c w_c sum img_c**2 to density and pose launching exactly one of
+     each channel kernel and no joseph_fwdgrad;
+  8c. Siddon channels at full width on the oracle (no Siddon kernel
+     launched), the channel sum equal to siddon_fwd's render;
+  8d. p_subsample=0.1, trilinear at full width: equal to the full render at
+     its 4,000 pixels and 0 elsewhere, with and without channels; one pose
+     backward; its render time beside the full render's;
+  8e. timings of the channel kernels at 200^2 with 7 channels.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -236,11 +252,13 @@ J_RANGE_OPS = 9
 
 
 def march_work(rows, density, axis, h, n_steps, arg=None):
-    """(in-slab samples, distinct voxels read) of one Joseph march.
+    """(in-slab samples, distinct voxels read, distinct label voxels read)
+    of one Joseph march.
 
     What the data needs: samples outside a ray's [amin, amax] are not
     counted, and a voxel read by many samples counts once. With a MIP argmax
-    ``arg``, only each ray's argmax step.
+    ``arg``, only each ray's argmax step. The label voxels are those a
+    channel kernel reads (``label_at``: the nearest voxel of each sample).
     """
     import torch
 
@@ -249,6 +267,7 @@ def march_work(rows, density, axis, h, n_steps, arg=None):
 
     X, Y, Z = density.permute(march_perm(axis)).shape
     seen = torch.zeros((X, Y, Z), dtype=torch.bool, device=density.device)
+    seen_lab = torch.zeros_like(seen)
     samples = 0
     for st in J.march_steps(rows, h, X, n_steps):
         ok = st["inslab"] if arg is None else st["inslab"] & (arg == st["p"])
@@ -258,19 +277,27 @@ def march_work(rows, density, axis, h, n_steps, arg=None):
             for k, _ in st["planes"]:
                 if 0 <= k < X:
                     seen[k, fy[v].long(), fz[v].long()] = True
-    return samples, int(torch.count_nonzero(seen))
+        (k, _), *pair = st["planes"]
+        k = pair[0][0] if pair and pair[0][1] > 0.5 else k
+        iy, iz = torch.round(st["y"]), torch.round(st["z"])
+        v = ok & (iy >= 0) & (iy < Y) & (iz >= 0) & (iz < Z)
+        if 0 <= k < X:
+            seen_lab[k, iy[v].long(), iz[v].long()] = True
+    return samples, int(torch.count_nonzero(seen)), int(torch.count_nonzero(seen_lab))
 
 
 def march_bound(rows, density, axis, h, n_steps, *, ray_bytes, sample_ops, ray_ops=0,
-                writes_volume=False, arg=None):
-    """(bound_ms, bound_by) of a Joseph kernel, as ``bound`` is for Siddon's."""
+                writes_volume=False, arg=None, labels=False):
+    """(bound_ms, bound_by) of a Joseph kernel, as ``bound`` is for Siddon's;
+    ``labels``: it also reads 4 B per distinct label voxel."""
     from diffdrr_tpu_torch.ops.kernels.joseph import is_blend
 
-    samples, voxels = march_work(rows, density, axis, h, n_steps, arg)
+    samples, voxels, label_voxels = march_work(rows, density, axis, h, n_steps, arg)
     ray_ops += J_RANGE_OPS if arg is None else 0
     per_sample = J_STEP_OPS + sample_ops + (J_BLEND_OPS if is_blend(h) else 0)
     n_ops = samples * per_sample + ray_ops * rows.shape[1]
-    return roofline(io_bytes(rows, density, ray_bytes, voxels, writes_volume), n_ops)
+    n_bytes = io_bytes(rows, density, ray_bytes, voxels, writes_volume)
+    return roofline(n_bytes + (4 * label_voxels if labels else 0), n_ops)
 
 
 # ray_bytes of each Joseph kernel: 36 B of rows in, 4 B of g and 4 B of
@@ -281,6 +308,20 @@ J_FWD_MAX_BOUND = dict(ray_bytes=36 + 8, sample_ops=18)
 J_FWDGRAD_BOUND = dict(ray_bytes=36 + 32, sample_ops=58)
 J_BWD_RAYS_BOUND = dict(ray_bytes=36 + 4 + 28, sample_ops=57, ray_ops=7)
 J_BWD_VOL_BOUND = dict(ray_bytes=36 + 4, sample_ops=22, writes_volume=True)
+# The channel kernels at C channels: their scalar counterpart's work, plus
+# label_at's 6 operations a sample (the transverse position 4, two rints)
+# and 4 B per distinct label voxel read; per ray 4 * C B of output or
+# cotangent in place of 4. joseph_bwd_rays_ch multiplies each step's 7
+# terms by its channel's cotangent (7 a sample, not 7 a ray).
+J_LABEL_OPS = 6
+
+
+def channel_bounds(C):
+    return {"fwd_ch": dict(ray_bytes=36 + 4 * C, sample_ops=19 + J_LABEL_OPS, labels=True),
+            "bwd_rays_ch": dict(ray_bytes=36 + 4 * C + 28, sample_ops=57 + 7 + J_LABEL_OPS,
+                                labels=True),
+            "bwd_vol_ch": dict(ray_bytes=36 + 4 * C, sample_ops=22 + J_LABEL_OPS,
+                               writes_volume=True, labels=True)}
 
 
 def profile_steps(step, label: str, t_step: float, out: Path, n: int = 5) -> None:
@@ -700,6 +741,224 @@ def grid_sample_ms(rows, density, axis, h, n):
                                            align_corners=True), 20)
 
 
+CH_KERNELS = ("joseph_fwd_ch", "joseph_bwd_rays_ch", "joseph_bwd_vol_ch")
+
+
+def check_channels(label, rows, dens, lab, axis, h, n, g):
+    """The three channel kernels against their plain versions: values to
+    1e-4 * max, rows to 1e-3 * max|row|, the density gradient to 1e-4 * max."""
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    C = g.shape[0]
+    return {
+        "fwd_ch": check_close(f"joseph_fwd_ch {label}", J.joseph_fwd_ch(rows, dens, lab, axis, h, n, C),
+                              J.joseph_fwd_ch_plain(rows, dens, lab, axis, h, n, C), 1e-4),
+        "bwd_rays_ch": check_rows(f"joseph_bwd_rays_ch {label}",
+                                  J.joseph_bwd_rays_ch(rows, dens, lab, axis, h, n, g),
+                                  J.joseph_bwd_rays_ch_plain(rows, dens, lab, axis, h, n, g)),
+        "bwd_vol_ch": check_close(f"joseph_bwd_vol_ch {label}",
+                                  J.joseph_bwd_vol_ch(rows, g, lab, dens.shape, axis, h, n),
+                                  J.joseph_bwd_vol_ch_plain(rows, g, lab, dens.shape, axis, h, n),
+                                  1e-4),
+    }
+
+
+def channels_small(small, rot_g, trans_g, rng):
+    """Phase 8a: the channel kernels against their plain versions on the
+    random volume with a random 5-label map, at 5 channels and at 3 (labels
+    3 and 4 drop), strides 1, 4 (axis 0), ~1.37, 0.5 (a plane-pair tie every
+    other step) and ~0.26."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
+
+    dens = small.density
+    lab = torch.tensor(rng.integers(0, 5, tuple(dens.shape)), dtype=torch.int32,
+                       device=dens.device)
+    _, ax = rays_of(small, rot_g, trans_g)
+    X = dens.shape[ax]
+    cases = [("h=1", ax, 1.0, X), ("h=4 axis 0", 0, 4.0, -(-dens.shape[0] // 4)),
+             ("h~1.37", ax, *raymarch_steps(X, 47)),
+             ("h=0.5", ax, *raymarch_steps(X, 2 * X - 1, allow_oversample=True)),
+             ("h~0.26", ax, *raymarch_steps(X, 243, allow_oversample=True))]
+    worst = {}
+    for label, axis, h, n in cases:
+        rows = jrays_of(small, rot_g, trans_g, axis, h)
+        for C in (5, 3):
+            g = torch.tensor(rng.normal(size=(C, rows.shape[1])), dtype=torch.float32,
+                             device=rows.device)
+            errs = check_channels(f"{label} C={C} 128x128x64", rows, dens, lab, axis, h, n, g)
+            torch.cuda.synchronize()
+            log(f"[channel kernels] {label} (h {h:.6f}, {n} steps), {C} channels: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+    return worst
+
+
+def channels_full(T, subject, rot0, trans, kw, rng):
+    """Phase 8b: joseph and trilinear channel renders of the full CT with its
+    7 labels at 200x200; each kernel against its plain version at every ray;
+    one backward of sum_c w_c sum img_c**2 to density and pose with exact
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
+
+    w = torch.tensor(np.random.default_rng(4).uniform(0.5, 1.5, 7), dtype=torch.float32,
+                     device=subject.device)
+    out = {"launches": dict.fromkeys(CH_KERNELS, 0), "errs": {}}
+    for renderer in ("joseph", "trilinear"):
+        drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer=renderer)
+        img = drr(rot0, trans, mask_to_channels=True, **kw)
+        if img.shape != (1, 7, 200, 200) or not torch.isfinite(img).all():
+            raise AssertionError(f"bad {renderer} channel render {tuple(img.shape)}")
+        err_sum = check_close(f"{renderer} channel sum vs scalar render",
+                              img.sum(1, keepdim=True), drr(rot0, trans, **kw), 1e-4)
+        src, tgt = drr.detector(T.convert(rot0, trans, **kw))
+        axis = int(torch.argmin(drr.worst_ratios(drr.affine_inverse(src),
+                                                 drr.affine_inverse(tgt))))
+        X = drr.density.shape[axis]
+        if renderer == "joseph":
+            h = float(drr.joseph_steps[axis])
+            n = int(-(-X // drr.joseph_steps[axis]))
+        else:
+            h, n = raymarch_steps(X, 500)
+        rows = jrays_of(drr, rot0, trans, axis, h)
+        dens, lab = drr.density, drr.mask
+        err_img = check_close(f"{renderer} channel render vs plain", img.reshape(7, -1),
+                              J.joseph_fwd_ch_plain(rows, dens, lab, axis, h, n, 7), 1e-4)
+        g = torch.tensor(rng.normal(size=(7, rows.shape[1])), dtype=torch.float32,
+                         device=dens.device)
+        errs = check_channels(f"{renderer} 512x512x133 @200^2", rows, dens, lab, axis, h, n, g)
+        errs["fwd_ch"] = max(errs["fwd_ch"], err_img)
+
+        J.reset_launch_counts()
+        rot_p = rot0.clone().requires_grad_(True)
+        trans_p = trans.clone().requires_grad_(True)
+        dens_p = dens.clone().requires_grad_(True)
+        img_p = drr.render(dens_p, *drr.detector(T.convert(rot_p, trans_p, **kw)),
+                           mask_to_channels=True)
+        (w[None, :, None] * img_p ** 2).sum().backward()
+        torch.cuda.synchronize()
+        launches = joseph_launches()
+        log(f"[channels] {renderer} backward launches {launches}")
+        expect_launches(f"{renderer} channel backward", launches,
+                        {"joseph_fwd_ch": 1, "joseph_bwd_rays_ch": 1, "joseph_bwd_vol_ch": 1,
+                         "joseph_fwdgrad": 0, "joseph_fwd": 0, "joseph_fwd_max": 0,
+                         "joseph_bwd_rays": 0, "joseph_bwd_vol": 0})
+        pose_grad = torch.cat([rot_p.grad, trans_p.grad], -1)
+        if not (torch.isfinite(pose_grad).all() and pose_grad.abs().max() > 0):
+            raise AssertionError(f"{renderer} channel pose gradient {pose_grad.tolist()}")
+        g_img = (2 * w[:, None] * img_p.detach().reshape(7, -1))
+        errs["bwd_vol_ch"] = max(errs["bwd_vol_ch"], check_close(
+            f"{renderer} channel density gradient vs plain", dens_p.grad,
+            J.joseph_bwd_vol_ch_plain(rows, g_img, lab, dens.shape, axis, h, n), 1e-4))
+        for k in CH_KERNELS:
+            out["launches"][k] += launches[k]
+        for k, v in errs.items():
+            out["errs"][k] = max(out["errs"].get(k, 0.0), v)
+        sums = img.sum(dim=(2, 3))[0].tolist()
+        log(f"[channels] {renderer} axis {axis}, h {h:g}: shape {tuple(img.shape)}, channel sums "
+            + ", ".join(f"{s:.1f}" for s in sums) + f"; channel sum vs scalar {err_sum:.3e}; "
+            + ", ".join(f"{k} vs plain {v:.3e}" for k, v in errs.items())
+            + f" (density gradient max {dens_p.grad.abs().max().item():.3e}); pose gradient "
+            + f"{[round(x, 4) for x in pose_grad[0].tolist()]}")
+        out.update(drr=drr, rows=rows, axis=axis, h=h, n=n)  # the trilinear one is kept
+    return out
+
+
+def channels_siddon(T, subject, rot0, trans, kw):
+    """Phase 8c: Siddon channels at full width on the oracle, no kernel launched."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import siddon as K
+
+    drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0)
+    K.reset_launch_counts()
+    img = drr(rot0, trans, mask_to_channels=True, **kw)
+    torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches for fn in K.KERNELS if fn.launches}
+    if launched or img.shape != (1, 7, 200, 200) or not torch.isfinite(img).all():
+        raise AssertionError(f"Siddon channels: shape {tuple(img.shape)}, launches {launched}")
+    # The oracle against siddon_fwd's render, as tests/test_torch_siddon.py holds them.
+    err = check_close("Siddon channel sum vs siddon_fwd", img.sum(1, keepdim=True),
+                      drr(rot0, trans, **kw), 1e-3)
+    log(f"[channels] siddon (oracle, no kernel launched): channel sum vs siddon_fwd {err:.3e} "
+        f"(image max {img.sum(1).max().item():.3f})")
+    return err
+
+
+def subsample_full_width(T, subject, rot0, trans, kw, drr_t):
+    """Phase 8d: p_subsample=0.1, trilinear at full width: the full render at
+    the 4,000 sampled pixels exactly, 0 elsewhere, with and without channels;
+    one pose backward; its render time against the full render's."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    drr_s = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="trilinear",
+                  p_subsample=0.1)
+    idx = drr_s.detector.subsample_index
+    keep = torch.zeros(200 * 200, dtype=torch.bool, device=idx.device)
+    keep[idx] = True
+    for channels in (False, True):
+        s = drr_s(rot0, trans, mask_to_channels=channels, **kw)
+        f = drr_t(rot0, trans, mask_to_channels=channels, **kw)
+        C = s.shape[1]
+        s, f = s.reshape(C, -1), f.reshape(C, -1)
+        if not torch.equal(s[:, idx], f[:, idx]) or torch.count_nonzero(s[:, ~keep]):
+            raise AssertionError(f"p_subsample render (channels {channels}): max diff "
+                                 f"{(s[:, idx] - f[:, idx]).abs().max().item():.3e}, "
+                                 f"{int(torch.count_nonzero(s[:, ~keep]))} unsampled nonzero")
+    J.reset_launch_counts()
+    rot_p = rot0.clone().requires_grad_(True)
+    (drr_s(rot_p, trans, **kw) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = joseph_launches()
+    if launches["joseph_fwdgrad"] != 1 or not (torch.isfinite(rot_p.grad).all()
+                                                and rot_p.grad.abs().max() > 0):
+        raise AssertionError(f"p_subsample pose backward: {launches}, {rot_p.grad.tolist()}")
+    t_sub = median_ms(lambda: drr_s(rot0, trans, **kw), 20)
+    t_full = median_ms(lambda: drr_t(rot0, trans, **kw), 20)
+    log(f"[subsample] p=0.1 ({idx.numel()} rays): equal to the full render at its pixels, 0 "
+        f"elsewhere, with and without channels; pose backward launches joseph_fwdgrad 1; "
+        f"render {t_sub:.3f} ms against the full render's {t_full:.3f} ms")
+    return t_sub, t_full
+
+
+def channel_timings(ch):
+    """Phase 8e: each channel kernel at 200^2 with 7 channels (the trilinear
+    render's rows), its plain version and its bound."""
+    import numpy as np
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    rows, axis, h, n = ch["rows"], ch["axis"], ch["h"], ch["n"]
+    dens, lab = ch["drr"].density, ch["drr"].mask
+    g = torch.tensor(np.random.default_rng(5).normal(size=(7, rows.shape[1])),
+                     dtype=torch.float32, device=dens.device)
+    b = channel_bounds(7)
+    fns = {
+        "fwd_ch": (lambda: J.joseph_fwd_ch(rows, dens, lab, axis, h, n, 7),
+                   lambda: J.joseph_fwd_ch_plain(rows, dens, lab, axis, h, n, 7)),
+        "bwd_rays_ch": (lambda: J.joseph_bwd_rays_ch(rows, dens, lab, axis, h, n, g),
+                        lambda: J.joseph_bwd_rays_ch_plain(rows, dens, lab, axis, h, n, g)),
+        "bwd_vol_ch": (lambda: J.joseph_bwd_vol_ch(rows, g, lab, dens.shape, axis, h, n),
+                       lambda: J.joseph_bwd_vol_ch_plain(rows, g, lab, dens.shape, axis, h, n)),
+    }
+    times = {}
+    for name, (kernel, plain) in fns.items():
+        bnd, by = march_bound(rows, dens, axis, h, n, **b[name])
+        times[name] = (median_ms(kernel, 20), median_ms(plain, 2, 1), bnd, by)
+        log(f"[time] joseph_{name} {times[name][0]:.4f} ms (plain {times[name][1]:.2f}, bound "
+            f"{bnd:.4f} by {by}) at 200^2 rays, 7 channels, axis {axis}, h {h:g}")
+    return times
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -1020,7 +1279,15 @@ def main(argv) -> int:
     jm = joseph_mip(T, subject, rot0, trans, kw, tri["rows_m"])
     err_frac = fractional_strides(tri["drr"], jm["drr"], rot0, trans, kw)
     jc = joseph_cube(T, cube, rot0, trans, kw)
-    del drr_c, drr_k, img_c, img_k, rows_c, rows_k, cube, subject
+    del drr_c, drr_k, img_c, img_k, rows_c, rows_k, cube
+
+    # 8. Per-structure channels and p_subsample --------------------------------
+    ch_small = channels_small(small, rot_g, trans_g, rng)
+    ch = channels_full(T, subject, rot0, trans, kw, rng)
+    err_sid_ch = channels_siddon(T, subject, rot0, trans, kw)
+    t_sub, t_full = subsample_full_width(T, subject, rot0, trans, kw, ch["drr"])
+    ch_times = channel_timings(ch)
+    del subject
     rec = trilinear_reconstruction(args.profile)
 
     # 7g. Timings of the Joseph kernels at their paths' shapes
@@ -1123,6 +1390,13 @@ def main(argv) -> int:
         jrec("joseph_bwd_vol", "bwd_vol", 903, rec["launches"]["joseph_bwd_vol"],
              max(rec["err_bv"], jm["err_bv_mip"], jsmall["bwd_vol_sum"], jsmall["bwd_vol_mip"])),
     ]
+    # Channel kernels: launches of phase 8b's two backwards (joseph, trilinear).
+    jtimes.update(ch_times)
+    kernels += [jrec(f"joseph_{key}", key, line, ch["launches"][f"joseph_{key}"],
+                     max(ch["errs"][key], ch_small[key]))
+                for key, line in (("fwd_ch", 376), ("bwd_rays_ch", 600), ("bwd_vol_ch", 903))]
+    log(f"[channels] Siddon channel sum vs siddon_fwd {err_sid_ch:.3e}; p_subsample=0.1 render "
+        f"{t_sub:.3f} ms, full render {t_full:.3f} ms")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

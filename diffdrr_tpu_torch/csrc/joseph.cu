@@ -10,9 +10,16 @@
 //                   cotangent-free gradient rows (under max: those of the
 //                   argmax step), so the pose backward is rows * g;
 //   joseph_bwd_rays _bwd_rays_kernel: the two-pass pose backward, sum or MIP;
-//   joseph_bwd_vol  _bwd_vol_kernel: the density gradient, sum or MIP.
-// Each takes integer and fractional h. Channel mode (mask_to_channels) is
-// not ported yet.
+//   joseph_bwd_vol  _bwd_vol_kernel: the density gradient, sum or MIP;
+// and the channel mode (mask_to_channels) of three of them, which reads
+// the labelmap at each sample's nearest voxel (label_at in joseph.cuh):
+//   joseph_fwd_ch      _fwd_kernel with n_ch: a (C, R) image, each sample
+//                      added to the channel of its label;
+//   joseph_bwd_rays_ch _bwd_rays_kernel with n_ch: each step's 7 terms times
+//                      the cotangent of its channel;
+//   joseph_bwd_vol_ch  _bwd_vol_kernel with n_ch: each step scattered with
+//                      the cotangent of its channel.
+// Each takes integer and fractional h.
 //
 // Design: one thread per ray, walking only its own in-slab steps (step_range
 // in joseph.cuh) and reading the 4 in-plane neighbours of each sample (8 at
@@ -35,6 +42,12 @@
 // zero-filled gradient; their order changes from run to run, so its last
 // bits do too. Shared-memory staging of plane windows is later work
 // (PERF.md).
+//
+// The channel kernels add one 4-byte label gather per step (a 7-label CT
+// fits in int8, but int32 keeps the read simple) and read or write 4 * C
+// bytes per ray instead of 4. The forward accumulates straight into its
+// ray's column of the output: the thread owns the ray, so no atomics; the
+// channel scatter is the scalar scatter with a per-step cotangent.
 #include <cuda_runtime.h>
 
 #include "joseph.cuh"
@@ -94,6 +107,52 @@ joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Ma
   if (r >= n_rays) return;
   joseph::trace_bwd_vol(joseph::load_ray(rows, n_rays, r), grad, m, g[r], arg ? arg[r] : -1,
                         arg != nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads)
+joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
+                     joseph::Labels lab, joseph::March m, int n_channels,
+                     float* __restrict__ out) {
+  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rays) return;
+  joseph::trace_fwd_ch(joseph::load_ray(rows, n_rays, r), vol, lab, m, n_channels, out + r,
+                       n_rays);
+}
+
+__global__ void __launch_bounds__(kThreads)
+joseph_bwd_rays_ch_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
+                          joseph::Labels lab, joseph::March m, int n_channels,
+                          const float* __restrict__ g, float* __restrict__ out) {
+  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rays) return;
+  float acc[joseph::kRows];
+  joseph::trace_bwd_rays_ch(joseph::load_ray(rows, n_rays, r), vol, lab, m, n_channels, g + r,
+                            n_rays, acc);
+#pragma unroll
+  for (int i = 0; i < joseph::kRows; ++i) out[i * n_rays + r] = acc[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+joseph_bwd_vol_ch_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Labels lab,
+                         joseph::March m, int n_channels, const float* __restrict__ g,
+                         joseph::GradVolume grad) {
+  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rays) return;
+  joseph::trace_bwd_vol_ch(joseph::load_ray(rows, n_rays, r), grad, lab, m, n_channels, g + r,
+                           n_rays);
+}
+
+joseph::Labels make_labels(const int* labels, int64_t ls, int64_t ly, int64_t lz, int X, int Y,
+                           int Z) {
+  joseph::Labels l;
+  l.data = labels;
+  l.ss = ls;
+  l.sy = ly;
+  l.sz = lz;
+  l.X = X;
+  l.Y = Y;
+  l.Z = Z;
+  return l;
 }
 
 joseph::Volume make_volume(const float* vol, int64_t ss, int64_t sy, int64_t sz, int X, int Y,
@@ -191,6 +250,58 @@ extern "C" int joseph_bwd_vol(const float* rows, int64_t n_rays, const float* g,
     gv.Z = Z;
     joseph_bwd_vol_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
         rows, n_rays, make_march(h, n_steps, blend), g, arg, gv);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Channel mode. labels: the int32 labelmap with element strides (ls, ly, lz)
+// in the same permuted order and the density's extents; n_channels: C;
+// out: (C, n_rays) for joseph_fwd_ch (every entry written), (7, n_rays) for
+// joseph_bwd_rays_ch; g: (C, n_rays) float32.
+extern "C" int joseph_fwd_ch(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
+                             int64_t sy, int64_t sz, int X, int Y, int Z, const int* labels,
+                             int64_t ls, int64_t ly, int64_t lz, float h, int n_steps, int blend,
+                             int n_channels, float* out, void* stream) {
+  if (n_rays > 0) {
+    joseph_fwd_ch_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z),
+        make_labels(labels, ls, ly, lz, X, Y, Z), make_march(h, n_steps, blend), n_channels,
+        out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int joseph_bwd_rays_ch(const float* rows, int64_t n_rays, const float* vol,
+                                  int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
+                                  const int* labels, int64_t ls, int64_t ly, int64_t lz, float h,
+                                  int n_steps, int blend, int n_channels, const float* g,
+                                  float* out, void* stream) {
+  if (n_rays > 0) {
+    joseph_bwd_rays_ch_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z),
+        make_labels(labels, ls, ly, lz, X, Y, Z), make_march(h, n_steps, blend), n_channels, g,
+        out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int joseph_bwd_vol_ch(const float* rows, int64_t n_rays, const float* g,
+                                 const int* labels, int64_t ls, int64_t ly, int64_t lz,
+                                 float* grad, int64_t gs, int64_t gy, int64_t gz, int X, int Y,
+                                 int Z, float h, int n_steps, int blend, int n_channels,
+                                 void* stream) {
+  if (n_rays > 0) {
+    joseph::GradVolume gv;
+    gv.data = grad;
+    gv.ss = gs;
+    gv.sy = gy;
+    gv.sz = gz;
+    gv.X = X;
+    gv.Y = Y;
+    gv.Z = Z;
+    joseph_bwd_vol_ch_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, make_labels(labels, ls, ly, lz, X, Y, Z), make_march(h, n_steps, blend),
+        n_channels, g, gv);
   }
   return (int)cudaGetLastError();
 }

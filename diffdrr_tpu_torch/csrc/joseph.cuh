@@ -31,6 +31,12 @@
 // MIP (reducefn="max"): the value is the largest sample * sc over the ray's
 // steps, the argmax is the step p (-1 when no sample beats 0), and every
 // gradient is gated to that step.
+//
+// Channels (mask_to_channels): each step also reads the labelmap at the
+// sample's nearest voxel (label_at) and lands in that label's channel; a
+// label outside [0, C) adds nothing. The forward adds the step's value to
+// its channel, and both backwards take the cotangent of that channel for
+// the step. Channel renders are always sums.
 #pragma once
 
 #include <math.h>
@@ -61,6 +67,14 @@ struct Volume {
 // The density gradient, written through its own strides in the same order.
 struct GradVolume {
   float* data;
+  int64_t ss, sy, sz;
+  int X, Y, Z;
+};
+
+// The labelmap (int32 structure IDs), read through its own strides in the
+// density's permuted order; its extents are the density's.
+struct Labels {
+  const int* data;
   int64_t ss, sy, sz;
   int X, Y, Z;
 };
@@ -324,10 +338,29 @@ JOSEPH_HD void scatter(const GradVolume& gv, int k, float fy, float fz, float x)
   add_grad(gv.data + (int64_t)k * gv.ss + (int64_t)fy * gv.sy + (int64_t)fz * gv.sz, x);
 }
 
-// d(loss)/d(volume): each in-slab step adds (wy_m g) (wz_n scale) to its 4
+// One step's share of d(loss)/d(volume): (wy_m g) (wz_n scale) onto its 4
 // in-plane neighbours, split (1 - fx, fx) over the plane pair in blend mode
 // (8 voxels). Neighbours outside the volume (plane X included) and zero
-// weights write nothing. In MIP mode only the argmax step writes.
+// weights write nothing.
+JOSEPH_HD void scatter_step(const GradVolume& gv, const Step& s, bool blend, float g) {
+  for (int mm = 0; mm < 2; ++mm) {
+    float wyg = s.wy[mm] * g;
+    for (int n = 0; n < 2; ++n) {
+      float x = wyg * (s.wz[n] * s.scale);
+      float fy = s.fy + (float)mm;
+      float fz = s.fz + (float)n;
+      if (blend) {
+        scatter(gv, s.k0, fy, fz, x * (1.f - s.fx));
+        scatter(gv, s.k0 + 1, fy, fz, x * s.fx);
+      } else {
+        scatter(gv, s.k0, fy, fz, x);
+      }
+    }
+  }
+}
+
+// d(loss)/d(volume): every in-slab step scatters with the ray's g. In MIP
+// mode only the argmax step writes.
 JOSEPH_HD void trace_bwd_vol(const Ray& r, const GradVolume& gv, const March& m, float g,
                              int arg, bool mip) {
   int lo, hi;
@@ -341,20 +374,88 @@ JOSEPH_HD void trace_bwd_vol(const Ray& r, const GradVolume& gv, const March& m,
   for (int p = lo; p < hi; ++p) {
     Step s = step_at(r, m, gv.X, p);
     if (!s.inslab) continue;
-    for (int mm = 0; mm < 2; ++mm) {
-      float wyg = s.wy[mm] * g;
-      for (int n = 0; n < 2; ++n) {
-        float x = wyg * (s.wz[n] * s.scale);
-        float fy = s.fy + (float)mm;
-        float fz = s.fz + (float)n;
-        if (m.blend) {
-          scatter(gv, s.k0, fy, fz, x * (1.f - s.fx));
-          scatter(gv, s.k0 + 1, fy, fz, x * s.fx);
-        } else {
-          scatter(gv, s.k0, fy, fz, x);
-        }
-      }
-    }
+    scatter_step(gv, s, m.blend, g);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Channels
+// ---------------------------------------------------------------------------
+
+// The label of the step's sample at its nearest voxel, by the TPU kernel's
+// rule (_onehot_at, _get_lab): the transverse position rounded half to even
+// (rintf), plane k0 at an integer h and, at a fractional h, plane k0 + 1
+// only when fx > 0.5 (a tie takes k0). A position outside the volume, plane
+// X included, reads label 0.
+JOSEPH_HD int label_at(const Labels& l, const Ray& r, const Step& s, bool blend) {
+  int k = (blend && s.fx > 0.5f) ? s.k0 + 1 : s.k0;
+  float ry = rintf(r.gy + s.alpha * r.dy);
+  float rz = rintf(r.gz + s.alpha * r.dz);
+  if (!(k >= 0 && k < l.X && ry >= 0.f && ry < (float)l.Y && rz >= 0.f && rz < (float)l.Z))
+    return 0;
+  return l.data[(int64_t)k * l.ss + (int64_t)ry * l.sy + (int64_t)rz * l.sz];
+}
+
+// The channel a label lands in, or -1 for a label outside [0, C).
+JOSEPH_HD int channel_of(int label, int n_channels) {
+  return label >= 0 && label < n_channels ? label : -1;
+}
+
+// The channel forward of one ray: out[c * n_rays] (the ray's column of a
+// (C, n_rays) image) = sum of sample * scale over its steps whose label is
+// c. A step with scale <= 0 votes for no channel (_fwd_kernel's -1 label).
+JOSEPH_HD void trace_fwd_ch(const Ray& r, const Volume& v, const Labels& l, const March& m,
+                            int n_channels, float* out, int64_t n_rays) {
+  for (int c = 0; c < n_channels; ++c) out[c * n_rays] = 0.f;
+  int lo, hi;
+  step_range(r, m, &lo, &hi);
+  for (int p = lo; p < hi; ++p) {
+    Step s = step_at(r, m, v.X, p);
+    if (!(s.scale > 0.f)) continue;  // outside the slab, or a zero-length sample
+    int c = channel_of(label_at(l, r, s, m.blend), n_channels);
+    if (c < 0) continue;
+    float win[2][2];
+    window(v, s, m.blend, win);
+    out[c * n_rays] += bilinear(s, win) * s.scale;
+  }
+}
+
+// The channel pose backward: acc[0..6] = sum over steps of the step's 7
+// terms times g[c * n_rays], the cotangent of the step's channel c (g is
+// the ray's column of a (C, n_rays) cotangent). No final product by g.
+JOSEPH_HD void trace_bwd_rays_ch(const Ray& r, const Volume& v, const Labels& l,
+                                 const March& m, int n_channels, const float* g,
+                                 int64_t n_rays, float acc[kRows]) {
+  for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
+  int lo, hi;
+  step_range(r, m, &lo, &hi);
+  for (int p = lo; p < hi; ++p) {
+    Step s = step_at(r, m, v.X, p);
+    if (!s.inslab) continue;
+    int c = channel_of(label_at(l, r, s, m.blend), n_channels);
+    if (c < 0) continue;
+    float gc = g[c * n_rays];
+    float win[2][2];
+    window(v, s, m.blend, win);
+    float terms[kRows];
+    step_terms(r, s, win, terms);
+    for (int i = 0; i < kRows; ++i) acc[i] += terms[i] * gc;
+  }
+}
+
+// The channel density backward: every in-slab step scatters with the
+// cotangent of its channel.
+JOSEPH_HD void trace_bwd_vol_ch(const Ray& r, const GradVolume& gv, const Labels& l,
+                                const March& m, int n_channels, const float* g,
+                                int64_t n_rays) {
+  int lo, hi;
+  step_range(r, m, &lo, &hi);
+  for (int p = lo; p < hi; ++p) {
+    Step s = step_at(r, m, gv.X, p);
+    if (!s.inslab) continue;
+    int c = channel_of(label_at(l, r, s, m.blend), n_channels);
+    if (c < 0) continue;
+    scatter_step(gv, s, m.blend, g[c * n_rays]);
   }
 }
 

@@ -1,27 +1,27 @@
 """CT volume ingest and preprocessing.
 
-Counterpart of ``diffdrr_tpu/data.py``. Host-side work (HU -> density,
-reorientation, isocentre centring, the procedural example phantom) stays in
-NumPy with the same float32 arithmetic as the JAX package, so the density
-arrays agree byte for byte. :meth:`Subject.to` then moves the density (and
-mask) to a device as tensors.
-
-Not ported yet (ROADMAP.md, queue 1 item 4): NIfTI I/O, ``resample_subject``
-and ``synthesize_ct_from_labelmap``. ``read`` takes in-memory images only.
+Counterpart of ``diffdrr_tpu/data.py``. Host-side work (NIfTI I/O, HU ->
+density, reorientation, isocentre centring, label masking, resampling, the
+procedural example phantom) stays in NumPy with the same float32 arithmetic
+as the JAX package, so the density arrays agree byte for byte.
+:meth:`Subject.to` then moves the density (and mask) to a device as
+tensors. Files are read by the port's own ``nifti.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from . import nifti
 from ._device import DeviceLike, resolve_device
 
-__all__ = ["Image", "Subject", "read", "transform_hu_to_density",
-           "canonicalize", "load_example_ct"]
+__all__ = ["Image", "Subject", "read", "transform_hu_to_density", "canonicalize",
+           "resample_subject", "synthesize_ct_from_labelmap", "load_example_ct"]
 
 
 class Image:
@@ -34,6 +34,15 @@ class Image:
         self.data = data
         self.affine = np.asarray(affine, np.float64)
 
+    @classmethod
+    def load(cls, path: Union[str, Path]) -> "Image":
+        """A NIfTI-1 file (``.nii`` or ``.nii.gz``) on the host."""
+        return cls(*nifti.load(path))
+
+    def save(self, path: Union[str, Path]) -> None:
+        data = self.data
+        nifti.save(path, data.cpu().numpy() if torch.is_tensor(data) else data, self.affine)
+
     @property
     def spatial_shape(self):
         return tuple(self.data.shape)
@@ -41,6 +50,11 @@ class Image:
     @property
     def spacing(self) -> np.ndarray:
         return np.sqrt((self.affine[:3, :3] ** 2).sum(axis=0))
+
+    @property
+    def orientation(self) -> tuple:
+        """Axis direction codes, e.g. ``('R', 'A', 'S')``."""
+        return nifti.aff2axcodes(self.affine)
 
     def get_center(self) -> np.ndarray:
         """World coordinates of the volume centre (torchio semantics)."""
@@ -136,28 +150,35 @@ def canonicalize(subject: Subject) -> Subject:
 
 
 def read(
-    volume: Image,
-    labelmap: Optional[Image] = None,
+    volume: Union[str, Path, Image],
+    labelmap: Union[str, Path, Image, None] = None,
     labels: Union[int, Sequence[int], None] = None,
     orientation: Optional[str] = "AP",
     bone_attenuation_multiplier: float = 1.0,
     fiducials: Optional[np.ndarray] = None,
+    transform=None,
     center_volume: bool = True,
+    resample_target: Union[float, Sequence[float], None] = None,
     **kwargs,
 ) -> Subject:
-    """Package an in-memory CT (+ optional labelmap) for rendering.
+    """Read a CT (+ optional labelmap), from NIfTI files or in-memory
+    images, and package it for rendering.
 
-    HU -> density, AP/PA/None reorientation, isocentre centring, and
-    label-subset masking. The result stays on the host; call
-    :meth:`Subject.to` (or let ``load_example_ct`` do it) to move it.
+    Optional affine pre-transform (a ``RigidTransform``), HU -> density,
+    AP/PA/None reorientation, isocentre centring, label-subset masking (a
+    labelmap stored in another orientation is reoriented to the volume's
+    to mask the volume, and masked in its own frame), and optional
+    resampling to ``resample_target`` mm. The result stays on the host;
+    call :meth:`Subject.to` (or let ``load_example_ct`` do it) to move it.
     """
     if not isinstance(volume, Image):
-        raise NotImplementedError(
-            "reading a CT from a file is not ported yet (NIfTI I/O, "
-            "ROADMAP.md queue 1 item 4); pass an in-memory Image")
+        volume = Image.load(volume)
     mask = labelmap
     if mask is not None and not isinstance(mask, Image):
-        raise NotImplementedError("pass the labelmap as an in-memory Image")
+        mask = Image.load(mask)
+    if transform is not None:
+        T = np.asarray(transform.matrix.detach().cpu(), np.float64)[0]
+        volume = Image(volume.data, T @ volume.affine)
 
     density = Image(
         transform_hu_to_density(volume.data, bone_attenuation_multiplier),
@@ -184,14 +205,53 @@ def read(
             raise ValueError("read(labels=...) requires a labelmap; none was provided")
         if isinstance(labels, int):
             labels = [labels]
-        if not np.allclose(subject.mask.affine[:3, :3], subject.volume.affine[:3, :3]):
-            raise NotImplementedError(
-                "reorienting a labelmap to the volume's orientation is not "
-                "ported yet (NIfTI helpers, ROADMAP.md queue 1 item 4)")
-        keep = np.isin(subject.mask.data, np.asarray(labels))
+        labels = np.asarray(labels)
+        mask_data = subject.mask.data
+        if subject.volume.orientation != subject.mask.orientation:
+            tf = nifti.ornt_transform(nifti.axcodes2ornt(subject.mask.orientation),
+                                      nifti.axcodes2ornt(subject.volume.orientation))
+            mask_data = nifti.apply_orientation(mask_data, tf)
+        # ``keep`` is in the volume's frame; the labelmap is masked in its own.
+        keep = np.isin(mask_data, labels)
         subject.volume.data = subject.volume.data * keep
-        subject.mask.data = subject.mask.data * keep
+        subject.mask.data = subject.mask.data * np.isin(subject.mask.data, labels)
         subject.density.data = subject.density.data * keep
+
+    if resample_target is not None:
+        subject = resample_subject(subject, resample_target)
+    return subject
+
+
+def resample_subject(subject: Subject, target: Union[float, Sequence[float]]) -> Subject:
+    """Resample every image of a host subject to ``target`` mm spacing
+    (torchio's ``Resample``): trilinear for the volume and density, nearest
+    (order 0, fill 0) for the labelmap; direction and origin kept."""
+    from scipy import ndimage
+
+    if np.isscalar(target):
+        target = (float(target),) * 3
+    target = np.asarray(target, np.float64)
+
+    def _resample(image: Image, order: int) -> Image:
+        spacing = image.spacing
+        new_shape = np.maximum(1, np.round(np.asarray(image.spatial_shape) * (spacing / target)))
+        new_affine = np.eye(4)
+        new_affine[:3, :3] = image.affine[:3, :3] / spacing * target
+        new_affine[:3, 3] = image.affine[:3, 3]
+        # old index = A_old^-1 @ A_new @ new index
+        M = np.linalg.inv(image.affine) @ new_affine
+        data = ndimage.affine_transform(
+            np.asarray(image.data).astype(np.float32), M[:3, :3], offset=M[:3, 3],
+            output_shape=tuple(int(s) for s in new_shape), order=order, mode="constant",
+            cval=float(np.asarray(image.data).min()) if order > 0 else 0.0)
+        if order == 0:
+            data = data.astype(np.asarray(image.data).dtype)
+        return Image(data, new_affine)
+
+    subject.volume = _resample(subject.volume, 1)
+    subject.density = _resample(subject.density, 1)
+    if subject.mask is not None:
+        subject.mask = _resample(subject.mask, 0)
     return subject
 
 
@@ -262,6 +322,61 @@ _EXAMPLE_STRUCTURES = [
     (5, "spine"),
     (6, "ribs"),
 ]
+
+
+_HU_RULES = (
+    # (substring of a TotalSegmentator structure name, HU)
+    ("lung", -780.0), ("trachea", -850.0),
+    ("vertebrae", 550.0), ("rib", 500.0), ("sternum", 450.0),
+    ("clavicula", 450.0), ("scapula", 420.0), ("humerus", 420.0),
+    ("femur", 420.0), ("hip", 420.0), ("sacrum", 450.0), ("skull", 550.0),
+    ("heart", 55.0), ("aorta", 60.0), ("vena", 50.0), ("vein", 50.0),
+    ("artery", 55.0), ("atrial", 55.0), ("ventricle", 55.0),
+    ("liver", 60.0), ("spleen", 55.0), ("kidney", 35.0),
+    ("gallbladder", 20.0), ("pancreas", 40.0), ("adrenal", 30.0),
+    ("stomach", 15.0), ("bowel", 10.0), ("duodenum", 15.0),
+    ("colon", 5.0), ("esophagus", 35.0), ("thyroid", 90.0),
+    ("bladder", 10.0), ("prostate", 40.0),
+    ("autochthon", 48.0), ("gluteus", 48.0), ("iliopsoas", 48.0),
+)
+
+
+def _structure_rows(structures):
+    """(id, name) pairs of a structures table: a DataFrame with ``id`` and
+    ``structure`` (or ``name``) columns, or a sequence of pairs."""
+    if hasattr(structures, "iterrows"):
+        col = "structure" if "structure" in structures else "name"
+        return [(row["id"], row[col]) for _, row in structures.iterrows()]
+    return list(structures)
+
+
+def synthesize_ct_from_labelmap(labelmap, structures=None, body_hu: float = 25.0,
+                                air_hu: float = -1000.0) -> np.ndarray:
+    """An HU volume (float32, host) whose geometry is a segmented labelmap's.
+
+    Each labelled voxel gets its structure's tissue HU (``_HU_RULES``, by
+    name; ``body_hu`` when no rule matches or no table is given); unlabelled
+    voxels inside the body envelope (each axial slice's labelled region,
+    dilated twice and hole-filled) get ``body_hu``, the rest ``air_hu``.
+    """
+    from scipy import ndimage
+
+    labelmap = np.asarray(labelmap)
+    hu_of = np.full(int(labelmap.max()) + 1, float(body_hu), np.float32)
+    if structures is not None:
+        for sid, name in _structure_rows(structures):
+            name = str(name).lower()
+            for needle, hu in _HU_RULES:
+                if needle in name:
+                    hu_of[int(sid)] = hu
+                    break
+    labeled = labelmap > 0
+    body = np.zeros_like(labeled)
+    for k in range(labelmap.shape[2]):
+        body[:, :, k] = ndimage.binary_fill_holes(
+            ndimage.binary_dilation(labeled[:, :, k], iterations=2))
+    hu = np.where(body, body_hu, air_hu).astype(np.float32)
+    return np.where(labeled, hu_of[labelmap], hu)
 
 
 def load_example_ct(

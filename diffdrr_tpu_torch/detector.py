@@ -5,6 +5,12 @@ origin and the detector plane is centred on (0, 0, 1), scaled to world units
 by a 4x4 calibration holding the intrinsics. The canonical plane is built on
 the host in NumPy (the same code as the JAX package, so pixel order and the
 odd-size centring agree bit for bit) and moved to the device once.
+
+With ``n_subsample`` the detector keeps a random subset of its pixels,
+``np.random.default_rng(seed).permutation(H * W)[:n_subsample]``, drawn once
+at construction (the same indices as the JAX package's for the same seed):
+``__call__`` then returns only those rays, ``subsamples[-1]`` lists their
+indices and ``full_plane_target`` gives the whole frame.
 """
 
 from __future__ import annotations
@@ -59,23 +65,36 @@ class Detector:
         x0: float,
         y0: float,
         reorient,
+        n_subsample: Optional[int] = None,
         reverse_x_axis: bool = False,
         *,
+        seed: int = 0,
         device: torch.device,
     ):
         self.height = int(height)
         self.width = int(width)
+        self.n_subsample = None if n_subsample is None else int(n_subsample)
         self.reverse_x_axis = bool(reverse_x_axis)
         self._sdd = float(sdd)
         self._delx = float(delx)
         self._dely = float(dely)
         self._x0 = float(x0)
         self._y0 = float(y0)
+        self.seed = seed
         self.device = torch.device(device)
 
         source, target = _canonical_plane(self.height, self.width, self.reverse_x_axis)
         self.source = torch.as_tensor(source, device=self.device)
-        self.target = torch.as_tensor(target, device=self.device)
+        self.target_full = torch.as_tensor(target, device=self.device)
+        self.target = self.target_full
+        self.subsamples = []
+        self.subsample_index = None
+        if self.n_subsample is not None:
+            sample = np.random.default_rng(seed).permutation(self.height * self.width)
+            sample = sample[:self.n_subsample]
+            self.subsamples.append(sample.tolist())
+            self.subsample_index = torch.as_tensor(sample, device=self.device)
+            self.target = self.target_full[:, self.subsample_index]
         self._reorient = torch.as_tensor(
             np.asarray(reorient, np.float32), device=self.device)
         self._calibration = torch.tensor(
@@ -138,6 +157,14 @@ class Detector:
         return pose(self.source), pose(target)
 
     forward = __call__
+
+    def full_plane_target(self, extrinsic: RigidTransform,
+                          calibration: Optional[RigidTransform] = None) -> torch.Tensor:
+        """World-space targets ``(B, H * W, 3)`` of the whole detector frame,
+        whatever the subsampling."""
+        if calibration is None:
+            calibration = self.calibration
+        return self.reorient.compose(extrinsic)(calibration(self.target_full))
 
 
 def get_focal_length(intrinsic, delx: float, dely: float) -> float:

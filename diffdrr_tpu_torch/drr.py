@@ -33,17 +33,28 @@ it. ``fused_pose_bwd`` (default True) takes the pose gradient from the fused
 forward; False runs the value-only forward and the two-pass pose backward,
 the cheaper choice when only the density needs a gradient.
 
-The oracles (``ops/siddon.py``, ``ops/joseph.py``, ``ops/trilinear.py``)
-render, in ``patch_size`` chunks when that is set: ray sets that are not the
-full detector frame, ``force_xla=True``, a callable ``reducefn``, and what
-the trilinear kernels do not take (``reducefn="max"``, ``mode``,
-``align_corners``, ``alphamin``/``alphamax``). The Joseph oracle chooses
-its axis, when none is pinned, from the mean ray direction of the whole
-ray set, as the JAX package's does. None of the JAX package's TPU planning
-(tile windows, the footprint guard, bf16 storage) exists here: the volume is
-stored once, in float32.
+Per-structure channels (``mask_to_channels=True``, with a labelmap on the
+subject): the labelmap goes to the device once, as int32, and the render is
+``(B, n_channels, H, W)``, ``n_channels = max label + 1``. joseph and
+trilinear render them with the Joseph kernels' channel mode (always a sum;
+trilinear only where its kernels take the options); Siddon, and a DRR
+without a labelmap, render on the oracle, as the JAX package routes them.
 
-Not ported yet (ROADMAP.md): ``mask_to_channels`` and ``p_subsample``.
+``p_subsample``: the detector keeps ``int(H * W * p_subsample)`` seeded
+random pixels. ``forward`` renders only those rays, on the kernels with the
+march axis (and Siddon's slab guard) judged from the full frame's corner
+rays, and scatters them into a zeroed ``(B, C, H, W)`` image.
+
+The oracles (``ops/siddon.py``, ``ops/joseph.py``, ``ops/trilinear.py``)
+render, in ``patch_size`` chunks when that is set: ray sets that ``render``
+is given directly and that are not the full detector frame,
+``force_xla=True``, a callable ``reducefn``, and what the trilinear kernels
+do not take (``reducefn="max"``, ``mode``, ``align_corners``,
+``alphamin``/``alphamax``). The Joseph oracle chooses its axis, when none
+is pinned, from the mean ray direction of the whole ray set, as the JAX
+package's does. None of the JAX package's TPU planning (tile windows, the
+footprint guard, bf16 storage, sparse-render strategies) exists here: the
+volume is stored once, in float32.
 """
 
 from __future__ import annotations
@@ -59,16 +70,15 @@ from ._device import DeviceLike, resolve_device
 from .data import Subject
 from .detector import Detector
 from .ops.joseph import joseph_raycast
-from .ops.kernels.joseph import joseph_march_raycast
+from .ops.kernels.joseph import as_labels, joseph_march_raycast
 from .ops.kernels.raymarch import raymarch_raycast
 from .ops.kernels.siddon import siddon_slab_raycast
 from .ops.siddon import siddon_raycast
 from .ops.trilinear import trilinear_raycast
 from .pose import RigidTransform, convert
 
-__all__ = ["DRR"]
+__all__ = ["DRR", "reshape_subsampled_drr"]
 
-_TODO = "{} is not ported to diffdrr_tpu_torch yet; see ROADMAP.md"
 _ORACLES = {"siddon": siddon_raycast, "joseph": joseph_raycast,
             "trilinear": trilinear_raycast}
 # Render options each renderer understands; anything else raises.
@@ -109,23 +119,28 @@ class DRR:
     ):
         if renderer not in _OPTIONS:
             raise ValueError(f"renderer must be one of {sorted(_OPTIONS)}, not {renderer!r}")
-        if p_subsample is not None:
-            raise NotImplementedError(_TODO.format("p_subsample"))
         unknown = set(renderer_kwargs) - _OPTIONS[renderer]
         if unknown:
             raise TypeError(f"unexpected renderer option(s) {sorted(unknown)}")
         self.device = resolve_device(device)
         width = height if width is None else width
         dely = delx if dely is None else dely
+        n_subsample = None if p_subsample is None else int(height * width * p_subsample)
 
-        self.detector = Detector(sdd, height, width, delx, dely, x0, y0,
-                                 subject.reorient, reverse_x_axis, device=self.device)
+        self.detector = Detector(sdd, height, width, delx, dely, x0, y0, subject.reorient,
+                                 n_subsample, reverse_x_axis, device=self.device)
         self.subject = subject
         affine = np.asarray(subject.volume.affine, np.float32)[None]
         self._affine = torch.as_tensor(affine, device=self.device)
         self._affine_inverse = torch.as_tensor(np.linalg.inv(affine), device=self.device)
         self.density = torch.as_tensor(subject.density.data, dtype=torch.float32,
                                        device=self.device).contiguous()
+        # The labelmap, int32 on the device, and its channel count (one host read).
+        self.mask = self.n_channels = None
+        if subject.mask is not None:
+            mask = torch.as_tensor(subject.mask.data)
+            self.n_channels = int(mask.max()) + 1
+            self.mask = as_labels(mask.to(self.device)).contiguous()
         self.renderer_name = renderer
         self.voxel_shift = voxel_shift
         self.renderer_kwargs = dict(renderer_kwargs)
@@ -179,8 +194,13 @@ class DRR:
             pose = convert(*args, parameterization=parameterization,
                            convention=convention, degrees=degrees)
         source, target = self.detector(pose, calibration)
-        img = self.render(self.density, source, target,
-                          mask_to_channels=mask_to_channels, **kwargs)
+        sample = None
+        if self.detector.n_subsample is not None:
+            # Only the sampled rays are rendered, taken from the full frame
+            # (whose corner rays judge the march axis, as in the JAX package).
+            target = self.detector.full_plane_target(pose, calibration)
+            sample = self.detector.subsample_index
+        img = self._render(self.density, source, target, mask_to_channels, sample, kwargs)
         return self.reshape_transform(img, batch_size=len(pose))
 
     def worst_ratios(self, source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -209,9 +229,14 @@ class DRR:
     def render(self, density: torch.Tensor, source: torch.Tensor,
                target: torch.Tensor, mask_to_channels: bool = False,
                **kwargs) -> torch.Tensor:
-        """Line integrals ``(B, 1, N)`` of world-space rays through ``density``."""
-        if mask_to_channels:
-            raise NotImplementedError(_TODO.format("mask_to_channels"))
+        """Line integrals ``(B, 1, N)`` of world-space rays through ``density``
+        (``(B, n_channels, N)`` with ``mask_to_channels``)."""
+        return self._render(density, source, target, mask_to_channels, None, kwargs)
+
+    def _render(self, density, source, target, mask_to_channels, sample, kwargs):
+        """``render``; with ``sample`` (indices into the full frame ``target``)
+        only those rays are rendered. They are gathered after the transforms,
+        so each is bit for bit the full render's ray."""
         opts = {**self.renderer_kwargs, **kwargs}
         unknown = set(opts) - _OPTIONS[self.renderer_name]
         if unknown:
@@ -222,16 +247,26 @@ class DRR:
         target = self.affine_inverse(target)
 
         H, W = self.detector.height, self.detector.width
-        if target.shape[1] == H * W and not opts.get("force_xla", False):
+        frame = target if target.shape[1] == H * W else None
+        if sample is not None:
+            target, weights = target[:, sample], weights[..., sample]
+        # Channels take the kernels for joseph and trilinear with a labelmap;
+        # Siddon channels, and channels without a labelmap, take the oracle.
+        channels = mask_to_channels and self.mask is not None
+        kernels = not mask_to_channels or (channels and self.renderer_name != "siddon")
+        if frame is not None and kernels and not opts.get("force_xla", False):
             if self.renderer_name == "siddon":
-                img = self._render_slab(density, source, target, weights, opts)
+                img = self._render_slab(density, source, target, weights, opts, frame)
             else:
-                img = self._render_march(density, source, target, weights, opts)
+                img = self._render_march(density, source, target, weights, opts, frame,
+                                         channels)
             if img is not None:
                 return img
+        if channels:
+            opts.update(mask=self.mask, n_channels=self.n_channels)
         return self._render_oracle(density, source, target, weights, opts)
 
-    def _render_slab(self, density, source, target, weights, opts):
+    def _render_slab(self, density, source, target, weights, opts, frame):
         """Siddon's slab kernels, or None for the oracle."""
         reducefn = opts.get("reducefn", "sum")
         if not (reducefn in ("sum", "max") and opts.get("mode", "nearest") == "nearest"
@@ -243,7 +278,7 @@ class DRR:
         slab_guard = opts.get("slab_guard", True)
         ratios = None
         if axis is None or slab_guard:
-            ratios = self.worst_ratios(source, target).tolist()
+            ratios = self.worst_ratios(source, frame).tolist()
         if axis is None:
             axis = int(np.argmin(ratios))
         if slab_guard and not ratios[axis] <= 1.0 + 1e-6:
@@ -253,7 +288,7 @@ class DRR:
                                    voxel_shift=self.voxel_shift, eps=opts.get("eps", 1e-8),
                                    reduce=reducefn, fused=opts.get("fused_pose_bwd", True))
 
-    def _render_march(self, density, source, target, weights, opts):
+    def _render_march(self, density, source, target, weights, opts, frame, channels):
         """The Joseph kernels (joseph, trilinear), or None for the oracle."""
         reducefn = opts.get("reducefn", "sum")
         trilinear = self.renderer_name == "trilinear"
@@ -274,11 +309,13 @@ class DRR:
                 f"trilinear kernel caps n_points={n_points} at one sample per plane "
                 f"({density.shape[self.march_axis if axis is None else axis]}); accuracy is "
                 f"already saturated there; pass allow_oversample=True to honor n_points "
-                f"literally (reference semantics, proportionally slower)", stacklevel=4)
+                f"literally (reference semantics, proportionally slower)", stacklevel=5)
         if axis is None:
-            axis = int(np.argmin(self.worst_ratios(source, target).tolist()))
+            axis = int(np.argmin(self.worst_ratios(source, frame).tolist()))
         common = dict(axis=axis, voxel_shift=self.voxel_shift, eps=opts.get("eps", 1e-8),
                       reduce=reducefn, fused=opts.get("fused_pose_bwd", True))
+        if channels:
+            common.update(mask=self.mask, n_channels=self.n_channels)
         if trilinear:
             return raymarch_raycast(density, source, target, weights, n_points=n_points,
                                     allow_oversample=allow_oversample, **common)
@@ -308,5 +345,17 @@ class DRR:
 
     def reshape_transform(self, img: torch.Tensor, batch_size: int) -> torch.Tensor:
         if self.reshape:
-            img = img.reshape(batch_size, -1, self.detector.height, self.detector.width)
+            if self.detector.n_subsample is None:
+                img = img.reshape(batch_size, -1, self.detector.height, self.detector.width)
+            else:
+                img = reshape_subsampled_drr(img, self.detector, batch_size)
         return img
+
+
+def reshape_subsampled_drr(img: torch.Tensor, detector: Detector,
+                           batch_size: int) -> torch.Tensor:
+    """The sampled rays ``(B, C, n)`` scattered into a zeroed ``(B, C, H, W)``."""
+    C = img.shape[1]
+    drr = img.new_zeros((batch_size, C, detector.height * detector.width))
+    drr = drr.index_copy(2, detector.subsample_index, img.reshape(batch_size, C, -1))
+    return drr.reshape(batch_size, C, detector.height, detector.width)

@@ -9,7 +9,10 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["alpha_minmax", "points_at_alpha", "reduce_img"]
+from .sampling import sample_volume
+
+__all__ = ["alpha_minmax", "points_at_alpha", "reduce_img", "scatter_channels",
+           "channel_render"]
 
 
 def alpha_minmax(source: torch.Tensor, target: torch.Tensor,
@@ -50,3 +53,28 @@ def reduce_img(img: torch.Tensor, reducefn) -> torch.Tensor:
     if callable(reducefn):
         return reducefn(img)
     raise ValueError(f"Only supports reducefn 'sum' or 'max', not {reducefn}")
+
+
+def scatter_channels(img: torch.Tensor, channels: torch.Tensor, n_channels: int) -> torch.Tensor:
+    """Per-sample contributions summed into per-structure channels.
+
+    ``img (B, N, S)``, integer ``channels (B, N, S)`` -> ``(B, C, N)``. A
+    sample whose channel lies outside ``[0, n_channels)`` is dropped.
+    Differentiable with respect to ``img``.
+    """
+    B, N, _ = img.shape
+    ok = (channels >= 0) & (channels < n_channels)
+    idx = torch.clamp(channels, 0, n_channels - 1).to(torch.int64)
+    src = torch.where(ok, img, torch.zeros_like(img))
+    out = img.new_zeros((B, N, n_channels)).scatter_add(-1, idx, src)
+    return out.transpose(1, 2)
+
+
+def channel_render(img: torch.Tensor, mask: torch.Tensor, points: torch.Tensor,
+                   n_channels, **sample_kw) -> torch.Tensor:
+    """``img (B, N, S)`` summed by the label of ``mask`` at each sample's
+    ``points (B, N, S, 3)``, sampled nearest whatever the value's mode."""
+    if n_channels is None:
+        raise ValueError("n_channels must be provided when rendering with a mask")
+    labels = sample_volume(mask, points, mode="nearest", **sample_kw).to(torch.int64)
+    return scatter_channels(img, labels, int(n_channels))

@@ -14,7 +14,9 @@ for a callable ``reducefn`` and under ``force_xla=True``; the full frame
 otherwise runs the CUDA kernels of ``ops/kernels/joseph.py``, which compute
 the same function with a hand-written gradient.
 
-Not ported yet (ROADMAP.md): per-structure channels (``mask``).
+With a labelmap ``mask`` each sample goes to the channel of the mask's
+label at the same point (nearest, half to even), a ``(B, n_channels, N)``
+sum whatever ``reducefn`` says.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from ._raygeom import alpha_minmax, reduce_img
+from ._raygeom import alpha_minmax, channel_render, reduce_img
 from .sampling import sample_volume
 
 __all__ = ["joseph_raycast", "choose_march_axis"]
@@ -51,12 +53,14 @@ def joseph_raycast(
     voxel_shift: float = 0.5,
     reducefn: Union[str, Callable] = "sum",
     eps: float = 1e-8,
+    mask: Optional[torch.Tensor] = None,
+    n_channels: Optional[int] = None,
 ) -> torch.Tensor:
     """Line integrals ``(B, 1, N)`` by marching the planes of ``axis``.
 
     ``volume (X, Y, Z)``, ``source (B, 1, 3)``, ``target (B, N, 3)`` in voxel
     space, ``weights (B, 1, N)``. ``step`` may be fractional: samples then
-    sit between planes.
+    sit between planes. With ``mask``: ``(B, n_channels, N)``.
     """
     dims = tuple(volume.shape)
     X = dims[axis]
@@ -86,4 +90,6 @@ def joseph_raycast(
     vals = sample_volume(volume, pts - off, mode="trilinear", voxel_shift=voxel_shift)
     dalpha = torch.abs(step / d_ax)[..., None]  # (B, N, 1)
     img = vals * in_slab * dalpha * weights.transpose(-1, -2)
+    if mask is not None:
+        return channel_render(img, mask, pts - off, n_channels, voxel_shift=voxel_shift)
     return reduce_img(img, reducefn)[:, None, :]

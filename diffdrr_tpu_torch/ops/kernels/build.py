@@ -42,6 +42,8 @@ _VOL = [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT]
 _GRAD = [_VOID, _I64, _VOID, _VOID, _VOID, _I64, _I64, _I64, _INT, _INT, _INT]
 # the Joseph march: h (the float32 rounding of the stride), n_steps, blend
 _MARCH = [_F32, _INT, _INT]
+# the labelmap and its strides (its extents are the volume's)
+_LAB = [_VOID, _I64, _I64, _I64]
 # C signatures of each library's entry points (argtypes, the stream last;
 # all return int).
 _SIGNATURES = {
@@ -58,6 +60,11 @@ _SIGNATURES = {
         "joseph_fwdgrad": _VOL + _MARCH + [_VOID] * 3,
         "joseph_bwd_rays": _VOL + _MARCH + [_VOID] * 4,
         "joseph_bwd_vol": _GRAD + _MARCH + [_VOID],
+        # channel mode: the march, then n_channels
+        "joseph_fwd_ch": _VOL + _LAB + _MARCH + [_INT] + [_VOID] * 2,
+        "joseph_bwd_rays_ch": _VOL + _LAB + _MARCH + [_INT] + [_VOID] * 3,
+        "joseph_bwd_vol_ch": [_VOID, _I64, _VOID] + _LAB + [_VOID, _I64, _I64, _I64, _INT, _INT,
+                                                             _INT] + _MARCH + [_INT, _VOID],
     },
 }
 

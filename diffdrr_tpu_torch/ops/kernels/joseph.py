@@ -22,6 +22,19 @@ functions of the rows and the density:
   * ``joseph_bwd_vol(rows, g, shape, axis, h, n_steps, arg=None) -> shape``:
     the density gradient, the function of ``_bwd_vol_kernel``.
 
+and three in channel mode (``mask_to_channels``), where ``labels`` is an
+int32 labelmap of the density's shape and each step lands in the channel of
+its sample's nearest-voxel label (``label_at`` in ``csrc/joseph.cuh``; a
+label outside ``[0, C)`` adds nothing):
+
+  * ``joseph_fwd_ch(rows, density, labels, axis, h, n_steps, n_channels)
+    -> (C, R)``: the per-channel sums, ``_fwd_kernel`` with ``n_ch``;
+  * ``joseph_bwd_rays_ch(rows, density, labels, axis, h, n_steps, g (C, R))
+    -> (7, R)``: each step's terms times the cotangent of its channel,
+    ``_bwd_rays_kernel`` with ``n_ch``;
+  * ``joseph_bwd_vol_ch(rows, g, labels, shape, axis, h, n_steps) -> shape``:
+    ``_bwd_vol_kernel`` with ``n_ch``.
+
 Each wrapper launches its CUDA kernel (``csrc/joseph.cu``) on a CUDA tensor
 and counts the launch in its ``launches`` attribute; on a CPU tensor it runs
 the plain PyTorch version beside it, which repeats the kernel's arithmetic
@@ -31,11 +44,11 @@ launch failure. There is no fallback from the kernel to the plain version.
 ``h`` is a Python float; the kernels take its float32 rounding and march
 fractionally when ``|h - round(h)| > 1e-9``, the TPU's blend test.
 
-``JosephMarch`` is the autograd boundary, in sum or max mode. It computes
-each gradient only when autograd asks for it; the rows amin/amax get zero
-cotangents (they enter only through the in-slab comparison).
-
-Not ported yet (ROADMAP.md): channel mode (``mask_to_channels``).
+``JosephMarch`` is the autograd boundary, in sum or max mode, and
+``JosephMarchChannels`` in channel mode (always a sum, never the fused
+forward, as on the TPU). Each computes each gradient only when autograd
+asks for it; the rows amin/amax get zero cotangents (they enter only
+through the in-slab comparison).
 """
 
 from __future__ import annotations
@@ -53,8 +66,10 @@ __all__ = [
     "joseph_fwd", "joseph_fwd_max", "joseph_fwdgrad", "joseph_bwd_rays", "joseph_bwd_vol",
     "joseph_fwd_plain", "joseph_fwd_max_plain", "joseph_fwdgrad_plain",
     "joseph_bwd_rays_plain", "joseph_bwd_vol_plain",
-    "JosephMarch", "joseph_march_raycast", "is_blend", "march_steps", "corners",
-    "reset_launch_counts",
+    "joseph_fwd_ch", "joseph_bwd_rays_ch", "joseph_bwd_vol_ch",
+    "joseph_fwd_ch_plain", "joseph_bwd_rays_ch_plain", "joseph_bwd_vol_ch_plain",
+    "JosephMarch", "JosephMarchChannels", "joseph_march_raycast", "is_blend", "march_steps",
+    "corners", "as_labels", "reset_launch_counts",
 ]
 
 GRAD_ROWS = 7
@@ -235,25 +250,104 @@ def joseph_bwd_rays_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, 
     return torch.stack(acc) * g
 
 
+def _scatter_step(grad_p, s, gp) -> None:
+    """One step's share of the density gradient (``scatter_step``), added
+    into the march-permuted view ``grad_p``."""
+    X, Y, Z = grad_p.shape
+    for m, n, fy, fz in corners(s):
+        x = (s["wy"][m] * gp) * (s["wz"][n] * s["scale"])
+        ok = s["inslab"] & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
+        iy = torch.clamp(fy, 0, Y - 1).to(torch.int64)
+        iz = torch.clamp(fz, 0, Z - 1).to(torch.int64)
+        for k, f in s["planes"]:
+            if 0 <= k < X:
+                xk = x * f
+                grad_p[k].index_put_((iy, iz), torch.where(ok, xk, torch.zeros_like(xk)),
+                                     accumulate=True)
+
+
 @torch.no_grad()
 def joseph_bwd_vol_plain(rows: torch.Tensor, g: torch.Tensor, shape, axis: int, h: float,
                          n_steps: int, arg=None) -> torch.Tensor:
     """Plain version of :func:`joseph_bwd_vol`: a float32 volume of ``shape``."""
     grad = torch.zeros(tuple(shape), dtype=torch.float32, device=rows.device)
     grad_p = grad.permute(march_perm(axis))  # a view: writes land in ``grad``
-    X, Y, Z = grad_p.shape
-    for s in march_steps(rows, h, X, n_steps):
-        gp = g if arg is None else torch.where(arg == s["p"], g, torch.zeros_like(g))
-        for m, n, fy, fz in corners(s):
-            x = (s["wy"][m] * gp) * (s["wz"][n] * s["scale"])
-            ok = s["inslab"] & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
-            iy = torch.clamp(fy, 0, Y - 1).to(torch.int64)
-            iz = torch.clamp(fz, 0, Z - 1).to(torch.int64)
-            for k, f in s["planes"]:
-                if 0 <= k < X:
-                    xk = x * f
-                    grad_p[k].index_put_((iy, iz), torch.where(ok, xk, torch.zeros_like(xk)),
-                                         accumulate=True)
+    for s in march_steps(rows, h, grad_p.shape[0], n_steps):
+        _scatter_step(grad_p, s, g if arg is None else
+                      torch.where(arg == s["p"], g, torch.zeros_like(g)))
+    return grad
+
+
+def _labels_at(lab_p: torch.Tensor, s) -> torch.Tensor:
+    """Each ray's label at the step's nearest voxel (``label_at``), int32.
+
+    ``lab_p`` is the labelmap in march order. The transverse position rounds
+    half to even (``torch.round``, as ``rintf``); the plane is the step's, or
+    at a fractional stride the pair's second plane only when ``fx > 0.5``.
+    Positions outside the volume, plane X included, read 0.
+    """
+    X, Y, Z = lab_p.shape
+    (k, _), *pair = s["planes"]
+    if pair and pair[0][1] > 0.5:
+        k = pair[0][0]
+    iy, iz = torch.round(s["y"]), torch.round(s["z"])
+    if not 0 <= k < X:
+        return torch.zeros(iy.shape, dtype=torch.int32, device=iy.device)
+    valid = (iy >= 0) & (iy < Y) & (iz >= 0) & (iz < Z)
+    lab = lab_p[k][torch.clamp(iy, 0, Y - 1).to(torch.int64),
+                   torch.clamp(iz, 0, Z - 1).to(torch.int64)]
+    return torch.where(valid, lab, torch.zeros_like(lab))
+
+
+def _channel_cotangent(g: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """``g[lab, r]`` for each ray ``r`` of a ``(C, R)`` cotangent; 0 where the
+    label is outside ``[0, C)``."""
+    ok = (lab >= 0) & (lab < g.shape[0])
+    gc = torch.gather(g, 0, torch.clamp(lab, 0, g.shape[0] - 1).to(torch.int64)[None])[0]
+    return torch.where(ok, gc, torch.zeros_like(gc))
+
+
+@torch.no_grad()
+def joseph_fwd_ch_plain(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor,
+                        axis: int, h: float, n_steps: int, n_channels: int) -> torch.Tensor:
+    """Plain version of :func:`joseph_fwd_ch`: ``(C, R)``."""
+    vol_p = density.permute(march_perm(axis))
+    lab_p = labels.permute(march_perm(axis))
+    acc = rows.new_zeros((n_channels, rows.shape[1]))
+    chans = torch.arange(n_channels, device=rows.device)[:, None]
+    for s in march_steps(rows, h, vol_p.shape[0], n_steps):
+        x = _bilinear(s, _window(vol_p, s)) * s["scale"]
+        lab = _labels_at(lab_p, s)
+        lab = torch.where(s["scale"] > 0.0, lab, torch.full_like(lab, -1))
+        acc = torch.where(lab == chans, acc + x, acc)
+    return acc
+
+
+@torch.no_grad()
+def joseph_bwd_rays_ch_plain(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor,
+                             axis: int, h: float, n_steps: int,
+                             g: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`joseph_bwd_rays_ch`: ``(7, R)``."""
+    r = _rows_dict(rows)
+    vol_p = density.permute(march_perm(axis))
+    lab_p = labels.permute(march_perm(axis))
+    acc = [torch.zeros_like(r["a"]) for _ in range(GRAD_ROWS)]
+    for s in march_steps(rows, h, vol_p.shape[0], n_steps, derivs=True):
+        terms, _ = _terms(r, s, _window(vol_p, s))
+        gc = _channel_cotangent(g, _labels_at(lab_p, s))
+        acc = [a + t * gc for a, t in zip(acc, terms)]
+    return torch.stack(acc)
+
+
+@torch.no_grad()
+def joseph_bwd_vol_ch_plain(rows: torch.Tensor, g: torch.Tensor, labels: torch.Tensor, shape,
+                            axis: int, h: float, n_steps: int) -> torch.Tensor:
+    """Plain version of :func:`joseph_bwd_vol_ch`: a float32 volume of ``shape``."""
+    grad = torch.zeros(tuple(shape), dtype=torch.float32, device=rows.device)
+    grad_p = grad.permute(march_perm(axis))
+    lab_p = labels.permute(march_perm(axis))
+    for s in march_steps(rows, h, grad_p.shape[0], n_steps):
+        _scatter_step(grad_p, s, _channel_cotangent(g, _labels_at(lab_p, s)))
     return grad
 
 
@@ -361,7 +455,98 @@ def joseph_bwd_vol(rows: torch.Tensor, g: torch.Tensor, shape, axis: int, h: flo
     return grad
 
 
-KERNELS = (joseph_fwd, joseph_fwd_max, joseph_fwdgrad, joseph_bwd_rays, joseph_bwd_vol)
+def as_labels(mask: torch.Tensor) -> torch.Tensor:
+    """A labelmap as the channel kernels take it: int32 (float labels rounded)."""
+    if mask.is_floating_point():
+        mask = torch.round(mask)
+    return mask.to(torch.int32)
+
+
+def _check_labels(labels: torch.Tensor, shape, device) -> None:
+    if labels.dtype != torch.int32 or tuple(labels.shape) != tuple(shape) \
+            or labels.device != device:
+        raise ValueError(f"labels must be int32 {tuple(shape)} on {device}, got "
+                         f"{labels.dtype} {tuple(labels.shape)} on {labels.device}")
+
+
+def _lab_strides(labels: torch.Tensor, axis: int) -> list:
+    """The labelmap's element strides in march order (its extents are the density's)."""
+    return strides_extents(labels, axis)[:3]
+
+
+def _check_channel_cotangent(rows: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``g`` as a contiguous (C, R) float32 tensor."""
+    R = rows.shape[1]
+    if g.dtype != torch.float32 or g.dim() != 2 or g.shape[1] != R or g.shape[0] < 1 \
+            or g.device != rows.device:
+        raise ValueError(f"g must be float32 (C, {R}) on {rows.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    return g.contiguous()
+
+
+def joseph_fwd_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor, axis: int,
+                  h: float, n_steps: int, n_channels: int) -> torch.Tensor:
+    """Per-channel line integrals ``(C, R)``: each sample * sc added to the
+    channel of its nearest-voxel label."""
+    check("joseph", rows, density, axis)
+    _check_march(h, n_steps)
+    _check_labels(labels, density.shape, rows.device)
+    if n_channels < 1:
+        raise ValueError(f"n_channels must be >= 1, not {n_channels}")
+    if runs_plain("joseph_fwd_ch", rows):
+        return joseph_fwd_ch_plain(rows, density, labels, axis, h, n_steps, n_channels)
+    rows = rows.contiguous()
+    out = torch.empty((n_channels, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    call("joseph", "joseph_fwd_ch", rows.device, rows.data_ptr(), rows.shape[1],
+         density.data_ptr(), *strides_extents(density, axis), labels.data_ptr(),
+         *_lab_strides(labels, axis), *_march(h, n_steps), int(n_channels), out.data_ptr())
+    joseph_fwd_ch.launches += 1
+    return out
+
+
+def joseph_bwd_rays_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor,
+                       axis: int, h: float, n_steps: int, g: torch.Tensor) -> torch.Tensor:
+    """``(7, R)``: d(sum of g * image)/d(row) for a ``(C, R)`` cotangent ``g``."""
+    check("joseph", rows, density, axis)
+    _check_march(h, n_steps)
+    _check_labels(labels, density.shape, rows.device)
+    g = _check_channel_cotangent(rows, g)
+    if runs_plain("joseph_bwd_rays_ch", rows):
+        return joseph_bwd_rays_ch_plain(rows, density, labels, axis, h, n_steps, g)
+    rows = rows.contiguous()
+    out = torch.empty((GRAD_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    call("joseph", "joseph_bwd_rays_ch", rows.device, rows.data_ptr(), rows.shape[1],
+         density.data_ptr(), *strides_extents(density, axis), labels.data_ptr(),
+         *_lab_strides(labels, axis), *_march(h, n_steps), g.shape[0], g.data_ptr(),
+         out.data_ptr())
+    joseph_bwd_rays_ch.launches += 1
+    return out
+
+
+def joseph_bwd_vol_ch(rows: torch.Tensor, g: torch.Tensor, labels: torch.Tensor, shape,
+                      axis: int, h: float, n_steps: int) -> torch.Tensor:
+    """d(sum of g * image)/d(density) for a ``(C, R)`` cotangent ``g``: a
+    contiguous float32 volume of ``shape`` (float atomics, as
+    :func:`joseph_bwd_vol`)."""
+    check_rows("joseph", rows, axis)
+    _check_march(h, n_steps)
+    if len(shape) != 3:
+        raise ValueError(f"shape must be (X, Y, Z), got {tuple(shape)}")
+    _check_labels(labels, shape, rows.device)
+    g = _check_channel_cotangent(rows, g)
+    if runs_plain("joseph_bwd_vol_ch", rows):
+        return joseph_bwd_vol_ch_plain(rows, g, labels, shape, axis, h, n_steps)
+    rows = rows.contiguous()
+    grad = torch.zeros(tuple(shape), dtype=torch.float32, device=rows.device)
+    call("joseph", "joseph_bwd_vol_ch", rows.device, rows.data_ptr(), rows.shape[1],
+         g.data_ptr(), labels.data_ptr(), *_lab_strides(labels, axis), grad.data_ptr(),
+         *strides_extents(grad, axis), *_march(h, n_steps), g.shape[0])
+    joseph_bwd_vol_ch.launches += 1
+    return grad
+
+
+KERNELS = (joseph_fwd, joseph_fwd_max, joseph_fwdgrad, joseph_bwd_rays, joseph_bwd_vol,
+           joseph_fwd_ch, joseph_bwd_rays_ch, joseph_bwd_vol_ch)
 
 
 def reset_launch_counts() -> None:
@@ -423,17 +608,49 @@ class JosephMarch(torch.autograd.Function):
         return d_density, d_rows, None, None, None, None, None
 
 
+class JosephMarchChannels(torch.autograd.Function):
+    """``image (C, R) = joseph_channels(density, rows; labels)``.
+
+    Forward: ``joseph_fwd_ch``. Backward: the rays' cotangent from
+    ``joseph_bwd_rays_ch`` (zero for amin/amax), the density's from
+    ``joseph_bwd_vol_ch``, each only when asked for. The labels get none.
+    """
+
+    @staticmethod
+    def forward(ctx, density, rows, labels, axis, h, n_steps, n_channels):
+        ctx.march = (axis, h, n_steps)
+        ctx.shape = tuple(density.shape)
+        out = joseph_fwd_ch(rows, density, labels, axis, h, n_steps, n_channels)
+        ctx.save_for_backward(rows, labels, density if ctx.needs_input_grad[1] else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, labels, density = ctx.saved_tensors
+        axis, h, n_steps = ctx.march
+        d_density = d_rows = None
+        if ctx.needs_input_grad[1]:
+            d7 = joseph_bwd_rays_ch(rows, density, labels, axis, h, n_steps, g)
+            d_rows = torch.cat([d7, d7.new_zeros((NROWS - GRAD_ROWS, d7.shape[1]))])
+        if ctx.needs_input_grad[0]:
+            d_density = joseph_bwd_vol_ch(rows, g, labels, ctx.shape, axis, h, n_steps)
+        return d_density, d_rows, None, None, None, None, None
+
+
 def joseph_march_raycast(density: torch.Tensor, source: torch.Tensor, target: torch.Tensor,
                          weights: torch.Tensor, *, axis: int, step: float = 1.0,
                          n_steps: Optional[int] = None, voxel_shift: float = 0.5,
-                         eps: float = 1e-8, reduce: str = "sum",
-                         fused: bool = True) -> torch.Tensor:
+                         eps: float = 1e-8, reduce: str = "sum", fused: bool = True,
+                         mask: Optional[torch.Tensor] = None,
+                         n_channels: Optional[int] = None) -> torch.Tensor:
     """Joseph ``(B, 1, N)`` by plane march along ``axis`` (voxel space).
 
     ``step`` is the stride ``h`` in planes (fractional: the trilinear march)
     and ``n_steps`` the number of samples (default: cover the axis).
     ``reduce="max"`` renders the MIP; ``fused=False`` takes the pose
-    gradient from the two-pass ``joseph_bwd_rays``.
+    gradient from the two-pass ``joseph_bwd_rays``. With a labelmap
+    ``mask`` (of the density's shape) the render is ``(B, n_channels, N)``
+    per-structure channels, a sum whatever ``reduce`` and ``fused`` say.
     """
     B, N, _ = target.shape
     h = float(step)
@@ -441,5 +658,11 @@ def joseph_march_raycast(density: torch.Tensor, source: torch.Tensor, target: to
         n_steps = int(-(-density.shape[axis] // h))
     rows = prep_rays(source, target, weights, axis, density.shape, voxel_shift, eps,
                      quadrature="joseph", h=h)
+    if mask is not None:
+        if n_channels is None:
+            raise ValueError("n_channels must be provided when rendering with a mask")
+        out = JosephMarchChannels.apply(density, rows, as_labels(mask), axis, h, int(n_steps),
+                                        int(n_channels))
+        return out.reshape(-1, B, N).permute(1, 0, 2)
     return JosephMarch.apply(density, rows, axis, h, int(n_steps), reduce,
                              fused).reshape(B, 1, N)

@@ -17,7 +17,7 @@ only with ``n_points < X`` or ``allow_oversample``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,10 +36,12 @@ def raymarch_steps(X: int, n_points: int, allow_oversample: bool = False) -> Tup
 def raymarch_raycast(density: torch.Tensor, source: torch.Tensor, target: torch.Tensor,
                      weights: torch.Tensor, *, axis: int, n_points: int = 500,
                      allow_oversample: bool = False, voxel_shift: float = 0.5,
-                     eps: float = 1e-8, reduce: str = "sum",
-                     fused: bool = True) -> torch.Tensor:
-    """Trilinear ``(B, 1, N)`` by the plane-aligned march along ``axis``."""
+                     eps: float = 1e-8, reduce: str = "sum", fused: bool = True,
+                     mask: Optional[torch.Tensor] = None,
+                     n_channels: Optional[int] = None) -> torch.Tensor:
+    """Trilinear ``(B, 1, N)`` by the plane-aligned march along ``axis``;
+    ``(B, n_channels, N)`` with a labelmap ``mask``."""
     h, n_steps = raymarch_steps(density.shape[axis], n_points, allow_oversample)
     return joseph_march_raycast(density, source, target, weights, axis=axis, step=h,
                                 n_steps=n_steps, voxel_shift=voxel_shift, eps=eps,
-                                reduce=reduce, fused=fused)
+                                reduce=reduce, fused=fused, mask=mask, n_channels=n_channels)

@@ -11,7 +11,10 @@ and as the slab-validity escape: a pose whose rays cross two transverse
 voxel boundaries inside one slab of the march axis, which the slab
 kernels of ``ops/kernels/siddon.py`` cannot represent.
 
-Inputs are in voxel space; memory is O(B * N * (X + Y + Z)).
+Inputs are in voxel space; memory is O(B * N * (X + Y + Z)). With a
+labelmap ``mask`` each segment goes to the channel of the mask's label at
+its midpoint, a ``(B, n_channels, N)`` sum whatever ``reducefn`` says; the
+DRR renders Siddon channels here, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ._raygeom import alpha_minmax, points_at_alpha, reduce_img
+from ._raygeom import alpha_minmax, channel_render, points_at_alpha, reduce_img
 from .sampling import sample_volume
 
 __all__ = ["siddon_raycast"]
@@ -57,11 +60,14 @@ def siddon_raycast(
     reducefn="sum",
     eps: float = 1e-8,
     align_corners: bool = False,
+    mask: Optional[torch.Tensor] = None,
+    n_channels: Optional[int] = None,
 ) -> torch.Tensor:
     """Render line integrals with Siddon's exact method.
 
     ``volume (X, Y, Z)``, ``source (B, 1, 3)``, ``target (B, N, 3)`` in voxel
-    space, ``weights (B, 1, N)`` (the world-space ray length) -> ``(B, 1, N)``.
+    space, ``weights (B, 1, N)`` (the world-space ray length) -> ``(B, 1, N)``,
+    or ``(B, n_channels, N)`` with ``mask``.
     """
     dims = tuple(volume.shape)
     B, N, _ = target.shape
@@ -78,4 +84,7 @@ def siddon_raycast(
     if stop_gradients_through_grid_sample:
         img = img.detach()
     img = img * torch.diff(alphas, dim=-1)
+    if mask is not None:
+        return channel_render(img, mask, xyzs, n_channels, voxel_shift=voxel_shift,
+                              align_corners=align_corners)
     return reduce_img(img, reducefn)[:, None, :]

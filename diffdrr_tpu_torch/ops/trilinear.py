@@ -14,7 +14,9 @@ this oracle for ray sets that are not the full detector frame, under
 or a callable, ``mode="nearest"``, ``align_corners=True`` and
 ``alphamin``/``alphamax``.
 
-Not ported yet (ROADMAP.md): per-structure channels (``mask``).
+With a labelmap ``mask`` each sample goes to the channel of the mask's
+label at the same point (nearest), a ``(B, n_channels, N)`` sum whatever
+``reducefn`` says.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from ._raygeom import alpha_minmax, points_at_alpha, reduce_img
+from ._raygeom import alpha_minmax, channel_render, points_at_alpha, reduce_img
 from .sampling import sample_volume
 
 __all__ = ["trilinear_raycast"]
@@ -41,10 +43,13 @@ def trilinear_raycast(
     reducefn: Union[str, Callable] = "sum",
     eps: float = 1e-8,
     align_corners: bool = False,
+    mask: Optional[torch.Tensor] = None,
+    n_channels: Optional[int] = None,
     alphamin: Optional[torch.Tensor] = None,
     alphamax: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Approximate line integrals ``(B, 1, N)`` by ``n_points`` samples a ray."""
+    """Approximate line integrals ``(B, 1, N)`` by ``n_points`` samples a ray
+    (``(B, n_channels, N)`` with ``mask``)."""
     dims = tuple(volume.shape)
     B, N, _ = target.shape
     if weights is None:
@@ -61,4 +66,7 @@ def trilinear_raycast(
                         align_corners=align_corners)
     img = img * weights.transpose(-1, -2)
     img = img * ((alphamax - alphamin) / max(n_points - 1, 1))
+    if mask is not None:
+        return channel_render(img, mask, xyzs, n_channels, voxel_shift=voxel_shift,
+                              align_corners=align_corners)
     return reduce_img(img, reducefn)[:, None, :]

@@ -22,7 +22,9 @@ def test_import_pulls_in_no_jax():
         "diffdrr_tpu_torch.ops.kernels.build, diffdrr_tpu_torch.parallel, "
         "diffdrr_tpu_torch.ops.joseph, diffdrr_tpu_torch.ops.trilinear, "
         "diffdrr_tpu_torch.ops.kernels.joseph, diffdrr_tpu_torch.ops.kernels.raymarch, "
-        "diffdrr_tpu_torch.checkpoint, diffdrr_tpu_torch.experiments.reconstruction\n"
+        "diffdrr_tpu_torch.checkpoint, diffdrr_tpu_torch.experiments.reconstruction, "
+        "diffdrr_tpu_torch.nifti, diffdrr_tpu_torch.data, diffdrr_tpu_torch.detector, "
+        "diffdrr_tpu_torch.ops.siddon, diffdrr_tpu_torch.ops._raygeom\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'diffdrr_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"

@@ -384,6 +384,30 @@ extern "C" void jt_bwd_vol(const float* rows, int64_t R, const float* g, const i
   for (int64_t r = 0; r < R; ++r)
     trace_bwd_vol(load_ray(rows, R, r), gv, m, g[r], arg ? arg[r] : -1, arg != nullptr);
 }
+#define LAB_ARGS const int* lab, int64_t ls, int64_t ly, int64_t lz, int C
+#define LAB Labels l{lab, ls, ly, lz, X, Y, Z}
+extern "C" void jt_fwd_ch(VOL_ARGS, LAB_ARGS, float* out) {
+  SETUP;
+  LAB;
+  for (int64_t r = 0; r < R; ++r) trace_fwd_ch(load_ray(rows, R, r), v, l, m, C, out + r, R);
+}
+extern "C" void jt_bwd_rays_ch(VOL_ARGS, LAB_ARGS, const float* g, float* out) {
+  SETUP;
+  LAB;
+  float acc[kRows];
+  for (int64_t r = 0; r < R; ++r) {
+    trace_bwd_rays_ch(load_ray(rows, R, r), v, l, m, C, g + r, R, acc);
+    for (int i = 0; i < kRows; ++i) out[i * R + r] = acc[i];
+  }
+}
+extern "C" void jt_bwd_vol_ch(const float* rows, int64_t R, const float* g, float* grad,
+                              int64_t gs, int64_t gy, int64_t gz, int X, int Y, int Z, float h,
+                              int n, int blend, LAB_ARGS) {
+  GradVolume gv{grad, gs, gy, gz, X, Y, Z};
+  March m = mk(h, n, blend);
+  LAB;
+  for (int64_t r = 0; r < R; ++r) trace_bwd_vol_ch(load_ray(rows, R, r), gv, l, m, C, g + r, R);
+}
 """
 
 
@@ -398,7 +422,13 @@ def jtwin(tmp_path_factory):
     so.jt_fwdgrad.argtypes = vol_args + [ptr, ptr]
     so.jt_bwd_rays.argtypes = vol_args + [ptr, ptr, ptr]
     so.jt_bwd_vol.argtypes = [ptr, i64, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32] + march
-    for fn in (so.jt_fwd, so.jt_fwd_max, so.jt_fwdgrad, so.jt_bwd_rays, so.jt_bwd_vol):
+    lab_args = [ptr, i64, i64, i64, i32]
+    so.jt_fwd_ch.argtypes = vol_args + lab_args + [ptr]
+    so.jt_bwd_rays_ch.argtypes = vol_args + lab_args + [ptr, ptr]
+    so.jt_bwd_vol_ch.argtypes = [ptr, i64, ptr, ptr, i64, i64, i64, i32, i32, i32] + march \
+        + lab_args
+    for fn in (so.jt_fwd, so.jt_fwd_max, so.jt_fwdgrad, so.jt_bwd_rays, so.jt_bwd_vol,
+               so.jt_fwd_ch, so.jt_bwd_rays_ch, so.jt_bwd_vol_ch):
         fn.restype = None
     return so
 
@@ -440,6 +470,26 @@ class _JosephTwin:
         grad = torch.zeros(self.vol.shape) if grad is None else grad
         self.so.jt_bwd_vol(self.rows.data_ptr(), self.R, g.data_ptr(), _ptr(arg),
                            grad.data_ptr(), *_geom(grad, self.axis), *self.march)
+        return grad
+
+    def _lab(self, lab, C):
+        return (lab.data_ptr(), *_geom(lab, self.axis)[:3], C)
+
+    def fwd_ch(self, lab, C):
+        out = torch.full((C, self.R), float("nan"))  # the function zero-fills its column
+        self.so.jt_fwd_ch(*self._args(), *self._lab(lab, C), out.data_ptr())
+        return out
+
+    def bwd_rays_ch(self, lab, g):
+        out = torch.empty((7, self.R))
+        self.so.jt_bwd_rays_ch(*self._args(), *self._lab(lab, g.shape[0]), g.data_ptr(),
+                               out.data_ptr())
+        return out
+
+    def bwd_vol_ch(self, lab, g):
+        grad = torch.zeros(self.vol.shape)
+        self.so.jt_bwd_vol_ch(self.rows.data_ptr(), self.R, g.data_ptr(), grad.data_ptr(),
+                              *_geom(grad, self.axis), *self.march, *self._lab(lab, g.shape[0]))
         return grad
 
 
@@ -534,6 +584,32 @@ def test_twin_joseph_missed_rays_are_zero(jtwin):
     assert torch.count_nonzero(out) == 0
 
 
+@pytest.mark.parametrize("h", [1.0, 0.5, 1.37], ids=["h1", "h0.5", "h1.37"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_channels_match_plain(jtwin, axis, h):
+    """trace_fwd_ch, trace_bwd_rays_ch and trace_bwd_vol_ch against the plain
+    versions, with labels -1..5 at C = 5 (-1 and 5 drop) held in another
+    memory order than the density, and at h = 0.5 (a plane-pair tie at
+    every odd step)."""
+    rng = np.random.default_rng(50 + axis)
+    dims = (20, 24, 16)
+    vol = torch.tensor(rng.uniform(0.1, 1.0, dims), dtype=torch.float32)
+    lab = torch.tensor(rng.integers(-1, 6, dims[::-1]), dtype=torch.int32).permute(2, 1, 0)
+    src, tgt, w = _random_rays(rng, dims, axis, 200)
+    rows = prep_rays(src, tgt, w, axis, dims, quadrature="joseph", h=h)
+    n = int(-(-dims[axis] // h))
+    tw = _JosephTwin(jtwin, rows, vol, axis, h, n)
+    ref = J.joseph_fwd_ch_plain(rows, vol, lab, axis, h, n, 5)
+    _assert_rows_close(tw.fwd_ch(lab, 5), ref)
+    assert (ref > 0).sum(0).ge(3).sum() > 100  # most rays cross several structures
+    g = torch.tensor(rng.normal(size=(5, rows.shape[1])), dtype=torch.float32)
+    _assert_rows_close(tw.bwd_rays_ch(lab, g),
+                       J.joseph_bwd_rays_ch_plain(rows, vol, lab, axis, h, n, g))
+    ref_v = J.joseph_bwd_vol_ch_plain(rows, g, lab, dims, axis, h, n)
+    assert torch.count_nonzero(ref_v) > 0
+    np.testing.assert_allclose(tw.bwd_vol_ch(lab, g), ref_v, atol=1e-5 * ref_v.abs().max().item())
+
+
 def _gpu_joseph_scene(h):
     vol, _, g = _gpu_scene()
     u, v = np.meshgrid(np.linspace(-3.3, 43.1, 32), np.linspace(-2.7, 35.9, 32), indexing="ij")
@@ -578,3 +654,29 @@ def test_cuda_joseph_kernels_match_plain_versions(mode, h):
     torch.cuda.synchronize()
     assert got_v.is_contiguous() and got_v.shape == vol.shape
     torch.testing.assert_close(got_v, ref_v, rtol=0, atol=1e-4 * ref_v.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.5, 0.26])
+@pytest.mark.parametrize("n_channels", [5, 3])
+def test_cuda_joseph_channel_kernels_match_plain_versions(n_channels, h):
+    """On a card: joseph_fwd_ch and joseph_bwd_rays_ch equal their plain
+    versions (the same float32 operations in the same order), and
+    joseph_bwd_vol_ch to 1e-6 * max (float atomics); labels 0..4, so 3 and
+    4 drop at n_channels = 3."""
+    vol, rows, _, n = _gpu_joseph_scene(h)
+    rng = np.random.default_rng(8)
+    lab = torch.tensor(rng.integers(0, 5, tuple(vol.shape)), dtype=torch.int32, device="cuda")
+    g = torch.tensor(rng.normal(size=(n_channels, rows.shape[1])), dtype=torch.float32,
+                     device="cuda")
+    got = J.joseph_fwd_ch(rows, vol, lab, 2, h, n, n_channels)
+    ref = J.joseph_fwd_ch_plain(rows, vol, lab, 2, h, n, n_channels)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(J.joseph_bwd_rays_ch(rows, vol, lab, 2, h, n, g),
+                               J.joseph_bwd_rays_ch_plain(rows, vol, lab, 2, h, n, g),
+                               rtol=0, atol=0)
+    got_v = J.joseph_bwd_vol_ch(rows, g, lab, vol.shape, 2, h, n)
+    ref_v = J.joseph_bwd_vol_ch_plain(rows, g, lab, vol.shape, 2, h, n)
+    torch.cuda.synchronize()
+    assert got_v.is_contiguous() and torch.count_nonzero(ref_v) > 0
+    torch.testing.assert_close(got_v, ref_v, rtol=0, atol=1e-6 * ref_v.abs().max().item())
