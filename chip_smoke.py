@@ -37,7 +37,9 @@ Phases (any failure raises and the exit code is non-zero):
      at the shapes of the path that launches it, a render, a registration
      step and a reconstruction step, the host time of the auto axis choice
      (it reads back to the host), and each kernel's bound (the least time
-     the card could take for the same work);
+     the card could take for the same work); siddon_bwd_vol also alone
+     (into a preallocated, zeroed gradient) and with the march axis pinned
+     to 0, and siddon_fwd at the reconstruction's 320,000 rays;
   7. the Joseph and trilinear renderers (csrc/joseph.cu):
   7a. every Joseph kernel against its plain version on the random volume of
      phase 3, at strides h = 1, 4 (axis 0 pinned), ~1.37 and ~0.26, in sum
@@ -54,10 +56,12 @@ Phases (any failure raises and the exit code is non-zero):
      joseph_fwd 21 and joseph_bwd_vol 20, the loss falling tenfold; a second
      call resumes at step 20 and runs no step;
   7e. fractional strides at full size: trilinear with n_points=100 and with
-     allow_oversample at 500, joseph pinned to axis 0 (h = 4);
+     allow_oversample at 500, joseph pinned to axis 0 (h = 4), and
+     joseph_bwd_vol there against its plain version, timed;
   7f. the 512^3 CT with joseph_fwd at 200x200 and 1000x1000;
   7g. timings of every Joseph kernel beside its bound and plain version, and
      F.grid_sample over the same sample points as the library yardstick;
+     joseph_bwd_vol also alone, and joseph_fwd at the CLI's 320,000 rays;
   8. per-structure channels (mask_to_channels) and p_subsample:
   8a. the channel kernels (joseph_fwd_ch, joseph_bwd_rays_ch,
      joseph_bwd_vol_ch) against their plain versions on phase 3's volume with
@@ -137,15 +141,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` (device work it enqueues)."""
+def median_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
+    """Median CUDA-event time of ``fn`` (device work it enqueues); ``before``
+    runs ahead of each call, outside the events."""
     import torch
 
     for _ in range(warmup):
+        if before is not None:
+            before()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -154,6 +163,23 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def scatter_alone_ms(lib, fn_name, rows, g, shape, axis, march=(), reps: int = 20) -> float:
+    """Median CUDA-event time of one launch of the density-gradient scatter
+    ``fn_name`` into a preallocated gradient, zeroed before each launch
+    outside the events: the kernel alone, without the wrapper's allocation
+    and zero fill. It calls the C entry point, so no launch counter moves."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels._launch import call, strides_extents
+
+    rows = rows.contiguous()
+    grad = torch.zeros(tuple(shape), dtype=torch.float32, device=rows.device)
+    return median_ms(lambda: call(lib, fn_name, rows.device, rows.data_ptr(), rows.shape[1],
+                                  g.data_ptr(), None, grad.data_ptr(),
+                                  *strides_extents(grad, axis), *march),
+                     reps, before=grad.zero_)
 
 
 def median_host_ms(fn, reps: int) -> float:
@@ -649,14 +675,18 @@ def trilinear_reconstruction(profile):
                          J.joseph_fwd_plain(rows_v, dens, 2, h, n), 1e-4)
     err_bv = check_close("joseph_bwd_vol 8 views", J.joseph_bwd_vol(rows_v, g_v, dens.shape, 2, h, n),
                          J.joseph_bwd_vol_plain(rows_v, g_v, dens.shape, 2, h, n), 1e-4)
+    # The cotangent the CLI's last step scattered: d(MSE)/d(image), 0 on rays
+    # whose render equals the measurement (those through air only).
+    meas_v = J.joseph_fwd(rows_v, drr.density, 2, h, n)
+    g_res = 2 * (J.joseph_fwd(rows_v, dens, 2, h, n) - meas_v) / meas_v.numel()
     log(f"[trilinear recon] {N_VIEWS} views x {CLI_HEIGHT}^2 rays of a {tuple(drr.density.shape)} CT "
         f"(h = {h}), {N_RECON_STEPS} steps: loss {losses[0]:.5g} -> {losses[-1]:.5g} "
         f"({losses[0] / losses[-1]:.1f}-fold); voxel RMSE {res['rmse']:.5g} (true RMS "
         f"{res['rms']:.5g}); step median {t_step:.3f} ms (steps 3..{N_RECON_STEPS}); resumed "
         f"at step {N_RECON_STEPS} with no step run; joseph_fwd vs plain {err_fv:.3e}, "
         f"joseph_bwd_vol vs plain {err_bv:.3e}")
-    return dict(launches=launches, rows_v=rows_v, g_v=g_v, dens_shape=dens.shape, h=h, n=n,
-                density=drr.density, err_fv=err_fv, err_bv=err_bv, t_step=t_step)
+    return dict(launches=launches, rows_v=rows_v, g_v=g_v, g_res=g_res, dens_shape=dens.shape,
+                h=h, n=n, density=drr.density, err_fv=err_fv, err_bv=err_bv, t_step=t_step)
 
 
 def fractional_strides(drr_t, drr_j, rot0, trans, kw):
@@ -683,6 +713,29 @@ def fractional_strides(drr_t, drr_j, rot0, trans, kw):
     log("[fractional] renders vs plain at 200^2: " + "; ".join(
         f"{k} {v:.3e}" for k, v in errs.items()))
     return max(errs.values())
+
+
+def joseph_axis0_scatter(drr_j, rot0, trans, rng):
+    """Phase 7e: joseph_bwd_vol with the march axis pinned to 0 (h = 4, the
+    density's stride 512 x 133 along the march), one 200x200 view at the
+    main pose: against its plain version, timed with and without its fill."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    shape = drr_j.density.shape
+    h = float(drr_j.joseph_steps[0])
+    n = int(-(-shape[0] // h))
+    rows = jrays_of(drr_j, rot0, trans, 0, h)
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device=rows.device)
+    err = check_close("joseph_bwd_vol axis 0 @200^2", J.joseph_bwd_vol(rows, g, shape, 0, h, n),
+                      J.joseph_bwd_vol_plain(rows, g, shape, 0, h, n), 1e-4)
+    t = median_ms(lambda: J.joseph_bwd_vol(rows, g, shape, 0, h, n), 20)
+    t_alone = scatter_alone_ms("joseph", "joseph_bwd_vol", rows, g, shape, 0,
+                               (h, n, int(J.is_blend(h))))
+    log(f"[time] joseph_bwd_vol axis 0 (h = {h:g}, 200^2, main pose) {t:.4f} ms with its zero "
+        f"fill, {t_alone:.4f} ms alone; vs plain {err:.3e}")
+    return err
 
 
 def joseph_cube(T, cube, rot0, trans, kw):
@@ -1223,8 +1276,20 @@ def main(argv) -> int:
     t_br_mip = median_ms(lambda: K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_m, arg_m), 20)
     shape = drr.density.shape
     t_bv = median_ms(lambda: K.siddon_bwd_vol(rows_v, g_v, shape, ax_v), 20)
+    t_bv_alone = scatter_alone_ms("siddon", "siddon_bwd_vol", rows_v, g_v, shape, ax_v)
     t_bv_plain = median_ms(lambda: K.siddon_bwd_vol_plain(rows_v, g_v, shape, ax_v), 2, 1)
     t_zero = median_ms(lambda: torch.zeros(shape, device=dev), 20)
+    dens_v = dens_r.detach()
+    t_fv = median_ms(lambda: K.siddon_fwd(rows_v, dens_v, ax_v), 20)
+    b_fv, by_fv = bound(rows_v, dens_v, ax_v, **FWD_BOUND)
+    # The scatter with the march axis pinned to 0 (stride 512 x 133, not 1),
+    # one 200x200 view at the main pose.
+    rows_0, _ = rays_of(drr, rot0, trans, axis=0)
+    g_0 = torch.tensor(rng.normal(size=rows_0.shape[1]), dtype=torch.float32, device=dev)
+    err_bv0 = check_close("siddon_bwd_vol axis 0 @200^2", K.siddon_bwd_vol(rows_0, g_0, shape, 0),
+                          K.siddon_bwd_vol_plain(rows_0, g_0, shape, 0), 1e-4)
+    t_bv0 = median_ms(lambda: K.siddon_bwd_vol(rows_0, g_0, shape, 0), 20)
+    t_bv0_alone = scatter_alone_ms("siddon", "siddon_bwd_vol", rows_0, g_0, shape, 0)
     b_max, by_max = bound(rows_m, drr.density, ax_m, **FWD_MAX_BOUND)
     b_br, by_br = bound(rows_m, drr.density, ax_m, **BWD_RAYS_BOUND)
     b_br_mip, by_br_mip = bound(rows_m, drr.density, ax_m, arg=arg_m,
@@ -1235,12 +1300,16 @@ def main(argv) -> int:
         f"{by_max}); siddon_bwd_rays sum {t_br:.4f} ms (plain {t_br_plain:.2f}, bound "
         f"{b_br:.4f} by {by_br}), mip {t_br_mip:.4f} ms (bound {b_br_mip:.4f} by {by_br_mip}); "
         f"all at 200^2 rays, axis {ax_m}")
-    log(f"[time] siddon_bwd_vol at {rows_v.shape[1]} rays {t_bv:.4f} ms with its zero fill "
-        f"(plain {t_bv_plain:.2f}, bound {b_bv:.4f} by {by_bv}); the zero fill alone "
+    log(f"[time] siddon_bwd_vol at {rows_v.shape[1]} rays {t_bv:.4f} ms with its zero fill, "
+        f"{t_bv_alone:.4f} ms alone ({int((g_v == 0).sum())} rays with g = 0; plain "
+        f"{t_bv_plain:.2f}, bound {b_bv:.4f} by {by_bv}); the zero fill alone "
         f"{t_zero:.4f} ms ({zero_bytes / 1e6:.1f} MB, bound "
-        f"{zero_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); reconstruction step median "
+        f"{zero_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); siddon_fwd at the same rays "
+        f"{t_fv:.4f} ms (bound {b_fv:.4f} by {by_fv}); reconstruction step median "
         f"{t_recon:.3f} ms")
-    del dens_r, opt_r, measured, img_v, rows_v, g_v
+    log(f"[time] siddon_bwd_vol axis 0 (200^2, main pose) {t_bv0:.4f} ms with its zero fill, "
+        f"{t_bv0_alone:.4f} ms alone; vs plain {err_bv0:.3e}")
+    del dens_r, dens_v, opt_r, measured, img_v, rows_v, g_v, rows_0, g_0
     del drr, target, auto, params, opt
 
     # 5. The 512^3 isotropic CT ----------------------------------------------
@@ -1278,6 +1347,7 @@ def main(argv) -> int:
     tri = trilinear_registration(T, subject, rot0, trans, kw, args.profile)
     jm = joseph_mip(T, subject, rot0, trans, kw, tri["rows_m"])
     err_frac = fractional_strides(tri["drr"], jm["drr"], rot0, trans, kw)
+    err_jbv0 = joseph_axis0_scatter(jm["drr"], rot0, trans, rng)
     jc = joseph_cube(T, cube, rot0, trans, kw)
     del drr_c, drr_k, img_c, img_k, rows_c, rows_k, cube
 
@@ -1325,11 +1395,26 @@ def main(argv) -> int:
         log(f"[time] joseph_{name} {jtimes[name][0]:.4f} ms (plain {jtimes[name][1]:.2f}, bound "
             f"{b:.4f} by {by})")
     t_lib = grid_sample_ms(rows_m, dens_m, 2, 1.0, X)
+    # The recon-CLI cell's 320,000 rays: the scatter alone and its zero fill
+    # alone, and the forward it runs 21 times.
+    rows_v, g_v, h_v, n_v = rec["rows_v"], rec["g_v"], rec["h"], rec["n"]
+    t_jbv_alone = scatter_alone_ms("joseph", "joseph_bwd_vol", rows_v, g_v, rec["dens_shape"], 2,
+                                   (h_v, n_v, int(J.is_blend(h_v))))
+    t_jbv_res = scatter_alone_ms("joseph", "joseph_bwd_vol", rows_v, rec["g_res"],
+                                 rec["dens_shape"], 2, (h_v, n_v, int(J.is_blend(h_v))))
+    t_jzero = median_ms(lambda: torch.zeros(rec["dens_shape"], device=dev), 20)
+    t_jfv = median_ms(lambda: J.joseph_fwd(rows_v, rec["density"], 2, h_v, n_v), 20)
+    b_jfv, by_jfv = march_bound(rows_v, rec["density"], 2, h_v, n_v, **J_FWD_BOUND)
     log(f"[time] joseph_fwd and the rest at 200^2 rays of the main CT, axis 2, h = 1; "
         f"joseph_bwd_vol at {rec['rows_v'].shape[1]} rays with its zero fill; F.grid_sample "
         f"over the {rows_m.shape[1]} x {X} sample points (no weighted sum) {t_lib:.4f} ms; "
         f"trilinear registration step median {tri['t_step']:.3f} ms, trilinear reconstruction "
         f"step median {rec['t_step']:.3f} ms")
+    log(f"[time] joseph_bwd_vol at {rows_v.shape[1]} rays {jtimes['bwd_vol'][0]:.4f} ms with its "
+        f"zero fill, {t_jbv_alone:.4f} ms alone, {t_jbv_res:.4f} ms alone with the CLI's "
+        f"cotangent ({int((rec['g_res'] == 0).sum())} rays with g = 0); the zero fill alone "
+        f"{t_jzero:.4f} ms; joseph_fwd at the same rays {t_jfv:.4f} ms (bound {b_jfv:.4f} by "
+        f"{by_jfv})")
 
     # Records ----------------------------------------------------------------
     src = "diffdrr_tpu_torch/csrc/siddon.cu"
@@ -1361,7 +1446,8 @@ def main(argv) -> int:
          "library_ms": None},
         {"name": "siddon_bwd_vol", "route": "cuda", "source": src,
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:501",
-         "launches": recon_launches["siddon_bwd_vol"], "max_abs_err": err_bv,
+         "launches": recon_launches["siddon_bwd_vol"],
+         "max_abs_err": max(err_bv, err_bv0, err_bv_mip, e5["sum"], e5["mip"]),
          "ms": t_bv, "plain_ms": t_bv_plain, "bound_ms": b_bv, "bound_by": by_bv,
          "library_ms": None},
     ]
@@ -1388,7 +1474,8 @@ def main(argv) -> int:
         jrec("joseph_bwd_rays", "bwd_rays", 600, jm["launches"]["joseph_bwd_rays"],
              max(jm["err_br"], jsmall["bwd_rays_sum"], jsmall["bwd_rays_mip"])),
         jrec("joseph_bwd_vol", "bwd_vol", 903, rec["launches"]["joseph_bwd_vol"],
-             max(rec["err_bv"], jm["err_bv_mip"], jsmall["bwd_vol_sum"], jsmall["bwd_vol_mip"])),
+             max(rec["err_bv"], jm["err_bv_mip"], err_jbv0, jsmall["bwd_vol_sum"],
+                 jsmall["bwd_vol_mip"])),
     ]
     # Channel kernels: launches of phase 8b's two backwards (joseph, trilinear).
     jtimes.update(ch_times)

@@ -21,13 +21,13 @@
 //                      the cotangent of its channel.
 // Each takes integer and fractional h.
 //
-// Design: one thread per ray, walking only its own in-slab steps (step_range
-// in joseph.cuh) and reading the 4 in-plane neighbours of each sample (8 at
-// fractional h) straight from the float32 density through its strides. The
-// TPU needed tile windows, a starts table, a lane roll and tent-weight
-// matmuls on the MXU to avoid gathers; on the H100 a gather is a load, so
-// none of that is carried over, and with no window there is no footprint to
-// overflow.
+// Design: one thread per ray (the scatter aside, below), walking only its
+// own in-slab steps (step_range in joseph.cuh) and reading the 4 in-plane
+// neighbours of each sample (8 at fractional h) straight from the float32
+// density through its strides. The TPU needed tile windows, a starts table,
+// a lane roll and tent-weight matmuls on the MXU to avoid gathers; on the
+// H100 a gather is a load, so none of that is carried over, and with no
+// window there is no footprint to overflow.
 //
 // What bounds them: per ray and in-slab step, 4 (or 8) 4-byte gathers at
 // data-dependent addresses and about 35 float operations for a value, about
@@ -37,11 +37,24 @@
 // 3.35 TB/s. The simple design is bound instead by the latency of dependent
 // gathers: a warp's 32 rays are neighbouring detector pixels that read
 // neighbouring voxels of the same plane at the same step, so L1/L2 serve
-// most reads, but a 200x200 detector gives only 40,000 threads. The scatter
-// (joseph_bwd_vol) adds 4 (or 8) float atomics per ray and step into the
-// zero-filled gradient; their order changes from run to run, so its last
-// bits do too. Shared-memory staging of plane windows is later work
-// (PERF.md).
+// most reads, but a 200x200 detector gives only 40,000 threads.
+// Shared-memory staging of plane windows is later work (PERF.md).
+//
+// The scatter (joseph_bwd_vol) is laid out otherwise: one warp per ray. It
+// adds 4 (or 8) products per in-slab step into the zero-filled gradient
+// with float atomics. The bytes it must move are the gradient written once.
+// What bounds it instead is the L2's atomic requests, one per 32-byte
+// sector a warp instruction touches. With one thread per ray, the 32 lanes
+// of an instruction are 32 rays at one plane, in 32 sectors. Here lane l
+// takes step lo + l of one ray (then lo + l + 32, ...), and the warp lays
+// a pass's adds out in shared memory in path order (step, then neighbour)
+// and issues them 32 at a time. With the march axis the gradient's
+// unit-stride axis, the adds of one neighbour column at consecutive steps
+// share a sector: 39 million requests for the recon-CLI's 87 million adds,
+// against 87 million one thread per ray (PERF.md). A ray whose g is 0
+// returns at once. The order of the atomics changes from run to run, so
+// the gradient's last bits do too. The channel scatter keeps one thread per
+// ray.
 //
 // The channel kernels add one 4-byte label gather per step (a 7-label CT
 // fits in int8, but int32 keeps the read simple) and read or write 4 * C
@@ -55,6 +68,9 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = kThreads / kWarp;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __global__ void __launch_bounds__(kThreads)
 joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
@@ -99,14 +115,63 @@ joseph_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::V
   for (int i = 0; i < joseph::kRows; ++i) out[i * n_rays + r] = acc[i];
 }
 
+// A pass's adds in path order, the lanes' in lane order and each lane's by
+// slot: where this lane's first add goes, given its mask of slots that add,
+// and (in *total) how many the warp has. One ballot per slot.
+template <int kSlots>
+__device__ __forceinline__ int warp_offset(unsigned mask, int lane, int* total) {
+  unsigned below = (1u << lane) - 1u;
+  int at = 0, all = 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    unsigned b = __ballot_sync(kFullMask, mask >> j & 1u);
+    at += __popc(b & below);
+    all += __popc(b);
+  }
+  *total = all;
+  return at;
+}
+
+// One warp per ray. Each pass takes 32 neighbouring steps of the ray, step
+// lo + l (then lo + l + 32, ...) on lane l, whose adds step_adds_at
+// computes; the warp lays the pass's adds out in shared memory in path
+// order (step, then neighbour) and issues them 32 at a time, so each atomic
+// instruction covers 32 consecutive adds along the ray. In MIP mode the ray
+// has at most one step.
 __global__ void __launch_bounds__(kThreads)
 joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::March m,
                       const float* __restrict__ g, const int* __restrict__ arg,
                       joseph::GradVolume grad) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  joseph::trace_bwd_vol(joseph::load_ray(rows, n_rays, r), grad, m, g[r], arg ? arg[r] : -1,
-                        arg != nullptr);
+  __shared__ int64_t s_off[kWarpsPerBlock][joseph::kStepAdds * kWarp];
+  __shared__ float s_x[kWarpsPerBlock][joseph::kStepAdds * kWarp];
+  int64_t r = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kWarp;
+  int lane = threadIdx.x % kWarp;
+  int w = threadIdx.x / kWarp;
+  if (r >= n_rays) return;  // the whole warp: r is the warp's
+  joseph::Ray ray = joseph::load_ray(rows, n_rays, r);
+  float gr = g[r];
+  if (gr == 0.f) return;  // every add is a product by g: none to make
+  int lo, hi;
+  joseph::scatter_range(ray, m, arg ? arg[r] : -1, arg != nullptr, &lo, &hi);
+  for (int base = lo; base < hi; base += kWarp) {
+    int64_t off[joseph::kStepAdds];
+    float x[joseph::kStepAdds];
+    int p = base + lane;
+    unsigned mask = p < hi ? joseph::step_adds_at(ray, grad, m, p, gr, off, x) : 0u;
+    int total;
+    int at = warp_offset<joseph::kStepAdds>(mask, lane, &total);
+#pragma unroll
+    for (int q = 0; q < joseph::kStepAdds; ++q) {
+      if (mask >> q & 1u) {
+        int k = at + __popc(mask & ((1u << q) - 1u));
+        s_off[w][k] = off[q];
+        s_x[w][k] = x[q];
+      }
+    }
+    __syncwarp();
+    for (int k = lane; k < total; k += kWarp) atomicAdd(grad.data + s_off[w][k], s_x[w][k]);
+    __syncwarp();
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -176,7 +241,10 @@ joseph::March make_march(float h, int n_steps, int blend) {
   return m;
 }
 
-unsigned int n_blocks(int64_t n_rays) { return (unsigned int)((n_rays + kThreads - 1) / kThreads); }
+// Blocks of kThreads for n_threads threads.
+unsigned int n_blocks(int64_t n_threads) {
+  return (unsigned int)((n_threads + kThreads - 1) / kThreads);
+}
 
 }  // namespace
 
@@ -248,7 +316,7 @@ extern "C" int joseph_bwd_vol(const float* rows, int64_t n_rays, const float* g,
     gv.X = X;
     gv.Y = Y;
     gv.Z = Z;
-    joseph_bwd_vol_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+    joseph_bwd_vol_kernel<<<n_blocks(n_rays * kWarp), kThreads, 0, (cudaStream_t)stream>>>(
         rows, n_rays, make_march(h, n_steps, blend), g, arg, gv);
   }
   return (int)cudaGetLastError();

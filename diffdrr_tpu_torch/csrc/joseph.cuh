@@ -330,52 +330,94 @@ JOSEPH_HD void add_grad(float* p, float x) {
 #endif
 }
 
-// x onto voxel (k, fy, fz) when it lies in the volume and x is not 0.
-JOSEPH_HD void scatter(const GradVolume& gv, int k, float fy, float fz, float x) {
+// The most adds one step makes to the density gradient: 4 neighbours on
+// each of 2 planes.
+constexpr int kStepAdds = 8;
+
+// Slot q of a step's adds: x onto voxel (k, fy, fz), when the voxel lies in
+// the volume and x is not 0. Sets bit q of *mask and off[q], xs[q].
+JOSEPH_HD void add_at(const GradVolume& gv, int k, float fy, float fz, float x, int q,
+                      int64_t off[kStepAdds], float xs[kStepAdds], unsigned* mask) {
   if (x == 0.f) return;
   if (!(k >= 0 && k < gv.X && fy >= 0.f && fy < (float)gv.Y && fz >= 0.f && fz < (float)gv.Z))
     return;
-  add_grad(gv.data + (int64_t)k * gv.ss + (int64_t)fy * gv.sy + (int64_t)fz * gv.sz, x);
+  off[q] = (int64_t)k * gv.ss + (int64_t)fy * gv.sy + (int64_t)fz * gv.sz;
+  xs[q] = x;
+  *mask |= 1u << q;
 }
 
 // One step's share of d(loss)/d(volume): (wy_m g) (wz_n scale) onto its 4
 // in-plane neighbours, split (1 - fx, fx) over the plane pair in blend mode
 // (8 voxels). Neighbours outside the volume (plane X included) and zero
-// weights write nothing.
-JOSEPH_HD void scatter_step(const GradVolume& gv, const Step& s, bool blend, float g) {
+// weights add nothing. Returns the mask of the slots that add, slot
+// (m * 2 + n) * 2 + plane, and for each of them the voxel's element offset
+// into gv.data in off[slot] and the value in x[slot].
+JOSEPH_HD unsigned step_adds(const GradVolume& gv, const Step& s, bool blend, float g,
+                             int64_t off[kStepAdds], float x[kStepAdds]) {
+  unsigned mask = 0u;
   for (int mm = 0; mm < 2; ++mm) {
     float wyg = s.wy[mm] * g;
-    for (int n = 0; n < 2; ++n) {
-      float x = wyg * (s.wz[n] * s.scale);
+    for (int nn = 0; nn < 2; ++nn) {
+      float v = wyg * (s.wz[nn] * s.scale);
       float fy = s.fy + (float)mm;
-      float fz = s.fz + (float)n;
+      float fz = s.fz + (float)nn;
+      int q = (mm * 2 + nn) * 2;
       if (blend) {
-        scatter(gv, s.k0, fy, fz, x * (1.f - s.fx));
-        scatter(gv, s.k0 + 1, fy, fz, x * s.fx);
+        add_at(gv, s.k0, fy, fz, v * (1.f - s.fx), q, off, x, &mask);
+        add_at(gv, s.k0 + 1, fy, fz, v * s.fx, q + 1, off, x, &mask);
       } else {
-        scatter(gv, s.k0, fy, fz, x);
+        add_at(gv, s.k0, fy, fz, v, q, off, x, &mask);
       }
     }
   }
+  return mask;
 }
 
-// d(loss)/d(volume): every in-slab step scatters with the ray's g. In MIP
-// mode only the argmax step writes.
+// Makes the adds of a step_adds mask, slot by slot.
+JOSEPH_HD void add_all(float* grad, unsigned mask, const int64_t off[kStepAdds],
+                       const float x[kStepAdds]) {
+  for (int q = 0; q < kStepAdds; ++q)
+    if (mask >> q & 1u) add_grad(grad + off[q], x[q]);
+}
+
+// One step's adds, made at once.
+JOSEPH_HD void scatter_step(const GradVolume& gv, const Step& s, bool blend, float g) {
+  int64_t off[kStepAdds];
+  float x[kStepAdds];
+  add_all(gv.data, step_adds(gv, s, blend, g, off, x), off, x);
+}
+
+// Step p's adds to d(loss)/d(volume) with the ray's g, as step_adds writes
+// them; none outside the slab. A pure function of the ray and p, so the
+// steps of one ray can be scattered in any order, by any thread.
+JOSEPH_HD unsigned step_adds_at(const Ray& r, const GradVolume& gv, const March& m, int p,
+                                float g, int64_t off[kStepAdds], float x[kStepAdds]) {
+  Step s = step_at(r, m, gv.X, p);
+  return s.inslab ? step_adds(gv, s, m.blend, g, off, x) : 0u;
+}
+
+// The steps [lo, hi) that d(loss)/d(volume) visits: the step range, or in
+// MIP mode only the argmax step (none when arg is -1).
+JOSEPH_HD void scatter_range(const Ray& r, const March& m, int arg, bool mip, int* lo, int* hi) {
+  if (!mip) {
+    step_range(r, m, lo, hi);
+  } else if (arg < 0 || arg >= m.n_steps) {
+    *lo = *hi = 0;
+  } else {
+    *lo = arg;
+    *hi = arg + 1;
+  }
+}
+
+// d(loss)/d(volume) of one ray, step after step (the serial order; the
+// kernel spreads the same step_adds_at calls over a warp's lanes).
 JOSEPH_HD void trace_bwd_vol(const Ray& r, const GradVolume& gv, const March& m, float g,
                              int arg, bool mip) {
   int lo, hi;
-  if (mip) {
-    if (arg < 0 || arg >= m.n_steps) return;
-    lo = arg;
-    hi = arg + 1;
-  } else {
-    step_range(r, m, &lo, &hi);
-  }
-  for (int p = lo; p < hi; ++p) {
-    Step s = step_at(r, m, gv.X, p);
-    if (!s.inslab) continue;
-    scatter_step(gv, s, m.blend, g);
-  }
+  scatter_range(r, m, arg, mip, &lo, &hi);
+  int64_t off[kStepAdds];
+  float x[kStepAdds];
+  for (int p = lo; p < hi; ++p) add_all(gv.data, step_adds_at(r, gv, m, p, g, off, x), off, x);
 }
 
 // ---------------------------------------------------------------------------

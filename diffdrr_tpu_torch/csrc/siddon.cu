@@ -10,12 +10,13 @@
 // _bwd_rays_kernel (the two-pass pose backward, sum or MIP) and
 // siddon_bwd_vol replaces _bwd_vol_kernel (the density gradient).
 //
-// Design: one thread per ray, walking only its own slabs (slab_range in
-// siddon.cuh) and reading the <= 3 voxels of each slab straight from the
-// float32 volume through its strides. The TPU needed tile windows, a starts
-// table, one-hot matmuls and a permuted, padded copy of the volume to turn
-// these gathers into MXU work; on the H100 a gather is a load, so none of
-// that is carried over. A MIP backward visits only the argmax slab.
+// Design: one thread per ray (the scatter aside, below), walking only its
+// own slabs (slab_range in siddon.cuh) and reading the <= 3 voxels of each
+// slab straight from the float32 volume through its strides. The TPU needed
+// tile windows, a starts table, one-hot matmuls and a permuted, padded copy
+// of the volume to turn these gathers into MXU work; on the H100 a gather is
+// a load, so none of that is carried over. A MIP backward visits only the
+// argmax slab.
 //
 // What bounds the gathering kernels: per ray and slab, one to three 4-byte
 // gathers at data-dependent addresses (about 175 flops of per-slab algebra
@@ -33,16 +34,25 @@
 // resident threads. Tiling rays per block and staging slab windows in
 // shared memory is later work (PERF.md).
 //
-// What bounds the scatter (siddon_bwd_vol): per ray and non-empty segment
-// one float atomicAdd into the f32 gradient volume, which the wrapper
-// zero-fills (the density's size x 4 bytes, a separate memset). The bytes
-// it must move are a read-modify-write of each voxel its rays touch. The
-// atomics resolve in L2; a reconstruction batch (8 views of 200x200 rays
-// over 512x133 transverse planes) puts only a few rays on each voxel, so
-// they rarely contend, and their latency, like the gathers', is hidden only
-// by the number of rays in flight. The order in which the atomics land
-// changes from run to run, so the gradient is nondeterministic in its last
-// bits: compare it with a tolerance, never bit for bit.
+// The scatter (siddon_bwd_vol) is laid out otherwise: one warp per ray.
+// It adds len * w * g for each non-empty segment into the f32 gradient,
+// which the wrapper zero-fills, with a float atomicAdd. The bytes it must
+// move are the gradient written once (139.5 MB for the 512x512x133 CT, 42
+// us at 3.35 TB/s). What bounds it instead is the L2's atomic requests: a
+// warp instruction costs one request per 32-byte sector its lanes touch.
+// With one thread per ray, a warp's 32 rays hit 32 voxels of one slab,
+// voxels in 32 different sectors. Here lane l of a warp takes slab lo + l
+// of one ray (then lo + l + 32, ...), and the warp lays a pass's adds out
+// in shared memory in path order and issues them 32 at a time. With the
+// march axis the gradient's unit-stride axis (the reconstruction views),
+// a run of the ray's voxels in one column is one sector. The fan's slopes
+// end a run every ~1.4 slabs, so an instruction still touches many
+// sectors: 33 million requests for the recon's 65 million adds, against
+// 65 million one thread per ray (PERF.md). The march (slab_segments per
+// slab) is the same work in either layout. A ray whose g is 0 returns at
+// once. The order in which the atomics land changes from run to run, so
+// the gradient is nondeterministic in its last bits: compare it with a
+// tolerance, never bit for bit.
 #include <cuda_runtime.h>
 
 #include "siddon.cuh"
@@ -50,6 +60,9 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = kThreads / kWarp;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __global__ void __launch_bounds__(kThreads)
 siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
@@ -95,14 +108,65 @@ siddon_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::V
   for (int k = 0; k < siddon::kRows; ++k) out[k * n_rays + r] = acc[k];
 }
 
+// A pass's adds in path order, the lanes' in lane order and each lane's by
+// slot: where this lane's first add goes, given its mask of slots that add,
+// and (in *total) how many the warp has. One ballot per slot.
+template <int kSlots>
+__device__ __forceinline__ int warp_offset(unsigned mask, int lane, int* total) {
+  unsigned below = (1u << lane) - 1u;
+  int at = 0, all = 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    unsigned b = __ballot_sync(kFullMask, mask >> j & 1u);
+    at += __popc(b & below);
+    all += __popc(b);
+  }
+  *total = all;
+  return at;
+}
+
+// One warp per ray. Each pass takes 32 neighbouring slabs of the ray, slab
+// lo + l (then lo + l + 32, ...) on lane l, whose adds slab_adds computes;
+// the warp lays the pass's adds out in shared memory in path order (slab,
+// then segment) and issues them 32 at a time, so each atomic instruction
+// covers 32 consecutive voxels of the ray's path. In MIP mode the ray has
+// at most one slab.
 __global__ void __launch_bounds__(kThreads)
 siddon_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays,
                       const float* __restrict__ g, const int* __restrict__ arg,
                       siddon::GradVolume grad) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
+  __shared__ int64_t s_off[kWarpsPerBlock][siddon::kSlabAdds * kWarp];
+  __shared__ float s_x[kWarpsPerBlock][siddon::kSlabAdds * kWarp];
+  int64_t r = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kWarp;
+  int lane = threadIdx.x % kWarp;
+  int w = threadIdx.x / kWarp;
+  if (r >= n_rays) return;  // the whole warp: r is the warp's
   siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
-  siddon::trace_bwd_vol(ray, grad, g[r], arg ? arg[r] : -1, arg != nullptr);
+  bool mip = arg != nullptr;
+  int a = mip ? arg[r] : -1;
+  float gr = g[r];
+  if (gr == 0.f) return;  // every add is a product by g: none to make
+  int lo, hi;
+  siddon::scatter_range(ray, grad.X, a, mip, &lo, &hi);
+  for (int base = lo; base < hi; base += kWarp) {
+    int64_t off[siddon::kSlabAdds];
+    float x[siddon::kSlabAdds];
+    int s = base + lane;
+    unsigned mask = s < hi ? siddon::slab_adds(ray, grad, s, gr, a, mip, off, x) : 0u;
+    int total;
+    int at = warp_offset<siddon::kSlabAdds>(mask, lane, &total);
+#pragma unroll
+    for (int j = 0; j < siddon::kSlabAdds; ++j) {
+      if (mask >> j & 1u) {
+        int q = at + __popc(mask & ((1u << j) - 1u));
+        s_off[w][q] = off[j];
+        s_x[w][q] = x[j];
+      }
+    }
+    __syncwarp();
+    for (int q = lane; q < total; q += kWarp) atomicAdd(grad.data + s_off[w][q], s_x[w][q]);
+    __syncwarp();
+  }
 }
 
 siddon::Volume make_volume(const float* vol, int64_t ss, int64_t sy, int64_t sz,
@@ -118,7 +182,10 @@ siddon::Volume make_volume(const float* vol, int64_t ss, int64_t sy, int64_t sz,
   return v;
 }
 
-unsigned int n_blocks(int64_t n_rays) { return (unsigned int)((n_rays + kThreads - 1) / kThreads); }
+// Blocks of kThreads for n_threads threads.
+unsigned int n_blocks(int64_t n_threads) {
+  return (unsigned int)((n_threads + kThreads - 1) / kThreads);
+}
 
 }  // namespace
 
@@ -183,7 +250,7 @@ extern "C" int siddon_bwd_vol(const float* rows, int64_t n_rays, const float* g,
     gv.X = X;
     gv.Y = Y;
     gv.Z = Z;
-    siddon_bwd_vol_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+    siddon_bwd_vol_kernel<<<n_blocks(n_rays * kWarp), kThreads, 0, (cudaStream_t)stream>>>(
         rows, n_rays, g, arg, gv);
   }
   return (int)cudaGetLastError();

@@ -294,29 +294,57 @@ SIDDON_HD void add_grad(float* p, float x) {
 #endif
 }
 
-// d(loss)/d(volume): adds len_j * w * g to each non-empty segment's voxel
-// (s, y0 + iy_j, z0 + iz_j) inside the volume; in MIP mode only to the
-// argmax segment's. Zero-length segments (the slab range's margin, empty
-// slabs) write nothing.
+// The most adds one slab makes to the density gradient: one per segment.
+constexpr int kSlabAdds = 3;
+
+// Slab s's share of d(loss)/d(volume): len_j * w * g onto each non-empty
+// segment's voxel (s, y0 + iy_j, z0 + iz_j) inside the volume; in MIP mode
+// only onto the argmax segment's. Returns the mask of the segments that add
+// (bit j for segment j) and, for each of them, the voxel's element offset
+// into gv.data in off[j] and the value in x[j]. Zero-length segments (the
+// slab range's margin, empty slabs) add nothing. A pure function of the ray
+// and s, so the slabs of one ray can be scattered in any order, by any
+// thread.
+SIDDON_HD unsigned slab_adds(const Ray& r, const GradVolume& gv, int s, float g, int arg,
+                             bool mip, int64_t off[kSlabAdds], float x[kSlabAdds]) {
+  Slab sl = slab_segments(r, s);
+  unsigned mask = 0u;
+  for (int j = 0; j < kSlabAdds; ++j) {
+    if (!(sl.len[j] > 0.f) || (mip && arg != s * 4 + j)) continue;
+    float fy = sl.y0 + sl.iy[j];
+    float fz = sl.z0 + sl.iz[j];
+    if (!(fy >= 0.f && fy < (float)gv.Y && fz >= 0.f && fz < (float)gv.Z)) continue;
+    off[j] = (int64_t)s * gv.ss + (int64_t)fy * gv.sy + (int64_t)fz * gv.sz;
+    x[j] = sl.len[j] * r.w * g;
+    mask |= 1u << j;
+  }
+  return mask;
+}
+
+// The slabs [lo, hi) whose segments d(loss)/d(volume) visits: the slab
+// range, or in MIP mode only the argmax slab (none when arg is -1).
+SIDDON_HD void scatter_range(const Ray& r, int X, int arg, bool mip, int* lo, int* hi) {
+  if (!mip) {
+    slab_range(r, X, lo, hi);
+  } else if (arg < 0 || arg / 4 >= X) {  // no maximum, or not a slab of the volume
+    *lo = *hi = 0;
+  } else {
+    *lo = arg / 4;
+    *hi = *lo + 1;
+  }
+}
+
+// d(loss)/d(volume) of one ray, slab after slab (the serial order; the
+// kernel spreads the same slab_adds calls over a warp's lanes).
 SIDDON_HD void trace_bwd_vol(const Ray& r, const GradVolume& gv, float g, int arg, bool mip) {
   int lo, hi;
-  if (mip) {
-    if (arg < 0 || arg / 4 >= gv.X) return;
-    lo = arg / 4;
-    hi = lo + 1;
-  } else {
-    slab_range(r, gv.X, &lo, &hi);
-  }
+  scatter_range(r, gv.X, arg, mip, &lo, &hi);
+  int64_t off[kSlabAdds];
+  float x[kSlabAdds];
   for (int s = lo; s < hi; ++s) {
-    Slab sl = slab_segments(r, s);
-    for (int j = 0; j < 3; ++j) {
-      if (!(sl.len[j] > 0.f) || (mip && arg != s * 4 + j)) continue;
-      float fy = sl.y0 + sl.iy[j];
-      float fz = sl.z0 + sl.iz[j];
-      if (!(fy >= 0.f && fy < (float)gv.Y && fz >= 0.f && fz < (float)gv.Z)) continue;
-      add_grad(gv.data + (int64_t)s * gv.ss + (int64_t)fy * gv.sy + (int64_t)fz * gv.sz,
-               sl.len[j] * r.w * g);
-    }
+    unsigned mask = slab_adds(r, gv, s, g, arg, mip, off, x);
+    for (int j = 0; j < kSlabAdds; ++j)
+      if (mask >> j & 1u) add_grad(gv.data + off[j], x[j]);
   }
 }
 

@@ -3,7 +3,11 @@
 ``csrc/siddon.cuh`` and ``csrc/joseph.cuh`` hold all per-ray arithmetic of
 the kernels in ``__host__ __device__`` functions; without nvcc the macros
 are empty, so g++ compiles the very same code. A tiny test-only C++ loop
-walks over the rays where a kernel would launch one thread per ray. Its
+walks over the rays where a kernel would launch one thread per ray; for the
+two density-gradient scatters, which launch one warp per ray, a second loop
+also walks each ray's slabs (steps) in the warp's order: passes of 32 (lane
+l takes lo + l, lo + l + 32, ...), each pass's adds laid out in path order
+and made last to first. Its
 results are held against the plain PyTorch versions, which walk every slab
 (every march step) of the volume for all rays at once, so the comparison
 also checks the kernels' per-ray slab and step ranges (the partially
@@ -76,6 +80,34 @@ extern "C" void twin_bwd_vol(const float* rows, int64_t R, const float* g, const
     siddon::trace_bwd_vol(siddon::load_ray(rows, R, r), gv, g[r], arg ? arg[r] : -1,
                           arg != nullptr);
 }
+// The warp kernel's order: pass after pass of 32 slabs (lane l takes lo + l,
+// lo + l + 32, ...), each pass's adds laid out in path order (slab, then
+// segment) and made last to first, so not in the serial order.
+extern "C" void twin_bwd_vol_warp(const float* rows, int64_t R, const float* g, const int* arg,
+                                  float* grad, int64_t gs, int64_t gy, int64_t gz, int X,
+                                  int Y, int Z) {
+  siddon::GradVolume gv{grad, gs, gy, gz, X, Y, Z};
+  for (int64_t r = 0; r < R; ++r) {
+    siddon::Ray ray = siddon::load_ray(rows, R, r);
+    int a = arg ? arg[r] : -1;
+    int lo, hi;
+    siddon::scatter_range(ray, X, a, arg != nullptr, &lo, &hi);
+    for (int base = lo; base < hi; base += 32) {
+      int64_t s_off[siddon::kSlabAdds * 32];
+      float s_x[siddon::kSlabAdds * 32];
+      int total = 0;
+      for (int lane = 0; lane < 32 && base + lane < hi; ++lane) {
+        int64_t off[siddon::kSlabAdds];
+        float x[siddon::kSlabAdds];
+        unsigned mask =
+            siddon::slab_adds(ray, gv, base + lane, g[r], a, arg != nullptr, off, x);
+        for (int j = 0; j < siddon::kSlabAdds; ++j)
+          if (mask >> j & 1u) { s_off[total] = off[j]; s_x[total] = x[j]; ++total; }
+      }
+      for (int q = total - 1; q >= 0; --q) grad[s_off[q]] += s_x[q];
+    }
+  }
+}
 """
 
 
@@ -106,8 +138,9 @@ def twin(tmp_path_factory):
     so.twin_bwd_vol.argtypes = [ptr, ctypes.c_int64, ptr, ptr, ptr, ctypes.c_int64,
                                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int]
+    so.twin_bwd_vol_warp.argtypes = so.twin_bwd_vol.argtypes
     for fn in (so.twin_fwd, so.twin_fwdgrad, so.twin_fwd_max, so.twin_bwd_rays,
-               so.twin_bwd_vol):
+               so.twin_bwd_vol, so.twin_bwd_vol_warp):
         fn.restype = None
     return so
 
@@ -384,6 +417,33 @@ extern "C" void jt_bwd_vol(const float* rows, int64_t R, const float* g, const i
   for (int64_t r = 0; r < R; ++r)
     trace_bwd_vol(load_ray(rows, R, r), gv, m, g[r], arg ? arg[r] : -1, arg != nullptr);
 }
+// The warp kernel's order: pass after pass of 32 steps (lane l takes lo + l,
+// lo + l + 32, ...), each pass's adds laid out in path order (step, then
+// neighbour) and made last to first, so not in the serial order.
+extern "C" void jt_bwd_vol_warp(const float* rows, int64_t R, const float* g, const int* arg,
+                                float* grad, int64_t gs, int64_t gy, int64_t gz, int X, int Y,
+                                int Z, float h, int n, int blend) {
+  GradVolume gv{grad, gs, gy, gz, X, Y, Z};
+  March m = mk(h, n, blend);
+  for (int64_t r = 0; r < R; ++r) {
+    Ray ray = load_ray(rows, R, r);
+    int lo, hi;
+    scatter_range(ray, m, arg ? arg[r] : -1, arg != nullptr, &lo, &hi);
+    for (int base = lo; base < hi; base += 32) {
+      int64_t s_off[kStepAdds * 32];
+      float s_x[kStepAdds * 32];
+      int total = 0;
+      for (int lane = 0; lane < 32 && base + lane < hi; ++lane) {
+        int64_t off[kStepAdds];
+        float x[kStepAdds];
+        unsigned mask = step_adds_at(ray, gv, m, base + lane, g[r], off, x);
+        for (int q = 0; q < kStepAdds; ++q)
+          if (mask >> q & 1u) { s_off[total] = off[q]; s_x[total] = x[q]; ++total; }
+      }
+      for (int q = total - 1; q >= 0; --q) grad[s_off[q]] += s_x[q];
+    }
+  }
+}
 #define LAB_ARGS const int* lab, int64_t ls, int64_t ly, int64_t lz, int C
 #define LAB Labels l{lab, ls, ly, lz, X, Y, Z}
 extern "C" void jt_fwd_ch(VOL_ARGS, LAB_ARGS, float* out) {
@@ -422,13 +482,14 @@ def jtwin(tmp_path_factory):
     so.jt_fwdgrad.argtypes = vol_args + [ptr, ptr]
     so.jt_bwd_rays.argtypes = vol_args + [ptr, ptr, ptr]
     so.jt_bwd_vol.argtypes = [ptr, i64, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32] + march
+    so.jt_bwd_vol_warp.argtypes = so.jt_bwd_vol.argtypes
     lab_args = [ptr, i64, i64, i64, i32]
     so.jt_fwd_ch.argtypes = vol_args + lab_args + [ptr]
     so.jt_bwd_rays_ch.argtypes = vol_args + lab_args + [ptr, ptr]
     so.jt_bwd_vol_ch.argtypes = [ptr, i64, ptr, ptr, i64, i64, i64, i32, i32, i32] + march \
         + lab_args
     for fn in (so.jt_fwd, so.jt_fwd_max, so.jt_fwdgrad, so.jt_bwd_rays, so.jt_bwd_vol,
-               so.jt_fwd_ch, so.jt_bwd_rays_ch, so.jt_bwd_vol_ch):
+               so.jt_bwd_vol_warp, so.jt_fwd_ch, so.jt_bwd_rays_ch, so.jt_bwd_vol_ch):
         fn.restype = None
     return so
 
@@ -680,3 +741,131 @@ def test_cuda_joseph_channel_kernels_match_plain_versions(n_channels, h):
     torch.cuda.synchronize()
     assert got_v.is_contiguous() and torch.count_nonzero(ref_v) > 0
     torch.testing.assert_close(got_v, ref_v, rtol=0, atol=1e-6 * ref_v.abs().max().item())
+
+
+# -----------------------------------------------------------------------------
+# The density-gradient scatters split over a warp's lanes
+# -----------------------------------------------------------------------------
+
+_WARP_DIMS = (72, 70, 68)  # every march axis longer than 64 slabs
+
+
+def _mixed_rays(rng, dims, axis, n):
+    """``n`` rays of each of three kinds along ``axis``: long (the whole march
+    axis at gentle slopes), short (entering through a transverse face 3 to
+    25 slabs before the far end) and missing the volume."""
+    X = dims[axis]
+    ya, za = [a for a in range(3) if a != axis]
+    Y, Z = dims[ya], dims[za]
+    s_lo, s_hi = -30.0 - 5 * rng.random(3 * n), X + 30.0 + 5 * rng.random(3 * n)
+    # Transverse position c + slope * (s - s_c) on each transverse axis.
+    s_c = np.concatenate([np.full(n, X / 2), X - rng.uniform(3.0, 25.0, n), np.full(n, X / 2)])
+    cy = np.concatenate([rng.uniform(0.35, 0.65, n) * Y, np.full(n, -0.5 + 0.0123),
+                         -20.0 - 5 * rng.random(n)])
+    my = np.concatenate([rng.uniform(-0.3, 0.3, n), np.full(n, 0.9), np.zeros(n)])
+    cz = rng.uniform(0.35, 0.65, 3 * n) * Z
+    mz = rng.uniform(-0.2, 0.2, 3 * n)
+    pts = []
+    for s in (s_lo, s_hi):
+        p = np.zeros((3 * n, 3))
+        p[:, axis] = s
+        p[:, ya] = cy + my * (s - s_c)
+        p[:, za] = cz + mz * (s - s_c)
+        pts.append(torch.tensor(p[:, None], dtype=torch.float32))
+    w = torch.tensor(rng.uniform(0.5, 2.0, (3 * n, 1, 1)), dtype=torch.float32)
+    return pts[0], pts[1], w
+
+
+def _slab_counts(rows):
+    """Each ray's number of slabs inside the volume (0 for a miss)."""
+    r = dict(zip(("a", "b", "amin", "amax"), rows[[0, 1, 7, 8]].double()))
+    return torch.clamp((r["amax"] - r["amin"]) / r["a"].abs(), min=0.0)
+
+
+def _warp_scene(axis, seed, device="cpu", **prep):
+    rng = np.random.default_rng(seed)
+    vol = torch.tensor(rng.uniform(0.1, 1.0, _WARP_DIMS), dtype=torch.float32, device=device)
+    src, tgt, w = _mixed_rays(rng, _WARP_DIMS, axis, 40)
+    rows = prep_rays(src.to(device), tgt.to(device), w.to(device), axis, _WARP_DIMS, **prep)
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device=device)
+    n = _slab_counts(rows)
+    assert (n > 64).any() and ((n > 0) & (n < 32)).any() and (n == 0).any()
+    return vol, rows, g
+
+
+@pytest.mark.parametrize("mode", ["sum", "mip"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_warp_scatter_matches_plain(twin, axis, mode):
+    """slab_adds in the warp kernel's order (passes of 32 slabs, each pass's
+    adds in path order, made last to first) against siddon_bwd_vol_plain:
+    long, short and missing rays."""
+    vol, rows, g = _warp_scene(axis, 60 + axis)
+    arg = siddon_fwd_max_plain(rows, vol, axis)[1] if mode == "mip" else None
+    ref = siddon_bwd_vol_plain(rows, g, _WARP_DIMS, axis, arg)
+    got = torch.zeros(_WARP_DIMS)
+    twin.twin_bwd_vol_warp(rows.data_ptr(), rows.shape[1], g.data_ptr(), _ptr(arg),
+                           got.data_ptr(), *_geom(got, axis))
+    assert torch.count_nonzero(ref) > 0
+    np.testing.assert_allclose(got, ref, atol=1e-5 * ref.abs().max().item())
+
+
+_WARP_H = pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6, 0.26],
+                                  ids=["h1", "h4", "h1.37", "h0.6", "h0.26"])
+
+
+def _joseph_warp_scene(axis, h, seed, device="cpu"):
+    vol, rows, g = _warp_scene(axis, seed, device, quadrature="joseph", h=h)
+    return vol, rows, g, int(-(-_WARP_DIMS[axis] // h))
+
+
+@_WARP_H
+@pytest.mark.parametrize("mode", ["sum", "mip"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_warp_scatter_matches_plain(jtwin, axis, mode, h):
+    """step_adds_at in the warp kernel's order (passes of 32 steps, each
+    pass's adds in path order, made last to first) against
+    joseph_bwd_vol_plain: long, short and missing rays, at integer,
+    fractional and oversampling strides."""
+    vol, rows, g, n = _joseph_warp_scene(axis, h, 70 + axis)
+    arg = J.joseph_fwd_max_plain(rows, vol, axis, h, n)[1] if mode == "mip" else None
+    ref = J.joseph_bwd_vol_plain(rows, g, _WARP_DIMS, axis, h, n, arg)
+    got = torch.zeros(_WARP_DIMS)
+    jtwin.jt_bwd_vol_warp(rows.data_ptr(), rows.shape[1], g.data_ptr(), _ptr(arg),
+                          got.data_ptr(), *_geom(got, axis), h, n, int(J.is_blend(h)))
+    assert torch.count_nonzero(ref) > 0
+    np.testing.assert_allclose(got, ref, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sum", "mip"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_siddon_warp_scatter_matches_plain(axis, mode):
+    """On a card: siddon_bwd_vol (one warp per ray) on the mixed rays above,
+    atol 1e-4 * max (float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    vol, rows, g = _warp_scene(axis, 60 + axis, "cuda")
+    arg = K.siddon_fwd_max_plain(rows, vol, axis)[1] if mode == "mip" else None
+    got = K.siddon_bwd_vol(rows, g, vol.shape, axis, arg)
+    ref = K.siddon_bwd_vol_plain(rows, g, vol.shape, axis, arg)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.count_nonzero(ref) > 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@_WARP_H
+@pytest.mark.parametrize("mode", ["sum", "mip"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_joseph_warp_scatter_matches_plain(axis, mode, h):
+    """On a card: joseph_bwd_vol (one warp per ray) on the mixed rays above,
+    atol 1e-4 * max (float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    vol, rows, g, n = _joseph_warp_scene(axis, h, 70 + axis, "cuda")
+    arg = J.joseph_fwd_max_plain(rows, vol, axis, h, n)[1] if mode == "mip" else None
+    got = J.joseph_bwd_vol(rows, g, vol.shape, axis, h, n, arg)
+    ref = J.joseph_bwd_vol_plain(rows, g, vol.shape, axis, h, n, arg)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.count_nonzero(ref) > 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
