@@ -14,7 +14,9 @@ Phases (any failure raises and the exit code is non-zero):
      the card, random 128x128x64 volume, 64x64 detector, an off-grid pose, a
      random cotangent g; siddon_bwd_rays and siddon_bwd_vol in sum and MIP
      modes (value and argmax exact or value atol 1e-4 * max, rows atol
-     1e-3 * max|row|, gradient volume atol 1e-4 * max|ref|);
+     1e-3 * max|row|, gradient volume atol 1e-4 * max|ref|); siddon_fwd
+     (which reads the density's bricked copy) also with the march axis
+     pinned to 0 and to 2;
   4. main path at full size: the 512x512x133 example CT, a 200x200 detector
      (sdd 1020 mm, 2 mm pixels), the bench pose; renders with the march axis
      pinned to 2 and chosen automatically, held against the plain version;
@@ -29,21 +31,28 @@ Phases (any failure raises and the exit code is non-zero):
      the reconstruction CLI's trajectory (the detector turned about its
      central ray, so every view marches axis 2), measured images rendered
      from the true density, 20 Adam steps (lr 5e-2) from a zero density
-     with the loss falling and exact launch counts; siddon_fwd and
-     siddon_bwd_vol held against their plain versions at all 320,000 rays;
+     with the loss falling and exact launch counts (the density's bricked
+     copy made 21 times: once for the measured images, once a step);
+     siddon_fwd and siddon_bwd_vol held against their plain versions at all
+     320,000 rays;
   5. the 512^3 isotropic CT (the volume the TPU had to stream plane by
-     plane): a 200x200 and a 1000x1000 render, each against the plain version;
+     plane): a 200x200 and a 1000x1000 render, each against the plain
+     version, siddon_fwd at 1000x1000 timed with its bricked copy cached and
+     made anew;
   6. timings: median CUDA-event times of each kernel and its plain version
      at the shapes of the path that launches it, a render, a registration
      step and a reconstruction step, the host time of the auto axis choice
      (it reads back to the host), and each kernel's bound (the least time
      the card could take for the same work); siddon_bwd_vol also alone
      (into a preallocated, zeroed gradient) and with the march axis pinned
-     to 0, and siddon_fwd at the reconstruction's 320,000 rays;
+     to 0; siddon_fwd at 200x200 and at the reconstruction's 320,000 rays,
+     each with the density's bricked copy cached (registration, renders)
+     and made anew in each call (a reconstruction step), and the copy alone;
   7. the Joseph and trilinear renderers (csrc/joseph.cu):
   7a. every Joseph kernel against its plain version on the random volume of
      phase 3, at strides h = 1, 4 (axis 0 pinned), ~1.37 and ~0.26, in sum
-     and MIP modes (the tolerances of phase 3);
+     and MIP modes (the tolerances of phase 3); joseph_fwd also at axis 0
+     with h = 1 and 1.37 and at axis 2 with h = 4;
   7b. trilinear registration at full size: phase 4's CT, detector, pose and
      60 Adam steps with renderer="trilinear" (n_points 500, capped at the
      133 planes: h = 1), exactly joseph_fwd 2 and joseph_fwdgrad 60;
@@ -58,10 +67,13 @@ Phases (any failure raises and the exit code is non-zero):
   7e. fractional strides at full size: trilinear with n_points=100 and with
      allow_oversample at 500, joseph pinned to axis 0 (h = 4), and
      joseph_bwd_vol there against its plain version, timed;
-  7f. the 512^3 CT with joseph_fwd at 200x200 and 1000x1000;
+  7f. the 512^3 CT with joseph_fwd at 200x200 and 1000x1000, each against
+     the plain version;
   7g. timings of every Joseph kernel beside its bound and plain version, and
      F.grid_sample over the same sample points as the library yardstick;
-     joseph_bwd_vol also alone, and joseph_fwd at the CLI's 320,000 rays;
+     joseph_bwd_vol also alone; joseph_fwd at 200x200 and at the CLI's
+     320,000 rays with its bricked copy cached and made anew, the copy
+     alone, and F.grid_sample over those 320,000 rays' sample points;
   8. per-structure channels (mask_to_channels) and p_subsample:
   8a. the channel kernels (joseph_fwd_ch, joseph_bwd_rays_ch,
      joseph_bwd_vol_ch) against their plain versions on phase 3's volume with
@@ -80,8 +92,14 @@ Phases (any failure raises and the exit code is non-zero):
   8e. timings of the channel kernels at 200^2 with 7 channels.
 
 The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-package beside this file, the script exits non-zero and prints no result.
+``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
+bricked copy of the density that siddon_fwd and joseph_fwd read; no TPU
+counterpart) has an entry of its own, with the launches of phase 4c. The
+two forwards' entries at 320,000 rays give ``ms`` with the copy already
+made (as a registration or a render reads it) and ``ms_with_copy`` with a
+fresh copy in each call, which is what a reconstruction step pays.
+Without a CUDA device, or without the package beside this file, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -498,6 +516,7 @@ def joseph_small(small, rot_g, trans_g, rng):
     random volume, at strides 1, 4 (axis 0 pinned), ~1.37 and ~0.26."""
     import torch
 
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
     from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
 
     dens = small.density
@@ -517,6 +536,17 @@ def joseph_small(small, rot_g, trans_g, rng):
                         for k, v in errs.items()))
         for k, v in errs.items():
             worst[k] = max(worst.get(k, 0), v)
+    # joseph_fwd (bricked copy) on the other axis of each stride: axes 0 and 2.
+    errs = []
+    for axis, h in ((0, 1.0), (0, 1.37), (2, 4.0)):
+        n = int(-(-dens.shape[axis] // h))
+        rows = jrays_of(small, rot_g, trans_g, axis, h)
+        errs.append(check_close(f"joseph_fwd axis {axis} h={h:g} 128x128x64",
+                                J.joseph_fwd(rows, dens, axis, h, n),
+                                J.joseph_fwd_plain(rows, dens, axis, h, n), 1e-4))
+    log(f"[joseph kernels] joseph_fwd at axis 0 h 1 and 1.37, axis 2 h 4: "
+        + ", ".join(f"{e:.3e}" for e in errs))
+    worst["fwd"] = max(worst["fwd"], *errs)
     return worst
 
 
@@ -629,6 +659,7 @@ def trilinear_reconstruction(profile):
     import torch
 
     from diffdrr_tpu_torch.experiments import reconstruction as recon_cli
+    from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
     from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
 
@@ -637,13 +668,16 @@ def trilinear_reconstruction(profile):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
         argv += ["--ckpt-dir", ckpt, "--ckpt-every", "10"]
         J.reset_launch_counts()
+        brick.clear_cache()
+        brick.brick_density.launches = 0
         res = recon_cli.main(argv)
         torch.cuda.synchronize()
-        launches = joseph_launches()
+        launches = dict(joseph_launches(), brick_copy=brick.brick_density.launches)
         log(f"[trilinear recon] launches {launches}")
         expect_launches("trilinear reconstruction", launches,
                         {"joseph_fwd": N_RECON_STEPS + 1, "joseph_bwd_vol": N_RECON_STEPS,
-                         "joseph_fwdgrad": 0, "joseph_fwd_max": 0, "joseph_bwd_rays": 0})
+                         "joseph_fwdgrad": 0, "joseph_fwd_max": 0, "joseph_bwd_rays": 0,
+                         "brick_copy": N_RECON_STEPS + 1})
         losses = res["losses"]
         if not (len(losses) == N_RECON_STEPS and np.isfinite(losses).all()
                 and losses[-1] * 10 <= losses[0]):
@@ -742,6 +776,7 @@ def joseph_cube(T, cube, rot0, trans, kw):
     """Phase 7f: joseph_fwd (#7's function) on the 512^3 CT."""
     import torch
 
+    from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
 
     drr = T.DRR(cube, sdd=1020.0, height=200, delx=2.0, renderer="joseph")
@@ -762,17 +797,22 @@ def joseph_cube(T, cube, rot0, trans, kw):
     drr_k = T.DRR(cube, sdd=1020.0, height=1000, delx=0.4, renderer="joseph")
     img_k = drr_k(rot0, trans, axis=2, **kw)
     rows_k = jrays_of(drr_k, rot0, trans, 2, h)
-    if not torch.isfinite(img_k).all():
-        raise AssertionError("512^3 joseph render at 1000^2 not finite")
+    err_k = check_close("joseph_fwd 512^3 @1000^2", img_k.reshape(-1),
+                        J.joseph_fwd_plain(rows_k, drr_k.density, 2, h, X), 1e-4)
     t_k = median_ms(lambda: J.joseph_fwd(rows_k, drr_k.density, 2, h, X), 10)
+    t_k_copy = median_ms(lambda: J.joseph_fwd(rows_k, drr_k.density, 2, h, X), 10,
+                         before=brick.clear_cache)
     log(f"[cube] joseph 200^2: max abs err {err:.3e}; joseph_fwd {t:.4f} ms (plain "
-        f"{t_plain:.2f}, bound {b:.4f} by {by}); 1000^2: joseph_fwd {t_k:.4f} ms")
-    return dict(launches=launches, err=err, t=t, t_plain=t_plain, b=b, by=by, t_k=t_k)
+        f"{t_plain:.2f}, bound {b:.4f} by {by}); 1000^2: max abs err {err_k:.3e}; joseph_fwd "
+        f"{t_k:.4f} ms with the bricked copy cached, {t_k_copy:.4f} ms making it anew")
+    return dict(launches=launches, err=max(err, err_k), t=t, t_plain=t_plain, b=b, by=by,
+                t_k=t_k)
 
 
-def grid_sample_ms(rows, density, axis, h, n):
+def grid_sample_ms(rows, density, axis, h, n, time_ms=None):
     """One F.grid_sample (trilinear, zero padding) over the march's sample
-    points: the library yardstick of joseph_fwd, without its weighted sum."""
+    points: the library yardstick of joseph_fwd, without its weighted sum.
+    ``time_ms`` times a call (default: median of 20 CUDA-event runs)."""
     import torch
     import torch.nn.functional as F
 
@@ -789,9 +829,14 @@ def grid_sample_ms(rows, density, axis, h, n):
         cols.append(torch.stack([2 * z / (Z - 1) - 1, 2 * y / (Y - 1) - 1,
                                  2 * x / (X - 1) - 1], -1))
     grid = torch.stack(cols, 1)[None, :, :, None, :]  # (1, R, n, 1, 3)
+    del cols
     inp = vol[None, None]
-    return median_ms(lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
-                                           align_corners=True), 20)
+
+    def call():
+        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    return time_ms(call) if time_ms is not None else median_ms(call, 20)
 
 
 CH_KERNELS = ("joseph_fwd_ch", "joseph_bwd_rays_ch", "joseph_bwd_vol_ch")
@@ -1027,7 +1072,7 @@ def main(argv) -> int:
 
     import diffdrr_tpu_torch as T
     from diffdrr_tpu_torch.data import Image, Subject, _REORIENT, canonicalize
-    from diffdrr_tpu_torch.ops.kernels import build
+    from diffdrr_tpu_torch.ops.kernels import brick, build
     from diffdrr_tpu_torch.ops.kernels import siddon as K
     from diffdrr_tpu_torch.parallel import make_reconstruction_step
     from diffdrr_tpu_torch.registration import make_registration_step
@@ -1059,6 +1104,12 @@ def main(argv) -> int:
     rows, ax = rays_of(small, rot_g, trans_g)
     e1 = check_close("siddon_fwd 128x128x64", K.siddon_fwd(rows, small.density, ax),
                      K.siddon_fwd_plain(rows, small.density, ax), 1e-4)
+    # The bricked copy serves every march axis: axes 0 and 2 pinned.
+    for axis in (0, 2):
+        rows_a, _ = rays_of(small, rot_g, trans_g, axis)
+        e1 = max(e1, check_close(f"siddon_fwd axis {axis} 128x128x64",
+                                 K.siddon_fwd(rows_a, small.density, axis),
+                                 K.siddon_fwd_plain(rows_a, small.density, axis), 1e-4))
     e2 = check_fused("siddon_fwdgrad 128x128x64", K.siddon_fwdgrad(rows, small.density, ax),
                      K.siddon_fwdgrad_plain(rows, small.density, ax))
     dens_s = small.density
@@ -1092,6 +1143,8 @@ def main(argv) -> int:
     kw = dict(parameterization="euler_angles", convention="ZXY")
 
     K.reset_launch_counts()
+    brick.clear_cache()
+    brick.brick_density.launches = 0
     target = drr(rot0, trans, axis=2, **kw)
     auto = drr(rot0, trans, **kw)
     init_fn, step_fn = make_registration_step(drr, target, "euler_angles", "ZXY",
@@ -1108,6 +1161,7 @@ def main(argv) -> int:
         step_ms.append((start, end))
     torch.cuda.synchronize()
     main_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    main_launches["brick_copy"] = brick.brick_density.launches
     step_ms = [s.elapsed_time(e) for s, e in step_ms]
     scores = torch.stack(scores).tolist()
     log(f"[main] launches {main_launches}, slab escapes {drr.siddon_escapes}")
@@ -1116,6 +1170,8 @@ def main(argv) -> int:
         raise AssertionError("the main path did not run through every kernel")
     if main_launches["siddon_bwd_vol"] or main_launches["siddon_bwd_rays"]:
         raise AssertionError("registration launched a density or two-pass backward")
+    if main_launches["brick_copy"] != 1:  # one CT: its bricked copy made once
+        raise AssertionError(f"registration bricked its CT {main_launches['brick_copy']} times")
     if target.shape != (1, 1, 200, 200) or not torch.isfinite(target).all():
         raise AssertionError(f"bad render {tuple(target.shape)}")
     check_close("auto-axis render", auto, target, 1e-6)
@@ -1140,6 +1196,8 @@ def main(argv) -> int:
 
     # 6a. Timings at the main path's shapes ----------------------------------
     t_fwd = median_ms(lambda: K.siddon_fwd(rows_m, drr.density, ax_m), 20)
+    t_fwd_copy = median_ms(lambda: K.siddon_fwd(rows_m, drr.density, ax_m), 20,
+                           before=brick.clear_cache)
     t_fwd_plain = median_ms(lambda: K.siddon_fwd_plain(rows_m, drr.density, ax_m), 3, 1)
     t_fg = median_ms(lambda: K.siddon_fwdgrad(rows_r, drr.density, ax_r), 20)
     t_fg_plain = median_ms(lambda: K.siddon_fwdgrad_plain(rows_r, drr.density, ax_r), 3, 1)
@@ -1218,6 +1276,8 @@ def main(argv) -> int:
                          dtype=torch.float32, device=dev)
     trans_v = torch.tensor(BENCH_TRANS * N_VIEWS, device=dev)
     K.reset_launch_counts()
+    brick.clear_cache()
+    brick.brick_density.launches = 0
     measured = drr(rot_v, trans_v, **kw)
     init_fn, recon_step = make_reconstruction_step(drr, lr=RECON_LR)
     dens_r, opt_r = init_fn(torch.zeros_like(drr.density))
@@ -1232,11 +1292,14 @@ def main(argv) -> int:
         recon_ms.append((start, end))
     torch.cuda.synchronize()
     recon_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    recon_launches["brick_copy"] = brick.brick_density.launches
     recon_ms = [s.elapsed_time(e) for s, e in recon_ms]
     losses = torch.stack(losses).tolist()
     log(f"[recon] launches {recon_launches}, slab escapes {drr.siddon_escapes}")
+    # The true density's copy for the measured images, then one a step:
+    # Adam writes the density in place.
     want = {"siddon_fwd": N_RECON_STEPS + 1, "siddon_bwd_vol": N_RECON_STEPS,
-            "siddon_fwdgrad": 0}
+            "siddon_fwdgrad": 0, "brick_copy": N_RECON_STEPS + 1}
     if drr.siddon_escapes != 0 or any(recon_launches[k] != v for k, v in want.items()):
         raise AssertionError(f"reconstruction launches {recon_launches}, want {want}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]
@@ -1280,7 +1343,21 @@ def main(argv) -> int:
     t_bv_plain = median_ms(lambda: K.siddon_bwd_vol_plain(rows_v, g_v, shape, ax_v), 2, 1)
     t_zero = median_ms(lambda: torch.zeros(shape, device=dev), 20)
     dens_v = dens_r.detach()
+    # siddon_fwd with the density's bricked copy cached (registration, a
+    # render) and made anew in each call (a reconstruction step), the copy
+    # alone, and the plain version, at the recon cell's 320,000 rays.
     t_fv = median_ms(lambda: K.siddon_fwd(rows_v, dens_v, ax_v), 20)
+    t_fv_copy = median_ms(lambda: K.siddon_fwd(rows_v, dens_v, ax_v), 20,
+                          before=brick.clear_cache)
+    t_copy = median_ms(lambda: brick.brick_density(dens_v), 20)
+    t_copy_plain = median_ms(lambda: brick.brick_density_plain(dens_v), 20)
+    copy_v = brick.brick_density(dens_v).data
+    if not torch.equal(copy_v, brick.brick_density_plain(dens_v).data):
+        raise AssertionError("brick_copy differs from its plain version on the recon density")
+    # The copy's bound: the density read once and the padded copy written once.
+    b_copy, by_copy = roofline(4 * (dens_v.numel() + copy_v.numel()), 0)
+    del copy_v
+    t_fv_plain = median_ms(lambda: K.siddon_fwd_plain(rows_v, dens_v, ax_v), 1, 1)
     b_fv, by_fv = bound(rows_v, dens_v, ax_v, **FWD_BOUND)
     # The scatter with the march axis pinned to 0 (stride 512 x 133, not 1),
     # one 200x200 view at the main pose.
@@ -1309,6 +1386,11 @@ def main(argv) -> int:
         f"{t_recon:.3f} ms")
     log(f"[time] siddon_bwd_vol axis 0 (200^2, main pose) {t_bv0:.4f} ms with its zero fill, "
         f"{t_bv0_alone:.4f} ms alone; vs plain {err_bv0:.3e}")
+    log(f"[time] siddon_fwd at {rows_v.shape[1]} rays {t_fv:.4f} ms with the bricked copy "
+        f"cached, {t_fv_copy:.4f} ms making it anew (the copy alone {t_copy:.4f} ms by "
+        f"brick_copy, equal to its plain version, which takes {t_copy_plain:.4f} ms; "
+        f"{dens_v.numel() * 4 / 1e6:.1f} MB each way); plain {t_fv_plain:.2f}; at 200^2 "
+        f"{t_fwd:.4f} ms cached, {t_fwd_copy:.4f} ms making it anew")
     del dens_r, dens_v, opt_r, measured, img_v, rows_v, g_v, rows_0, g_0
     del drr, target, auto, params, opt
 
@@ -1338,8 +1420,12 @@ def main(argv) -> int:
     err_k = check_close("siddon_fwd 512^3 @1000^2", img_k.reshape(-1),
                         K.siddon_fwd_plain(rows_k, drr_k.density, ax_k), 1e-4)
     t_k = median_ms(lambda: K.siddon_fwd(rows_k, drr_k.density, ax_k), 10)
+    t_k_copy = median_ms(lambda: K.siddon_fwd(rows_k, drr_k.density, ax_k), 10,
+                         before=brick.clear_cache)
+    err_c = max(err_c, err_k)
     log(f"[cube] 1000^2: shape {tuple(img_k.shape)}, max abs err {err_k:.3e}; "
-        f"siddon_fwd {t_k:.4f} ms")
+        f"siddon_fwd {t_k:.4f} ms with the bricked copy cached, {t_k_copy:.4f} ms making it "
+        f"anew")
 
     # 7. Joseph and trilinear renderers ---------------------------------------
     from diffdrr_tpu_torch.ops.kernels import joseph as J
@@ -1403,8 +1489,16 @@ def main(argv) -> int:
     t_jbv_res = scatter_alone_ms("joseph", "joseph_bwd_vol", rows_v, rec["g_res"],
                                  rec["dens_shape"], 2, (h_v, n_v, int(J.is_blend(h_v))))
     t_jzero = median_ms(lambda: torch.zeros(rec["dens_shape"], device=dev), 20)
-    t_jfv = median_ms(lambda: J.joseph_fwd(rows_v, rec["density"], 2, h_v, n_v), 20)
-    b_jfv, by_jfv = march_bound(rows_v, rec["density"], 2, h_v, n_v, **J_FWD_BOUND)
+    dens_v = rec["density"]
+    t_jfv = median_ms(lambda: J.joseph_fwd(rows_v, dens_v, 2, h_v, n_v), 20)
+    t_jfv_copy = median_ms(lambda: J.joseph_fwd(rows_v, dens_v, 2, h_v, n_v), 20,
+                           before=brick.clear_cache)
+    t_jcopy = median_ms(lambda: brick.brick_density(dens_v), 20)
+    t_jfv_plain = median_ms(lambda: J.joseph_fwd_plain(rows_v, dens_v, 2, h_v, n_v), 1, 1)
+    t_lib_v = grid_sample_ms(rows_v, dens_v, 2, h_v, n_v)
+    b_jfv, by_jfv = march_bound(rows_v, dens_v, 2, h_v, n_v, **J_FWD_BOUND)
+    t_jf_copy = median_ms(lambda: J.joseph_fwd(rows_m, dens_m, 2, 1.0, X), 20,
+                          before=brick.clear_cache)
     log(f"[time] joseph_fwd and the rest at 200^2 rays of the main CT, axis 2, h = 1; "
         f"joseph_bwd_vol at {rec['rows_v'].shape[1]} rays with its zero fill; F.grid_sample "
         f"over the {rows_m.shape[1]} x {X} sample points (no weighted sum) {t_lib:.4f} ms; "
@@ -1415,6 +1509,11 @@ def main(argv) -> int:
         f"cotangent ({int((rec['g_res'] == 0).sum())} rays with g = 0); the zero fill alone "
         f"{t_jzero:.4f} ms; joseph_fwd at the same rays {t_jfv:.4f} ms (bound {b_jfv:.4f} by "
         f"{by_jfv})")
+    log(f"[time] joseph_fwd at {rows_v.shape[1]} rays {t_jfv:.4f} ms with the bricked copy "
+        f"cached, {t_jfv_copy:.4f} ms making it anew (the copy alone {t_jcopy:.4f} ms); plain "
+        f"{t_jfv_plain:.2f}; F.grid_sample over the {rows_v.shape[1]} x {n_v} sample points "
+        f"{t_lib_v:.4f} ms; at 200^2 {jtimes['fwd'][0]:.4f} ms cached, {t_jf_copy:.4f} ms "
+        f"making it anew")
 
     # Records ----------------------------------------------------------------
     src = "diffdrr_tpu_torch/csrc/siddon.cu"
@@ -1428,6 +1527,16 @@ def main(argv) -> int:
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:396",
          "launches": main_launches["siddon_fwdgrad"], "max_abs_err": err_fg,
          "ms": t_fg, "plain_ms": t_fg_plain, "bound_ms": b_fg, "bound_by": by_fg,
+         "library_ms": None},
+        {"name": "siddon_fwd[320k]", "route": "cuda", "source": src,
+         "replaces": "diffdrr_tpu/ops/pallas/siddon.py:189",
+         "launches": recon_launches["siddon_fwd"], "max_abs_err": err_fv,
+         "ms": t_fv, "ms_with_copy": t_fv_copy, "plain_ms": t_fv_plain, "bound_ms": b_fv,
+         "bound_by": by_fv, "library_ms": None},
+        {"name": "brick_copy", "route": "cuda", "source": "diffdrr_tpu_torch/csrc/brick.cu",
+         "replaces": "none: layout glue that siddon_fwd and joseph_fwd read",
+         "launches": recon_launches["brick_copy"], "max_abs_err": 0.0,
+         "ms": t_copy, "plain_ms": t_copy_plain, "bound_ms": b_copy, "bound_by": by_copy,
          "library_ms": None},
         {"name": "siddon_fwd[512^3]", "route": "cuda", "source": src,
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:573",
@@ -1463,6 +1572,10 @@ def main(argv) -> int:
     kernels += [
         jrec("joseph_fwd", "fwd", 376, tri["launches"]["joseph_fwd"],
              max(tri["err_fwd"], err_frac, jsmall["fwd"]), library_ms=t_lib),
+        {"name": "joseph_fwd[320k]", "route": "cuda", "source": jsrc,
+         "replaces": f"{jpal}:376", "launches": rec["launches"]["joseph_fwd"],
+         "max_abs_err": rec["err_fv"], "ms": t_jfv, "ms_with_copy": t_jfv_copy,
+         "plain_ms": t_jfv_plain, "bound_ms": b_jfv, "bound_by": by_jfv, "library_ms": t_lib_v},
         {"name": "joseph_fwd[512^3]", "route": "cuda", "source": jsrc,
          "replaces": f"{jpal}:487", "launches": jc["launches"], "max_abs_err": jc["err"],
          "ms": jc["t"], "plain_ms": jc["t_plain"], "bound_ms": jc["b"], "bound_by": jc["by"],

@@ -40,6 +40,22 @@
 // most reads, but a 200x200 detector gives only 40,000 threads.
 // Shared-memory staging of plane windows is later work (PERF.md).
 //
+// joseph_fwd reads the density's bricked copy instead (brick.cuh, made by
+// brick.cu once per version of the density). What bounded it on the
+// strided density: in the recon-CLI cell the march axis is the density's
+// unit-stride axis, so the 4 neighbour loads of a warp's 32 rays at one
+// step touched ~32 cache lines each; its loads alone took 1.12 ms of its
+// 1.07 at the CLI's 320,000 rays (fwd_timing.py's probes, PERF.md). On
+// 4x4x4 bricks (two lines each) those loads share a few lines (loads alone
+// 0.48 ms), and each thread keeps kFwdSteps = 4 steps' windows in flight
+// before adding them in step order, so the value is bit for bit the
+// strided serial one. The brick shape is a compile-time constant
+// (brick.cuh), so a voxel's address costs constant shifts and masks and
+// one multiply a brick stride. What bounds it now: the loads still, at ~2x
+// the march without them (0.20 ms of the kernel's 0.43-0.46). At 1000x1000
+// on the 512^3 CT, rays ~0.4 voxel apart, it is within ~2% of the strided
+// kernel (PERF.md).
+//
 // The scatter (joseph_bwd_vol) is laid out otherwise: one warp per ray. It
 // adds 4 (or 8) products per in-slab step into the zero-filled gradient
 // with float atomics. The bytes it must move are the gradient written once.
@@ -72,12 +88,15 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// One thread per ray, reading the bricked copy with kFwdSteps steps' loads
+// in flight (the note at the top of this file says why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
+joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
                   joseph::March m, float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
-  out[r] = joseph::trace_fwd(joseph::load_ray(rows, n_rays, r), vol, m);
+  out[r] = joseph::trace_fwd<joseph::kFwdSteps>(joseph::load_ray(rows, n_rays, r), vol, m);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -259,15 +278,30 @@ unsigned int n_blocks(int64_t n_threads) {
 // zero-filled float32 volume with the density's extents and its own strides
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError().
-extern "C" int joseph_fwd(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
-                          int64_t sy, int64_t sz, int X, int Y, int Z, float h, int n_steps,
-                          int blend, float* out, void* stream) {
+// joseph_fwd reads the density's bricked copy (brick.cuh) instead: vol is
+// the copy, axis the march axis, then the brick strides and the density's
+// extents of the march-permuted (s, y, z) axes. It returns -1 for an axis
+// outside 0..2.
+template <int A>
+int launch_fwd(const float* rows, int64_t n_rays, const float* vol, int bs_s, int bs_y, int bs_z,
+               int X, int Y, int Z, joseph::March m, float* out, void* stream) {
   if (n_rays > 0) {
-    joseph_fwd_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), make_march(h, n_steps, blend),
-        out);
+    joseph_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), m, out);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int joseph_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
+                          int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
+                          int n_steps, int blend, float* out, void* stream) {
+  joseph::March m = make_march(h, n_steps, blend);
+  switch (axis) {
+    case 0: return launch_fwd<0>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, m, out, stream);
+    case 1: return launch_fwd<1>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, m, out, stream);
+    case 2: return launch_fwd<2>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, m, out, stream);
+    default: return -1;
+  }
 }
 
 extern "C" int joseph_fwd_max(const float* rows, int64_t n_rays, const float* vol, int64_t ss,

@@ -6,7 +6,8 @@
 //
 // Geometry (the rows are packed by diffdrr_tpu_torch/ops/kernels/prep.py with
 // the Joseph quadrature): the volume is read through its strides in (s, y, z)
-// order, s being the march axis. Step p samples the ray at axis position
+// order, s being the march axis, or (trace_fwd) through its bricked copy in
+// the same order (brick.cuh). Step p samples the ray at axis position
 // k = p * h, where alpha = k * a + b and the transverse position is
 // (gy + alpha dy, gz + alpha dz). The sample counts only inside the ray's
 // [amin, amax] (clamped to [0, 1]) and is weighted by sc = w |1/d_s| h.
@@ -41,6 +42,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include "brick.cuh"
 
 #if defined(__CUDACC__)
 #define JOSEPH_HD __host__ __device__ __forceinline__
@@ -166,9 +169,18 @@ JOSEPH_HD float voxel(const Volume& v, int k, float fy, float fz) {
   return v.data[(int64_t)k * v.ss + (int64_t)fy * v.sy + (int64_t)fz * v.sz];
 }
 
+// The same voxel of the bricked copy (brick.cuh), by the same bounds test.
+template <int A>
+JOSEPH_HD float voxel(const brick::Volume<A>& v, int k, float fy, float fz) {
+  if (!(k >= 0 && k < v.X && fy >= 0.f && fy < (float)v.Y && fz >= 0.f && fz < (float)v.Z))
+    return 0.f;
+  return brick::load(v.data + brick::offset(v, k, (int)fy, (int)fz));
+}
+
 // The 2 x 2 neighbourhood of the step (win[m][n] at y = fy + m, z = fz + n),
 // lerped across the plane pair in blend mode.
-JOSEPH_HD void window(const Volume& v, const Step& s, bool blend, float win[2][2]) {
+template <class Vol>
+JOSEPH_HD void window(const Vol& v, const Step& s, bool blend, float win[2][2]) {
   for (int m = 0; m < 2; ++m) {
     for (int n = 0; n < 2; ++n) {
       float fy = s.fy + (float)m;
@@ -226,17 +238,35 @@ JOSEPH_HD void step_range(const Ray& r, const March& m, int* lo, int* hi) {
   *hi = (int)fminf(fmaxf(fhi, 0.f), (float)m.n_steps);
 }
 
-// sum over steps of sample * scale.
-JOSEPH_HD float trace_fwd(const Ray& r, const Volume& v, const March& m) {
+// The loads joseph_fwd keeps in flight: the windows of this many steps.
+constexpr int kFwdSteps = 4;
+
+// sum over steps of sample * scale, from the strided density (Volume) or
+// its bricked copy (brick::Volume). U steps at a time: their windows first,
+// so up to 4U (8U in blend mode) loads are in flight, then their samples in
+// step order, so the value is bit for bit the U = 1 one.
+template <int U = 1, class Vol>
+JOSEPH_HD float trace_fwd(const Ray& r, const Vol& v, const March& m) {
   int lo, hi;
   step_range(r, m, &lo, &hi);
   float acc = 0.f;
-  for (int p = lo; p < hi; ++p) {
-    Step s = step_at(r, m, v.X, p);
-    if (!s.inslab) continue;  // scale 0: the step adds 0
-    float win[2][2];
-    window(v, s, m.blend, win);
-    acc += bilinear(s, win) * s.scale;
+  for (int p0 = lo; p0 < hi; p0 += U) {
+    Step st[U];
+    bool in[U];
+    float win[U][2][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      st[u] = step_at(r, m, v.X, p0 + u);
+      in[u] = p0 + u < hi && st[u].inslab;  // outside the slab: scale 0, the step adds 0
+      if (in[u]) {
+        window(v, st[u], m.blend, win[u]);
+      } else {
+        win[u][0][0] = win[u][0][1] = win[u][1][0] = win[u][1][1] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (in[u]) acc += bilinear(st[u], win[u]) * st[u].scale;
   }
   return acc;
 }

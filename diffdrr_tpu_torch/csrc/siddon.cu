@@ -34,6 +34,23 @@
 // resident threads. Tiling rays per block and staging slab windows in
 // shared memory is later work (PERF.md).
 //
+// siddon_fwd reads the density's bricked copy instead (brick.cuh, made by
+// brick.cu once per version of the density). What bounded it on the
+// strided density: in the recon cells the march axis is the density's
+// unit-stride axis, so a warp's 32 rays read 32 columns at each slab, ~32
+// cache lines a load; its loads alone took 0.95 ms at the recon's 320,000
+// rays (fwd_timing.py's probes, PERF.md). On 4x4x4 bricks (two lines each)
+// those rays fall in a few bricks (loads alone 0.55 ms), and each thread
+// keeps kFwdSlabs = 4 slabs' loads in flight before adding them in slab
+// order, so the value is bit for bit the strided serial one. The brick
+// shape is a compile-time constant (brick.cuh), so a voxel's address costs
+// constant shifts and masks and one multiply a brick stride. What bounds
+// it now: the march's own arithmetic, two IEEE divisions a slab (the march
+// without loads takes 0.33 ms of the kernel's 0.41-0.43). At 1000x1000 on
+// the 512^3 CT, rays ~0.4 voxel apart, the march is most of the time and
+// the kernel is still ~12% slower than the strided one (PERF.md, open
+// questions).
+//
 // The scatter (siddon_bwd_vol) is laid out otherwise: one warp per ray.
 // It adds len * w * g for each non-empty segment into the f32 gradient,
 // which the wrapper zero-fills, with a float atomicAdd. The bytes it must
@@ -64,13 +81,16 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// One thread per ray, reading the bricked copy with kFwdSlabs slabs' loads
+// in flight (the note at the top of this file says why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
+siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
                   float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
   siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
-  out[r] = siddon::trace_fwd(ray, vol);
+  out[r] = siddon::trace_fwd<siddon::kFwdSlabs>(ray, vol);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -198,14 +218,30 @@ unsigned int n_blocks(int64_t n_threads) {
 // zero-filled float32 volume with the density's extents and its own strides
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError().
-extern "C" int siddon_fwd(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
-                          int64_t sy, int64_t sz, int X, int Y, int Z, float* out,
-                          void* stream) {
+//
+// siddon_fwd reads the density's bricked copy (brick.cuh) instead: vol is
+// the copy, axis the march axis, then the brick strides and the density's
+// extents of the march-permuted (s, y, z) axes. It returns -1 for an axis
+// outside 0..2.
+template <int A>
+int launch_fwd(const float* rows, int64_t n_rays, const float* vol, int bs_s, int bs_y, int bs_z,
+               int X, int Y, int Z, float* out, void* stream) {
   if (n_rays > 0) {
-    siddon_fwd_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), out);
+    siddon_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int siddon_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
+                          int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
+                          void* stream) {
+  switch (axis) {
+    case 0: return launch_fwd<0>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
+    case 1: return launch_fwd<1>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
+    case 2: return launch_fwd<2>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
+    default: return -1;
+  }
 }
 
 extern "C" int siddon_fwdgrad(const float* rows, int64_t n_rays, const float* vol,

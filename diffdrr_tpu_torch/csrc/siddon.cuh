@@ -6,8 +6,9 @@
 //
 // Geometry (see diffdrr_tpu_torch/ops/kernels/prep.py for the rows): the
 // volume is read through its strides in (s, y, z) order, s being the march
-// axis. Slab s covers s-positions [s - 0.5, s + 0.5], i.e. the alpha interval
-// between (s -/+ 0.5) a + b, clipped to the ray's [amin, amax]. When the
+// axis, or (trace_fwd) through its bricked copy in the same order
+// (brick.cuh). Slab s covers s-positions [s - 0.5, s + 0.5], i.e. the alpha
+// interval between (s -/+ 0.5) a + b, clipped to the ray's [amin, amax]. When the
 // ray's transverse slopes are at most 1 in voxel units (the DRR checks this),
 // the ray crosses at most one y-boundary and one z-boundary inside a slab,
 // so the slab holds at most three segments whose nearest voxels lie in a 2x2
@@ -27,6 +28,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include "brick.cuh"
 
 #if defined(__CUDACC__)
 #define SIDDON_HD __host__ __device__ __forceinline__
@@ -90,6 +93,13 @@ SIDDON_HD float voxel(const Volume& v, int s, float fy, float fz) {
   return v.data[(int64_t)s * v.ss + (int64_t)fy * v.sy + (int64_t)fz * v.sz];
 }
 
+// The same voxel of the bricked copy (brick.cuh), by the same bounds test.
+template <int A>
+SIDDON_HD float voxel(const brick::Volume<A>& v, int s, float fy, float fz) {
+  if (!(fy >= 0.f && fy < (float)v.Y && fz >= 0.f && fz < (float)v.Z)) return 0.f;
+  return brick::load(v.data + brick::offset(v, s, (int)fy, (int)fz));
+}
+
 // Base voxel and crossing alpha of one transverse axis inside [alo, ahi].
 SIDDON_HD void crossing(float g, float d, float alo, float ahi, float* base, float* t) {
   float m_lo = rintf(g + alo * d);
@@ -139,20 +149,40 @@ SIDDON_HD void slab_range(const Ray& r, int X, int* lo, int* hi) {
   *hi = (int)fminf(fmaxf(fhi, 0.f), (float)X);
 }
 
-// sum over slabs of w * (len1 V1 + len2 V2 + len3 V3).
-SIDDON_HD float trace_fwd(const Ray& r, const Volume& v) {
+// The loads siddon_fwd keeps in flight: the segments of this many slabs.
+constexpr int kFwdSlabs = 4;
+
+// sum over slabs of w * (len1 V1 + len2 V2 + len3 V3), from the strided
+// density (Volume) or its bricked copy (brick::Volume). U slabs at a time:
+// their segments and reads first, so up to 3U loads are in flight, then
+// their sums in slab order, so the value is bit for bit the U = 1 one.
+template <int U = 1, class Vol>
+SIDDON_HD float trace_fwd(const Ray& r, const Vol& v) {
   int lo, hi;
   slab_range(r, v.X, &lo, &hi);
   float acc = 0.f;
-  for (int s = lo; s < hi; ++s) {
-    Slab sl = slab_segments(r, s);
-    float seg = 0.f;
-    for (int j = 0; j < 3; ++j) {
-      // A zero-length segment adds 0 * V: skip its read.
-      float V = sl.len[j] > 0.f ? voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]) : 0.f;
-      seg += V * sl.len[j];
+  for (int s0 = lo; s0 < hi; s0 += U) {
+    float len[U][3], V[U][3];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      int s = s0 + u;
+      Slab sl = slab_segments(r, s);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        len[u][j] = sl.len[j];
+        // A zero-length segment adds 0 * V: skip its read.
+        V[u][j] = (s < hi && sl.len[j] > 0.f) ? voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j])
+                                              : 0.f;
+      }
     }
-    acc += r.w * seg;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s0 + u >= hi) break;
+      float seg = 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) seg += V[u][j] * len[u][j];
+      acc += r.w * seg;
+    }
   }
   return acc;
 }

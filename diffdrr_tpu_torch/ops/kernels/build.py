@@ -25,7 +25,7 @@ __all__ = ["load", "build_all", "SOURCES", "CSRC", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("siddon", "joseph")
+SOURCES = ("siddon", "joseph", "brick")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -38,6 +38,9 @@ _INT = ctypes.c_int
 _F32 = ctypes.c_float
 # rows, n_rays, volume, its strides and extents, in march order
 _VOL = [_VOID, _I64, _VOID, _I64, _I64, _I64, _INT, _INT, _INT]
+# rows, n_rays, the bricked copy, the march axis, then the march-ordered
+# axes' brick strides and extents (brick.BrickedDensity.args)
+_BVOL = [_VOID, _I64, _VOID] + [_INT] * 7
 # rows, n_rays, g, arg, the gradient volume, its strides and extents
 _GRAD = [_VOID, _I64, _VOID, _VOID, _VOID, _I64, _I64, _I64, _INT, _INT, _INT]
 # the Joseph march: h (the float32 rounding of the stride), n_steps, blend
@@ -48,14 +51,14 @@ _LAB = [_VOID, _I64, _I64, _I64]
 # all return int).
 _SIGNATURES = {
     "siddon": {
-        "siddon_fwd": _VOL + [_VOID] * 2,
+        "siddon_fwd": _BVOL + [_VOID] * 2,
         "siddon_fwdgrad": _VOL + [_VOID] * 2,
         "siddon_fwd_max": _VOL + [_VOID] * 3,
         "siddon_bwd_rays": _VOL + [_VOID] * 4,
         "siddon_bwd_vol": _GRAD + [_VOID],
     },
     "joseph": {
-        "joseph_fwd": _VOL + _MARCH + [_VOID] * 2,
+        "joseph_fwd": _BVOL + _MARCH + [_VOID] * 2,
         "joseph_fwd_max": _VOL + _MARCH + [_VOID] * 3,
         "joseph_fwdgrad": _VOL + _MARCH + [_VOID] * 3,
         "joseph_bwd_rays": _VOL + _MARCH + [_VOID] * 4,
@@ -65,6 +68,10 @@ _SIGNATURES = {
         "joseph_bwd_rays_ch": _VOL + _LAB + _MARCH + [_INT] + [_VOID] * 3,
         "joseph_bwd_vol_ch": [_VOID, _I64, _VOID] + _LAB + [_VOID, _I64, _I64, _I64, _INT, _INT,
                                                              _INT] + _MARCH + [_INT, _VOID],
+    },
+    "brick": {
+        # the density, its strides and extents, the copy
+        "brick_copy": [_VOID, _I64, _I64, _I64] + [_INT] * 3 + [_VOID] * 2,
     },
 }
 

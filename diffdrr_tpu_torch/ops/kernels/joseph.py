@@ -60,6 +60,7 @@ import torch
 
 from ._launch import (call, check, check_cotangent, check_rows, ptr, runs_plain,
                       strides_extents)
+from .brick import bricked
 from .prep import NROWS, ROW_NAMES, march_perm, prep_rays
 
 __all__ = [
@@ -376,13 +377,18 @@ def _launch(fn_name: str, rows, density, axis: int, h: float, n_steps: int, *arg
 
 def joseph_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
                n_steps: int) -> torch.Tensor:
-    """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``."""
+    """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``.
+    The kernel reads the density's bricked copy (``brick.bricked``: made
+    once for an unchanged density)."""
     check("joseph", rows, density, axis)
     _check_march(h, n_steps)
     if runs_plain("joseph_fwd", rows):
         return joseph_fwd_plain(rows, density, axis, h, n_steps)
+    vol = bricked(density)
+    rows = rows.contiguous()
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
-    _launch("joseph_fwd", rows, density, axis, h, n_steps, out.data_ptr())
+    call("joseph", "joseph_fwd", rows.device, rows.data_ptr(), rows.shape[1],
+         vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), out.data_ptr())
     joseph_fwd.launches += 1
     return out
 

@@ -35,6 +35,7 @@ import torch
 
 from ._launch import (call, check, check_cotangent, check_rows, ptr, runs_plain,
                       strides_extents)
+from .brick import bricked
 from .prep import NROWS, ROW_NAMES, march_perm, prep_rays
 
 __all__ = [
@@ -255,12 +256,17 @@ def _launch(fn_name: str, rows: torch.Tensor, density: torch.Tensor, axis: int,
 
 
 def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
-    """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``."""
+    """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``.
+    The kernel reads the density's bricked copy (``brick.bricked``: made
+    once for an unchanged density)."""
     check("siddon", rows, density, axis)
     if runs_plain("siddon_fwd", rows):
         return siddon_fwd_plain(rows, density, axis)
+    vol = bricked(density)
+    rows = rows.contiguous()
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
-    _launch("siddon_fwd", rows, density, axis, out.data_ptr())
+    call("siddon", "siddon_fwd", rows.device, rows.data_ptr(), rows.shape[1],
+         vol.data.data_ptr(), *vol.args(axis), out.data_ptr())
     siddon_fwd.launches += 1
     return out
 

@@ -23,6 +23,7 @@ slab, so the summation order differs.
 """
 
 import ctypes
+import re
 import shutil
 import subprocess
 
@@ -30,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
-from diffdrr_tpu_torch.ops.kernels import build
+from diffdrr_tpu_torch.ops.kernels import brick, build
+from diffdrr_tpu_torch.ops.kernels.brick import (brick_density, brick_density_plain, bricked,
+                                               clear_cache)
 from diffdrr_tpu_torch.ops.kernels.prep import march_perm, prep_rays
 from diffdrr_tpu_torch.ops.kernels import joseph as J
 from diffdrr_tpu_torch.ops.kernels import siddon as K
@@ -111,7 +114,7 @@ extern "C" void twin_bwd_vol_warp(const float* rows, int64_t R, const float* g, 
 """
 
 
-def _build_twin(tmp_path_factory, name, source):
+def _build_twin(tmp_path_factory, name, source, defines=()):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not available to build the host twin")
@@ -120,7 +123,7 @@ def _build_twin(tmp_path_factory, name, source):
     src.write_text(source)
     lib = d / f"lib{name}.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
-                    f"-I{build.CSRC}", "-o", str(lib), str(src)],
+                    *(f"-D{d}" for d in defines), f"-I{build.CSRC}", "-o", str(lib), str(src)],
                    check=True, timeout=60)
     return ctypes.CDLL(str(lib))
 
@@ -869,3 +872,358 @@ def test_cuda_joseph_warp_scatter_matches_plain(axis, mode, h):
     torch.cuda.synchronize()
     assert got.is_contiguous() and torch.count_nonzero(ref) > 0
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+# -----------------------------------------------------------------------------
+# The forward gathers on the bricked copy (csrc/brick.cuh)
+# -----------------------------------------------------------------------------
+
+_BRICK_TWIN_SRC = r"""
+#include <type_traits>
+#include "joseph.cuh"
+#include "siddon.cuh"
+#define BRICK_ARGS const float* bvol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z
+// f(std::integral_constant<int, A>()) for march axis A = axis.
+template <class F>
+static void with_axis(int axis, F f) {
+  switch (axis) {
+    case 0: f(std::integral_constant<int, 0>()); break;
+    case 1: f(std::integral_constant<int, 1>()); break;
+    default: f(std::integral_constant<int, 2>()); break;
+  }
+}
+// trace_fwd on the bricked copy with `unroll` slabs (steps) in flight; 0
+// takes the kernels' own count (kFwdSlabs, kFwdSteps).
+template <class F>
+static void each_unroll(int unroll, F f) {
+  switch (unroll) {
+    case 1: f(std::integral_constant<int, 1>()); break;
+    case 2: f(std::integral_constant<int, 2>()); break;
+    case 4: f(std::integral_constant<int, 4>()); break;
+    default: f(std::integral_constant<int, 0>()); break;
+  }
+}
+extern "C" void bt_siddon(int unroll, const float* rows, int64_t R, BRICK_ARGS, float* out) {
+  with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    each_unroll(unroll, [&](auto u) {
+      constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kFwdSlabs;
+      for (int64_t r = 0; r < R; ++r)
+        out[r] = siddon::trace_fwd<U>(siddon::load_ray(rows, R, r), v);
+    });
+  });
+}
+extern "C" void bt_joseph(int unroll, const float* rows, int64_t R, BRICK_ARGS, float h, int n,
+                          int blend, float* out) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    each_unroll(unroll, [&](auto u) {
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdSteps;
+      for (int64_t r = 0; r < R; ++r)
+        out[r] = joseph::trace_fwd<U>(joseph::load_ray(rows, R, r), v, m);
+    });
+  });
+}
+"""
+
+_UNROLLS = (0, 1, 2, 4)  # 0: the kernels' own count
+
+
+@pytest.fixture(scope="module")
+def btwin(tmp_path_factory):
+    """The twin of the bricked trace_fwd for a brick shape: brick.cuh's
+    compile-time shape set with -D, one build per shape."""
+    built = {}
+
+    def get(shape):
+        if shape not in built:
+            logs = [b.bit_length() - 1 for b in shape]
+            so = _build_twin(tmp_path_factory, "btwin", _BRICK_TWIN_SRC,
+                             [f"BRICK_L{d}={logs[d]}" for d in range(3)])
+            ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            bvol = [ptr] + [i32] * 7
+            so.bt_siddon.argtypes = [i32, ptr, i64] + bvol + [ptr]
+            so.bt_joseph.argtypes = [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr]
+            so.bt_siddon.restype = so.bt_joseph.restype = None
+            built[shape] = so
+        return built[shape]
+
+    return get
+
+
+def _brick_copy(vol, shape):
+    """The bricked copy of ``vol`` in bricks of ``shape`` (the layout of
+    brick.brick_density_plain, for any brick shape a twin is built with)."""
+    pad = [-e % b for e, b in zip(vol.shape, shape)]
+    padded = torch.nn.functional.pad(vol, (0, pad[2], 0, pad[1], 0, pad[0]))
+    split = [m for e, p, b in zip(vol.shape, pad, shape) for m in ((e + p) // b, b)]
+    data = padded.reshape(split).permute(0, 2, 4, 1, 3, 5).contiguous()
+    return brick.BrickedDensity(data, tuple(vol.shape))
+
+
+def _bricked_fwd(btwin, rows, vol, axis, unroll, brick_shape, march=None):
+    """The twin's trace_fwd on ``vol``'s bricked copy; ``march`` (h, n) for Joseph."""
+    so = btwin(brick_shape)
+    rows = rows.contiguous()
+    R = rows.shape[1]
+    bv = brick_density(vol) if brick_shape == brick.BRICK else _brick_copy(vol, brick_shape)
+    out = torch.full((R,), float("nan"))
+    head = (unroll, rows.data_ptr(), R, bv.data.data_ptr(), *bv.args(axis))
+    if march is None:
+        so.bt_siddon(*head, out.data_ptr())
+    else:
+        h, n = march
+        so.bt_joseph(*head, h, n, int(J.is_blend(h)), out.data_ptr())
+    return out
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _fwd_rays(rng, dims, axis, **prep):
+    """Rows of the bricked-forward cases along ``axis``: random off-grid rays,
+    long, short (entering through a transverse face near the far end) and
+    missing rays, rays entering mid-slab through the y = -0.5 face, and last
+    a ray of NaN rows."""
+    parts = [_random_rays(rng, dims, axis, 60), _mixed_rays(rng, dims, axis, 12)]
+    ya = [a for a in range(3) if a != axis][0]
+    n = 16
+    x_e = 0.4 * dims[axis] + 0.3  # where the rays cross y = -0.5: inside slab round(x_e)
+    slope = 0.8 + np.linspace(0.0, 0.02, n)
+    pts = []
+    for s in (-50.0, dims[axis] + 50.0):
+        p = np.zeros((n, 3))
+        p[:, axis] = s
+        p[:, ya] = -0.5 + slope * (s - x_e)
+        p[:, 3 - axis - ya] = 0.5 * dims[3 - axis - ya] + np.linspace(0.0, 0.02, n)
+        pts.append(torch.tensor(p[:, None], dtype=torch.float32))
+    parts.append((pts[0], pts[1], torch.ones((n, 1, 1))))
+    rows = torch.cat([prep_rays(s, t, w, axis, dims, **prep) for s, t, w in parts], 1)
+    return torch.cat([rows, torch.full((9, 1), float("nan"))], 1)
+
+
+# Extents that are not whole bricks of any shape below.
+_BRICK_DIMS = (21, 23, 13)
+_BRICKS = pytest.mark.parametrize("brick_shape", [(4, 4, 2), (4, 4, 4), (2, 8, 1)],
+                                  ids=["4x4x2", "4x4x4", "2x8x1"])
+
+
+def _densities(rng, dims):
+    """The same random density contiguous and in Fortran order (permuted)."""
+    vol = torch.tensor(rng.uniform(0.1, 1.0, dims), dtype=torch.float32)
+    return vol, vol.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+
+
+@_BRICKS
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_bricked_equals_strided(twin, btwin, axis, brick_shape):
+    """siddon::trace_fwd on the bricked copy, at every unroll, equals the
+    strided serial trace_fwd bit for bit (contiguous and permuted density,
+    extents not whole bricks, partial entry slabs, missing and NaN rays),
+    and the plain version to 1e-6 * max on the finite rays."""
+    rng = np.random.default_rng(80 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis)
+    ref = _run_twin(twin, False, rows, vol, axis)
+    assert (ref[:-1] == 0).any() and (ref[:-1] > 0).sum() > 80
+    assert torch.equal(_bits(_run_twin(twin, False, rows, vol_f, axis)), _bits(ref))
+    for unroll in _UNROLLS:
+        for v in (vol, vol_f):
+            got = _bricked_fwd(btwin, rows, v, axis, unroll, brick_shape)
+            assert torch.equal(_bits(got), _bits(ref)), (unroll, v.is_contiguous())
+    plain = siddon_fwd_plain(rows[:, :-1], vol, axis)
+    np.testing.assert_allclose(ref[:-1], plain, atol=1e-6 * plain.abs().max().item())
+
+
+@_BRICKS
+@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6, 0.26],
+                         ids=["h1", "h4", "h1.37", "h0.6", "h0.26"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_bricked_equals_strided(jtwin, btwin, axis, h, brick_shape):
+    """joseph::trace_fwd on the bricked copy, at every unroll, equals the
+    strided serial trace_fwd bit for bit, at integer h and at fractional h
+    (whose last steps lerp toward plane X, which reads 0), and the plain
+    version to 1e-6 * max on the finite rays."""
+    rng = np.random.default_rng(90 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h)
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    if h < 1:
+        assert (n - 1) * np.float32(h) > _BRICK_DIMS[axis] - 1  # the pair at plane X
+    ref = _JosephTwin(jtwin, rows, vol, axis, h, n).fwd()
+    assert ref[-1] == 0 and (ref[:-1] > 0).sum() > 80
+    assert torch.equal(_bits(_JosephTwin(jtwin, rows, vol_f, axis, h, n).fwd()), _bits(ref))
+    for unroll in _UNROLLS:
+        for v in (vol, vol_f):
+            got = _bricked_fwd(btwin, rows, v, axis, unroll, brick_shape, (h, n))
+            assert torch.equal(_bits(got), _bits(ref)), (unroll, v.is_contiguous())
+    plain = J.joseph_fwd_plain(rows[:, :-1], vol, axis, h, n)
+    np.testing.assert_allclose(ref[:-1], plain, atol=1e-6 * plain.abs().max().item())
+
+
+@pytest.mark.parametrize("dims", [(21, 23, 13), (8, 8, 4), (1, 5, 2), (4, 4, 4), (5, 1, 9),
+                                  (16, 3, 7), (2, 9, 1), (12, 12, 12), (3, 17, 6)])
+def test_brick_density_matches_index_gather(dims):
+    """Every voxel (i0, i1, i2) of the density, contiguous or permuted, sits
+    at [i0 // b0, i1 // b1, i2 // b2, i0 % b0, i1 % b1, i2 % b2] of the copy,
+    the padding is 0, and the C arguments are each march-permuted axis's
+    brick stride and extent (the last axis's brick stride is one brick, as
+    the kernels take it, wherever that axis has more than one)."""
+    rng = np.random.default_rng(sum(dims))
+    bs = brick.BRICK
+    for vol in _densities(rng, dims):
+        bv = brick_density(vol)
+        assert bv.shape == dims and bv.data.is_contiguous()
+        assert tuple(bv.data.shape) == (*(-(-e // b) for e, b in zip(dims, bs)), *bs)
+        idx = torch.meshgrid(*(torch.arange(e) for e in dims), indexing="ij")
+        at = [i // b for i, b in zip(idx, bs)] + [i % b for i, b in zip(idx, bs)]
+        assert torch.equal(bv.data[tuple(at)], vol)
+        inside = torch.zeros(bv.data.shape, dtype=torch.bool)
+        inside[tuple(at)] = True
+        assert torch.count_nonzero(bv.data[~inside]) == 0
+        assert bv.data.shape[2] == 1 or bv.data.stride(2) == bs[0] * bs[1] * bs[2]
+        for axis in range(3):
+            perm = march_perm(axis)
+            assert bv.args(axis) == [axis, *(bv.data.stride(p) for p in perm),
+                                     *(dims[p] for p in perm)]
+        # The twins' bricking at other shapes lays voxels out the same way.
+        for shape in ((4, 4, 2), (2, 8, 1)):
+            data = _brick_copy(vol, shape).data
+            at = [i // b for i, b in zip(idx, shape)] + [i % b for i, b in zip(idx, shape)]
+            assert torch.equal(data[tuple(at)], vol)
+            assert torch.count_nonzero(data) == torch.count_nonzero(vol)  # zero padding
+
+
+def test_brick_shape_matches_header():
+    """ops/kernels/brick.py's BRICK is the shape csrc/brick.cuh compiles."""
+    text = (build.CSRC / "brick.cuh").read_text()
+    logs = [int(re.search(rf"#define BRICK_L{d} (\d+)", text).group(1)) for d in range(3)]
+    assert tuple(1 << l for l in logs) == brick.BRICK
+
+
+def test_bricked_cache_tracks_writes():
+    """brick.bricked hands back the same copy for an unchanged density and a
+    fresh one after add_, copy_, a torch.optim.Adam step and for a new tensor
+    at the address of a freed one; it holds no density alive."""
+    clear_cache()
+    rng = np.random.default_rng(12)
+    dims = (9, 6, 5)
+
+    def fresh(d, before):
+        got = bricked(d)
+        assert got.data is not before.data
+        assert torch.equal(got.data, brick_density(d).data)
+        return got
+
+    d = torch.tensor(rng.uniform(size=dims), dtype=torch.float32)
+    first = bricked(d)
+    assert bricked(d).data is first.data and bricked(d.detach()).data is first.data
+    b = fresh(d.add_(1.0), first)
+    b = fresh(d.copy_(torch.tensor(rng.uniform(size=dims), dtype=torch.float32)), b)
+    assert bricked(d).data is b.data
+
+    p = torch.tensor(rng.uniform(size=dims), dtype=torch.float32, requires_grad=True)
+    opt = torch.optim.Adam([p], lr=0.1)
+    b = bricked(p)
+    assert b.data.grad_fn is None and not b.data.requires_grad
+    (p ** 2).sum().backward()
+    opt.step()
+    fresh(p, b)
+
+    arr = rng.uniform(size=dims).astype(np.float32)
+    old = torch.from_numpy(arr)
+    b = bricked(old)
+    ptr, n_before = old.data_ptr(), len(brick._entries)
+    del old  # the copy goes with the density
+    assert len(brick._entries) == n_before - 1
+    arr[:] = rng.uniform(size=dims)  # a write torch does not see
+    new = torch.from_numpy(arr)  # same address, version, shape and strides
+    assert new.data_ptr() == ptr and new._version == 0
+    fresh(new, b)
+    clear_cache()
+    assert not brick._entries
+
+
+def _gpu_fwd_scenes(axis):
+    """(label, density, rows, march) on the card: a 64x64 detector plus the
+    mixed rays on the warp-case volume, and a 200x200 detector on a random
+    128x128x64 volume, each along ``axis``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7 + axis)
+    out = []
+    for label, dims, side in (("64^2 mixed", _WARP_DIMS, 64), ("200^2", (128, 128, 64), 200)):
+        vol = torch.tensor(rng.uniform(0.1, 1.0, dims), dtype=torch.float32, device="cuda")
+        ya, za = [a for a in range(3) if a != axis]
+        u, v = np.meshgrid(np.linspace(-3.3, dims[ya] + 3.1, side),
+                           np.linspace(-2.7, dims[za] + 1.9, side), indexing="ij")
+        tv = np.zeros((1, side * side, 3))
+        tv[0, :, ya], tv[0, :, za] = u.reshape(-1), v.reshape(-1)
+        tv[0, :, axis] = dims[axis] + 40.37
+        sv = np.zeros((1, 1, 3))
+        sv[0, 0, ya], sv[0, 0, za], sv[0, 0, axis] = dims[ya] / 2 + 0.3, dims[za] / 2 - 0.1, -50.2
+        w = np.linalg.norm(tv - sv, axis=-1)[:, None, :]
+        geo = [torch.tensor(x, dtype=torch.float32, device="cuda") for x in (sv, tv, w)]
+        extra = _mixed_rays(rng, dims, axis, 40) if side == 64 else None
+        out.append((label, vol, geo, extra))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [0, 2])
+def test_cuda_siddon_fwd_bricked_matches_plain(axis):
+    """On a card: siddon_fwd (bricked copy) against its plain version, atol
+    1e-4 * max, at 64x64 with mixed rays and at 200x200."""
+    for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+        rows = prep_rays(*geo, axis, vol.shape)
+        if extra is not None:
+            rows = torch.cat([rows, prep_rays(*(t.cuda() for t in extra), axis, vol.shape)], 1)
+        ref = K.siddon_fwd_plain(rows, vol, axis)
+        got = K.siddon_fwd(rows, vol, axis)
+        torch.cuda.synchronize()
+        assert (ref > 0).sum() > rows.shape[1] // 2, label
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * ref.abs().max().item(),
+                                   msg=label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6])
+@pytest.mark.parametrize("axis", [0, 2])
+def test_cuda_joseph_fwd_bricked_matches_plain(axis, h):
+    """On a card: joseph_fwd (bricked copy) against its plain version, atol
+    1e-4 * max, at 64x64 with mixed rays and at 200x200."""
+    for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+        rows = prep_rays(*geo, axis, vol.shape, quadrature="joseph", h=h)
+        if extra is not None:
+            rows = torch.cat([rows, prep_rays(*(t.cuda() for t in extra), axis, vol.shape,
+                                              quadrature="joseph", h=h)], 1)
+        n = int(-(-vol.shape[axis] // h))
+        ref = J.joseph_fwd_plain(rows, vol, axis, h, n)
+        got = J.joseph_fwd(rows, vol, axis, h, n)
+        torch.cuda.synchronize()
+        assert (ref > 0).sum() > rows.shape[1] // 2, label
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * ref.abs().max().item(),
+                                   msg=label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(21, 23, 13), (8, 8, 4), (130, 67, 133)])
+def test_cuda_brick_copy_matches_plain(dims):
+    """On a card: brick_copy (csrc/brick.cu) equals the plain copy bit for
+    bit, contiguous and permuted, on extents that are not whole bricks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for vol in _densities(np.random.default_rng(3), dims):
+        # .cuda() keeps the permuted density's Fortran strides
+        vol = vol.cuda()
+        launches = brick_density.launches
+        got = brick_density(vol)
+        ref = brick_density_plain(vol)
+        torch.cuda.synchronize()
+        assert brick_density.launches == launches + 1 and got.shape == ref.shape
+        assert torch.equal(got.data, ref.data)
