@@ -4,8 +4,11 @@
     python3 chip_smoke.py                    # all phases, one card, ~a minute
     python3 chip_smoke.py --profile OUT.txt  # also profile registration and
                                              # reconstruction steps: the
-                                             # device's busy share, and the
-                                             # profiler's tables in OUT.txt
+                                             # device's busy share (in a
+                                             # registration step also the
+                                             # fused kernel's share of it),
+                                             # and the profiler's tables in
+                                             # OUT.txt
 
 Phases (any failure raises and the exit code is non-zero):
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
@@ -15,14 +18,16 @@ Phases (any failure raises and the exit code is non-zero):
      random cotangent g; siddon_bwd_rays and siddon_bwd_vol in sum and MIP
      modes (value and argmax exact or value atol 1e-4 * max, rows atol
      1e-3 * max|row|, gradient volume atol 1e-4 * max|ref|); siddon_fwd
-     (which reads the density's bricked copy) also with the march axis
-     pinned to 0 and to 2;
+     and siddon_fwdgrad (which read the density's bricked copy) also with
+     the march axis pinned to 0 and to 2, siddon_fwdgrad launched twice at
+     each axis with the same bits (its lanes combine in a fixed order);
   4. main path at full size: the 512x512x133 example CT, a 200x200 detector
      (sdd 1020 mm, 2 mm pixels), the bench pose; renders with the march axis
      pinned to 2 and chosen automatically, held against the plain version;
      then registration steps from translation + 5 mm (Adam, multiscale NCC),
-     with the score rising and no density-gradient or two-pass launch.
-     Launch counts are zeroed before each path and read after it;
+     with the score rising, no density-gradient or two-pass launch, and the
+     CT's bricked copy made once. Launch counts are zeroed before each path
+     and read after it;
   4b. MIP at full size, same CT, detector and pose: a reducefn="max" render
      and one backward of sum(img**2) to the density and the pose, each
      kernel held against its plain version; a sum-mode pose backward with
@@ -48,14 +53,17 @@ Phases (any failure raises and the exit code is non-zero):
      to 0; siddon_fwd at 200x200 and at the reconstruction's 320,000 rays,
      each with the density's bricked copy cached (registration, renders)
      and made anew in each call (a reconstruction step), and the copy alone;
+     siddon_fwdgrad likewise at the main path's rays;
   7. the Joseph and trilinear renderers (csrc/joseph.cu):
   7a. every Joseph kernel against its plain version on the random volume of
      phase 3, at strides h = 1, 4 (axis 0 pinned), ~1.37 and ~0.26, in sum
-     and MIP modes (the tolerances of phase 3); joseph_fwd also at axis 0
-     with h = 1 and 1.37 and at axis 2 with h = 4;
+     and MIP modes (the tolerances of phase 3), joseph_fwdgrad launched twice
+     with the same bits; joseph_fwd and joseph_fwdgrad (sum and max) also at
+     axis 0 with h = 1 and 1.37 and at axis 2 with h = 4;
   7b. trilinear registration at full size: phase 4's CT, detector, pose and
      60 Adam steps with renderer="trilinear" (n_points 500, capped at the
-     133 planes: h = 1), exactly joseph_fwd 2 and joseph_fwdgrad 60;
+     133 planes: h = 1), exactly joseph_fwd 2, joseph_fwdgrad 60 and one
+     bricked copy of the CT;
   7c. joseph MIP at the main pose: one backward to density and pose (fused:
      joseph_fwdgrad max + joseph_bwd_vol), one two-pass pose backward
      (joseph_fwd_max + joseph_bwd_rays), the two pose gradients equal;
@@ -74,6 +82,7 @@ Phases (any failure raises and the exit code is non-zero):
      joseph_bwd_vol also alone; joseph_fwd at 200x200 and at the CLI's
      320,000 rays with its bricked copy cached and made anew, the copy
      alone, and F.grid_sample over those 320,000 rays' sample points;
+     joseph_fwdgrad at 200x200 with its copy cached and made anew;
   8. per-structure channels (mask_to_channels) and p_subsample:
   8a. the channel kernels (joseph_fwd_ch, joseph_bwd_rays_ch,
      joseph_bwd_vol_ch) against their plain versions on phase 3's volume with
@@ -97,7 +106,9 @@ bricked copy of the density that siddon_fwd and joseph_fwd read; no TPU
 counterpart) has an entry of its own, with the launches of phase 4c. The
 two forwards' entries at 320,000 rays give ``ms`` with the copy already
 made (as a registration or a render reads it) and ``ms_with_copy`` with a
-fresh copy in each call, which is what a reconstruction step pays.
+fresh copy in each call, which is what a reconstruction step pays; the two
+fused pose kernels' entries likewise at 200x200, with ``design`` naming
+their layout (the bricked copy, G lanes a ray).
 Without a CUDA device, or without the package beside this file, the
 script exits non-zero and prints no result.
 """
@@ -368,9 +379,12 @@ def channel_bounds(C):
                                writes_volume=True, labels=True)}
 
 
-def profile_steps(step, label: str, t_step: float, out: Path, n: int = 5) -> None:
+def profile_steps(step, label: str, t_step: float, out: Path, n: int = 5,
+                  kernel: str = None) -> None:
     """Profile ``n`` calls of ``step``: log the device's busy time per step
-    against ``t_step`` (its measured median) and append the table to ``out``."""
+    against ``t_step`` (its measured median) and, with ``kernel``, the share
+    of it that the device spent in kernels whose name holds that string;
+    append the table to ``out``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -381,15 +395,28 @@ def profile_steps(step, label: str, t_step: float, out: Path, n: int = 5) -> Non
         torch.cuda.synchronize()
     # Kernels of one stream do not overlap, so their durations add up to
     # the device's busy time; user annotations span kernels and are left out.
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False))
-    busy_ms = busy_us / 1e3 / n
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / n
     with out.open("a") as f:
         f.write(f"\n== {label} step, {n} steps ==\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    share = ""
+    if kernel is not None:
+        k_ms = sum(e.time_range.elapsed_us() for e in device if kernel in e.name) / 1e3 / n
+        share = f"; {kernel} {k_ms:.4f} ms a step, {100 * k_ms / busy_ms:.1f}% of the busy time"
     log(f"[profile] {label} step: device busy {busy_ms:.3f} ms of a {t_step:.3f} ms step "
-        f"({100 * busy_ms / t_step:.1f}% busy); table in {out}")
+        f"({100 * busy_ms / t_step:.1f}% busy){share}; table in {out}")
+
+
+def fused_design(header: str) -> str:
+    """The fused kernel's layout, for the record: its lanes a ray, as the
+    header ``csrc/<header>`` compiles them."""
+    import re
+
+    text = (ROOT / "diffdrr_tpu_torch" / "csrc" / header).read_text()
+    lanes = re.search(r"constexpr int kFusedLanes = (\d+);", text).group(1)
+    return f"bricked copy, {lanes} lanes a ray"
 
 
 def check_close(name, got, ref, rel):
@@ -407,6 +434,15 @@ def check_fused(name, got, ref):
     errs = [check_close(f"{name} row {k}", got[k], ref[k], 1e-3 if k < 9 else 1e-4)
             for k in range(ref.shape[0])]
     return max(errs)
+
+
+def check_repeat(name, first, again):
+    """A second launch gives the same bits (the fused kernels' lanes combine
+    in a fixed order)."""
+    import torch
+
+    if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{name}: a repeated launch differs")
 
 
 def check_max(name, got, ref):
@@ -471,6 +507,10 @@ def check_joseph(label, rows, dens, axis, h, n, g):
         ref, ref_arg = J.joseph_fwdgrad_plain(rows, dens, axis, h, n, reduce)
         if reduce == "max" and not (torch.equal(arg, ref_arg) and torch.equal(arg, mip[1])):
             raise AssertionError(f"joseph_fwdgrad[max] {label}: argmax differs")
+        again, arg_again = J.joseph_fwdgrad(rows, dens, axis, h, n, reduce)
+        check_repeat(f"joseph_fwdgrad[{reduce}] {label}", got, again)
+        if reduce == "max" and not torch.equal(arg, arg_again):
+            raise AssertionError(f"joseph_fwdgrad[max] {label}: a repeated launch differs")
         e[f"fwdgrad_{reduce}"] = check_rows(f"joseph_fwdgrad[{reduce}] {label}", got, ref, 7)
     for mode, a in (("sum", None), ("mip", mip[1])):
         e[f"bwd_rays_{mode}"] = check_rows(
@@ -536,17 +576,27 @@ def joseph_small(small, rot_g, trans_g, rng):
                         for k, v in errs.items()))
         for k, v in errs.items():
             worst[k] = max(worst.get(k, 0), v)
-    # joseph_fwd (bricked copy) on the other axis of each stride: axes 0 and 2.
-    errs = []
+    # The two kernels that read the bricked copy, joseph_fwd and joseph_fwdgrad
+    # (sum and max), on the other axis of each stride: axes 0 and 2.
+    errs, errs_fg = [], []
     for axis, h in ((0, 1.0), (0, 1.37), (2, 4.0)):
         n = int(-(-dens.shape[axis] // h))
         rows = jrays_of(small, rot_g, trans_g, axis, h)
         errs.append(check_close(f"joseph_fwd axis {axis} h={h:g} 128x128x64",
                                 J.joseph_fwd(rows, dens, axis, h, n),
                                 J.joseph_fwd_plain(rows, dens, axis, h, n), 1e-4))
+        for reduce in ("sum", "max"):
+            got, arg = J.joseph_fwdgrad(rows, dens, axis, h, n, reduce)
+            ref, ref_arg = J.joseph_fwdgrad_plain(rows, dens, axis, h, n, reduce)
+            if reduce == "max" and not torch.equal(arg, ref_arg):
+                raise AssertionError(f"joseph_fwdgrad[max] axis {axis} h={h:g}: argmax differs")
+            errs_fg.append(check_rows(f"joseph_fwdgrad[{reduce}] axis {axis} h={h:g}", got,
+                                      ref, 7))
     log(f"[joseph kernels] joseph_fwd at axis 0 h 1 and 1.37, axis 2 h 4: "
-        + ", ".join(f"{e:.3e}" for e in errs))
+        + ", ".join(f"{e:.3e}" for e in errs) + "; joseph_fwdgrad sum, max there: "
+        + ", ".join(f"{e:.3e}" for e in errs_fg))
     worst["fwd"] = max(worst["fwd"], *errs)
+    worst["fwdgrad_sum"] = max(worst["fwdgrad_sum"], *errs_fg)
     return worst
 
 
@@ -555,11 +605,14 @@ def trilinear_registration(T, subject, rot0, trans, kw, profile):
     import numpy as np
     import torch
 
+    from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
     from diffdrr_tpu_torch.registration import make_registration_step
 
     drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="trilinear")
     J.reset_launch_counts()
+    brick.clear_cache()
+    brick.brick_density.launches = 0
     target = drr(rot0, trans, axis=2, **kw)
     auto = drr(rot0, trans, **kw)
     init_fn, step_fn = make_registration_step(drr, target, "euler_angles", "ZXY",
@@ -572,11 +625,12 @@ def trilinear_registration(T, subject, rot0, trans, kw, profile):
         return score
 
     scores, step_ms = events_step(step, N_REG_STEPS)
-    launches = joseph_launches()
+    launches = dict(joseph_launches(), brick_copy=brick.brick_density.launches)
     log(f"[trilinear] registration launches {launches}")
+    # One CT: its bricked copy made once for the renders and all 60 steps.
     expect_launches("trilinear registration", launches,
                     {"joseph_fwd": 2, "joseph_fwdgrad": N_REG_STEPS, "joseph_fwd_max": 0,
-                     "joseph_bwd_rays": 0, "joseph_bwd_vol": 0})
+                     "joseph_bwd_rays": 0, "joseph_bwd_vol": 0, "brick_copy": 1})
     scores = torch.stack(scores).tolist()
     if not (scores[-1] > scores[0] and np.isfinite(scores).all()):
         raise AssertionError(f"trilinear registration NCC did not rise: {scores[0]} -> {scores[-1]}")
@@ -595,7 +649,7 @@ def trilinear_registration(T, subject, rot0, trans, kw, profile):
     t_err = (p["translation"].detach() - trans)[0].tolist()
     t_step = statistics.median(step_ms[5:])
     if profile is not None:
-        profile_steps(step, "trilinear registration", t_step, profile)
+        profile_steps(step, "trilinear registration", t_step, profile, kernel="joseph_fwdgrad")
     log(f"[trilinear] registration {N_REG_STEPS} steps: NCC {scores[0]:.5f} -> {scores[-1]:.5f}; "
         f"translation error from (5, 5, 5) to ({t_err[0]:.3f}, {t_err[1]:.3f}, {t_err[2]:.3f}) "
         f"mm; step median {t_step:.3f} ms (steps 6..{N_REG_STEPS}); render vs plain "
@@ -1110,8 +1164,16 @@ def main(argv) -> int:
         e1 = max(e1, check_close(f"siddon_fwd axis {axis} 128x128x64",
                                  K.siddon_fwd(rows_a, small.density, axis),
                                  K.siddon_fwd_plain(rows_a, small.density, axis), 1e-4))
-    e2 = check_fused("siddon_fwdgrad 128x128x64", K.siddon_fwdgrad(rows, small.density, ax),
-                     K.siddon_fwdgrad_plain(rows, small.density, ax))
+    # The fused kernel (G lanes a ray on the bricked copy) at the auto axis and
+    # at axes 0 and 2, and a repeat that must give the same bits.
+    e2 = 0.0
+    for axis in sorted({ax, 0, 2}):
+        rows_a, _ = rays_of(small, rot_g, trans_g, axis)
+        fused = K.siddon_fwdgrad(rows_a, small.density, axis)
+        e2 = max(e2, check_fused(f"siddon_fwdgrad axis {axis} 128x128x64", fused,
+                                 K.siddon_fwdgrad_plain(rows_a, small.density, axis)))
+        check_repeat(f"siddon_fwdgrad axis {axis}", fused,
+                     K.siddon_fwdgrad(rows_a, small.density, axis))
     dens_s = small.density
     g_s = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device=dev)
     mip_s = K.siddon_fwd_max(rows, dens_s, ax)
@@ -1200,6 +1262,8 @@ def main(argv) -> int:
                            before=brick.clear_cache)
     t_fwd_plain = median_ms(lambda: K.siddon_fwd_plain(rows_m, drr.density, ax_m), 3, 1)
     t_fg = median_ms(lambda: K.siddon_fwdgrad(rows_r, drr.density, ax_r), 20)
+    t_fg_copy = median_ms(lambda: K.siddon_fwdgrad(rows_r, drr.density, ax_r), 20,
+                          before=brick.clear_cache)
     t_fg_plain = median_ms(lambda: K.siddon_fwdgrad_plain(rows_r, drr.density, ax_r), 3, 1)
     t_render = median_ms(lambda: drr(rot0, trans, **kw), 20)
     # The auto axis reads three ratios back to the host every render.
@@ -1210,8 +1274,9 @@ def main(argv) -> int:
     b_fg, by_fg = bound(rows_r, drr.density, ax_r, **FWDGRAD_BOUND)
     t_step = statistics.median(step_ms[5:])
     log(f"[time] siddon_fwd axis {ax_m} {t_fwd:.4f} ms (plain {t_fwd_plain:.2f}, bound "
-        f"{b_fwd:.4f} by {by_fwd}); siddon_fwdgrad axis {ax_r} {t_fg:.4f} ms (plain "
-        f"{t_fg_plain:.2f}, bound {b_fg:.4f} by {by_fg})")
+        f"{b_fwd:.4f} by {by_fwd}); siddon_fwdgrad axis {ax_r} {t_fg:.4f} ms with the bricked "
+        f"copy cached, {t_fg_copy:.4f} ms making it anew (plain {t_fg_plain:.2f}, bound "
+        f"{b_fg:.4f} by {by_fg})")
     log(f"[time] render 200^2 (auto axis) {t_render:.3f} ms; axis choice with its host "
         f"sync {t_axis:.4f} ms; registration step median {t_step:.3f} ms "
         f"(steps 6..{N_REG_STEPS})")
@@ -1224,7 +1289,7 @@ def main(argv) -> int:
             nonlocal params, opt
             params, opt, _ = step_fn(params, opt)
 
-        profile_steps(reg_step, "registration", t_step, args.profile)
+        profile_steps(reg_step, "registration", t_step, args.profile, kernel="siddon_fwdgrad")
     # 4b. MIP at full size ---------------------------------------------------
     K.reset_launch_counts()
     rot_p = rot0.clone().requires_grad_(True)
@@ -1499,6 +1564,8 @@ def main(argv) -> int:
     b_jfv, by_jfv = march_bound(rows_v, dens_v, 2, h_v, n_v, **J_FWD_BOUND)
     t_jf_copy = median_ms(lambda: J.joseph_fwd(rows_m, dens_m, 2, 1.0, X), 20,
                           before=brick.clear_cache)
+    t_jfg_copy = median_ms(lambda: J.joseph_fwdgrad(rows_r, dens_m, 2, 1.0, X), 20,
+                           before=brick.clear_cache)
     log(f"[time] joseph_fwd and the rest at 200^2 rays of the main CT, axis 2, h = 1; "
         f"joseph_bwd_vol at {rec['rows_v'].shape[1]} rays with its zero fill; F.grid_sample "
         f"over the {rows_m.shape[1]} x {X} sample points (no weighted sum) {t_lib:.4f} ms; "
@@ -1514,6 +1581,9 @@ def main(argv) -> int:
         f"{t_jfv_plain:.2f}; F.grid_sample over the {rows_v.shape[1]} x {n_v} sample points "
         f"{t_lib_v:.4f} ms; at 200^2 {jtimes['fwd'][0]:.4f} ms cached, {t_jf_copy:.4f} ms "
         f"making it anew")
+    log(f"[time] joseph_fwdgrad at 200^2 {jtimes['fwdgrad'][0]:.4f} ms with the bricked copy "
+        f"cached, {t_jfg_copy:.4f} ms making it anew (bound {jtimes['fwdgrad'][2]:.4f} by "
+        f"{jtimes['fwdgrad'][3]})")
 
     # Records ----------------------------------------------------------------
     src = "diffdrr_tpu_torch/csrc/siddon.cu"
@@ -1523,11 +1593,12 @@ def main(argv) -> int:
          "launches": main_launches["siddon_fwd"], "max_abs_err": err_fwd,
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": b_fwd, "bound_by": by_fwd,
          "library_ms": None},
-        {"name": "siddon_fwdgrad", "route": "cuda", "source": src,
+        {"name": "siddon_fwdgrad", "route": "cuda", "design": fused_design("siddon.cuh"),
+         "source": src,
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:396",
-         "launches": main_launches["siddon_fwdgrad"], "max_abs_err": err_fg,
-         "ms": t_fg, "plain_ms": t_fg_plain, "bound_ms": b_fg, "bound_by": by_fg,
-         "library_ms": None},
+         "launches": main_launches["siddon_fwdgrad"], "max_abs_err": max(err_fg, e2),
+         "ms": t_fg, "ms_with_copy": t_fg_copy, "plain_ms": t_fg_plain, "bound_ms": b_fg,
+         "bound_by": by_fg, "library_ms": None},
         {"name": "siddon_fwd[320k]", "route": "cuda", "source": src,
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:189",
          "launches": recon_launches["siddon_fwd"], "max_abs_err": err_fv,
@@ -1582,8 +1653,9 @@ def main(argv) -> int:
          "library_ms": None},
         jrec("joseph_fwd_max", "fwd_max", 376, jm["launches"]["joseph_fwd_max"],
              max(jm["err_max"], jsmall["fwd_max"])),
-        jrec("joseph_fwdgrad", "fwdgrad", 732, tri["launches"]["joseph_fwdgrad"],
-             max(tri["err_fg"], jsmall["fwdgrad_sum"], jsmall["fwdgrad_max"])),
+        dict(jrec("joseph_fwdgrad", "fwdgrad", 732, tri["launches"]["joseph_fwdgrad"],
+                  max(tri["err_fg"], jsmall["fwdgrad_sum"], jsmall["fwdgrad_max"])),
+             design=fused_design("joseph.cuh"), ms_with_copy=t_jfg_copy),
         jrec("joseph_bwd_rays", "bwd_rays", 600, jm["launches"]["joseph_bwd_rays"],
              max(jm["err_br"], jsmall["bwd_rays_sum"], jsmall["bwd_rays_mip"])),
         jrec("joseph_bwd_vol", "bwd_vol", 903, rec["launches"]["joseph_bwd_vol"],

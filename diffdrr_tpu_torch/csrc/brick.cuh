@@ -1,4 +1,5 @@
-// The bricked copy of the density that the two forward gathers read.
+// The bricked copy of the density that the forward gathers and the fused
+// pose kernels read.
 //
 // Shared by siddon.cuh, joseph.cuh and brick.cu, and by any host build
 // (BRICK_HD is empty without nvcc). The copy
@@ -21,6 +22,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #if defined(__CUDACC__)
 #define BRICK_HD __host__ __device__ __forceinline__
@@ -95,6 +98,18 @@ BRICK_HD Volume<A> make_volume(const float* data, int bs_s, int bs_y, int bs_z, 
   v.Y = Y;
   v.Z = Z;
   return v;
+}
+
+// f(std::integral_constant<int, A>()) for march axis A = axis, as an int
+// (a C entry point's return code); -1 for an axis outside 0..2.
+template <class F>
+inline int with_axis(int axis, F f) {
+  switch (axis) {
+    case 0: return f(std::integral_constant<int, 0>());
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    default: return -1;
+  }
 }
 
 // One read of the read-only copy: the non-coherent load path on the device.

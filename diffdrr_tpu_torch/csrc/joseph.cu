@@ -21,13 +21,14 @@
 //                      the cotangent of its channel.
 // Each takes integer and fractional h.
 //
-// Design: one thread per ray (the scatter aside, below), walking only its
-// own in-slab steps (step_range in joseph.cuh) and reading the 4 in-plane
-// neighbours of each sample (8 at fractional h) straight from the float32
-// density through its strides. The TPU needed tile windows, a starts table,
-// a lane roll and tent-weight matmuls on the MXU to avoid gathers; on the
-// H100 a gather is a load, so none of that is carried over, and with no
-// window there is no footprint to overflow.
+// Design: one thread per ray (the fused march and the scatter aside,
+// below), walking only its own in-slab steps (step_range in joseph.cuh) and
+// reading the 4 in-plane neighbours of each sample (8 at fractional h)
+// straight from the float32 density through its strides (the forward and
+// the fused march: its bricked copy). The TPU needed tile windows, a starts
+// table, a lane roll and tent-weight matmuls on the MXU to avoid gathers;
+// on the H100 a gather is a load, so none of that is carried over, and with
+// no window there is no footprint to overflow.
 //
 // What bounds them: per ray and in-slab step, 4 (or 8) 4-byte gathers at
 // data-dependent addresses and about 35 float operations for a value, about
@@ -55,6 +56,22 @@
 // the march without them (0.20 ms of the kernel's 0.43-0.46). At 1000x1000
 // on the 512^3 CT, rays ~0.4 voxel apart, it is within ~2% of the strided
 // kernel (PERF.md).
+//
+// joseph_fwdgrad, the trilinear registration step's kernel, also reads the
+// bricked copy, and splits each ray over G = kFusedLanes lanes
+// (joseph.cuh). One thread per ray on the strided density it was bound by
+// latency and occupancy, as siddon_fwdgrad was (siddon.cu): 40,000 threads
+// at the main cell, each a serial chain of ~133 steps of ~80 float
+// operations ahead of 4 dependent loads, 8 accumulators live (0.184 ms
+// against a 0.025 ms byte bound, PERF.md). The ray's march goes in passes
+// of G steps, lane j taking step base + j, and the ray's rows take each
+// pass's summands in step order (lanes.cuh), the serial march's sums bit
+// for bit. In MIP mode each lane keeps its own first maximum and a tree of
+// shuffles takes the larger value, of two equal ones the smaller step: the
+// serial first maximum, argmax and rows exact. G = 8 and U = 1
+// (kFusedSteps) from fwdgrad_timing.py's probes, as for Siddon; it now
+// sits between its march without loads (0.067 ms at 200x200) and its
+// loads alone (0.089), 0.081 ms (PERF.md).
 //
 // The scatter (joseph_bwd_vol) is laid out otherwise: one warp per ray. It
 // adds 4 (or 8) products per in-slab step into the zero-filled gradient
@@ -87,6 +104,8 @@ constexpr int kThreads = 128;
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr unsigned kFullMask = 0xffffffffu;
+static_assert(kThreads == joseph::kFusedThreads,
+              "the fused kernel's hand-over is sized for its blocks");
 
 // One thread per ray, reading the bricked copy with kFwdSteps steps' loads
 // in flight (the note at the top of this file says why); A: the march axis.
@@ -107,17 +126,16 @@ joseph_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Vo
   joseph::trace_fwd_max(joseph::load_ray(rows, n_rays, r), vol, m, out + r, arg + r);
 }
 
-// arg == nullptr: sum mode; else MIP, the argmax step written to arg[r].
+// G = kFusedLanes lanes a ray on the bricked copy, in passes of G steps
+// whose summands the ray's rows take in step order (lanes.cuh; the note at
+// the top of this file says why); A: the march axis. arg == nullptr: sum
+// mode; else MIP, the argmax step written to arg[r].
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
+joseph_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
                       joseph::March m, float* __restrict__ out, int* __restrict__ arg) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  float acc[joseph::kFusedRows];
-  joseph::trace_fwdgrad(joseph::load_ray(rows, n_rays, r), vol, m, arg != nullptr, acc,
-                        arg ? arg + r : nullptr);
-#pragma unroll
-  for (int i = 0; i < joseph::kFusedRows; ++i) out[i * n_rays + r] = acc[i];
+  joseph::fwdgrad_lanes<joseph::kFusedLanes, joseph::kFusedSteps>(
+      rows, n_rays, vol, m, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
 // arg == nullptr: sum mode; else MIP, gated to the step arg[r].
@@ -278,30 +296,22 @@ unsigned int n_blocks(int64_t n_threads) {
 // zero-filled float32 volume with the density's extents and its own strides
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError().
-// joseph_fwd reads the density's bricked copy (brick.cuh) instead: vol is
-// the copy, axis the march axis, then the brick strides and the density's
-// extents of the march-permuted (s, y, z) axes. It returns -1 for an axis
-// outside 0..2.
-template <int A>
-int launch_fwd(const float* rows, int64_t n_rays, const float* vol, int bs_s, int bs_y, int bs_z,
-               int X, int Y, int Z, joseph::March m, float* out, void* stream) {
-  if (n_rays > 0) {
-    joseph_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), m, out);
-  }
-  return (int)cudaGetLastError();
-}
-
+// joseph_fwd and joseph_fwdgrad read the density's bricked copy (brick.cuh)
+// instead: vol is the copy, axis the march axis, then the brick strides and
+// the density's extents of the march-permuted (s, y, z) axes. They return
+// -1 for an axis outside 0..2.
 extern "C" int joseph_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                           int n_steps, int blend, float* out, void* stream) {
-  joseph::March m = make_march(h, n_steps, blend);
-  switch (axis) {
-    case 0: return launch_fwd<0>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, m, out, stream);
-    case 1: return launch_fwd<1>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, m, out, stream);
-    case 2: return launch_fwd<2>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, m, out, stream);
-    default: return -1;
-  }
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      joseph_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+          rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
+          make_march(h, n_steps, blend), out);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int joseph_fwd_max(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
@@ -315,15 +325,19 @@ extern "C" int joseph_fwd_max(const float* rows, int64_t n_rays, const float* vo
   return (int)cudaGetLastError();
 }
 
-extern "C" int joseph_fwdgrad(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
-                              int64_t sy, int64_t sz, int X, int Y, int Z, float h,
+extern "C" int joseph_fwdgrad(const float* rows, int64_t n_rays, const float* vol, int axis,
+                              int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                               int n_steps, int blend, float* out, int* arg, void* stream) {
-  if (n_rays > 0) {
-    joseph_fwdgrad_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), make_march(h, n_steps, blend),
-        out, arg);
-  }
-  return (int)cudaGetLastError();
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      joseph_fwdgrad_kernel<A>
+          <<<n_blocks(n_rays * joseph::kFusedLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
+              make_march(h, n_steps, blend), out, arg);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int joseph_bwd_rays(const float* rows, int64_t n_rays, const float* vol, int64_t ss,

@@ -6,11 +6,12 @@
 //
 // Geometry (the rows are packed by diffdrr_tpu_torch/ops/kernels/prep.py with
 // the Joseph quadrature): the volume is read through its strides in (s, y, z)
-// order, s being the march axis, or (trace_fwd) through its bricked copy in
-// the same order (brick.cuh). Step p samples the ray at axis position
-// k = p * h, where alpha = k * a + b and the transverse position is
-// (gy + alpha dy, gz + alpha dz). The sample counts only inside the ray's
-// [amin, amax] (clamped to [0, 1]) and is weighted by sc = w |1/d_s| h.
+// order, s being the march axis, or (trace_fwd, fused_terms) through its
+// bricked copy in the same order (brick.cuh). Step p samples the ray at
+// axis position k = p * h, where alpha = k * a + b and the transverse
+// position is (gy + alpha dy, gz + alpha dz). The sample counts only
+// inside the ray's [amin, amax] (clamped to [0, 1]) and is weighted by
+// sc = w |1/d_s| h.
 //
 //   * integer h: a bilinear sample of plane p * h;
 //   * fractional h (the trilinear ray march): the lerp, by fx = k - k0, of
@@ -44,6 +45,7 @@
 #include <stdint.h>
 
 #include "brick.cuh"
+#include "lanes.cuh"
 
 #if defined(__CUDACC__)
 #define JOSEPH_HD __host__ __device__ __forceinline__
@@ -297,7 +299,8 @@ JOSEPH_HD void trace_fwd_max(const Ray& r, const Volume& v, const March& m, floa
 // The fused march: acc[0..6] = d(value)/d(row), acc[7] = value. In MIP mode
 // the terms are replaced whenever a step beats the running max, and *arg
 // gets the winning step. The rows do not depend on the output cotangent, so
-// the backward is rows * g.
+// the backward is rows * g. One thread per ray, step after step: the order
+// of sums that fwdgrad_lanes keeps, and its first maximum.
 JOSEPH_HD void trace_fwdgrad(const Ray& r, const Volume& v, const March& m, bool mip,
                              float acc[kFusedRows], int* arg) {
   for (int i = 0; i < kFusedRows; ++i) acc[i] = 0.f;
@@ -324,6 +327,114 @@ JOSEPH_HD void trace_fwdgrad(const Ray& r, const Volume& v, const March& m, bool
   }
   if (arg) *arg = best_p;
 }
+
+// joseph_fwdgrad's lanes a ray (G), the steps a lane keeps in flight (U)
+// and its threads a block (joseph.cu says why these).
+constexpr int kFusedLanes = 8;
+constexpr int kFusedSteps = 1;
+constexpr int kFusedThreads = 128;
+
+// The fused march's summands of U steps p0, p0 + step, ...,
+// p0 + (U - 1) step: t[u][0..6] the step's 7 terms and t[u][7] its value
+// contribution, what trace_fwdgrad adds (or, in MIP mode, compares); all 0
+// for a step outside the slab or at or past hi, step_range's end. Their
+// windows first (4U loads in flight, 8U in blend mode), then their terms.
+template <int U, class Vol>
+JOSEPH_HD void fused_terms(const Ray& r, const Vol& v, const March& m, int p0, int step, int hi,
+                           float t[U][kFusedRows]) {
+  Step st[U];
+  bool in[U];
+  float win[U][2][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    st[u] = step_at(r, m, v.X, p0 + u * step);
+    in[u] = p0 + u * step < hi && st[u].inslab;
+    if (in[u]) {
+      window(v, st[u], m.blend, win[u]);
+    } else {
+      win[u][0][0] = win[u][0][1] = win[u][1][0] = win[u][1][1] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int i = 0; i < kFusedRows; ++i) t[u][i] = 0.f;
+    if (in[u]) t[u][kValueRow] = step_terms(r, st[u], win[u], t[u]);
+  }
+}
+
+#if defined(__CUDACC__)
+// Thread t's part in a fused launch of G lanes a ray and U steps in flight
+// a lane (joseph_fwdgrad, and the probes), from the strided density or its
+// bricked copy: lane t % G of ray t / G, in passes of G * U steps
+// (lanes.cuh). Sum mode (arg == nullptr): lane i % G writes row i of out
+// (8, n_rays). MIP: each lane keeps the first maximum of its own steps, the
+// lanes' tree combines them, and lane 0 writes the argmax step to arg[r].
+// Blocks of kFusedThreads; every thread of a warp must call this (those of
+// rays past the end too): the passes hand summands over through the warp's
+// shared memory, and the tree shuffles. A warp holds 32 / G whole rays.
+template <int G, int U, class Vol>
+__device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, int64_t n_rays,
+                                              const Vol& v, const March& m,
+                                              float* __restrict__ out, int* __restrict__ arg,
+                                              int64_t t) {
+  constexpr int kSteps = G * U;        // a ray's steps a pass
+  constexpr int kStride = 32 * U + 1;  // a row of the warp's hand-over (+1: no bank conflicts)
+  __shared__ float hand[kFusedThreads / 32][kFusedRows * kStride];
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  bool live = r < n_rays;
+  bool mip = arg != nullptr;  // the same for the whole grid
+  Ray ray{};
+  int lo = 0, hi = 0;
+  if (live) {
+    ray = load_ray(rows, n_rays, r);
+    step_range(ray, m, &lo, &hi);
+  }
+  int passes = lanes::warp_passes((hi - lo + kSteps - 1) / kSteps);
+  float* mine = hand[threadIdx.x / 32] + (threadIdx.x % 32) / G * kSteps;  // the ray's columns
+  float acc[lanes::kSlots<G, kFusedRows>] = {};
+  float best[kFusedRows] = {};
+  int best_p = -1;
+  for (int p = 0; p < passes; ++p) {
+    int p0 = lo + p * kSteps + lane;
+    float tm[U][kFusedRows];
+    fused_terms<U>(ray, v, m, p0, G, hi, tm);
+    if (mip) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (tm[u][kValueRow] > best[kValueRow]) {
+#pragma unroll
+          for (int i = 0; i < kFusedRows; ++i) best[i] = tm[u][i];
+          best_p = p0 + u * G;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int i = 0; i < kFusedRows; ++i) mine[i * kStride + u * G + lane] = tm[u][i];
+      __syncwarp();
+      lanes::take_in_order<G, kFusedRows, kSteps>(mine, kStride, lane, acc);
+      __syncwarp();
+    }
+  }
+  if (mip) lanes::combine_max_warp<G, kFusedRows, kValueRow>(best, &best_p);
+  if (!live) return;
+  if (mip) {
+#pragma unroll
+    for (int i = 0; i < kFusedRows; ++i)
+      if (i % G == lane) out[i * n_rays + r] = best[i];
+    if (lane == 0) arg[r] = best_p;
+  } else {
+#pragma unroll
+    for (int slot = 0; slot < lanes::kSlots<G, kFusedRows>; ++slot) {
+      int i = lane + slot * G;
+      if (i < kFusedRows) out[i * n_rays + r] = acc[slot];
+    }
+  }
+}
+#endif
 
 // The two-pass pose backward: acc[0..6] = g * d(value)/d(row). In MIP mode
 // only the argmax step counts (none when arg is -1).

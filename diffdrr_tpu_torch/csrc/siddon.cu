@@ -10,13 +10,14 @@
 // _bwd_rays_kernel (the two-pass pose backward, sum or MIP) and
 // siddon_bwd_vol replaces _bwd_vol_kernel (the density gradient).
 //
-// Design: one thread per ray (the scatter aside, below), walking only its
-// own slabs (slab_range in siddon.cuh) and reading the <= 3 voxels of each
-// slab straight from the float32 volume through its strides. The TPU needed
-// tile windows, a starts table, one-hot matmuls and a permuted, padded copy
-// of the volume to turn these gathers into MXU work; on the H100 a gather is
-// a load, so none of that is carried over. A MIP backward visits only the
-// argmax slab.
+// Design: one thread per ray (the fused march and the scatter aside,
+// below), walking only its own slabs (slab_range in siddon.cuh) and reading
+// the <= 3 voxels of each slab straight from the float32 volume through its
+// strides (the forward and the fused march: its bricked copy). The TPU
+// needed tile windows, a starts table, one-hot matmuls and a permuted,
+// padded copy of the volume to turn these gathers into MXU work; on the
+// H100 a gather is a load, so none of that is carried over. A MIP backward
+// visits only the argmax slab.
 //
 // What bounds the gathering kernels: per ray and slab, one to three 4-byte
 // gathers at data-dependent addresses (about 175 flops of per-slab algebra
@@ -51,6 +52,28 @@
 // the kernel is still ~12% slower than the strided one (PERF.md, open
 // questions).
 //
+// siddon_fwdgrad, the registration step's kernel, also reads the bricked
+// copy, and splits each ray over G = kFusedLanes lanes (siddon.cuh). What
+// bounded it one thread per ray on the strided density: the main cell's
+// 200x200 detector gives 40,000 threads, ~15% of the card's resident
+// threads, and each walked a serial chain of ~135 slabs, each ~113 float
+// operations with two IEEE divisions ahead of its 3 dependent loads, with
+// 10 accumulators live: latency and occupancy, not bytes, set its time
+// (0.195 ms against a 0.011 ms byte bound, PERF.md). Here the ray's march
+// goes in passes of G slabs, lane j taking slab base + j: G times the
+// threads, each with 1/G of the chain, and neighbouring lanes read
+// neighbouring slabs of one ray, which share one or two bricks. Each pass
+// hands the lanes' summands over through shared memory and the ray's rows
+// take them in slab order, lane k % G adding row k (lanes.cuh): the rows are
+// the serial march's bit for bit, so they equal the plain version's and the
+// two-pass backward's (siddon_bwd_rays) as before, and repeat run to run.
+// A tree of partial sums instead was ~7% faster, but left the pose
+// gradient of the two paths 1.3e-5 of its largest value apart. G = 8 and
+// U = 1 (kFusedSlabs) come from fwdgrad_timing.py's probes: 16 lanes were
+// within 1%, 32 slower, and 2 or 4 slabs in flight no faster. What bounds
+// it now: its march's arithmetic (the march without loads takes 0.091 of
+// the kernel's 0.099 ms at 200x200, PERF.md).
+//
 // The scatter (siddon_bwd_vol) is laid out otherwise: one warp per ray.
 // It adds len * w * g for each non-empty segment into the f32 gradient,
 // which the wrapper zero-fills, with a float atomicAdd. The bytes it must
@@ -80,6 +103,8 @@ constexpr int kThreads = 128;
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = kThreads / kWarp;
 constexpr unsigned kFullMask = 0xffffffffu;
+static_assert(kThreads == siddon::kFusedThreads,
+              "the fused kernel's hand-over is sized for its blocks");
 
 // One thread per ray, reading the bricked copy with kFwdSlabs slabs' loads
 // in flight (the note at the top of this file says why); A: the march axis.
@@ -93,16 +118,15 @@ siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<
   out[r] = siddon::trace_fwd<siddon::kFwdSlabs>(ray, vol);
 }
 
+// G = kFusedLanes lanes a ray on the bricked copy, in passes of G slabs
+// whose summands the ray's rows take in slab order (lanes.cuh; the note at
+// the top of this file says why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
+siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
                       float* __restrict__ out) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
-  float acc[siddon::kFusedRows];
-  siddon::trace_fwdgrad(ray, vol, acc);
-#pragma unroll
-  for (int k = 0; k < siddon::kFusedRows; ++k) out[k * n_rays + r] = acc[k];
+  siddon::fwdgrad_lanes<siddon::kFusedLanes, siddon::kFusedSlabs>(
+      rows, n_rays, vol, out, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -219,39 +243,35 @@ unsigned int n_blocks(int64_t n_threads) {
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError().
 //
-// siddon_fwd reads the density's bricked copy (brick.cuh) instead: vol is
-// the copy, axis the march axis, then the brick strides and the density's
-// extents of the march-permuted (s, y, z) axes. It returns -1 for an axis
-// outside 0..2.
-template <int A>
-int launch_fwd(const float* rows, int64_t n_rays, const float* vol, int bs_s, int bs_y, int bs_z,
-               int X, int Y, int Z, float* out, void* stream) {
-  if (n_rays > 0) {
-    siddon_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out);
-  }
-  return (int)cudaGetLastError();
-}
-
+// siddon_fwd and siddon_fwdgrad read the density's bricked copy (brick.cuh)
+// instead: vol is the copy, axis the march axis, then the brick strides and
+// the density's extents of the march-permuted (s, y, z) axes. They return
+// -1 for an axis outside 0..2.
 extern "C" int siddon_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
                           void* stream) {
-  switch (axis) {
-    case 0: return launch_fwd<0>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
-    case 1: return launch_fwd<1>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
-    case 2: return launch_fwd<2>(rows, n_rays, vol, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
-    default: return -1;
-  }
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      siddon_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+          rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
-extern "C" int siddon_fwdgrad(const float* rows, int64_t n_rays, const float* vol,
-                              int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
-                              float* out, void* stream) {
-  if (n_rays > 0) {
-    siddon_fwdgrad_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), out);
-  }
-  return (int)cudaGetLastError();
+extern "C" int siddon_fwdgrad(const float* rows, int64_t n_rays, const float* vol, int axis,
+                              int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
+                              void* stream) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      siddon_fwdgrad_kernel<A>
+          <<<n_blocks(n_rays * siddon::kFusedLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int siddon_fwd_max(const float* rows, int64_t n_rays, const float* vol,

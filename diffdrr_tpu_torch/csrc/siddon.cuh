@@ -6,14 +6,14 @@
 //
 // Geometry (see diffdrr_tpu_torch/ops/kernels/prep.py for the rows): the
 // volume is read through its strides in (s, y, z) order, s being the march
-// axis, or (trace_fwd) through its bricked copy in the same order
-// (brick.cuh). Slab s covers s-positions [s - 0.5, s + 0.5], i.e. the alpha
-// interval between (s -/+ 0.5) a + b, clipped to the ray's [amin, amax]. When the
-// ray's transverse slopes are at most 1 in voxel units (the DRR checks this),
-// the ray crosses at most one y-boundary and one z-boundary inside a slab,
-// so the slab holds at most three segments whose nearest voxels lie in a 2x2
-// neighbourhood. The value is sum_j len_j * w * V_j; a voxel index outside
-// the volume reads 0.
+// axis, or (trace_fwd, fused_terms) through its bricked copy in the
+// same order (brick.cuh). Slab s covers s-positions [s - 0.5, s + 0.5],
+// i.e. the alpha interval between (s -/+ 0.5) a + b, clipped to the ray's
+// [amin, amax]. When the ray's transverse slopes are at most 1 in voxel
+// units (the DRR checks this), the ray crosses at most one y-boundary and
+// one z-boundary inside a slab, so the slab holds at most three segments
+// whose nearest voxels lie in a 2x2 neighbourhood. The value is
+// sum_j len_j * w * V_j; a voxel index outside the volume reads 0.
 //
 // Every expression below follows diffdrr_tpu/ops/pallas/siddon.py
 // (_slab_segments, _fwd_kernel, _fwdgrad_kernel, _bwd_rays_kernel and
@@ -30,6 +30,7 @@
 #include <stdint.h>
 
 #include "brick.cuh"
+#include "lanes.cuh"
 
 #if defined(__CUDACC__)
 #define SIDDON_HD __host__ __device__ __forceinline__
@@ -273,7 +274,9 @@ SIDDON_HD float slab_rows(const Ray& r, const Slab& sl, int s, const float V[3],
 }
 
 // The fused march: acc[0..8] += d(value)/d(row), acc[9] += value. The rows
-// do not depend on the output cotangent, so the backward is rows * g.
+// do not depend on the output cotangent, so the backward is rows * g. One
+// thread per ray, slab after slab: the order of sums that fwdgrad_lanes
+// keeps.
 SIDDON_HD void trace_fwdgrad(const Ray& r, const Volume& v, float acc[kFusedRows]) {
   for (int k = 0; k < kFusedRows; ++k) acc[k] = 0.f;
   int lo, hi;
@@ -286,6 +289,88 @@ SIDDON_HD void trace_fwdgrad(const Ray& r, const Volume& v, float acc[kFusedRows
     acc[kValueRow] += r.w * seg;
   }
 }
+
+// siddon_fwdgrad's lanes a ray (G), the slabs a lane keeps in flight (U)
+// and its threads a block (siddon.cu says why these).
+constexpr int kFusedLanes = 8;
+constexpr int kFusedSlabs = 1;
+constexpr int kFusedThreads = 128;
+
+// The fused march's summands of U slabs s0, s0 + step, ...,
+// s0 + (U - 1) step: t[u][0..8] the slab's d(value)/d(row) and t[u][9] its
+// value, the terms trace_fwdgrad adds (slab_rows into zeros: the same bits
+// once added); all 0 for a slab at or past hi, slab_range's end. Their
+// segments and reads first (3U loads in flight), then their rows.
+template <int U, class Vol>
+SIDDON_HD void fused_terms(const Ray& r, const Vol& v, int s0, int step, int hi,
+                           float t[U][kFusedRows]) {
+  Slab sl[U];
+  float V[U][3];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    int s = s0 + u * step;
+    sl[u] = slab_segments(r, s);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      V[u][j] = s < hi ? voxel(v, s, sl[u].y0 + sl[u].iy[j], sl[u].z0 + sl[u].iz[j]) : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int k = 0; k < kFusedRows; ++k) t[u][k] = 0.f;
+    int s = s0 + u * step;
+    if (s < hi) {
+      float seg = slab_rows(r, sl[u], s, V[u], t[u]);
+      t[u][kValueRow] = r.w * seg;
+    }
+  }
+}
+
+#if defined(__CUDACC__)
+// Thread t's part in a fused launch of G lanes a ray and U slabs in flight
+// a lane (siddon_fwdgrad, and the probes), from the strided density or its
+// bricked copy: lane t % G of ray t / G, in passes of G * U slabs
+// (lanes.cuh), lane k % G writing row k of out (10, n_rays). Blocks of
+// kFusedThreads; every thread of a warp must call this (those of rays past
+// the end too): the passes hand summands over through the warp's shared
+// memory. A warp holds 32 / G whole rays.
+template <int G, int U, class Vol>
+__device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, int64_t n_rays,
+                                              const Vol& v, float* __restrict__ out, int64_t t) {
+  constexpr int kSlabs = G * U;       // a ray's slabs a pass
+  constexpr int kStride = 32 * U + 1;  // a row of the warp's hand-over (+1: no bank conflicts)
+  __shared__ float hand[kFusedThreads / 32][kFusedRows * kStride];
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  bool live = r < n_rays;
+  Ray ray{};
+  int lo = 0, hi = 0;
+  if (live) {
+    ray = load_ray(rows, n_rays, r);
+    slab_range(ray, v.X, &lo, &hi);
+  }
+  int passes = lanes::warp_passes((hi - lo + kSlabs - 1) / kSlabs);
+  float* mine = hand[threadIdx.x / 32] + (threadIdx.x % 32) / G * kSlabs;  // the ray's columns
+  float acc[lanes::kSlots<G, kFusedRows>] = {};
+  for (int p = 0; p < passes; ++p) {
+    float tm[U][kFusedRows];
+    fused_terms<U>(ray, v, lo + p * kSlabs + lane, G, hi, tm);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < kFusedRows; ++k) mine[k * kStride + u * G + lane] = tm[u][k];
+    __syncwarp();
+    lanes::take_in_order<G, kFusedRows, kSlabs>(mine, kStride, lane, acc);
+    __syncwarp();
+  }
+  if (!live) return;
+#pragma unroll
+  for (int slot = 0; slot < lanes::kSlots<G, kFusedRows>; ++slot) {
+    int k = lane + slot * G;
+    if (k < kFusedRows) out[k * n_rays + r] = acc[slot];
+  }
+}
+#endif
 
 // The two-pass pose backward: acc[0..8] = g * d(value)/d(row). In MIP mode
 // only the argmax slab carries a gradient (none when arg is -1), and

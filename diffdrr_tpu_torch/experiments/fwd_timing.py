@@ -60,32 +60,41 @@ PROBE_BRICKS = ((4, 4, 2), (4, 4, 4), (2, 2, 8), (2, 4, 4), (1, 4, 8), (8, 4, 1)
 HERE = Path(__file__).resolve().parent
 
 
-def build_probes():
-    """Build fwd_probes.cu with the package's nvcc flags once for each brick
-    shape of PROBE_BRICKS (brick.cuh's BRICK_L0..L2 given with -D), all
-    nvcc processes at once; the loaded libraries by shape."""
+def build_sources(src, define_sets):
+    """Build the probe source ``src`` with the package's nvcc flags and
+    -I csrc once for each list of -D defines in ``define_sets``, all nvcc
+    processes at once, into the package's build directory (reused while the
+    source, the headers and the defines are unchanged); the libraries'
+    paths in the same order."""
     from diffdrr_tpu_torch.ops.kernels import build
 
-    src = HERE / "fwd_probes.cu"
-    outs, procs = {}, []
-    for shape in PROBE_BRICKS:
-        defines = [f"-DBRICK_L{d}={b.bit_length() - 1}" for d, b in enumerate(shape)]
+    outs, procs = [], []
+    for defines in define_sets:
         h = hashlib.sha256(" ".join([*build.NVCC_FLAGS, *defines]).encode() + src.read_bytes())
         for path in sorted(build.CSRC.glob("*.cuh")):
             h.update(path.read_bytes())
-        out = build.BUILD_ROOT / f"probes-{h.hexdigest()[:16]}" / "libfwd_probes.so"
+        out = build.BUILD_ROOT / f"probes-{h.hexdigest()[:16]}" / f"lib{src.stem}.so"
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
             procs.append(subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, *defines,
                                            f"-I{build.CSRC}", "-o", str(out), str(src)]))
-        outs[shape] = out
+        outs.append(out)
     for p in procs:
         if p.wait(timeout=600) != 0:
             raise RuntimeError(f"nvcc failed on {src}: {p.args}")
+    return outs
+
+
+def build_probes():
+    """Build fwd_probes.cu once for each brick shape of PROBE_BRICKS
+    (brick.cuh's BRICK_L0..L2 given with -D); the loaded libraries by shape."""
+    outs = build_sources(HERE / "fwd_probes.cu",
+                         [[f"-DBRICK_L{d}={b.bit_length() - 1}" for d, b in enumerate(shape)]
+                          for shape in PROBE_BRICKS])
     libs = {}
     v, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     head = [i32, i32, i32, v, i64, v, i64, i64, i64, v] + [i32] * 7
-    for shape, out in outs.items():
+    for shape, out in zip(PROBE_BRICKS, outs):
         lib = ctypes.CDLL(str(out))
         lib.probe_siddon_fwd.argtypes = head + [v, v]
         lib.probe_joseph_fwd.argtypes = head + [ctypes.c_float, i32, i32, v, v]

@@ -1,9 +1,11 @@
-"""The bricked copy of the density that the forward gathers read, and its cache.
+"""The bricked copy of the density that the gathers read, and its cache.
 
 ``siddon_fwd`` and ``joseph_fwd`` launch one thread per ray, and a warp's 32
-rays are neighbouring detector pixels. In the density's own layout the
-rays of a warp read 32 different columns at each slab whenever the march
-axis is the unit-stride one, so one warp load touches ~32 cache lines. The
+rays are neighbouring detector pixels (the fused pose kernels
+``siddon_fwdgrad`` and ``joseph_fwdgrad`` read the same copy, a few lanes
+a ray). In the density's own layout the rays of a warp read 32 different
+columns at each slab whenever the march axis is the unit-stride one, so
+one warp load touches ~32 cache lines. The
 bricked copy cuts the density into bricks of ``BRICK`` voxels (a shape
 fixed when the kernels are compiled), each brick contiguous (64 floats,
 two 128-byte lines) and the bricks in row-major order, so the voxels those

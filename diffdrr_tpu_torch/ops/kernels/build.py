@@ -52,7 +52,7 @@ _LAB = [_VOID, _I64, _I64, _I64]
 _SIGNATURES = {
     "siddon": {
         "siddon_fwd": _BVOL + [_VOID] * 2,
-        "siddon_fwdgrad": _VOL + [_VOID] * 2,
+        "siddon_fwdgrad": _BVOL + [_VOID] * 2,
         "siddon_fwd_max": _VOL + [_VOID] * 3,
         "siddon_bwd_rays": _VOL + [_VOID] * 4,
         "siddon_bwd_vol": _GRAD + [_VOID],
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "joseph": {
         "joseph_fwd": _BVOL + _MARCH + [_VOID] * 2,
         "joseph_fwd_max": _VOL + _MARCH + [_VOID] * 3,
-        "joseph_fwdgrad": _VOL + _MARCH + [_VOID] * 3,
+        "joseph_fwdgrad": _BVOL + _MARCH + [_VOID] * 3,
         "joseph_bwd_rays": _VOL + _MARCH + [_VOID] * 4,
         "joseph_bwd_vol": _GRAD + _MARCH + [_VOID],
         # channel mode: the march, then n_channels

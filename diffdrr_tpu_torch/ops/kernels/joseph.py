@@ -411,17 +411,22 @@ def joseph_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int, h: floa
 def joseph_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
                    n_steps: int, reduce: str = "sum"):
     """``((8, R), arg)``: the 7 gradient rows and the value; in max mode the
-    argmax step's rows and the MIP value, and ``arg`` the argmax (else None)."""
+    argmax step's rows and the MIP value, and ``arg`` the argmax (else None).
+    The kernel reads the density's bricked copy, as ``joseph_fwd`` does, with
+    several lanes a ray; its rows are the same on every run."""
     check("joseph", rows, density, axis)
     _check_march(h, n_steps)
     if reduce not in ("sum", "max"):
         raise ValueError(f"reduce must be 'sum' or 'max', not {reduce!r}")
     if runs_plain("joseph_fwdgrad", rows):
         return joseph_fwdgrad_plain(rows, density, axis, h, n_steps, reduce)
+    vol = bricked(density)
+    rows = rows.contiguous()
     out = torch.empty((FUSED_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
     arg = (torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
            if reduce == "max" else None)
-    _launch("joseph_fwdgrad", rows, density, axis, h, n_steps, out.data_ptr(), ptr(arg))
+    call("joseph", "joseph_fwdgrad", rows.device, rows.data_ptr(), rows.shape[1],
+         vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), out.data_ptr(), ptr(arg))
     joseph_fwdgrad.launches += 1
     return out, arg
 

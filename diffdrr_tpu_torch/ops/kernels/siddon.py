@@ -272,12 +272,17 @@ def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Te
 
 
 def siddon_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
-    """``(10, R)``: d(value)/d(row) for the 9 rows, then the value."""
+    """``(10, R)``: d(value)/d(row) for the 9 rows, then the value. The
+    kernel reads the density's bricked copy, as ``siddon_fwd`` does, with
+    several lanes a ray; its rows are the same on every run."""
     check("siddon", rows, density, axis)
     if runs_plain("siddon_fwdgrad", rows):
         return siddon_fwdgrad_plain(rows, density, axis)
+    vol = bricked(density)
+    rows = rows.contiguous()
     out = torch.empty((FUSED_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    _launch("siddon_fwdgrad", rows, density, axis, out.data_ptr())
+    call("siddon", "siddon_fwdgrad", rows.device, rows.data_ptr(), rows.shape[1],
+         vol.data.data_ptr(), *vol.args(axis), out.data_ptr())
     siddon_fwdgrad.launches += 1
     return out
 

@@ -305,7 +305,9 @@ def test_twin_missed_rays_are_zero(twin):
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """On a card: both CUDA kernels against their plain versions (run with
-    ``python -m pytest --noconftest tests/test_torch_kernel_twin.py -m gpu``)."""
+    ``python -m pytest --noconftest tests/test_torch_kernel_twin.py -m gpu``);
+    siddon_fwdgrad also on every march axis (``_gpu_fused_cases``) and
+    launched twice with the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(5)
@@ -324,6 +326,13 @@ def test_cuda_kernels_match_plain_versions():
     for k in range(10):
         torch.testing.assert_close(got_g[k], ref_g[k], rtol=0,
                                    atol=1e-3 * ref_g[k].abs().max().item() + 1e-30)
+    for label, axis, vol, rows in _gpu_fused_cases():
+        got = K.siddon_fwdgrad(rows, vol, axis)
+        again = K.siddon_fwdgrad(rows, vol, axis)
+        ref = K.siddon_fwdgrad_plain(rows, vol, axis)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(again)), label
+        _assert_fused_close(got.cpu(), ref.cpu(), 9, label)
 
 
 def _gpu_scene():
@@ -701,6 +710,16 @@ def test_cuda_joseph_kernels_match_plain_versions(mode, h):
     torch.testing.assert_close(J.joseph_fwd(rows, vol, 2, h, n), ref, rtol=0,
                                atol=1e-4 * ref.abs().max().item())
     reduce = "max" if mode == "mip" else "sum"
+    for label, axis, vol_a, rows_a in _gpu_fused_cases(quadrature="joseph", h=h):
+        n_a = int(-(-vol_a.shape[axis] // h))
+        got, arg_a = J.joseph_fwdgrad(rows_a, vol_a, axis, h, n_a, reduce)
+        again, arg_again = J.joseph_fwdgrad(rows_a, vol_a, axis, h, n_a, reduce)
+        ref, ref_arg = J.joseph_fwdgrad_plain(rows_a, vol_a, axis, h, n_a, reduce)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(again)), label
+        if reduce == "max":
+            assert torch.equal(arg_a, ref_arg) and torch.equal(arg_a, arg_again), label
+        _assert_fused_close(got.cpu(), ref.cpu(), 7, label)
     got_rows, got_arg = J.joseph_fwdgrad(rows, vol, 2, h, n, reduce)
     ref_rows, ref_arg = J.joseph_fwdgrad_plain(rows, vol, 2, h, n, reduce)
     assert (got_arg is None) == (ref_arg is None)
@@ -1174,6 +1193,21 @@ def _gpu_fwd_scenes(axis):
     return out
 
 
+def _gpu_fused_cases(**prep):
+    """(label, march axis, density, rows) on the card for the fused kernels:
+    ``_gpu_fwd_scenes`` of every march axis, the 64x64 detector with its
+    mixed rays and the 200x200 one (``prep``: prep_rays' quadrature)."""
+    out = []
+    for axis in (0, 1, 2):
+        for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+            rows = prep_rays(*geo, axis, vol.shape, **prep)
+            if extra is not None:
+                rows = torch.cat([rows, prep_rays(*(t.cuda() for t in extra), axis, vol.shape,
+                                                  **prep)], 1)
+            out.append((f"{label} axis {axis}", axis, vol, rows))
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("axis", [0, 2])
 def test_cuda_siddon_fwd_bricked_matches_plain(axis):
@@ -1227,3 +1261,309 @@ def test_cuda_brick_copy_matches_plain(dims):
         torch.cuda.synchronize()
         assert brick_density.launches == launches + 1 and got.shape == ref.shape
         assert torch.equal(got.data, ref.data)
+
+
+# -----------------------------------------------------------------------------
+# The fused pose kernels: G lanes a ray on the bricked copy (csrc/lanes.cuh)
+# -----------------------------------------------------------------------------
+
+_FUSED_TWIN_SRC = r"""
+#include <string.h>
+#include <type_traits>
+#include "joseph.cuh"
+#include "siddon.cuh"
+#define BRICK_ARGS const float* bvol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z
+template <int N>
+using IC = std::integral_constant<int, N>;
+// f(G, U) of the variant: G lanes a ray and U slabs (steps) in flight, 0
+// taking the kernel's own (kFusedLanes, kFusedSlabs or kFusedSteps).
+template <class F>
+static void with_variant(int variant, F f) {
+  switch (variant) {
+    case 0: f(IC<1>(), IC<0>()); break;
+    case 1: f(IC<2>(), IC<0>()); break;
+    case 2: f(IC<8>(), IC<0>()); break;
+    case 3: f(IC<32>(), IC<0>()); break;
+    case 4: f(IC<0>(), IC<1>()); break;
+    case 5: f(IC<0>(), IC<2>()); break;
+    default: f(IC<0>(), IC<4>()); break;
+  }
+}
+// One ray's fused march as fwdgrad_lanes runs it, lane after lane: passes
+// of G * U slabs (steps) from lo, each lane's summands (fused_terms) laid
+// out by row and by slab as in the hand-over, each lane's rows taking them
+// (take_in_order), and row k read from lane k % G's slot k / G. MIP: each
+// lane's first maximum, then the tree; returns whether the lanes' maxima
+// differ after it.
+template <int G, int U, int N, class Terms>
+static bool lanes_march(int lo, int hi, bool mip, Terms terms, float out[N], int* arg) {
+  constexpr int S = G * U;
+  float acc[G][lanes::kSlots<G, N>] = {};
+  float best[G][N] = {};
+  int best_p[G];
+  for (int j = 0; j < G; ++j) best_p[j] = -1;
+  for (int base = lo; base < hi; base += S) {
+    float hand[N * S];
+    for (int j = 0; j < G; ++j) {
+      float tm[U][N];
+      terms(base + j, tm);
+      for (int u = 0; u < U; ++u) {
+        for (int k = 0; k < N; ++k) hand[k * S + u * G + j] = tm[u][k];
+        if (tm[u][N - 1] > best[j][N - 1]) {
+          memcpy(best[j], tm[u], sizeof(best[j]));
+          best_p[j] = base + u * G + j;
+        }
+      }
+    }
+    for (int j = 0; j < G; ++j) lanes::take_in_order<G, N, S>(hand, S, j, acc[j]);
+  }
+  if (!mip) {
+    for (int k = 0; k < N; ++k) out[k] = acc[k % G][k / G];
+    return false;
+  }
+  lanes::combine_max_lanes<G, N, N - 1>(best, best_p);
+  bool differ = false;
+  for (int j = 1; j < G; ++j)
+    differ |= memcmp(best[j], best[0], sizeof(best[0])) != 0 || best_p[j] != best_p[0];
+  for (int k = 0; k < N; ++k) out[k] = best[k % G][k];
+  *arg = best_p[0];
+  return differ;
+}
+extern "C" void ft_siddon(int variant, const float* rows, int64_t R, BRICK_ARGS, float* out) {
+  brick::with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    with_variant(variant, [&](auto g, auto u) {
+      constexpr int G = decltype(g)::value ? decltype(g)::value : siddon::kFusedLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kFusedSlabs;
+      constexpr int N = siddon::kFusedRows;
+      for (int64_t r = 0; r < R; ++r) {
+        siddon::Ray ray = siddon::load_ray(rows, R, r);
+        int lo, hi;
+        siddon::slab_range(ray, X, &lo, &hi);
+        float o[N];
+        lanes_march<G, U, N>(lo, hi, false, [&](int s0, float (*tm)[N]) {
+          siddon::fused_terms<U>(ray, v, s0, G, hi, tm);
+        }, o, nullptr);
+        for (int k = 0; k < N; ++k) out[k * R + r] = o[k];
+      }
+    });
+    return 0;
+  });
+}
+// Returns the number of rays whose lanes' maxima differ after the tree.
+extern "C" int ft_joseph(int variant, int mip, const float* rows, int64_t R, BRICK_ARGS, float h,
+                         int n, int blend, float* out, int* arg) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  int bad = 0;
+  brick::with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    with_variant(variant, [&](auto g, auto u) {
+      constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kFusedLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFusedSteps;
+      constexpr int N = joseph::kFusedRows;
+      for (int64_t r = 0; r < R; ++r) {
+        joseph::Ray ray = joseph::load_ray(rows, R, r);
+        int lo, hi;
+        joseph::step_range(ray, m, &lo, &hi);
+        float o[N];
+        int best = -1;
+        bad += lanes_march<G, U, N>(lo, hi, mip != 0, [&](int p0, float (*tm)[N]) {
+          joseph::fused_terms<U>(ray, v, m, p0, G, hi, tm);
+        }, o, &best);
+        for (int i = 0; i < N; ++i) out[i * R + r] = o[i];
+        if (mip) arg[r] = best;
+      }
+    });
+    return 0;
+  });
+  return bad;
+}
+"""
+
+# (G, U) of each variant of the twin (None: the kernel's own), in its order.
+_FUSED_VARIANTS = ((1, None), (2, None), (8, None), (32, None),
+                   (None, 1), (None, 2), (None, 4))
+_LANES = (0, 1, 2, 3)  # G = 1, 2, 8, 32, each with the kernel's U
+_UNROLLED = (4, 5, 6)  # the kernel's G with U = 1, 2, 4
+
+
+@pytest.fixture(scope="module")
+def ftwin(tmp_path_factory):
+    """The twin of the fused kernels' lanes (the package's brick shape)."""
+    so = _build_twin(tmp_path_factory, "ftwin", _FUSED_TWIN_SRC)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    bvol = [ptr] + [i32] * 7
+    so.ft_siddon.argtypes = [i32, ptr, i64] + bvol + [ptr]
+    so.ft_joseph.argtypes = [i32, i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr, ptr]
+    so.ft_siddon.restype = None
+    so.ft_joseph.restype = i32
+    return so
+
+
+def _fused_siddon(ftwin, variant, rows, vol, axis):
+    """(10, R) of the twin's lanes on ``vol``'s bricked copy."""
+    rows = rows.contiguous()
+    bv = brick_density(vol)
+    out = torch.full((10, rows.shape[1]), float("nan"))
+    ftwin.ft_siddon(variant, rows.data_ptr(), rows.shape[1], bv.data.data_ptr(), *bv.args(axis),
+                    out.data_ptr())
+    return out
+
+
+def _fused_joseph(ftwin, variant, mip, rows, vol, axis, h, n):
+    """((8, R), argmax or None) of the twin's lanes on ``vol``'s bricked copy."""
+    rows = rows.contiguous()
+    bv = brick_density(vol)
+    out = torch.full((8, rows.shape[1]), float("nan"))
+    arg = torch.full((rows.shape[1],), -2, dtype=torch.int32) if mip else None
+    bad = ftwin.ft_joseph(variant, int(mip), rows.data_ptr(), rows.shape[1], bv.data.data_ptr(),
+                          *bv.args(axis), h, n, int(J.is_blend(h)), out.data_ptr(), _ptr(arg))
+    assert bad == 0, f"{bad} rays' lanes hold different maxima after the tree"
+    return out, arg
+
+
+def _assert_fused_close(got, ref, value_row, what):
+    """The fused kernels' tolerance against the plain versions: gradient
+    rows 1e-3 * max|row|, the value 1e-4 * max|value|."""
+    for k in range(ref.shape[0]):
+        rel = 1e-4 if k == value_row else 1e-3
+        np.testing.assert_allclose(got[k], ref[k], rtol=0,
+                                   atol=rel * ref[k].abs().max().item() + 1e-30,
+                                   err_msg=f"{what} row {k}")
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_fused_lanes_match_plain(twin, ftwin, axis):
+    """The fused kernel's lanes on the bricked copy (fused_terms and
+    take_in_order, passes of G * U slabs), at G = 1, 2, 8 and 32 lanes a ray
+    and at the kernel's G with U = 1, 2 and 4 slabs in flight: the strided
+    serial march's rows bit for bit, every ray (off-grid, long, short and
+    missing rays, partial entry slabs, the NaN ray, extents not whole
+    bricks), contiguous and permuted density, and siddon_fwdgrad_plain to
+    the fused kernel's tolerance."""
+    rng = np.random.default_rng(100 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis)
+    plain = siddon_fwdgrad_plain(rows[:, :-1], vol, axis)
+    serial = _bits(_run_twin(twin, True, rows, vol, axis))
+    assert (plain == 0).all(0).any() and (plain[9] > 0).sum() > 80
+    for variant in _LANES + _UNROLLED:
+        got = _fused_siddon(ftwin, variant, rows, vol, axis)
+        assert torch.equal(_bits(got), serial), _FUSED_VARIANTS[variant]
+        assert torch.equal(_bits(_fused_siddon(ftwin, variant, rows, vol_f, axis)), serial)
+        _assert_fused_close(got[:, :-1], plain, 9, f"(G, U) {_FUSED_VARIANTS[variant]}")
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_fused_g1_equals_strided_serial(twin, ftwin, axis):
+    """G = 1 on the bricked copy is the strided serial trace_fwdgrad bit for
+    bit, every ray (the NaN ray too), contiguous and permuted density."""
+    rng = np.random.default_rng(110 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis)
+    ref = _bits(_run_twin(twin, True, rows, vol, axis))
+    for v in (vol, vol_f):
+        assert torch.equal(_bits(_fused_siddon(ftwin, 0, rows, v, axis)), ref)
+
+
+_FUSED_H = pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.26],
+                                   ids=["h1", "h4", "h1.37", "h0.26"])
+
+
+@_FUSED_H
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_fused_lanes_match_plain(jtwin, ftwin, axis, mode, h):
+    """The Joseph fused kernel's lanes on the bricked copy at G = 1, 2, 8 and
+    32 and at the kernel's G with U = 1, 2 and 4 steps in flight, integer
+    and fractional h: the strided serial march bit for bit (sum: the same
+    order of sums; max: each lane's first maximum and the tree), the
+    argmax exact against the plain version, and joseph_fwdgrad_plain to
+    the fused kernel's tolerance."""
+    rng = np.random.default_rng(120 + axis)
+    vol, _ = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h)
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    mip = mode == "max"
+    plain, plain_arg = J.joseph_fwdgrad_plain(rows[:, :-1], vol, axis, h, n, mode)
+    serial, serial_arg = _JosephTwin(jtwin, rows, vol, axis, h, n).fwdgrad(mip)
+    assert (plain[7] > 0).sum() > 80
+    for variant in _LANES + _UNROLLED:
+        got, arg = _fused_joseph(ftwin, variant, mip, rows, vol, axis, h, n)
+        assert torch.equal(_bits(got), _bits(serial)), _FUSED_VARIANTS[variant]
+        if mip:
+            assert torch.equal(arg[:-1], plain_arg) and torch.equal(arg, serial_arg)
+        _assert_fused_close(got[:, :-1], plain, 7, f"(G, U) {_FUSED_VARIANTS[variant]}")
+
+
+@pytest.mark.parametrize("h", [1.0, 1.37], ids=["h1", "h1.37"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_fused_g1_equals_strided_serial(jtwin, ftwin, axis, h):
+    """G = 1 on the bricked copy is the strided serial trace_fwdgrad bit for
+    bit, sum and max, every ray, contiguous and permuted density."""
+    rng = np.random.default_rng(130 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h)
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    for mip in (False, True):
+        ref, ref_arg = _JosephTwin(jtwin, rows, vol, axis, h, n).fwdgrad(mip)
+        for v in (vol, vol_f):
+            got, arg = _fused_joseph(ftwin, 0, mip, rows, v, axis, h, n)
+            assert torch.equal(_bits(got), _bits(ref))
+            assert (arg is None) or torch.equal(arg, ref_arg)
+
+
+@pytest.mark.parametrize("variant", [1, 2, 3], ids=["G2", "G8", "G32"])
+def test_twin_joseph_fused_max_tie_takes_the_smaller_step(jtwin, ftwin, variant):
+    """MIP ties across lanes: rays along axis 0 through a density whose
+    planes are alike but for two equal brighter ones, p1 < p2, with p2 on a
+    lower lane than p1; and through a density of identical planes, where
+    every in-slab step ties. The combine must take the smaller step, as the
+    serial first maximum does: the argmax exact against the plain version
+    and the serial march, the rows bit for bit the serial march's."""
+    G = _FUSED_VARIANTS[variant][0]
+    dims = (84, 9, 7)
+    rng = np.random.default_rng(140 + variant)
+    plane = rng.uniform(0.2, 0.6, dims[1:])
+    n_rays = 24
+    y = rng.uniform(1.2, 6.8, n_rays)
+    z = rng.uniform(1.2, 4.8, n_rays)
+    # From x = -30, well before the volume, so every ray's step range starts
+    # at 0 and step p is on lane p % G.
+    src = torch.tensor(np.stack([np.full(n_rays, -30.0), y, z], 1)[:, None], dtype=torch.float32)
+    tgt = torch.tensor(np.stack([np.full(n_rays, 120.0), y, z], 1)[:, None], dtype=torch.float32)
+    rows = prep_rays(src, tgt, torch.ones((n_rays, 1, 1)), 0, dims, quadrature="joseph", h=1.0)
+    p1 = G + G // 2  # lane G / 2
+    p2 = p1 + G - 1  # lane G / 2 - 1
+    bright = np.repeat(plane[None], dims[0], 0)
+    bright[[p1, p2]] = 2.0 * plane
+    flat = np.repeat(plane[None], dims[0], 0)
+    for dens, want in ((bright, p1), (flat, 0)):
+        vol = torch.tensor(dens, dtype=torch.float32)
+        plain_arg = J.joseph_fwdgrad_plain(rows, vol, 0, 1.0, dims[0], "max")[1]
+        serial, serial_arg = _JosephTwin(jtwin, rows, vol, 0, 1.0, dims[0]).fwdgrad(True)
+        got, arg = _fused_joseph(ftwin, variant, True, rows, vol, 0, 1.0, dims[0])
+        assert torch.equal(arg, plain_arg) and torch.equal(arg, serial_arg)
+        assert (arg == want).all()
+        assert torch.equal(_bits(got), _bits(serial))
+
+
+def test_twin_fused_lanes_deterministic(ftwin):
+    """Two runs of the lanes give the same bits, for both fused kernels at
+    every G, in sum and (Joseph) max mode."""
+    rng = np.random.default_rng(150)
+    vol, _ = _densities(rng, _BRICK_DIMS)
+    rows_s = _fwd_rays(rng, _BRICK_DIMS, 2)
+    rows_j = _fwd_rays(rng, _BRICK_DIMS, 2, quadrature="joseph", h=1.37)
+    n = int(-(-_BRICK_DIMS[2] // 1.37))
+    for variant in _LANES:
+        a = _fused_siddon(ftwin, variant, rows_s, vol, 2)
+        assert torch.equal(_bits(a), _bits(_fused_siddon(ftwin, variant, rows_s, vol, 2)))
+        for mip in (False, True):
+            b, b_arg = _fused_joseph(ftwin, variant, mip, rows_j, vol, 2, 1.37, n)
+            c, c_arg = _fused_joseph(ftwin, variant, mip, rows_j, vol, 2, 1.37, n)
+            assert torch.equal(_bits(b), _bits(c))
+            assert (b_arg is None) or torch.equal(b_arg, c_arg)
