@@ -92,13 +92,16 @@ Phases (any failure raises and the exit code is non-zero):
      labels: shape (1, 7, 200, 200), channel sum equal to the scalar render,
      each kernel against its plain version at all 40,000 rays, one backward
      of sum_c w_c sum img_c**2 to density and pose launching exactly one of
-     each channel kernel and no joseph_fwdgrad;
+     each channel kernel, no joseph_fwdgrad and one bricked copy of the
+     density (joseph_bwd_rays_ch reads it);
   8c. Siddon channels at full width on the oracle (no Siddon kernel
      launched), the channel sum equal to siddon_fwd's render;
   8d. p_subsample=0.1, trilinear at full width: equal to the full render at
      its 4,000 pixels and 0 elsewhere, with and without channels; one pose
      backward; its render time beside the full render's;
-  8e. timings of the channel kernels at 200^2 with 7 channels.
+  8e. timings of the channel kernels at 200^2 with 7 channels: one call
+     and back to back, joseph_bwd_rays_ch with its bricked copy cached and
+     made anew.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -108,7 +111,8 @@ two forwards' entries at 320,000 rays give ``ms`` with the copy already
 made (as a registration or a render reads it) and ``ms_with_copy`` with a
 fresh copy in each call, which is what a reconstruction step pays; the two
 fused pose kernels' entries likewise at 200x200, with ``design`` naming
-their layout (the bricked copy, G lanes a ray).
+their layout (the bricked copy, G lanes a ray), as the channel ray
+backward's; the channel entries also give ``ms_back_to_back``.
 Without a CUDA device, or without the package beside this file, the
 script exits non-zero and prints no result.
 """
@@ -409,13 +413,13 @@ def profile_steps(step, label: str, t_step: float, out: Path, n: int = 5,
         f"({100 * busy_ms / t_step:.1f}% busy){share}; table in {out}")
 
 
-def fused_design(header: str) -> str:
-    """The fused kernel's layout, for the record: its lanes a ray, as the
-    header ``csrc/<header>`` compiles them."""
+def fused_design(header: str, constant: str = "kFusedLanes") -> str:
+    """A lanes kernel's layout, for the record: its lanes a ray, as the
+    header ``csrc/<header>`` compiles them (``constant``)."""
     import re
 
     text = (ROOT / "diffdrr_tpu_torch" / "csrc" / header).read_text()
-    lanes = re.search(r"constexpr int kFusedLanes = (\d+);", text).group(1)
+    lanes = re.search(rf"constexpr int {constant} = (\d+);", text).group(1)
     return f"bricked copy, {lanes} lanes a ray"
 
 
@@ -956,6 +960,7 @@ def channels_full(T, subject, rot0, trans, kw, rng):
     import numpy as np
     import torch
 
+    from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
     from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
 
@@ -988,6 +993,7 @@ def channels_full(T, subject, rot0, trans, kw, rng):
         errs["fwd_ch"] = max(errs["fwd_ch"], err_img)
 
         J.reset_launch_counts()
+        brick.brick_density.launches = 0
         rot_p = rot0.clone().requires_grad_(True)
         trans_p = trans.clone().requires_grad_(True)
         dens_p = dens.clone().requires_grad_(True)
@@ -995,12 +1001,13 @@ def channels_full(T, subject, rot0, trans, kw, rng):
                            mask_to_channels=True)
         (w[None, :, None] * img_p ** 2).sum().backward()
         torch.cuda.synchronize()
-        launches = joseph_launches()
+        launches = dict(joseph_launches(), brick_copy=brick.brick_density.launches)
         log(f"[channels] {renderer} backward launches {launches}")
+        # dens_p is a new density: joseph_bwd_rays_ch bricks it once.
         expect_launches(f"{renderer} channel backward", launches,
                         {"joseph_fwd_ch": 1, "joseph_bwd_rays_ch": 1, "joseph_bwd_vol_ch": 1,
                          "joseph_fwdgrad": 0, "joseph_fwd": 0, "joseph_fwd_max": 0,
-                         "joseph_bwd_rays": 0, "joseph_bwd_vol": 0})
+                         "joseph_bwd_rays": 0, "joseph_bwd_vol": 0, "brick_copy": 1})
         pose_grad = torch.cat([rot_p.grad, trans_p.grad], -1)
         if not (torch.isfinite(pose_grad).all() and pose_grad.abs().max() > 0):
             raise AssertionError(f"{renderer} channel pose gradient {pose_grad.tolist()}")
@@ -1083,10 +1090,15 @@ def subsample_full_width(T, subject, rot0, trans, kw, drr_t):
 
 def channel_timings(ch):
     """Phase 8e: each channel kernel at 200^2 with 7 channels (the trilinear
-    render's rows), its plain version and its bound."""
+    render's rows), one call and back to back, its plain version and its
+    bound; joseph_bwd_rays_ch also with its bricked copy made anew in each
+    call. (name: (ms, plain_ms, bound_ms, bound_by)), and the extra times by
+    name."""
     import numpy as np
     import torch
 
+    from diffdrr_tpu_torch.experiments.fwdgrad_timing import burst_ms
+    from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
 
     rows, axis, h, n = ch["rows"], ch["axis"], ch["h"], ch["n"]
@@ -1102,13 +1114,18 @@ def channel_timings(ch):
         "bwd_vol_ch": (lambda: J.joseph_bwd_vol_ch(rows, g, lab, dens.shape, axis, h, n),
                        lambda: J.joseph_bwd_vol_ch_plain(rows, g, lab, dens.shape, axis, h, n)),
     }
-    times = {}
+    times, extra = {}, {}
     for name, (kernel, plain) in fns.items():
         bnd, by = march_bound(rows, dens, axis, h, n, **b[name])
         times[name] = (median_ms(kernel, 20), median_ms(plain, 2, 1), bnd, by)
-        log(f"[time] joseph_{name} {times[name][0]:.4f} ms (plain {times[name][1]:.2f}, bound "
-            f"{bnd:.4f} by {by}) at 200^2 rays, 7 channels, axis {axis}, h {h:g}")
-    return times
+        extra[name] = {"ms_back_to_back": burst_ms(kernel)}
+        if name == "bwd_rays_ch":
+            extra[name]["ms_with_copy"] = median_ms(kernel, 20, before=brick.clear_cache)
+        log(f"[time] joseph_{name} {times[name][0]:.4f} ms one call, "
+            + ", ".join(f"{k} {v:.4f}" for k, v in extra[name].items())
+            + f" (plain {times[name][1]:.2f}, bound {bnd:.4f} by {by}) at 200^2 rays, "
+            f"7 channels, axis {axis}, h {h:g}")
+    return times, extra
 
 
 def main(argv) -> int:
@@ -1507,7 +1524,7 @@ def main(argv) -> int:
     ch = channels_full(T, subject, rot0, trans, kw, rng)
     err_sid_ch = channels_siddon(T, subject, rot0, trans, kw)
     t_sub, t_full = subsample_full_width(T, subject, rot0, trans, kw, ch["drr"])
-    ch_times = channel_timings(ch)
+    ch_times, ch_extra = channel_timings(ch)
     del subject
     rec = trilinear_reconstruction(args.profile)
 
@@ -1605,7 +1622,8 @@ def main(argv) -> int:
          "ms": t_fv, "ms_with_copy": t_fv_copy, "plain_ms": t_fv_plain, "bound_ms": b_fv,
          "bound_by": by_fv, "library_ms": None},
         {"name": "brick_copy", "route": "cuda", "source": "diffdrr_tpu_torch/csrc/brick.cu",
-         "replaces": "none: layout glue that siddon_fwd and joseph_fwd read",
+         "replaces": "none: layout glue that the forwards, the fused kernels and "
+                     "joseph_bwd_rays_ch read",
          "launches": recon_launches["brick_copy"], "max_abs_err": 0.0,
          "ms": t_copy, "plain_ms": t_copy_plain, "bound_ms": b_copy, "bound_by": by_copy,
          "library_ms": None},
@@ -1664,8 +1682,11 @@ def main(argv) -> int:
     ]
     # Channel kernels: launches of phase 8b's two backwards (joseph, trilinear).
     jtimes.update(ch_times)
-    kernels += [jrec(f"joseph_{key}", key, line, ch["launches"][f"joseph_{key}"],
-                     max(ch["errs"][key], ch_small[key]))
+    ch_design = {"bwd_rays_ch": fused_design("joseph.cuh", "kChannelLanes"),
+                 "bwd_vol_ch": "one warp per ray"}
+    kernels += [dict(jrec(f"joseph_{key}", key, line, ch["launches"][f"joseph_{key}"],
+                          max(ch["errs"][key], ch_small[key])),
+                     **ch_extra[key], **({"design": ch_design[key]} if key in ch_design else {}))
                 for key, line in (("fwd_ch", 376), ("bwd_rays_ch", 600), ("bwd_vol_ch", 903))]
     log(f"[channels] Siddon channel sum vs siddon_fwd {err_sid_ch:.3e}; p_subsample=0.1 render "
         f"{t_sub:.3f} ms, full render {t_full:.3f} ms")

@@ -21,11 +21,12 @@
 //                      the cotangent of its channel.
 // Each takes integer and fractional h.
 //
-// Design: one thread per ray (the fused march and the scatter aside,
-// below), walking only its own in-slab steps (step_range in joseph.cuh) and
-// reading the 4 in-plane neighbours of each sample (8 at fractional h)
-// straight from the float32 density through its strides (the forward and
-// the fused march: its bricked copy). The TPU needed tile windows, a starts
+// Design: one thread per ray (the fused march, the channel ray backward and
+// the scatters aside, below), walking only its own in-slab steps
+// (step_range in joseph.cuh) and reading the 4 in-plane neighbours of each
+// sample (8 at fractional h) straight from the float32 density through its
+// strides (the forward, the fused march and the channel ray backward: its
+// bricked copy). The TPU needed tile windows, a starts
 // table, a lane roll and tent-weight matmuls on the MXU to avoid gathers;
 // on the H100 a gather is a load, so none of that is carried over, and with
 // no window there is no footprint to overflow.
@@ -73,7 +74,8 @@
 // sits between its march without loads (0.067 ms at 200x200) and its
 // loads alone (0.089), 0.081 ms (PERF.md).
 //
-// The scatter (joseph_bwd_vol) is laid out otherwise: one warp per ray. It
+// The scatters (joseph_bwd_vol, joseph_bwd_vol_ch) are laid out otherwise:
+// one warp per ray (warp_scatter). Each
 // adds 4 (or 8) products per in-slab step into the zero-filled gradient
 // with float atomics. The bytes it must move are the gradient written once.
 // What bounds it instead is the L2's atomic requests, one per 32-byte
@@ -84,16 +86,26 @@
 // and issues them 32 at a time. With the march axis the gradient's
 // unit-stride axis, the adds of one neighbour column at consecutive steps
 // share a sector: 39 million requests for the recon-CLI's 87 million adds,
-// against 87 million one thread per ray (PERF.md). A ray whose g is 0
-// returns at once. The order of the atomics changes from run to run, so
-// the gradient's last bits do too. The channel scatter keeps one thread per
-// ray.
+// against 87 million one thread per ray (PERF.md). A ray whose g is 0 (in
+// every channel) returns at once. The order of the atomics changes from run
+// to run, so the gradient's last bits do too; each add is the serial one.
 //
 // The channel kernels add one 4-byte label gather per step (a 7-label CT
 // fits in int8, but int32 keeps the read simple) and read or write 4 * C
 // bytes per ray instead of 4. The forward accumulates straight into its
-// ray's column of the output: the thread owns the ray, so no atomics; the
-// channel scatter is the scalar scatter with a per-step cotangent.
+// ray's column of the output: the thread owns the ray, so no atomics. One
+// thread per ray, the two channel backwards were bound as the fused march
+// was: 40,000 threads at the channel cell (200x200 rays, 7 channels), each
+// a chain of ~133 steps whose label gather decides which cotangent is read,
+// 0.27 and 0.63 ms against 0.03 and 0.05 ms byte bounds (PERF.md); the
+// scatter's 32 lanes an atomic instruction were 32 rays in ~32 sectors.
+// joseph_bwd_vol_ch is now the scalar scatter's warp per ray with a
+// per-step cotangent (step_adds_ch_at). joseph_bwd_rays_ch is the fused
+// march's lanes with each step's 7 terms times its channel's cotangent
+// (channel_terms, bwd_rays_ch_lanes): G = kChannelLanes lanes a ray, U = 1,
+// on the bricked copies of the density and of the labelmap (its int32 bits,
+// made by the same brick_copy), the rows bit for bit the serial march's.
+// G, U and the two layouts from channel_timing.py's probes (PERF.md).
 #include <cuda_runtime.h>
 
 #include "joseph.cuh"
@@ -169,32 +181,24 @@ __device__ __forceinline__ int warp_offset(unsigned mask, int lane, int* total) 
   return at;
 }
 
-// One warp per ray. Each pass takes 32 neighbouring steps of the ray, step
-// lo + l (then lo + l + 32, ...) on lane l, whose adds step_adds_at
-// computes; the warp lays the pass's adds out in shared memory in path
-// order (step, then neighbour) and issues them 32 at a time, so each atomic
-// instruction covers 32 consecutive adds along the ray. In MIP mode the ray
-// has at most one step.
-__global__ void __launch_bounds__(kThreads)
-joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::March m,
-                      const float* __restrict__ g, const int* __restrict__ arg,
-                      joseph::GradVolume grad) {
+// A warp's scatter of one ray's steps [lo, hi) (the whole warp calls it).
+// Each pass takes 32 neighbouring steps of the ray, step lo + l (then
+// lo + l + 32, ...) on lane l, whose adds adds(p, off, x) computes (a
+// step_adds mask); the warp lays the pass's adds out in shared memory in
+// path order (step, then neighbour) and issues them 32 at a time, so each
+// atomic instruction covers 32 consecutive adds along the ray.
+template <class Adds>
+__device__ __forceinline__ void warp_scatter(int lo, int hi, float* __restrict__ grad,
+                                             Adds adds) {
   __shared__ int64_t s_off[kWarpsPerBlock][joseph::kStepAdds * kWarp];
   __shared__ float s_x[kWarpsPerBlock][joseph::kStepAdds * kWarp];
-  int64_t r = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kWarp;
   int lane = threadIdx.x % kWarp;
   int w = threadIdx.x / kWarp;
-  if (r >= n_rays) return;  // the whole warp: r is the warp's
-  joseph::Ray ray = joseph::load_ray(rows, n_rays, r);
-  float gr = g[r];
-  if (gr == 0.f) return;  // every add is a product by g: none to make
-  int lo, hi;
-  joseph::scatter_range(ray, m, arg ? arg[r] : -1, arg != nullptr, &lo, &hi);
   for (int base = lo; base < hi; base += kWarp) {
     int64_t off[joseph::kStepAdds];
     float x[joseph::kStepAdds];
     int p = base + lane;
-    unsigned mask = p < hi ? joseph::step_adds_at(ray, grad, m, p, gr, off, x) : 0u;
+    unsigned mask = p < hi ? adds(p, off, x) : 0u;
     int total;
     int at = warp_offset<joseph::kStepAdds>(mask, lane, &total);
 #pragma unroll
@@ -206,9 +210,27 @@ joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Ma
       }
     }
     __syncwarp();
-    for (int k = lane; k < total; k += kWarp) atomicAdd(grad.data + s_off[w][k], s_x[w][k]);
+    for (int k = lane; k < total; k += kWarp) atomicAdd(grad + s_off[w][k], s_x[w][k]);
     __syncwarp();
   }
+}
+
+// One warp per ray, its steps' adds from step_adds_at (warp_scatter). In
+// MIP mode the ray has at most one step.
+__global__ void __launch_bounds__(kThreads)
+joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::March m,
+                      const float* __restrict__ g, const int* __restrict__ arg,
+                      joseph::GradVolume grad) {
+  int64_t r = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kWarp;
+  if (r >= n_rays) return;  // the whole warp: r is the warp's
+  joseph::Ray ray = joseph::load_ray(rows, n_rays, r);
+  float gr = g[r];
+  if (gr == 0.f) return;  // every add is a product by g: none to make
+  int lo, hi;
+  joseph::scatter_range(ray, m, arg ? arg[r] : -1, arg != nullptr, &lo, &hi);
+  warp_scatter(lo, hi, grad.data, [&](int p, int64_t* off, float* x) {
+    return joseph::step_adds_at(ray, grad, m, p, gr, off, x);
+  });
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -221,27 +243,39 @@ joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Vol
                        n_rays);
 }
 
+// G = kChannelLanes lanes a ray on the bricked copies of the density and
+// the labelmap, in passes of G steps whose summands the ray's rows take in
+// step order (bwd_rays_ch_lanes; the note at the top of this file says
+// why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-joseph_bwd_rays_ch_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
-                          joseph::Labels lab, joseph::March m, int n_channels,
+joseph_bwd_rays_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+                          joseph::BrickLabels<A> lab, joseph::March m, int n_channels,
                           const float* __restrict__ g, float* __restrict__ out) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  float acc[joseph::kRows];
-  joseph::trace_bwd_rays_ch(joseph::load_ray(rows, n_rays, r), vol, lab, m, n_channels, g + r,
-                            n_rays, acc);
-#pragma unroll
-  for (int i = 0; i < joseph::kRows; ++i) out[i * n_rays + r] = acc[i];
+  joseph::bwd_rays_ch_lanes<joseph::kChannelLanes, joseph::kChannelSteps>(
+      rows, n_rays, vol, lab, m, n_channels, g, out,
+      (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
+// One warp per ray, its steps' adds from step_adds_ch_at (warp_scatter). A
+// ray whose cotangent is 0 in every channel returns at once.
 __global__ void __launch_bounds__(kThreads)
 joseph_bwd_vol_ch_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Labels lab,
                          joseph::March m, int n_channels, const float* __restrict__ g,
                          joseph::GradVolume grad) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  joseph::trace_bwd_vol_ch(joseph::load_ray(rows, n_rays, r), grad, lab, m, n_channels, g + r,
-                           n_rays);
+  int64_t r = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / kWarp;
+  int lane = threadIdx.x % kWarp;
+  if (r >= n_rays) return;  // the whole warp: r is the warp's
+  const float* gr = g + r;  // the ray's cotangent column
+  bool any = false;
+  for (int c = lane; c < n_channels; c += kWarp) any |= gr[(int64_t)c * n_rays] != 0.f;
+  if (!__any_sync(kFullMask, any)) return;  // every add is a product by g: none to make
+  joseph::Ray ray = joseph::load_ray(rows, n_rays, r);
+  int lo, hi;
+  joseph::step_range(ray, m, &lo, &hi);
+  warp_scatter(lo, hi, grad.data, [&](int p, int64_t* off, float* x) {
+    return joseph::step_adds_ch_at(ray, grad, lab, m, p, n_channels, gr, n_rays, off, x);
+  });
 }
 
 joseph::Labels make_labels(const int* labels, int64_t ls, int64_t ly, int64_t lz, int X, int Y,
@@ -373,7 +407,10 @@ extern "C" int joseph_bwd_vol(const float* rows, int64_t n_rays, const float* g,
 // Channel mode. labels: the int32 labelmap with element strides (ls, ly, lz)
 // in the same permuted order and the density's extents; n_channels: C;
 // out: (C, n_rays) for joseph_fwd_ch (every entry written), (7, n_rays) for
-// joseph_bwd_rays_ch; g: (C, n_rays) float32.
+// joseph_bwd_rays_ch; g: (C, n_rays) float32. joseph_bwd_rays_ch reads the
+// bricked copies of the density (vol) and of the labelmap (labels, its
+// int32 bits), which share the arguments that follow them, those of
+// joseph_fwdgrad (and returns -1 for an axis outside 0..2).
 extern "C" int joseph_fwd_ch(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
                              int64_t sy, int64_t sz, int X, int Y, int Z, const int* labels,
                              int64_t ls, int64_t ly, int64_t lz, float h, int n_steps, int blend,
@@ -388,17 +425,20 @@ extern "C" int joseph_fwd_ch(const float* rows, int64_t n_rays, const float* vol
 }
 
 extern "C" int joseph_bwd_rays_ch(const float* rows, int64_t n_rays, const float* vol,
-                                  int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
-                                  const int* labels, int64_t ls, int64_t ly, int64_t lz, float h,
-                                  int n_steps, int blend, int n_channels, const float* g,
-                                  float* out, void* stream) {
-  if (n_rays > 0) {
-    joseph_bwd_rays_ch_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z),
-        make_labels(labels, ls, ly, lz, X, Y, Z), make_march(h, n_steps, blend), n_channels, g,
-        out);
-  }
-  return (int)cudaGetLastError();
+                                  const float* labels, int axis, int bs_s, int bs_y, int bs_z,
+                                  int X, int Y, int Z, float h, int n_steps, int blend,
+                                  int n_channels, const float* g, float* out, void* stream) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      joseph_bwd_rays_ch_kernel<A>
+          <<<n_blocks(n_rays * joseph::kChannelLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
+              joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
+              make_march(h, n_steps, blend), n_channels, g, out);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int joseph_bwd_vol_ch(const float* rows, int64_t n_rays, const float* g,
@@ -415,7 +455,7 @@ extern "C" int joseph_bwd_vol_ch(const float* rows, int64_t n_rays, const float*
     gv.X = X;
     gv.Y = Y;
     gv.Z = Z;
-    joseph_bwd_vol_ch_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+    joseph_bwd_vol_ch_kernel<<<n_blocks(n_rays * kWarp), kThreads, 0, (cudaStream_t)stream>>>(
         rows, n_rays, make_labels(labels, ls, ly, lz, X, Y, Z), make_march(h, n_steps, blend),
         n_channels, g, gv);
   }

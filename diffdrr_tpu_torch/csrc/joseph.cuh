@@ -6,7 +6,7 @@
 //
 // Geometry (the rows are packed by diffdrr_tpu_torch/ops/kernels/prep.py with
 // the Joseph quadrature): the volume is read through its strides in (s, y, z)
-// order, s being the march axis, or (trace_fwd, fused_terms) through its
+// order, s being the march axis, or (trace_fwd, fused_terms, channel_terms) through its
 // bricked copy in the same order (brick.cuh). Step p samples the ray at
 // axis position k = p * h, where alpha = k * a + b and the transverse
 // position is (gy + alpha dy, gz + alpha dz). The sample counts only
@@ -38,11 +38,17 @@
 // sample's nearest voxel (label_at) and lands in that label's channel; a
 // label outside [0, C) adds nothing. The forward adds the step's value to
 // its channel, and both backwards take the cotangent of that channel for
-// the step. Channel renders are always sums.
+// the step. Channel renders are always sums. Each step's share of either
+// backward is a pure function of the ray and the step (channel_terms,
+// step_adds_ch_at), so the kernels split a ray as the scalar ones do: the
+// pose backward over G lanes in the serial order of sums
+// (bwd_rays_ch_lanes, from the bricked copies of the density and the
+// labelmap), the scatter over a warp.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "brick.cuh"
 #include "lanes.cuh"
@@ -521,13 +527,6 @@ JOSEPH_HD void add_all(float* grad, unsigned mask, const int64_t off[kStepAdds],
     if (mask >> q & 1u) add_grad(grad + off[q], x[q]);
 }
 
-// One step's adds, made at once.
-JOSEPH_HD void scatter_step(const GradVolume& gv, const Step& s, bool blend, float g) {
-  int64_t off[kStepAdds];
-  float x[kStepAdds];
-  add_all(gv.data, step_adds(gv, s, blend, g, off, x), off, x);
-}
-
 // Step p's adds to d(loss)/d(volume) with the ray's g, as step_adds writes
 // them; none outside the slab. A pure function of the ray and p, so the
 // steps of one ray can be scattered in any order, by any thread.
@@ -565,18 +564,39 @@ JOSEPH_HD void trace_bwd_vol(const Ray& r, const GradVolume& gv, const March& m,
 // Channels
 // ---------------------------------------------------------------------------
 
+// Voxel (k, ry, rz) of the labelmap, inside its extents (label_at tests).
+JOSEPH_HD int label_voxel(const Labels& l, int k, float ry, float rz) {
+  return l.data[(int64_t)k * l.ss + (int64_t)ry * l.sy + (int64_t)rz * l.sz];
+}
+
+// The labelmap's bricked copy, as march axis A sees it: brick_copy of its
+// int32 labels' bits seen as float32 (ops/kernels/brick.py), so it shares
+// the density copy's brick strides and extents.
+template <int A>
+struct BrickLabels : brick::Volume<A> {};
+
+template <int A>
+JOSEPH_HD int label_voxel(const BrickLabels<A>& l, int k, float ry, float rz) {
+  float bits = brick::load(l.data + brick::offset(l, k, (int)ry, (int)rz));
+  int label;
+  memcpy(&label, &bits, sizeof label);
+  return label;
+}
+
 // The label of the step's sample at its nearest voxel, by the TPU kernel's
 // rule (_onehot_at, _get_lab): the transverse position rounded half to even
 // (rintf), plane k0 at an integer h and, at a fractional h, plane k0 + 1
 // only when fx > 0.5 (a tie takes k0). A position outside the volume, plane
-// X included, reads label 0.
-JOSEPH_HD int label_at(const Labels& l, const Ray& r, const Step& s, bool blend) {
+// X included, reads label 0. Lab is Labels, or any labelmap with extents
+// X, Y, Z and a label_voxel of its own (BrickLabels).
+template <class Lab>
+JOSEPH_HD int label_at(const Lab& l, const Ray& r, const Step& s, bool blend) {
   int k = (blend && s.fx > 0.5f) ? s.k0 + 1 : s.k0;
   float ry = rintf(r.gy + s.alpha * r.dy);
   float rz = rintf(r.gz + s.alpha * r.dz);
   if (!(k >= 0 && k < l.X && ry >= 0.f && ry < (float)l.Y && rz >= 0.f && rz < (float)l.Z))
     return 0;
-  return l.data[(int64_t)k * l.ss + (int64_t)ry * l.sy + (int64_t)rz * l.sz];
+  return label_voxel(l, k, ry, rz);
 }
 
 // The channel a label lands in, or -1 for a label outside [0, C).
@@ -603,9 +623,53 @@ JOSEPH_HD void trace_fwd_ch(const Ray& r, const Volume& v, const Labels& l, cons
   }
 }
 
+// The channel pose backward's summands of U steps p0, p0 + step, ...,
+// p0 + (U - 1) step: t[u][i] = the step's term i times g[c * n_rays], the
+// cotangent of its channel c (g is the ray's column of a (C, n_rays)
+// cotangent). All exactly 0 for a step outside the slab, at or past hi
+// (step_range's end), or whose label drops. The labels and the windows of
+// the U steps are read first, neither waiting on the other (4U loads in
+// flight, 8U at a fractional h, and U labels), then the cotangents, which
+// wait on the labels, and the terms. A pure function of the ray and the
+// steps, so any lane can take any step; trace_bwd_rays_ch adds them one
+// step at a time, bwd_rays_ch_lanes in passes.
+template <int U, class Vol, class Lab>
+JOSEPH_HD void channel_terms(const Ray& r, const Vol& v, const Lab& l, const March& m,
+                             int n_channels, const float* g, int64_t n_rays, int p0, int step,
+                             int hi, float t[U][kRows]) {
+  Step st[U];
+  int lab[U];
+  float win[U][2][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    st[u] = step_at(r, m, v.X, p0 + u * step);
+    lab[u] = -1;  // no channel
+    if (p0 + u * step < hi && st[u].inslab) {
+      lab[u] = label_at(l, r, st[u], m.blend);
+      window(v, st[u], m.blend, win[u]);
+    } else {
+      win[u][0][0] = win[u][0][1] = win[u][1][0] = win[u][1][1] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) t[u][i] = 0.f;
+    int c = channel_of(lab[u], n_channels);
+    if (c < 0) continue;
+    float gc = g[c * n_rays];
+    float terms[kRows];
+    step_terms(r, st[u], win[u], terms);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) t[u][i] = terms[i] * gc;
+  }
+}
+
 // The channel pose backward: acc[0..6] = sum over steps of the step's 7
-// terms times g[c * n_rays], the cotangent of the step's channel c (g is
-// the ray's column of a (C, n_rays) cotangent). No final product by g.
+// terms times the cotangent of its channel, step after step (the order of
+// sums that bwd_rays_ch_lanes keeps). No final product by g. A step that
+// adds nothing adds +0, which leaves every sum as it was: a sum that starts
+// at +0 is never -0.
 JOSEPH_HD void trace_bwd_rays_ch(const Ray& r, const Volume& v, const Labels& l,
                                  const March& m, int n_channels, const float* g,
                                  int64_t n_rays, float acc[kRows]) {
@@ -613,33 +677,96 @@ JOSEPH_HD void trace_bwd_rays_ch(const Ray& r, const Volume& v, const Labels& l,
   int lo, hi;
   step_range(r, m, &lo, &hi);
   for (int p = lo; p < hi; ++p) {
-    Step s = step_at(r, m, v.X, p);
-    if (!s.inslab) continue;
-    int c = channel_of(label_at(l, r, s, m.blend), n_channels);
-    if (c < 0) continue;
-    float gc = g[c * n_rays];
-    float win[2][2];
-    window(v, s, m.blend, win);
-    float terms[kRows];
-    step_terms(r, s, win, terms);
-    for (int i = 0; i < kRows; ++i) acc[i] += terms[i] * gc;
+    float t[1][kRows];
+    channel_terms<1>(r, v, l, m, n_channels, g, n_rays, p, 1, hi, t);
+    for (int i = 0; i < kRows; ++i) acc[i] += t[0][i];
   }
 }
 
-// The channel density backward: every in-slab step scatters with the
-// cotangent of its channel.
+// joseph_bwd_rays_ch's lanes a ray (G), the steps a lane keeps in flight
+// (U), from channel_timing.py's probes (joseph.cu says why these).
+constexpr int kChannelLanes = 16;
+constexpr int kChannelSteps = 1;
+
+#if defined(__CUDACC__)
+// Thread t's part in joseph_bwd_rays_ch (and the probes): lane t % G of ray
+// t / G, in passes of G * U steps as fwdgrad_lanes' sum mode: lane j
+// computes steps base + j, base + j + G, ... (channel_terms), the lanes
+// hand the summands over through the warp's shared memory, and lane i % G
+// adds row i in step order (lanes::take_in_order), so the rows are
+// trace_bwd_rays_ch's bit for bit; lane i % G writes row i of out
+// (7, n_rays). g: the (C, n_rays) cotangent. Blocks of kFusedThreads; every
+// thread of a warp must call this (those of rays past the end too), since
+// each pass's hand-over ends in a __syncwarp.
+template <int G, int U, class Vol, class Lab>
+__device__ __forceinline__ void bwd_rays_ch_lanes(const float* __restrict__ rows,
+                                                  int64_t n_rays, const Vol& v, const Lab& l,
+                                                  const March& m, int n_channels,
+                                                  const float* __restrict__ g,
+                                                  float* __restrict__ out, int64_t t) {
+  constexpr int kSteps = G * U;        // a ray's steps a pass
+  constexpr int kStride = 32 * U + 1;  // a row of the warp's hand-over (+1: no bank conflicts)
+  __shared__ float hand[kFusedThreads / 32][kRows * kStride];
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  bool live = r < n_rays;
+  Ray ray{};
+  int lo = 0, hi = 0;
+  if (live) {
+    ray = load_ray(rows, n_rays, r);
+    step_range(ray, m, &lo, &hi);
+  }
+  const float* gr = g + (live ? r : 0);  // the ray's cotangent column
+  int passes = lanes::warp_passes((hi - lo + kSteps - 1) / kSteps);
+  float* mine = hand[threadIdx.x / 32] + (threadIdx.x % 32) / G * kSteps;  // the ray's columns
+  float acc[lanes::kSlots<G, kRows>] = {};
+  for (int p = 0; p < passes; ++p) {
+    float tm[U][kRows];
+    channel_terms<U>(ray, v, l, m, n_channels, gr, n_rays, lo + p * kSteps + lane, G, hi, tm);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) mine[i * kStride + u * G + lane] = tm[u][i];
+    __syncwarp();
+    lanes::take_in_order<G, kRows, kSteps>(mine, kStride, lane, acc);
+    __syncwarp();
+  }
+  if (!live) return;
+#pragma unroll
+  for (int slot = 0; slot < lanes::kSlots<G, kRows>; ++slot) {
+    int i = lane + slot * G;
+    if (i < kRows) out[i * n_rays + r] = acc[slot];
+  }
+}
+#endif
+
+// Step p's adds to d(loss)/d(volume), as step_adds writes them, with the
+// cotangent of its channel, g[c * n_rays] (g the ray's column of a
+// (C, n_rays) cotangent); none for a step outside the slab or whose label
+// drops. A pure function of the ray and p, as step_adds_at is: the channel
+// scatter's warp spreads the steps of one ray over its lanes.
+JOSEPH_HD unsigned step_adds_ch_at(const Ray& r, const GradVolume& gv, const Labels& l,
+                                   const March& m, int p, int n_channels, const float* g,
+                                   int64_t n_rays, int64_t off[kStepAdds],
+                                   float x[kStepAdds]) {
+  Step s = step_at(r, m, gv.X, p);
+  if (!s.inslab) return 0u;
+  int c = channel_of(label_at(l, r, s, m.blend), n_channels);
+  return c < 0 ? 0u : step_adds(gv, s, m.blend, g[c * n_rays], off, x);
+}
+
+// The channel density backward of one ray, step after step (the serial
+// order; joseph_bwd_vol_ch spreads the same step_adds_ch_at calls over a
+// warp's lanes).
 JOSEPH_HD void trace_bwd_vol_ch(const Ray& r, const GradVolume& gv, const Labels& l,
                                 const March& m, int n_channels, const float* g,
                                 int64_t n_rays) {
   int lo, hi;
   step_range(r, m, &lo, &hi);
-  for (int p = lo; p < hi; ++p) {
-    Step s = step_at(r, m, gv.X, p);
-    if (!s.inslab) continue;
-    int c = channel_of(label_at(l, r, s, m.blend), n_channels);
-    if (c < 0) continue;
-    scatter_step(gv, s, m.blend, g[c * n_rays]);
-  }
+  int64_t off[kStepAdds];
+  float x[kStepAdds];
+  for (int p = lo; p < hi; ++p)
+    add_all(gv.data, step_adds_ch_at(r, gv, l, m, p, n_channels, g, n_rays, off, x), off, x);
 }
 
 }  // namespace joseph

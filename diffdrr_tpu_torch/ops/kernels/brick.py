@@ -2,8 +2,8 @@
 
 ``siddon_fwd`` and ``joseph_fwd`` launch one thread per ray, and a warp's 32
 rays are neighbouring detector pixels (the fused pose kernels
-``siddon_fwdgrad`` and ``joseph_fwdgrad`` read the same copy, a few lanes
-a ray). In the density's own layout the rays of a warp read 32 different
+``siddon_fwdgrad`` and ``joseph_fwdgrad`` and the channel pose backward
+``joseph_bwd_rays_ch`` read the same copy, a few lanes a ray). In the density's own layout the rays of a warp read 32 different
 columns at each slab whenever the march axis is the unit-stride one, so
 one warp load touches ~32 cache lines. The
 bricked copy cuts the density into bricks of ``BRICK`` voxels (a shape
@@ -28,6 +28,10 @@ data pointer, version counter, shape and strides, and holds only a weak
 reference to the density, so it never keeps a density alive and goes when
 the density does. A write that bypasses the version counter (through
 ``tensor.data``) is not seen; the port makes none.
+
+An int32 labelmap is copied the same way, as the bits of its labels (a
+float32 view), which ``joseph_bwd_rays_ch`` reads back as int32: the copy
+keeps every label exactly and shares the density copy's brick strides.
 """
 
 from __future__ import annotations
@@ -67,10 +71,15 @@ class BrickedDensity(NamedTuple):
         return [axis] + [self.data.stride(p) for p in perm] + [self.shape[p] for p in perm]
 
 
-def _check(density: torch.Tensor) -> None:
+def _as_float(density: torch.Tensor) -> torch.Tensor:
+    """The float32 ``(X, Y, Z)`` volume to copy: a labelmap's int32 bits
+    seen as float32."""
+    if density.dtype == torch.int32:
+        density = density.view(torch.float32)
     if density.dtype != torch.float32 or density.dim() != 3:
-        raise ValueError(f"the density must be float32 (X, Y, Z), got {density.dtype} "
-                         f"{tuple(density.shape)}")
+        raise ValueError(f"the density must be float32 (or an int32 labelmap) (X, Y, Z), got "
+                         f"{density.dtype} {tuple(density.shape)}")
+    return density
 
 
 @torch.no_grad()
@@ -78,7 +87,7 @@ def brick_density_plain(density: torch.Tensor) -> BrickedDensity:
     """Plain version of :func:`brick_density`: the density zero-padded to
     whole bricks, split into them by a reshape and a permute, and made
     contiguous."""
-    _check(density)
+    density = _as_float(density)
     ext = tuple(density.shape)
     pad = [-e % b for e, b in zip(ext, BRICK)]
     padded = torch.nn.functional.pad(density.detach(), (0, pad[2], 0, pad[1], 0, pad[0]))
@@ -88,12 +97,12 @@ def brick_density_plain(density: torch.Tensor) -> BrickedDensity:
 
 
 def brick_density(density: torch.Tensor) -> BrickedDensity:
-    """The bricked copy of a float32 ``(X, Y, Z)`` density of any strides:
-    the kernel ``brick_copy`` on a CUDA tensor, the plain version on the
-    CPU."""
+    """The bricked copy of a float32 ``(X, Y, Z)`` density (or an int32
+    labelmap) of any strides: the kernel ``brick_copy`` on a CUDA tensor,
+    the plain version on the CPU."""
     if runs_plain("brick_copy", density):
         return brick_density_plain(density)
-    _check(density)
+    density = _as_float(density)
     ext = tuple(density.shape)
     data = torch.empty((*(-(-e // b) for e, b in zip(ext, BRICK)), *BRICK),
                        dtype=torch.float32, device=density.device)

@@ -65,7 +65,8 @@ _SIGNATURES = {
         "joseph_bwd_vol": _GRAD + _MARCH + [_VOID],
         # channel mode: the march, then n_channels
         "joseph_fwd_ch": _VOL + _LAB + _MARCH + [_INT] + [_VOID] * 2,
-        "joseph_bwd_rays_ch": _VOL + _LAB + _MARCH + [_INT] + [_VOID] * 3,
+        # the bricked density and labelmap share the brick strides and extents
+        "joseph_bwd_rays_ch": _BVOL[:3] + [_VOID] + _BVOL[3:] + _MARCH + [_INT] + [_VOID] * 3,
         "joseph_bwd_vol_ch": [_VOID, _I64, _VOID] + _LAB + [_VOID, _I64, _I64, _I64, _INT, _INT,
                                                              _INT] + _MARCH + [_INT, _VOID],
     },

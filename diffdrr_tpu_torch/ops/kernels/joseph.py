@@ -252,7 +252,7 @@ def joseph_bwd_rays_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, 
 
 
 def _scatter_step(grad_p, s, gp) -> None:
-    """One step's share of the density gradient (``scatter_step``), added
+    """One step's share of the density gradient (``step_adds``), added
     into the march-permuted view ``grad_p``."""
     X, Y, Z = grad_p.shape
     for m, n, fy, fz in corners(s):
@@ -517,19 +517,23 @@ def joseph_fwd_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tenso
 
 def joseph_bwd_rays_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor,
                        axis: int, h: float, n_steps: int, g: torch.Tensor) -> torch.Tensor:
-    """``(7, R)``: d(sum of g * image)/d(row) for a ``(C, R)`` cotangent ``g``."""
+    """``(7, R)``: d(sum of g * image)/d(row) for a ``(C, R)`` cotangent ``g``.
+    The kernel reads the bricked copies of the density and of the labelmap
+    (``brick.bricked``: each made once while it is unchanged) with several
+    lanes a ray, as ``joseph_fwdgrad`` does; its rows are the same on every
+    run."""
     check("joseph", rows, density, axis)
     _check_march(h, n_steps)
     _check_labels(labels, density.shape, rows.device)
     g = _check_channel_cotangent(rows, g)
     if runs_plain("joseph_bwd_rays_ch", rows):
         return joseph_bwd_rays_ch_plain(rows, density, labels, axis, h, n_steps, g)
+    vol, lab = bricked(density), bricked(labels)
     rows = rows.contiguous()
     out = torch.empty((GRAD_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
     call("joseph", "joseph_bwd_rays_ch", rows.device, rows.data_ptr(), rows.shape[1],
-         density.data_ptr(), *strides_extents(density, axis), labels.data_ptr(),
-         *_lab_strides(labels, axis), *_march(h, n_steps), g.shape[0], g.data_ptr(),
-         out.data_ptr())
+         vol.data.data_ptr(), lab.data.data_ptr(), *vol.args(axis), *_march(h, n_steps),
+         g.shape[0], g.data_ptr(), out.data_ptr())
     joseph_bwd_rays_ch.launches += 1
     return out
 
@@ -625,6 +629,8 @@ class JosephMarchChannels(torch.autograd.Function):
     Forward: ``joseph_fwd_ch``. Backward: the rays' cotangent from
     ``joseph_bwd_rays_ch`` (zero for amin/amax), the density's from
     ``joseph_bwd_vol_ch``, each only when asked for. The labels get none.
+    ``joseph_bwd_rays_ch`` reads the bricked copies of the density and the
+    labelmap (``brick.bricked``), so pose backwards on one CT make each once.
     """
 
     @staticmethod

@@ -480,6 +480,37 @@ extern "C" void jt_bwd_vol_ch(const float* rows, int64_t R, const float* g, floa
   LAB;
   for (int64_t r = 0; r < R; ++r) trace_bwd_vol_ch(load_ray(rows, R, r), gv, l, m, C, g + r, R);
 }
+// The channel scatter's warp order, as jt_bwd_vol_warp's: a ray whose
+// cotangent is 0 in every channel skipped, then passes of 32 steps, each
+// pass's adds (step_adds_ch_at) in path order and made last to first.
+extern "C" void jt_bwd_vol_ch_warp(const float* rows, int64_t R, const float* g, float* grad,
+                                   int64_t gs, int64_t gy, int64_t gz, int X, int Y, int Z,
+                                   float h, int n, int blend, LAB_ARGS) {
+  GradVolume gv{grad, gs, gy, gz, X, Y, Z};
+  March m = mk(h, n, blend);
+  LAB;
+  for (int64_t r = 0; r < R; ++r) {
+    bool any = false;
+    for (int c = 0; c < C; ++c) any |= g[c * R + r] != 0.f;
+    if (!any) continue;
+    Ray ray = load_ray(rows, R, r);
+    int lo, hi;
+    step_range(ray, m, &lo, &hi);
+    for (int base = lo; base < hi; base += 32) {
+      int64_t s_off[kStepAdds * 32];
+      float s_x[kStepAdds * 32];
+      int total = 0;
+      for (int lane = 0; lane < 32 && base + lane < hi; ++lane) {
+        int64_t off[kStepAdds];
+        float x[kStepAdds];
+        unsigned mask = step_adds_ch_at(ray, gv, l, m, base + lane, C, g + r, R, off, x);
+        for (int q = 0; q < kStepAdds; ++q)
+          if (mask >> q & 1u) { s_off[total] = off[q]; s_x[total] = x[q]; ++total; }
+      }
+      for (int q = total - 1; q >= 0; --q) grad[s_off[q]] += s_x[q];
+    }
+  }
+}
 """
 
 
@@ -500,8 +531,10 @@ def jtwin(tmp_path_factory):
     so.jt_bwd_rays_ch.argtypes = vol_args + lab_args + [ptr, ptr]
     so.jt_bwd_vol_ch.argtypes = [ptr, i64, ptr, ptr, i64, i64, i64, i32, i32, i32] + march \
         + lab_args
+    so.jt_bwd_vol_ch_warp.argtypes = so.jt_bwd_vol_ch.argtypes
     for fn in (so.jt_fwd, so.jt_fwd_max, so.jt_fwdgrad, so.jt_bwd_rays, so.jt_bwd_vol,
-               so.jt_bwd_vol_warp, so.jt_fwd_ch, so.jt_bwd_rays_ch, so.jt_bwd_vol_ch):
+               so.jt_bwd_vol_warp, so.jt_fwd_ch, so.jt_bwd_rays_ch, so.jt_bwd_vol_ch,
+               so.jt_bwd_vol_ch_warp):
         fn.restype = None
     return so
 
@@ -559,10 +592,11 @@ class _JosephTwin:
                                out.data_ptr())
         return out
 
-    def bwd_vol_ch(self, lab, g):
+    def bwd_vol_ch(self, lab, g, warp=False):
         grad = torch.zeros(self.vol.shape)
-        self.so.jt_bwd_vol_ch(self.rows.data_ptr(), self.R, g.data_ptr(), grad.data_ptr(),
-                              *_geom(grad, self.axis), *self.march, *self._lab(lab, g.shape[0]))
+        fn = self.so.jt_bwd_vol_ch_warp if warp else self.so.jt_bwd_vol_ch
+        fn(self.rows.data_ptr(), self.R, g.data_ptr(), grad.data_ptr(), *_geom(grad, self.axis),
+           *self.march, *self._lab(lab, g.shape[0]))
         return grad
 
 
@@ -858,6 +892,67 @@ def test_twin_joseph_warp_scatter_matches_plain(jtwin, axis, mode, h):
     np.testing.assert_allclose(got, ref, atol=1e-5 * ref.abs().max().item())
 
 
+def _channel_case(rows, n_channels, seed):
+    """(labels, g) of a channel case on ``_WARP_DIMS``: labels 0..4 held in
+    another memory order than the density (at 3 channels labels 3 and 4
+    drop), and a (C, R) cotangent that is 0 in every channel for every
+    seventh ray."""
+    rng = np.random.default_rng(seed)
+    lab = torch.tensor(rng.integers(0, 5, _WARP_DIMS[::-1]), dtype=torch.int32)
+    g = torch.tensor(rng.normal(size=(n_channels, rows.shape[1])), dtype=torch.float32)
+    g[:, ::7] = 0.0
+    return lab.permute(2, 1, 0).to(rows.device), g.to(rows.device)
+
+
+_CHANNELS = pytest.mark.parametrize("n_channels", [5, 3])
+
+
+@_CHANNELS
+@_WARP_H
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_warp_channel_scatter_matches_plain(jtwin, axis, h, n_channels):
+    """step_adds_ch_at in the channel scatter's warp order (rays of a zero
+    cotangent skipped, passes of 32 steps, each pass's adds in path order,
+    made last to first) against joseph_bwd_vol_ch_plain: long, short and
+    missing rays, integer, fractional and oversampling strides, labels
+    that drop."""
+    vol, rows, _, n = _joseph_warp_scene(axis, h, 70 + axis)
+    lab, g = _channel_case(rows, n_channels, 170 + axis)
+    ref = J.joseph_bwd_vol_ch_plain(rows, g, lab, _WARP_DIMS, axis, h, n)
+    got = _JosephTwin(jtwin, rows, vol, axis, h, n).bwd_vol_ch(lab, g, warp=True)
+    assert torch.count_nonzero(ref) > 0
+    np.testing.assert_allclose(got, ref, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@_CHANNELS
+@_WARP_H
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_joseph_channel_backwards_mixed_rays(axis, h, n_channels):
+    """On a card, on the mixed rays: joseph_bwd_rays_ch (G lanes a ray on
+    the bricked copies of the density and the labelmap, each made once and
+    then cached) equal to its plain version and the same on a repeated
+    launch; joseph_bwd_vol_ch (one warp per ray) to 1e-5 * max (float
+    atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    vol, rows, _, n = _joseph_warp_scene(axis, h, 70 + axis, "cuda")
+    lab, g = _channel_case(rows, n_channels, 170 + axis)
+    clear_cache()
+    copies = brick_density.launches
+    got = J.joseph_bwd_rays_ch(rows, vol, lab, axis, h, n, g)
+    again = J.joseph_bwd_rays_ch(rows, vol, lab, axis, h, n, g)
+    ref = J.joseph_bwd_rays_ch_plain(rows, vol, lab, axis, h, n, g)
+    got_v = J.joseph_bwd_vol_ch(rows, g, lab, vol.shape, axis, h, n)
+    ref_v = J.joseph_bwd_vol_ch_plain(rows, g, lab, vol.shape, axis, h, n)
+    torch.cuda.synchronize()
+    assert brick_density.launches == copies + 2
+    assert torch.equal(_bits(got), _bits(again))
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert got_v.is_contiguous() and torch.count_nonzero(ref_v) > 0
+    torch.testing.assert_close(got_v, ref_v, rtol=0, atol=1e-5 * ref_v.abs().max().item())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["sum", "mip"])
 @pytest.mark.parametrize("axis", [0, 1, 2])
@@ -1125,6 +1220,27 @@ def test_brick_shape_matches_header():
     assert tuple(1 << l for l in logs) == brick.BRICK
 
 
+@pytest.mark.parametrize("dims", [(21, 23, 13), (5, 1, 9), (72, 70, 68)])
+def test_brick_labels_keep_their_bits(dims):
+    """An int32 labelmap, contiguous or permuted, is bricked as its labels'
+    bits (negative labels too): the copy seen as int32 holds every label at
+    the index gather's place, 0 in the padding, with the density copy's
+    shape and arguments."""
+    rng = np.random.default_rng(sum(dims) + 1)
+    bs = brick.BRICK
+    lab = torch.tensor(rng.integers(-3, 300, dims[::-1]), dtype=torch.int32).permute(2, 1, 0)
+    idx = torch.meshgrid(*(torch.arange(e) for e in dims), indexing="ij")
+    at = tuple([i // b for i, b in zip(idx, bs)] + [i % b for i, b in zip(idx, bs)])
+    dens = brick_density(torch.zeros(dims))
+    for t in (lab, lab.contiguous()):
+        bl = brick_density(t)
+        assert bl.data.dtype == torch.float32 and bl.shape == dims
+        assert bl.data.shape == dens.data.shape and bl.args(1) == dens.args(1)
+        bits = bl.data.view(torch.int32)
+        assert torch.equal(bits[at], lab)
+        assert torch.count_nonzero(bits) == torch.count_nonzero(lab)
+
+
 def test_bricked_cache_tracks_writes():
     """brick.bricked hands back the same copy for an unchanged density and a
     fresh one after add_, copy_, a torch.optim.Adam step and for a new tensor
@@ -1263,6 +1379,24 @@ def test_cuda_brick_copy_matches_plain(dims):
         assert torch.equal(got.data, ref.data)
 
 
+@pytest.mark.gpu
+def test_cuda_brick_copy_keeps_label_bits():
+    """On a card: brick_copy of an int32 labelmap (its bits seen as float32)
+    equals the plain copy bit for bit, labels that are NaN or denormal
+    patterns as float32 included, contiguous and permuted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(9)
+    dims = (130, 67, 133)
+    lab = torch.tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, dims, dtype=np.int64),
+                       dtype=torch.int32)
+    for t in (lab, lab.permute(2, 1, 0).contiguous().permute(2, 1, 0)):
+        got = brick_density(t.cuda())
+        ref = brick_density_plain(t)
+        torch.cuda.synchronize()
+        assert torch.equal(got.data.cpu().view(torch.int32), ref.data.view(torch.int32))
+
+
 # -----------------------------------------------------------------------------
 # The fused pose kernels: G lanes a ray on the bricked copy (csrc/lanes.cuh)
 # -----------------------------------------------------------------------------
@@ -1350,6 +1484,39 @@ extern "C" void ft_siddon(int variant, const float* rows, int64_t R, BRICK_ARGS,
     return 0;
   });
 }
+// joseph_bwd_rays_ch's lanes (channel_terms, G and U of the variant, 0
+// taking kChannelLanes, kChannelSteps) on the bricked copies of the density
+// and the labelmap (blab, sharing the density copy's arguments): out (7, R).
+extern "C" void ft_joseph_ch(int variant, const float* rows, int64_t R, BRICK_ARGS,
+                             const float* blab, float h, int n, int blend, int C, const float* g,
+                             float* out) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    auto v = brick::make_volume<A>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    joseph::BrickLabels<A> l{brick::make_volume<A>(blab, bs_s, bs_y, bs_z, X, Y, Z)};
+    with_variant(variant, [&](auto lanes_g, auto u) {
+      constexpr int G = decltype(lanes_g)::value ? decltype(lanes_g)::value
+                                                 : joseph::kChannelLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kChannelSteps;
+      constexpr int N = joseph::kRows;
+      for (int64_t r = 0; r < R; ++r) {
+        joseph::Ray ray = joseph::load_ray(rows, R, r);
+        int lo, hi;
+        joseph::step_range(ray, m, &lo, &hi);
+        float o[N];
+        lanes_march<G, U, N>(lo, hi, false, [&](int p0, float (*tm)[N]) {
+          joseph::channel_terms<U>(ray, v, l, m, C, g + r, R, p0, G, hi, tm);
+        }, o, nullptr);
+        for (int i = 0; i < N; ++i) out[i * R + r] = o[i];
+      }
+    });
+    return 0;
+  });
+}
 // Returns the number of rays whose lanes' maxima differ after the tree.
 extern "C" int ft_joseph(int variant, int mip, const float* rows, int64_t R, BRICK_ARGS, float h,
                          int n, int blend, float* out, int* arg) {
@@ -1398,7 +1565,9 @@ def ftwin(tmp_path_factory):
     bvol = [ptr] + [i32] * 7
     so.ft_siddon.argtypes = [i32, ptr, i64] + bvol + [ptr]
     so.ft_joseph.argtypes = [i32, i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr, ptr]
-    so.ft_siddon.restype = None
+    so.ft_joseph_ch.argtypes = [i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32, i32, i32,
+                                                          ptr, ptr]
+    so.ft_siddon.restype = so.ft_joseph_ch.restype = None
     so.ft_joseph.restype = i32
     return so
 
@@ -1567,3 +1736,35 @@ def test_twin_fused_lanes_deterministic(ftwin):
             c, c_arg = _fused_joseph(ftwin, variant, mip, rows_j, vol, 2, 1.37, n)
             assert torch.equal(_bits(b), _bits(c))
             assert (b_arg is None) or torch.equal(b_arg, c_arg)
+
+
+def _channel_lanes(ftwin, variant, rows, vol, lab, axis, h, n, g):
+    """(7, R) of the twin's channel lanes on the bricked copies of ``vol``
+    and of the labelmap ``lab``."""
+    rows = rows.contiguous()
+    bv, bl = brick_density(vol), brick_density(lab)
+    out = torch.full((7, rows.shape[1]), float("nan"))
+    ftwin.ft_joseph_ch(variant, rows.data_ptr(), rows.shape[1], bv.data.data_ptr(),
+                       *bv.args(axis), bl.data.data_ptr(), h, n, int(J.is_blend(h)), g.shape[0],
+                       g.data_ptr(), out.data_ptr())
+    return out
+
+
+@_CHANNELS
+@_FUSED_H
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_channel_lanes_equal_serial(jtwin, ftwin, axis, h, n_channels):
+    """joseph_bwd_rays_ch's lanes (channel_terms and take_in_order, passes of
+    G * U steps) on the bricked copies of the density and the labelmap, at
+    G = 1, 2, 8 and 32 and at the kernel's G with U = 1, 2 and 4: the
+    strided serial trace_bwd_rays_ch bit for bit on the mixed rays (long,
+    short and missing), labels that drop and rays of a zero cotangent; the
+    serial rows against joseph_bwd_rays_ch_plain to 1e-6 * max|row|."""
+    vol, rows, _, n = _joseph_warp_scene(axis, h, 70 + axis)
+    lab, g = _channel_case(rows, n_channels, 170 + axis)
+    serial = _JosephTwin(jtwin, rows, vol, axis, h, n).bwd_rays_ch(lab, g)
+    _assert_rows_close(serial, J.joseph_bwd_rays_ch_plain(rows, vol, lab, axis, h, n, g))
+    assert (serial != 0).any(0).sum() > rows.shape[1] // 2
+    for variant in _LANES + _UNROLLED:
+        got = _channel_lanes(ftwin, variant, rows, vol, lab, axis, h, n, g)
+        assert torch.equal(_bits(got), _bits(serial)), _FUSED_VARIANTS[variant]
