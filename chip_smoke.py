@@ -20,7 +20,8 @@ Phases (any failure raises and the exit code is non-zero):
      1e-3 * max|row|, gradient volume atol 1e-4 * max|ref|); siddon_fwd
      and siddon_fwdgrad (which read the density's bricked copy) also with
      the march axis pinned to 0 and to 2, siddon_fwdgrad launched twice at
-     each axis with the same bits (its lanes combine in a fixed order);
+     each axis with the same bits (its lanes combine in a fixed order), and
+     siddon_fwd_max (which reads the bricked copy too) at axes 0 and 2;
   4. main path at full size: the 512x512x133 example CT, a 200x200 detector
      (sdd 1020 mm, 2 mm pixels), the bench pose; renders with the march axis
      pinned to 2 and chosen automatically, held against the plain version;
@@ -30,7 +31,8 @@ Phases (any failure raises and the exit code is non-zero):
      and read after it;
   4b. MIP at full size, same CT, detector and pose: a reducefn="max" render
      and one backward of sum(img**2) to the density and the pose, each
-     kernel held against its plain version; a sum-mode pose backward with
+     kernel held against its plain version, one bricked copy (of the new
+     density the MIP renders); a sum-mode pose backward with
      fused_pose_bwd=False, equal to the fused one;
   4c. reconstruction at full size: 8 views of the same CT and detector on
      the reconstruction CLI's trajectory (the detector turned about its
@@ -53,7 +55,8 @@ Phases (any failure raises and the exit code is non-zero):
      to 0; siddon_fwd at 200x200 and at the reconstruction's 320,000 rays,
      each with the density's bricked copy cached (registration, renders)
      and made anew in each call (a reconstruction step), and the copy alone;
-     siddon_fwdgrad likewise at the main path's rays;
+     siddon_fwdgrad likewise at the main path's rays; siddon_fwd_max one
+     call and back to back, its copy cached and made anew;
   7. the Joseph and trilinear renderers (csrc/joseph.cu):
   7a. every Joseph kernel against its plain version on the random volume of
      phase 3, at strides h = 1, 4 (axis 0 pinned), ~1.37 and ~0.26, in sum
@@ -93,26 +96,28 @@ Phases (any failure raises and the exit code is non-zero):
      each kernel against its plain version at all 40,000 rays, one backward
      of sum_c w_c sum img_c**2 to density and pose launching exactly one of
      each channel kernel, no joseph_fwdgrad and one bricked copy of the
-     density (joseph_bwd_rays_ch reads it);
+     density (joseph_fwd_ch makes it, joseph_bwd_rays_ch reads it);
   8c. Siddon channels at full width on the oracle (no Siddon kernel
      launched), the channel sum equal to siddon_fwd's render;
   8d. p_subsample=0.1, trilinear at full width: equal to the full render at
      its 4,000 pixels and 0 elsewhere, with and without channels; one pose
      backward; its render time beside the full render's;
   8e. timings of the channel kernels at 200^2 with 7 channels: one call
-     and back to back, joseph_bwd_rays_ch with its bricked copy cached and
-     made anew.
+     and back to back, joseph_fwd_ch and joseph_bwd_rays_ch with their
+     bricked copies cached and made anew.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
-bricked copy of the density that siddon_fwd and joseph_fwd read; no TPU
-counterpart) has an entry of its own, with the launches of phase 4c. The
+bricked copy of the density that the forwards read; no TPU counterpart)
+has an entry of its own, with the launches of phase 4c. The
 two forwards' entries at 320,000 rays give ``ms`` with the copy already
 made (as a registration or a render reads it) and ``ms_with_copy`` with a
 fresh copy in each call, which is what a reconstruction step pays; the two
 fused pose kernels' entries likewise at 200x200, with ``design`` naming
 their layout (the bricked copy, G lanes a ray), as the channel ray
-backward's; the channel entries also give ``ms_back_to_back``.
+backward's and the channel and MIP forwards'; the channel entries and
+siddon_fwd_max's also give ``ms_back_to_back``, the forwards
+``ms_with_copy``.
 Without a CUDA device, or without the package beside this file, the
 script exits non-zero and prints no result.
 """
@@ -1003,7 +1008,8 @@ def channels_full(T, subject, rot0, trans, kw, rng):
         torch.cuda.synchronize()
         launches = dict(joseph_launches(), brick_copy=brick.brick_density.launches)
         log(f"[channels] {renderer} backward launches {launches}")
-        # dens_p is a new density: joseph_bwd_rays_ch bricks it once.
+        # dens_p is a new density: joseph_fwd_ch bricks it once and
+        # joseph_bwd_rays_ch reads that copy; the labelmap's is cached.
         expect_launches(f"{renderer} channel backward", launches,
                         {"joseph_fwd_ch": 1, "joseph_bwd_rays_ch": 1, "joseph_bwd_vol_ch": 1,
                          "joseph_fwdgrad": 0, "joseph_fwd": 0, "joseph_fwd_max": 0,
@@ -1091,9 +1097,9 @@ def subsample_full_width(T, subject, rot0, trans, kw, drr_t):
 def channel_timings(ch):
     """Phase 8e: each channel kernel at 200^2 with 7 channels (the trilinear
     render's rows), one call and back to back, its plain version and its
-    bound; joseph_bwd_rays_ch also with its bricked copy made anew in each
-    call. (name: (ms, plain_ms, bound_ms, bound_by)), and the extra times by
-    name."""
+    bound; joseph_fwd_ch and joseph_bwd_rays_ch also with their bricked
+    copies made anew in each call. (name: (ms, plain_ms, bound_ms,
+    bound_by)), and the extra times by name."""
     import numpy as np
     import torch
 
@@ -1119,7 +1125,7 @@ def channel_timings(ch):
         bnd, by = march_bound(rows, dens, axis, h, n, **b[name])
         times[name] = (median_ms(kernel, 20), median_ms(plain, 2, 1), bnd, by)
         extra[name] = {"ms_back_to_back": burst_ms(kernel)}
-        if name == "bwd_rays_ch":
+        if name in ("fwd_ch", "bwd_rays_ch"):
             extra[name]["ms_with_copy"] = median_ms(kernel, 20, before=brick.clear_cache)
         log(f"[time] joseph_{name} {times[name][0]:.4f} ms one call, "
             + ", ".join(f"{k} {v:.4f}" for k, v in extra[name].items())
@@ -1143,6 +1149,7 @@ def main(argv) -> int:
 
     import diffdrr_tpu_torch as T
     from diffdrr_tpu_torch.data import Image, Subject, _REORIENT, canonicalize
+    from diffdrr_tpu_torch.experiments.fwdgrad_timing import burst_ms
     from diffdrr_tpu_torch.ops.kernels import brick, build
     from diffdrr_tpu_torch.ops.kernels import siddon as K
     from diffdrr_tpu_torch.parallel import make_reconstruction_step
@@ -1195,6 +1202,11 @@ def main(argv) -> int:
     g_s = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device=dev)
     mip_s = K.siddon_fwd_max(rows, dens_s, ax)
     e3 = check_max("siddon_fwd_max 128x128x64", mip_s, K.siddon_fwd_max_plain(rows, dens_s, ax))
+    for axis in (0, 2):  # the bricked copy at both pinned axes
+        rows_a, _ = rays_of(small, rot_g, trans_g, axis)
+        e3 = max(e3, check_max(f"siddon_fwd_max axis {axis} 128x128x64",
+                               K.siddon_fwd_max(rows_a, dens_s, axis),
+                               K.siddon_fwd_max_plain(rows_a, dens_s, axis)))
     e4, e5 = {}, {}
     for mode, arg_s in (("sum", None), ("mip", mip_s[1])):
         e4[mode] = check_fused(f"siddon_bwd_rays[{mode}] 128x128x64",
@@ -1309,6 +1321,7 @@ def main(argv) -> int:
         profile_steps(reg_step, "registration", t_step, args.profile, kernel="siddon_fwdgrad")
     # 4b. MIP at full size ---------------------------------------------------
     K.reset_launch_counts()
+    brick.brick_density.launches = 0
     rot_p = rot0.clone().requires_grad_(True)
     trans_p = trans.clone().requires_grad_(True)
     dens_p = drr.density.clone().requires_grad_(True)
@@ -1324,10 +1337,15 @@ def main(argv) -> int:
     pg_fused, pg_two = pose_grad(True), pose_grad(False)
     torch.cuda.synchronize()
     mip_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    mip_launches["brick_copy"] = brick.brick_density.launches
     log(f"[mip] launches {mip_launches}, slab escapes {drr.siddon_escapes}")
     if drr.siddon_escapes != 0 or min(mip_launches[n] for n in (
             "siddon_fwd_max", "siddon_bwd_rays", "siddon_bwd_vol")) < 1:
         raise AssertionError("the MIP path did not run through its kernels")
+    # dens_p is a new density: siddon_fwd_max bricks it once; the two pose
+    # gradients render the CT, whose copy phase 6a left cached.
+    if mip_launches["brick_copy"] != 1:
+        raise AssertionError(f"the MIP path made {mip_launches['brick_copy']} bricked copies")
     if not (torch.isfinite(mip).all() and torch.isfinite(dens_p.grad).all()
             and torch.isfinite(rot_p.grad).all() and torch.isfinite(trans_p.grad).all()):
         raise AssertionError("MIP render or gradients not finite")
@@ -1414,7 +1432,12 @@ def main(argv) -> int:
 
     # 6b. Timings of the new kernels ----------------------------------------
     g_m = torch.tensor(rng.normal(size=rows_m.shape[1]), dtype=torch.float32, device=dev)
-    t_max = median_ms(lambda: K.siddon_fwd_max(rows_m, drr.density, ax_m), 20)
+    def fwd_max():
+        return K.siddon_fwd_max(rows_m, drr.density, ax_m)
+
+    t_max = median_ms(fwd_max, 20)
+    t_max_b2b = burst_ms(fwd_max)
+    t_max_copy = median_ms(fwd_max, 20, before=brick.clear_cache)
     t_max_plain = median_ms(lambda: K.siddon_fwd_max_plain(rows_m, drr.density, ax_m), 3, 1)
     t_br = median_ms(lambda: K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_m), 20)
     t_br_plain = median_ms(lambda: K.siddon_bwd_rays_plain(rows_m, drr.density, ax_m, g_m), 3, 1)
@@ -1455,7 +1478,9 @@ def main(argv) -> int:
                                 **dict(BWD_RAYS_BOUND, ray_bytes=36 + 4 + 4 + 36))
     b_bv, by_bv = bound(rows_v, drr.density, ax_v, **BWD_VOL_BOUND)
     zero_bytes = drr.density.numel() * 4
-    log(f"[time] siddon_fwd_max {t_max:.4f} ms (plain {t_max_plain:.2f}, bound {b_max:.4f} by "
+    log(f"[time] siddon_fwd_max {t_max:.4f} ms one call, {t_max_b2b:.4f} back to back with "
+        f"the bricked copy cached, {t_max_copy:.4f} making it anew "
+        f"(plain {t_max_plain:.2f}, bound {b_max:.4f} by "
         f"{by_max}); siddon_bwd_rays sum {t_br:.4f} ms (plain {t_br_plain:.2f}, bound "
         f"{b_br:.4f} by {by_br}), mip {t_br_mip:.4f} ms (bound {b_br_mip:.4f} by {by_br_mip}); "
         f"all at 200^2 rays, axis {ax_m}")
@@ -1622,8 +1647,8 @@ def main(argv) -> int:
          "ms": t_fv, "ms_with_copy": t_fv_copy, "plain_ms": t_fv_plain, "bound_ms": b_fv,
          "bound_by": by_fv, "library_ms": None},
         {"name": "brick_copy", "route": "cuda", "source": "diffdrr_tpu_torch/csrc/brick.cu",
-         "replaces": "none: layout glue that the forwards, the fused kernels and "
-                     "joseph_bwd_rays_ch read",
+         "replaces": "none: layout glue that the forwards (siddon_fwd_max and "
+                     "joseph_fwd_ch too), the fused kernels and joseph_bwd_rays_ch read",
          "launches": recon_launches["brick_copy"], "max_abs_err": 0.0,
          "ms": t_copy, "plain_ms": t_copy_plain, "bound_ms": b_copy, "bound_by": by_copy,
          "library_ms": None},
@@ -1632,11 +1657,12 @@ def main(argv) -> int:
          "launches": cube_launches, "max_abs_err": err_c,
          "ms": t_c, "plain_ms": t_c_plain, "bound_ms": b_c, "bound_by": by_c,
          "library_ms": None},
-        {"name": "siddon_fwd_max", "route": "cuda", "source": src,
+        {"name": "siddon_fwd_max", "route": "cuda",
+         "design": fused_design("siddon.cuh", "kMaxLanes"), "source": src,
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:189",
          "launches": mip_launches["siddon_fwd_max"], "max_abs_err": err_max,
-         "ms": t_max, "plain_ms": t_max_plain, "bound_ms": b_max, "bound_by": by_max,
-         "library_ms": None},
+         "ms": t_max, "ms_back_to_back": t_max_b2b, "ms_with_copy": t_max_copy,
+         "plain_ms": t_max_plain, "bound_ms": b_max, "bound_by": by_max, "library_ms": None},
         {"name": "siddon_bwd_rays", "route": "cuda", "source": src,
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:248",
          "launches": mip_launches["siddon_bwd_rays"], "max_abs_err": max(err_br, err_pose),
@@ -1682,7 +1708,8 @@ def main(argv) -> int:
     ]
     # Channel kernels: launches of phase 8b's two backwards (joseph, trilinear).
     jtimes.update(ch_times)
-    ch_design = {"bwd_rays_ch": fused_design("joseph.cuh", "kChannelLanes"),
+    ch_design = {"fwd_ch": fused_design("joseph.cuh", "kFwdChLanes"),
+                 "bwd_rays_ch": fused_design("joseph.cuh", "kChannelLanes"),
                  "bwd_vol_ch": "one warp per ray"}
     kernels += [dict(jrec(f"joseph_{key}", key, line, ch["launches"][f"joseph_{key}"],
                           max(ch["errs"][key], ch_small[key])),

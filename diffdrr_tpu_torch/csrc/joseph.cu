@@ -21,15 +21,15 @@
 //                      the cotangent of its channel.
 // Each takes integer and fractional h.
 //
-// Design: one thread per ray (the fused march, the channel ray backward and
-// the scatters aside, below), walking only its own in-slab steps
+// Design: one thread per ray (the fused march, the channel forward and ray
+// backward and the scatters aside, below), walking only its own in-slab steps
 // (step_range in joseph.cuh) and reading the 4 in-plane neighbours of each
 // sample (8 at fractional h) straight from the float32 density through its
-// strides (the forward, the fused march and the channel ray backward: its
-// bricked copy). The TPU needed tile windows, a starts
-// table, a lane roll and tent-weight matmuls on the MXU to avoid gathers;
-// on the H100 a gather is a load, so none of that is carried over, and with
-// no window there is no footprint to overflow.
+// strides (the forwards joseph_fwd and joseph_fwd_ch, the fused march and
+// the channel ray backward: its bricked copy). The TPU needed tile
+// windows, a starts table, a lane roll and tent-weight matmuls on the MXU
+// to avoid gathers; on the H100 a gather is a load, so none of that is
+// carried over, and with no window there is no footprint to overflow.
 //
 // What bounds them: per ray and in-slab step, 4 (or 8) 4-byte gathers at
 // data-dependent addresses and about 35 float operations for a value, about
@@ -92,11 +92,10 @@
 //
 // The channel kernels add one 4-byte label gather per step (a 7-label CT
 // fits in int8, but int32 keeps the read simple) and read or write 4 * C
-// bytes per ray instead of 4. The forward accumulates straight into its
-// ray's column of the output: the thread owns the ray, so no atomics. One
-// thread per ray, the two channel backwards were bound as the fused march
-// was: 40,000 threads at the channel cell (200x200 rays, 7 channels), each
-// a chain of ~133 steps whose label gather decides which cotangent is read,
+// bytes per ray instead of 4. One thread per ray, the two channel
+// backwards were bound as the fused march was: 40,000 threads at the
+// channel cell (200x200 rays, 7 channels), each a chain of ~133 steps
+// whose label gather decides which cotangent is read,
 // 0.27 and 0.63 ms against 0.03 and 0.05 ms byte bounds (PERF.md); the
 // scatter's 32 lanes an atomic instruction were 32 rays in ~32 sectors.
 // joseph_bwd_vol_ch is now the scalar scatter's warp per ray with a
@@ -106,7 +105,35 @@
 // on the bricked copies of the density and of the labelmap (its int32 bits,
 // made by the same brick_copy), the rows bit for bit the serial march's.
 // G, U and the two layouts from channel_timing.py's probes (PERF.md).
+//
+// joseph_fwd_ch, one thread per ray on the strided density and labelmap,
+// kept its C running sums in its ray's column of the output in global
+// memory: each of ~133 steps a ray waited on its label gather, then read
+// and wrote its channel's sum there (0.26 ms against a 0.03 ms byte bound,
+// PERF.md). It now reads the bricked copies of the density and the
+// labelmap, those joseph_bwd_rays_ch reads (so a render and its pose
+// backward make each once), and splits each ray over G = kFwdChLanes
+// lanes (fwd_ch_lanes in joseph.cuh): in passes of G steps, lane j takes
+// step base + j, reading its label and window at once (channel_samples);
+// the ray's lane 0 takes the pass's samples by shuffles in step order and
+// adds each to its channel's sum, the sums in the block's shared memory
+// ([channel][ray]) with the running sum of the last sample's channel in a
+// register, so a run of samples in one structure touches shared memory
+// twice. Each sum is trace_fwd_ch's += in step order from +0: the image is
+// the parent's bit for bit. The block's 16 rays hold C sums each, all C in
+// one march up to the opt-in limit (C <= 3632 on the H100), then tiles of
+// channels, one march a tile (joseph_fwd_ch below). G = 8 and U = 1
+// (kFwdChSteps) from max_channel_timing.py's probes: one thread per ray on
+// the bricked copies (the sums in shared memory, U = 4) took 0.152 ms at the
+// main cell and 0.94 at the lateral pose (512 planes along the density's
+// slowest axis, where it lost to the strided parent's 0.73); 8 lanes take
+// 0.116 and 0.407, 4 and 16 within 1-15%, U = 2 or 4 slower. Keeping the
+// sums in global memory cost nothing measurable (L1 hits). What bounds it
+// now: its march, the march without loads taking 0.087 of the 0.116 ms
+// (PERF.md).
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "joseph.cuh"
 
@@ -233,14 +260,23 @@ joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Ma
   });
 }
 
+// G = kFwdChLanes lanes a ray on the bricked copies of the density and the
+// labelmap, in passes of G steps whose samples the ray's lane 0 adds in
+// step order to its channel sums (fwd_ch_lanes; the note at the top of this
+// file says why), the block's rays' sums in its dynamic shared memory,
+// [channel][ray]; the channels in tiles of `tile` (all C in one unless the
+// block's sums overflow its shared memory: joseph_fwd_ch below). A: the
+// march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
-                     joseph::Labels lab, joseph::March m, int n_channels,
+joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+                     joseph::BrickLabels<A> lab, joseph::March m, int n_channels, int tile,
                      float* __restrict__ out) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  joseph::trace_fwd_ch(joseph::load_ray(rows, n_rays, r), vol, lab, m, n_channels, out + r,
-                       n_rays);
+  constexpr int kRays = kThreads / joseph::kFwdChLanes;  // a block's rays
+  extern __shared__ float sums[];                        // [tile][kRays]
+  joseph::fwd_ch_lanes<joseph::kFwdChLanes, joseph::kFwdChSteps>(
+      rows, n_rays, vol, lab, m, n_channels, tile, sums + threadIdx.x / joseph::kFwdChLanes,
+      kRays, out, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
 // G = kChannelLanes lanes a ray on the bricked copies of the density and
@@ -407,21 +443,43 @@ extern "C" int joseph_bwd_vol(const float* rows, int64_t n_rays, const float* g,
 // Channel mode. labels: the int32 labelmap with element strides (ls, ly, lz)
 // in the same permuted order and the density's extents; n_channels: C;
 // out: (C, n_rays) for joseph_fwd_ch (every entry written), (7, n_rays) for
-// joseph_bwd_rays_ch; g: (C, n_rays) float32. joseph_bwd_rays_ch reads the
-// bricked copies of the density (vol) and of the labelmap (labels, its
-// int32 bits), which share the arguments that follow them, those of
-// joseph_fwdgrad (and returns -1 for an axis outside 0..2).
-extern "C" int joseph_fwd_ch(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
-                             int64_t sy, int64_t sz, int X, int Y, int Z, const int* labels,
-                             int64_t ls, int64_t ly, int64_t lz, float h, int n_steps, int blend,
-                             int n_channels, float* out, void* stream) {
-  if (n_rays > 0) {
-    joseph_fwd_ch_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z),
-        make_labels(labels, ls, ly, lz, X, Y, Z), make_march(h, n_steps, blend), n_channels,
-        out);
-  }
-  return (int)cudaGetLastError();
+// joseph_bwd_rays_ch; g: (C, n_rays) float32. joseph_fwd_ch and
+// joseph_bwd_rays_ch read the bricked copies of the density (vol) and of
+// the labelmap (labels, its int32 bits), which share the arguments that
+// follow them, those of joseph_fwdgrad (and return -1 for an axis outside
+// 0..2).
+//
+// joseph_fwd_ch's block holds C float sums for each of its kThreads /
+// kFwdChLanes rays in shared memory: all C channels in one march while
+// they fit the block's opt-in limit (227 KB on the H100: C <= 3632), else
+// tiles of as many as fit, one march a tile. Any C >= 1 runs.
+extern "C" int joseph_fwd_ch(const float* rows, int64_t n_rays, const float* vol,
+                             const float* labels, int axis, int bs_s, int bs_y, int bs_z, int X,
+                             int Y, int Z, float h, int n_steps, int blend, int n_channels,
+                             float* out, void* stream) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    constexpr int kRays = kThreads / joseph::kFwdChLanes;
+    if (n_rays <= 0 || n_channels <= 0) return (int)cudaGetLastError();
+    int dev, limit;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    int tile = (int)std::min<int64_t>(n_channels, limit / (kRays * (int)sizeof(float)));
+    size_t bytes = (size_t)tile * kRays * sizeof(float);
+    if (bytes > 48 * 1024) {  // above the default, the kernel must opt in
+      err = cudaFuncSetAttribute(joseph_fwd_ch_kernel<A>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    joseph_fwd_ch_kernel<A>
+        <<<n_blocks(n_rays * joseph::kFwdChLanes), kThreads, bytes, (cudaStream_t)stream>>>(
+            rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
+            joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
+            make_march(h, n_steps, blend), n_channels, tile, out);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int joseph_bwd_rays_ch(const float* rows, int64_t n_rays, const float* vol,

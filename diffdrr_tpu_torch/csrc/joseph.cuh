@@ -6,12 +6,12 @@
 //
 // Geometry (the rows are packed by diffdrr_tpu_torch/ops/kernels/prep.py with
 // the Joseph quadrature): the volume is read through its strides in (s, y, z)
-// order, s being the march axis, or (trace_fwd, fused_terms, channel_terms) through its
-// bricked copy in the same order (brick.cuh). Step p samples the ray at
-// axis position k = p * h, where alpha = k * a + b and the transverse
-// position is (gy + alpha dy, gz + alpha dz). The sample counts only
-// inside the ray's [amin, amax] (clamped to [0, 1]) and is weighted by
-// sc = w |1/d_s| h.
+// order, s being the march axis, or (trace_fwd, fused_terms,
+// channel_samples, channel_terms) through its bricked copy in the same
+// order (brick.cuh). Step p samples the ray at axis position k = p * h,
+// where alpha = k * a + b and the transverse position is
+// (gy + alpha dy, gz + alpha dz). The sample counts only inside the ray's
+// [amin, amax] (clamped to [0, 1]) and is weighted by sc = w |1/d_s| h.
 //
 //   * integer h: a bilinear sample of plane p * h;
 //   * fractional h (the trilinear ray march): the lerp, by fx = k - k0, of
@@ -37,13 +37,15 @@
 // Channels (mask_to_channels): each step also reads the labelmap at the
 // sample's nearest voxel (label_at) and lands in that label's channel; a
 // label outside [0, C) adds nothing. The forward adds the step's value to
-// its channel, and both backwards take the cotangent of that channel for
-// the step. Channel renders are always sums. Each step's share of either
-// backward is a pure function of the ray and the step (channel_terms,
-// step_adds_ch_at), so the kernels split a ray as the scalar ones do: the
-// pose backward over G lanes in the serial order of sums
-// (bwd_rays_ch_lanes, from the bricked copies of the density and the
-// labelmap), the scatter over a warp.
+// its channel (fwd_ch_lanes: G lanes a ray, the ray's sums in shared
+// memory, the last sample's in a register, in trace_fwd_ch's order), and
+// both backwards take the cotangent of that channel for the step. Channel
+// renders are always sums. Each step's share of either backward is a pure
+// function of the ray and the step (channel_terms, step_adds_ch_at), so
+// the kernels split a ray as the scalar ones do: the pose backward over G
+// lanes in the serial order of sums (bwd_rays_ch_lanes), the scatter over
+// a warp. The forward and the pose backward read the bricked copies of the
+// density and the labelmap.
 #pragma once
 
 #include <math.h>
@@ -622,6 +624,131 @@ JOSEPH_HD void trace_fwd_ch(const Ray& r, const Volume& v, const Labels& l, cons
     out[c * n_rays] += bilinear(s, win) * s.scale;
   }
 }
+
+// The channel forward's samples of U steps p0, p0 + step, ...,
+// p0 + (U - 1) step: c[u] the step's channel and x[u] its sample * scale,
+// the value trace_fwd_ch adds to that channel; c[u] = -1 (no channel) for a
+// step at or past hi (step_range's end), with scale <= 0 or whose label
+// drops. The labels and the windows of the U steps are read first, neither
+// waiting on the other (4U loads in flight, 8U at a fractional h, and U
+// labels), then the samples. A pure function of the ray and the steps, so
+// any lane can take any step.
+template <int U, class Vol, class Lab>
+JOSEPH_HD void channel_samples(const Ray& r, const Vol& v, const Lab& l, const March& m,
+                               int n_channels, int p0, int step, int hi, int c[U], float x[U]) {
+  Step st[U];
+  int lab[U];
+  float win[U][2][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    st[u] = step_at(r, m, v.X, p0 + u * step);
+    lab[u] = -1;
+    if (p0 + u * step < hi && st[u].scale > 0.f) {
+      lab[u] = label_at(l, r, st[u], m.blend);
+      window(v, st[u], m.blend, win[u]);
+    } else {
+      win[u][0][0] = win[u][0][1] = win[u][1][0] = win[u][1][1] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    c[u] = channel_of(lab[u], n_channels);
+    x[u] = bilinear(st[u], win[u]) * st[u].scale;
+  }
+}
+
+// A ray's running sums of the channels [c0, c0 + tile), at
+// sums[(c - c0) * stride] (the kernel's shared memory, or a host array),
+// with the sum of the last sample's channel held in acc (slot cur) until
+// the channel changes: a run of samples in one structure reads and writes
+// sums once. Each sum is trace_fwd_ch's out[c] += x, from +0 and in the
+// order the samples come, so given them in step order the bits are its own.
+struct ChannelSums {
+  float* sums;
+  int stride, c0, tile;
+  int cur;
+  float acc;
+};
+
+JOSEPH_HD ChannelSums channel_sums(float* sums, int stride, int c0, int tile) {
+  for (int c = 0; c < tile; ++c) sums[c * stride] = 0.f;
+  return ChannelSums{sums, stride, c0, tile, -1, 0.f};
+}
+
+// Adds sample x to channel c (-1 or a channel outside the tile: nothing).
+JOSEPH_HD void add_sample(ChannelSums& s, int c, float x) {
+  c -= s.c0;  // no channel (-1) stays below 0
+  if (c < 0 || c >= s.tile) return;
+  if (c != s.cur) {
+    if (s.cur >= 0) s.sums[s.cur * s.stride] = s.acc;
+    s.acc = s.sums[c * s.stride];
+    s.cur = c;
+  }
+  s.acc += x;
+}
+
+// Stores the running sum: sums then holds every channel's.
+JOSEPH_HD void flush(ChannelSums& s) {
+  if (s.cur >= 0) s.sums[s.cur * s.stride] = s.acc;
+}
+
+// joseph_fwd_ch's lanes a ray (G) and the steps a lane keeps in flight
+// (U), from max_channel_timing.py's probes (joseph.cu says why these).
+constexpr int kFwdChLanes = 8;
+constexpr int kFwdChSteps = 1;
+
+#if defined(__CUDACC__)
+// Thread t's part in joseph_fwd_ch (and the probes): lane t % G of ray
+// t / G, in passes of G * U steps, lane j taking steps base + j,
+// base + j + G, ... (channel_samples); the ray's lane 0 takes each pass's
+// samples from its lanes by shuffles in step order and adds them to the
+// ray's channel sums (ChannelSums), then writes the ray's column of out
+// (C, n_rays). The sums of the channels [c0, c0 + tile) live at
+// sums[(c - c0) * stride] (the block's shared memory: the ray's column of
+// a [channel][ray] array), the channels in tiles, one march a tile. Every
+// thread of a warp must call this (those of rays past the end too): the
+// shuffles take all 32.
+template <int G, int U, class Vol, class Lab>
+__device__ __forceinline__ void fwd_ch_lanes(const float* __restrict__ rows, int64_t n_rays,
+                                             const Vol& v, const Lab& l, const March& m,
+                                             int n_channels, int tile, float* sums, int stride,
+                                             float* __restrict__ out, int64_t t) {
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  bool live = r < n_rays;
+  Ray ray{};
+  int lo = 0, hi = 0;
+  if (live) {
+    ray = load_ray(rows, n_rays, r);
+    step_range(ray, m, &lo, &hi);
+  }
+  int passes = lanes::warp_passes((hi - lo + G * U - 1) / (G * U));
+  int first = (int)(threadIdx.x % 32) / G * G;  // the ray's lane 0 in the warp
+  for (int c0 = 0; c0 < n_channels; c0 += tile) {
+    int width = min(tile, n_channels - c0);
+    ChannelSums cs{};
+    if (lane == 0) cs = channel_sums(sums, stride, c0, width);
+    for (int p = 0; p < passes; ++p) {
+      int c[U];
+      float x[U];
+      channel_samples<U>(ray, v, l, m, n_channels, lo + p * G * U + lane, G, hi, c, x);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          int cj = __shfl_sync(lanes::kFullMask, c[u], first + j);
+          float xj = __shfl_sync(lanes::kFullMask, x[u], first + j);
+          if (lane == 0) add_sample(cs, cj, xj);
+        }
+      }
+    }
+    if (lane == 0 && live) {
+      flush(cs);
+      for (int c = 0; c < width; ++c) out[(int64_t)(c0 + c) * n_rays + r] = sums[c * stride];
+    }
+  }
+}
+#endif
 
 // The channel pose backward's summands of U steps p0, p0 + step, ...,
 // p0 + (U - 1) step: t[u][i] = the step's term i times g[c * n_rays], the

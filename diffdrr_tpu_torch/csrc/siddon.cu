@@ -10,14 +10,15 @@
 // _bwd_rays_kernel (the two-pass pose backward, sum or MIP) and
 // siddon_bwd_vol replaces _bwd_vol_kernel (the density gradient).
 //
-// Design: one thread per ray (the fused march and the scatter aside,
-// below), walking only its own slabs (slab_range in siddon.cuh) and reading
-// the <= 3 voxels of each slab straight from the float32 volume through its
-// strides (the forward and the fused march: its bricked copy). The TPU
-// needed tile windows, a starts table, one-hot matmuls and a permuted,
-// padded copy of the volume to turn these gathers into MXU work; on the
-// H100 a gather is a load, so none of that is carried over. A MIP backward
-// visits only the argmax slab.
+// Design: one thread per ray (the fused march, the MIP forward and the
+// scatter aside, below), walking only its own slabs (slab_range in
+// siddon.cuh) and reading the <= 3 voxels of each slab straight from the
+// float32 volume through its strides (the forwards siddon_fwd and
+// siddon_fwd_max and the fused march: its bricked copy). The TPU needed
+// tile windows, a starts table, one-hot matmuls and a permuted, padded copy
+// of the volume to turn these gathers into MXU work; on the H100 a gather
+// is a load, so none of that is carried over. A MIP backward visits only
+// the argmax slab.
 //
 // What bounds the gathering kernels: per ray and slab, one to three 4-byte
 // gathers at data-dependent addresses (about 175 flops of per-slab algebra
@@ -51,6 +52,24 @@
 // the 512^3 CT, rays ~0.4 voxel apart, the march is most of the time and
 // the kernel is still ~12% slower than the strided one (PERF.md, open
 // questions).
+//
+// siddon_fwd_max, the MIP render's kernel, is siddon_fwd's march with a
+// compare in place of the sum. One thread per ray on the strided density it
+// took 0.24 ms against a 0.011 ms byte bound at 200x200 (PERF.md), and on
+// the bricked copy with kFwdSlabs slabs in flight it was no faster (0.18
+// ms; one slab in flight 0.14, as the strided kernel): the march's two
+// divisions a slab bound it, not the loads. So it reads the bricked copy
+// (the one every render of the CT shares) and splits each ray over G =
+// kMaxLanes lanes (fwd_max_lanes in siddon.cuh): lane j takes slabs
+// lo + j, lo + j + G, ..., keeps the first maximum of its own by the
+// strict >, and the ray's lanes combine in lanes.cuh's tree (the larger
+// value, of two equal ones the smaller code): the serial first maximum,
+// value and code bit for bit. No hand-over is needed, as a maximum does not
+// depend on the order it is taken in. G = 8 and U = 1 (kMaxSlabs) from
+// max_channel_timing.py's probes: 0.071 ms at the main cell, 0.165 at the
+// lateral pose (512 slabs), G = 4, 16 and 32 within 3-14%, U = 2 or 4
+// slower. What bounds it now: its march (the march without loads takes
+// 0.062 of the 0.071 ms, PERF.md).
 //
 // siddon_fwdgrad, the registration step's kernel, also reads the bricked
 // copy, and splits each ray over G = kFusedLanes lanes (siddon.cuh). What
@@ -129,13 +148,15 @@ siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
       rows, n_rays, vol, out, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
+// G = kMaxLanes lanes a ray on the bricked copy, each lane the first
+// maximum of its slabs, then the lanes' tree (fwd_max_lanes; the note at the
+// top of this file says why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-siddon_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
+siddon_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
                       float* __restrict__ out, int* __restrict__ arg) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
-  siddon::trace_fwd_max(ray, vol, out + r, arg + r);
+  siddon::fwd_max_lanes<siddon::kMaxLanes, siddon::kMaxSlabs>(
+      rows, n_rays, vol, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
 // arg == nullptr: sum mode; else MIP, gated to arg[r].
@@ -243,10 +264,10 @@ unsigned int n_blocks(int64_t n_threads) {
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError().
 //
-// siddon_fwd and siddon_fwdgrad read the density's bricked copy (brick.cuh)
-// instead: vol is the copy, axis the march axis, then the brick strides and
-// the density's extents of the march-permuted (s, y, z) axes. They return
-// -1 for an axis outside 0..2.
+// siddon_fwd, siddon_fwdgrad and siddon_fwd_max read the density's bricked
+// copy (brick.cuh) instead: vol is the copy, axis the march axis, then the
+// brick strides and the density's extents of the march-permuted (s, y, z)
+// axes. They return -1 for an axis outside 0..2.
 extern "C" int siddon_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
                           void* stream) {
@@ -274,14 +295,18 @@ extern "C" int siddon_fwdgrad(const float* rows, int64_t n_rays, const float* vo
   });
 }
 
-extern "C" int siddon_fwd_max(const float* rows, int64_t n_rays, const float* vol,
-                              int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
-                              float* out, int* arg, void* stream) {
-  if (n_rays > 0) {
-    siddon_fwd_max_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), out, arg);
-  }
-  return (int)cudaGetLastError();
+extern "C" int siddon_fwd_max(const float* rows, int64_t n_rays, const float* vol, int axis,
+                              int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
+                              int* arg, void* stream) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      siddon_fwd_max_kernel<A>
+          <<<n_blocks(n_rays * siddon::kMaxLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out, arg);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int siddon_bwd_rays(const float* rows, int64_t n_rays, const float* vol,

@@ -6,8 +6,8 @@
 //
 // Geometry (see diffdrr_tpu_torch/ops/kernels/prep.py for the rows): the
 // volume is read through its strides in (s, y, z) order, s being the march
-// axis, or (trace_fwd, fused_terms) through its bricked copy in the
-// same order (brick.cuh). Slab s covers s-positions [s - 0.5, s + 0.5],
+// axis, or (trace_fwd, max_slabs, fused_terms) through its bricked copy in
+// the same order (brick.cuh). Slab s covers s-positions [s - 0.5, s + 0.5],
 // i.e. the alpha interval between (s -/+ 0.5) a + b, clipped to the ray's
 // [amin, amax]. When the ray's transverse slopes are at most 1 in voxel
 // units (the DRR checks this), the ray crosses at most one y-boundary and
@@ -23,7 +23,9 @@
 // MIP (reducefn="max"): the value is the largest len_j * w * V_j over the
 // ray's segments, and the argmax codes the winning segment as slab * 4 +
 // segment (-1 when no segment beats 0). Every other segment's gradient is
-// gated to zero, so a MIP backward only has to visit the argmax slab.
+// gated to zero, so a MIP backward only has to visit the argmax slab. The
+// forward splits a ray over G lanes, each the first maximum of its slabs,
+// combined in lanes.cuh's tree (fwd_max_lanes): the serial first maximum.
 #pragma once
 
 #include <math.h>
@@ -204,27 +206,92 @@ SIDDON_HD void route(float t, float d_t, float d_pos, float alo, float ahi,
 // MIP: the largest len_j * w * V_j and its code s * 4 + j. A strict > keeps
 // the first maximum in slab, then segment, order; the running max starts at
 // 0 and the code at -1, so a ray that never beats 0 has no gradient. A
-// zero-length segment gives 0, which cannot beat the running max: skip it.
-SIDDON_HD void trace_fwd_max(const Ray& r, const Volume& v, float* val, int* arg) {
+// zero-length segment gives 0, which cannot beat the running max: skip its
+// read and its compare.
+//
+// The running first maximum (*best, *best_arg) taken over the U slabs s0,
+// s0 + step, ..., s0 + (U - 1) step below hi, from the strided density
+// (Volume) or its bricked copy (brick::Volume): their segments and reads
+// first (up to 3U loads in flight), then the compares in slab, then
+// segment, order.
+template <int U, class Vol>
+SIDDON_HD void max_slabs(const Ray& r, const Vol& v, int s0, int step, int hi, float* best,
+                         int* best_arg) {
+  float x[U][3];
+  bool ok[U][3];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    int s = s0 + u * step;
+    Slab sl = slab_segments(r, s);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      ok[u][j] = s < hi && sl.len[j] > 0.f;
+      float V = ok[u][j] ? voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]) : 0.f;
+      x[u][j] = sl.len[j] * r.w * V;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (ok[u][j] && x[u][j] > *best) {
+        *best = x[u][j];
+        *best_arg = (s0 + u * step) * 4 + j;
+      }
+    }
+  }
+}
+
+// The MIP value and code of one ray, U slabs at a time (max_slabs): the
+// same bits and code whatever U.
+template <int U = 1, class Vol>
+SIDDON_HD void trace_fwd_max(const Ray& r, const Vol& v, float* val, int* arg) {
   int lo, hi;
   slab_range(r, v.X, &lo, &hi);
   float best = 0.f;
   int best_arg = -1;
-  for (int s = lo; s < hi; ++s) {
-    Slab sl = slab_segments(r, s);
-    for (int j = 0; j < 3; ++j) {
-      if (!(sl.len[j] > 0.f)) continue;
-      float V = voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]);
-      float x = sl.len[j] * r.w * V;
-      if (x > best) {
-        best = x;
-        best_arg = s * 4 + j;
-      }
-    }
-  }
+  for (int s0 = lo; s0 < hi; s0 += U) max_slabs<U>(r, v, s0, 1, hi, &best, &best_arg);
   *val = best;
   *arg = best_arg;
 }
+
+// siddon_fwd_max's lanes a ray (G) and the slabs a lane keeps in flight
+// (U), from max_channel_timing.py's probes (siddon.cu says why these).
+constexpr int kMaxLanes = 8;
+constexpr int kMaxSlabs = 1;
+
+#if defined(__CUDACC__)
+// Thread t's part in siddon_fwd_max (and the probes): lane t % G of ray
+// t / G takes the slabs lo + lane, lo + lane + G, ... (U at a time,
+// max_slabs), keeping the first maximum of its own slabs; the ray's lanes
+// then combine in lanes.cuh's tree, the larger value winning and of two
+// equal ones the smaller code, which is the serial first maximum. Lane 0
+// writes the value to out[r] and the code to arg[r]. Every thread of a
+// warp must call this (those of rays past the end too): the tree shuffles.
+template <int G, int U, class Vol>
+__device__ __forceinline__ void fwd_max_lanes(const float* __restrict__ rows, int64_t n_rays,
+                                              const Vol& v, float* __restrict__ out,
+                                              int* __restrict__ arg, int64_t t) {
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  bool live = r < n_rays;
+  Ray ray{};
+  int lo = 0, hi = 0;
+  if (live) {
+    ray = load_ray(rows, n_rays, r);
+    slab_range(ray, v.X, &lo, &hi);
+  }
+  float best[1] = {0.f};
+  int best_arg = -1;
+  for (int s0 = lo + lane; s0 < hi; s0 += G * U)
+    max_slabs<U>(ray, v, s0, G, hi, best, &best_arg);
+  lanes::combine_max_warp<G, 1, 0>(best, &best_arg);
+  if (live && lane == 0) {
+    out[r] = best[0];
+    arg[r] = best_arg;
+  }
+}
+#endif
 
 // Adds slab s's d(value)/d(row) to acc[0..8] for the segment values V (the
 // voxel values, or in MIP those gated to the argmax segment) and returns

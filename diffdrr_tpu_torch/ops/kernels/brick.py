@@ -1,16 +1,16 @@
 """The bricked copy of the density that the gathers read, and its cache.
 
-``siddon_fwd`` and ``joseph_fwd`` launch one thread per ray, and a warp's 32
-rays are neighbouring detector pixels (the fused pose kernels
-``siddon_fwdgrad`` and ``joseph_fwdgrad`` and the channel pose backward
-``joseph_bwd_rays_ch`` read the same copy, a few lanes a ray). In the density's own layout the rays of a warp read 32 different
-columns at each slab whenever the march axis is the unit-stride one, so
-one warp load touches ~32 cache lines. The
-bricked copy cuts the density into bricks of ``BRICK`` voxels (a shape
-fixed when the kernels are compiled), each brick contiguous (64 floats,
-two 128-byte lines) and the bricks in row-major order, so the voxels those
-rays read at one slab fall in a few lines (``csrc/brick.cuh`` has the
-addressing).
+The forwards ``siddon_fwd``, ``siddon_fwd_max``, ``joseph_fwd`` and
+``joseph_fwd_ch`` launch one thread per ray, and a warp's 32 rays are
+neighbouring detector pixels (the fused pose kernels ``siddon_fwdgrad`` and
+``joseph_fwdgrad`` and the channel pose backward ``joseph_bwd_rays_ch`` read
+the same copy, a few lanes a ray). In the density's own layout the rays of
+a warp read 32 different columns at each slab whenever the march axis is
+the unit-stride one, so one warp load touches ~32 cache lines. The bricked
+copy cuts the density into bricks of ``BRICK`` voxels (a shape fixed when
+the kernels are compiled), each brick contiguous (64 floats, two 128-byte
+lines) and the bricks in row-major order, so the voxels those rays read at
+one slab fall in a few lines (``csrc/brick.cuh`` has the addressing).
 
 The copy keeps the density's own (X, Y, Z) index order, whatever the march
 axis, so one copy serves all three axes; each extent is padded with zeros
@@ -30,8 +30,9 @@ the density does. A write that bypasses the version counter (through
 ``tensor.data``) is not seen; the port makes none.
 
 An int32 labelmap is copied the same way, as the bits of its labels (a
-float32 view), which ``joseph_bwd_rays_ch`` reads back as int32: the copy
-keeps every label exactly and shares the density copy's brick strides.
+float32 view), which ``joseph_fwd_ch`` and ``joseph_bwd_rays_ch`` read back
+as int32: the copy keeps every label exactly and shares the density copy's
+brick strides. A channel render and its pose backward make each copy once.
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "siddon": {
         "siddon_fwd": _BVOL + [_VOID] * 2,
         "siddon_fwdgrad": _BVOL + [_VOID] * 2,
-        "siddon_fwd_max": _VOL + [_VOID] * 3,
+        "siddon_fwd_max": _BVOL + [_VOID] * 3,
         "siddon_bwd_rays": _VOL + [_VOID] * 4,
         "siddon_bwd_vol": _GRAD + [_VOID],
     },
@@ -64,8 +64,8 @@ _SIGNATURES = {
         "joseph_bwd_rays": _VOL + _MARCH + [_VOID] * 4,
         "joseph_bwd_vol": _GRAD + _MARCH + [_VOID],
         # channel mode: the march, then n_channels
-        "joseph_fwd_ch": _VOL + _LAB + _MARCH + [_INT] + [_VOID] * 2,
         # the bricked density and labelmap share the brick strides and extents
+        "joseph_fwd_ch": _BVOL[:3] + [_VOID] + _BVOL[3:] + _MARCH + [_INT] + [_VOID] * 2,
         "joseph_bwd_rays_ch": _BVOL[:3] + [_VOID] + _BVOL[3:] + _MARCH + [_INT] + [_VOID] * 3,
         "joseph_bwd_vol_ch": [_VOID, _I64, _VOID] + _LAB + [_VOID, _I64, _I64, _I64, _INT, _INT,
                                                              _INT] + _MARCH + [_INT, _VOID],

@@ -498,7 +498,10 @@ def _check_channel_cotangent(rows: torch.Tensor, g: torch.Tensor) -> torch.Tenso
 def joseph_fwd_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor, axis: int,
                   h: float, n_steps: int, n_channels: int) -> torch.Tensor:
     """Per-channel line integrals ``(C, R)``: each sample * sc added to the
-    channel of its nearest-voxel label."""
+    channel of its nearest-voxel label. The kernel reads the bricked copies
+    of the density and of the labelmap (``brick.bricked``), the copies that
+    ``joseph_bwd_rays_ch`` reads, so a render and its pose backward make
+    each once."""
     check("joseph", rows, density, axis)
     _check_march(h, n_steps)
     _check_labels(labels, density.shape, rows.device)
@@ -506,11 +509,12 @@ def joseph_fwd_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tenso
         raise ValueError(f"n_channels must be >= 1, not {n_channels}")
     if runs_plain("joseph_fwd_ch", rows):
         return joseph_fwd_ch_plain(rows, density, labels, axis, h, n_steps, n_channels)
+    vol, lab = bricked(density), bricked(labels)
     rows = rows.contiguous()
     out = torch.empty((n_channels, rows.shape[1]), dtype=torch.float32, device=rows.device)
     call("joseph", "joseph_fwd_ch", rows.device, rows.data_ptr(), rows.shape[1],
-         density.data_ptr(), *strides_extents(density, axis), labels.data_ptr(),
-         *_lab_strides(labels, axis), *_march(h, n_steps), int(n_channels), out.data_ptr())
+         vol.data.data_ptr(), lab.data.data_ptr(), *vol.args(axis), *_march(h, n_steps),
+         int(n_channels), out.data_ptr())
     joseph_fwd_ch.launches += 1
     return out
 
@@ -629,8 +633,9 @@ class JosephMarchChannels(torch.autograd.Function):
     Forward: ``joseph_fwd_ch``. Backward: the rays' cotangent from
     ``joseph_bwd_rays_ch`` (zero for amin/amax), the density's from
     ``joseph_bwd_vol_ch``, each only when asked for. The labels get none.
-    ``joseph_bwd_rays_ch`` reads the bricked copies of the density and the
-    labelmap (``brick.bricked``), so pose backwards on one CT make each once.
+    ``joseph_fwd_ch`` and ``joseph_bwd_rays_ch`` read the bricked copies of
+    the density and the labelmap (``brick.bricked``), so a render and its
+    pose backward, and every render of one CT, make each once.
     """
 
     @staticmethod

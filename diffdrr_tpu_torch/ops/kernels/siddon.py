@@ -289,13 +289,17 @@ def siddon_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torc
 
 def siddon_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int):
     """MIP ``(value (R,), argmax (R,) int32)``: the largest len * w * V over
-    each ray's segments and its code slab * 4 + segment (-1: none beat 0)."""
+    each ray's segments and its code slab * 4 + segment (-1: none beat 0).
+    The kernel reads the density's bricked copy, as ``siddon_fwd`` does."""
     check("siddon", rows, density, axis)
     if runs_plain("siddon_fwd_max", rows):
         return siddon_fwd_max_plain(rows, density, axis)
+    vol = bricked(density)
+    rows = rows.contiguous()
     val = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     arg = torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
-    _launch("siddon_fwd_max", rows, density, axis, val.data_ptr(), arg.data_ptr())
+    call("siddon", "siddon_fwd_max", rows.device, rows.data_ptr(), rows.shape[1],
+         vol.data.data_ptr(), *vol.args(axis), val.data_ptr(), arg.data_ptr())
     siddon_fwd_max.launches += 1
     return val, arg
 

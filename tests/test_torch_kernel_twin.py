@@ -993,7 +993,9 @@ def test_cuda_joseph_warp_scatter_matches_plain(axis, mode, h):
 # -----------------------------------------------------------------------------
 
 _BRICK_TWIN_SRC = r"""
+#include <string.h>
 #include <type_traits>
+#include <vector>
 #include "joseph.cuh"
 #include "siddon.cuh"
 #define BRICK_ARGS const float* bvol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z
@@ -1042,9 +1044,120 @@ extern "C" void bt_joseph(int unroll, const float* rows, int64_t R, BRICK_ARGS, 
     });
   });
 }
+// f(G, U) of a variant of the MIP and channel forwards' lanes: G lanes a
+// ray and U slabs (steps) in flight a lane, 0 taking the kernel's own
+// (kMaxLanes and kMaxSlabs, kFwdChLanes and kFwdChSteps); _FWD_VARIANTS in
+// the tests lists them in this order.
+template <int N>
+using IC = std::integral_constant<int, N>;
+template <class F>
+static void with_lanes(int variant, F f) {
+  switch (variant) {
+    case 0: f(IC<1>(), IC<1>()); break;
+    case 1: f(IC<1>(), IC<2>()); break;
+    case 2: f(IC<1>(), IC<4>()); break;
+    case 3: f(IC<2>(), IC<0>()); break;
+    case 4: f(IC<8>(), IC<0>()); break;
+    case 5: f(IC<32>(), IC<0>()); break;
+    case 6: f(IC<0>(), IC<1>()); break;
+    case 7: f(IC<0>(), IC<2>()); break;
+    case 8: f(IC<0>(), IC<4>()); break;
+    default: f(IC<0>(), IC<0>()); break;
+  }
+}
+// siddon_fwd_max on the bricked copy as its lanes run it (fwd_max_lanes),
+// lane after lane: each of a ray's G lanes the first maximum of its slabs
+// lo + j, lo + j + G, ... (max_slabs, U at a time), then the lanes' tree
+// (combine_max_lanes). Returns the number of rays whose lanes still differ
+// after the tree.
+extern "C" int bt_siddon_max(int variant, const float* rows, int64_t R, BRICK_ARGS, float* out,
+                             int* arg) {
+  int bad = 0;
+  with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    with_lanes(variant, [&](auto g, auto u) {
+      constexpr int G = decltype(g)::value ? decltype(g)::value : siddon::kMaxLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kMaxSlabs;
+      for (int64_t r = 0; r < R; ++r) {
+        siddon::Ray ray = siddon::load_ray(rows, R, r);
+        int lo, hi;
+        siddon::slab_range(ray, X, &lo, &hi);
+        float best[G][1];
+        int best_arg[G];
+        for (int j = 0; j < G; ++j) {
+          best[j][0] = 0.f;
+          best_arg[j] = -1;
+          for (int s0 = lo + j; s0 < hi; s0 += G * U)
+            siddon::max_slabs<U>(ray, v, s0, G, hi, &best[j][0], &best_arg[j]);
+        }
+        lanes::combine_max_lanes<G, 1, 0>(best, best_arg);
+        for (int j = 1; j < G; ++j)
+          if (memcmp(best[j], best[0], sizeof(best[0])) != 0 || best_arg[j] != best_arg[0]) {
+            ++bad;
+            break;
+          }
+        out[r] = best[0][0];
+        arg[r] = best_arg[0];
+      }
+    });
+  });
+  return bad;
+}
+// joseph_fwd_ch on the bricked copies of the density and the labelmap
+// (blab, sharing the density copy's arguments) as its lanes run it
+// (fwd_ch_lanes), lane after lane: passes of G * U steps from lo, lane j
+// taking steps base + j, base + j + G, ... (channel_samples), each pass's
+// samples added in step order to the ray's sums (ChannelSums); the rays
+// in blocks of kBlock whose sums share one [channel][ray] array, the
+// channels in tiles of `tile` (0: all C in one), each tile's sums copied
+// to the ray's column of out (C, R).
+extern "C" void bt_joseph_ch(int variant, int tile, const float* rows, int64_t R, BRICK_ARGS,
+                             const float* blab, float h, int n, int blend, int C, float* out) {
+  constexpr int kBlock = 3;
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  if (tile <= 0) tile = C;
+  std::vector<float> sums((size_t)tile * kBlock, -1.f);
+  with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    auto v = brick::make_volume<A>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    joseph::BrickLabels<A> l{brick::make_volume<A>(blab, bs_s, bs_y, bs_z, X, Y, Z)};
+    with_lanes(variant, [&](auto g, auto u) {
+      constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kFwdChLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdChSteps;
+      for (int64_t r = 0; r < R; ++r) {
+        joseph::Ray ray = joseph::load_ray(rows, R, r);
+        int lo, hi;
+        joseph::step_range(ray, m, &lo, &hi);
+        float* mine = sums.data() + r % kBlock;
+        for (int c0 = 0; c0 < C; c0 += tile) {
+          int width = tile < C - c0 ? tile : C - c0;
+          joseph::ChannelSums cs = joseph::channel_sums(mine, kBlock, c0, width);
+          for (int base = lo; base < hi; base += G * U) {
+            int c[G][U];
+            float x[G][U];
+            for (int j = 0; j < G; ++j)
+              joseph::channel_samples<U>(ray, v, l, m, C, base + j, G, hi, c[j], x[j]);
+            for (int k = 0; k < U; ++k)
+              for (int j = 0; j < G; ++j) joseph::add_sample(cs, c[j][k], x[j][k]);
+          }
+          joseph::flush(cs);
+          for (int k = 0; k < width; ++k) out[(c0 + k) * R + r] = mine[k * kBlock];
+        }
+      }
+    });
+  });
+}
 """
 
 _UNROLLS = (0, 1, 2, 4)  # 0: the kernels' own count
+# (G, U) of each variant of the MIP and channel forwards' lanes (None: the
+# kernel's own), in the twin's order (with_lanes): one thread per ray at
+# U = 1, 2, 4, G = 2, 8, 32 lanes, the kernel's G at U = 1, 2, 4, the kernel.
+_FWD_VARIANTS = ((1, 1), (1, 2), (1, 4), (2, None), (8, None), (32, None),
+                 (None, 1), (None, 2), (None, 4), (None, None))
 
 
 @pytest.fixture(scope="module")
@@ -1062,7 +1175,12 @@ def btwin(tmp_path_factory):
             bvol = [ptr] + [i32] * 7
             so.bt_siddon.argtypes = [i32, ptr, i64] + bvol + [ptr]
             so.bt_joseph.argtypes = [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr]
-            so.bt_siddon.restype = so.bt_joseph.restype = None
+            so.bt_siddon_max.argtypes = [i32, ptr, i64] + bvol + [ptr, ptr]
+            so.bt_joseph_ch.argtypes = [i32, i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32,
+                                                                      i32, i32, ptr]
+            for fn in (so.bt_siddon, so.bt_joseph, so.bt_joseph_ch):
+                fn.restype = None
+            so.bt_siddon_max.restype = i32
             built[shape] = so
         return built[shape]
 
@@ -1178,6 +1296,131 @@ def test_twin_joseph_bricked_equals_strided(jtwin, btwin, axis, h, brick_shape):
             assert torch.equal(_bits(got), _bits(ref)), (unroll, v.is_contiguous())
     plain = J.joseph_fwd_plain(rows[:, :-1], vol, axis, h, n)
     np.testing.assert_allclose(ref[:-1], plain, atol=1e-6 * plain.abs().max().item())
+
+
+def _brick_any(t, brick_shape):
+    """The bricked copy of a density, or of an int32 labelmap's bits, in
+    bricks of ``brick_shape``."""
+    if brick_shape == brick.BRICK:
+        return brick_density(t)
+    return _brick_copy(t.view(torch.float32) if t.dtype == torch.int32 else t, brick_shape)
+
+
+def _bricked_max(btwin, rows, vol, axis, variant, brick_shape=brick.BRICK):
+    """The twin's siddon_fwd_max lanes (``_FWD_VARIANTS[variant]``) on
+    ``vol``'s bricked copy: (value, argmax)."""
+    rows = rows.contiguous()
+    R = rows.shape[1]
+    bv = _brick_any(vol, brick_shape)
+    val = torch.full((R,), float("nan"))
+    arg = torch.full((R,), -2, dtype=torch.int32)
+    bad = btwin(brick_shape).bt_siddon_max(variant, rows.data_ptr(), R, bv.data.data_ptr(),
+                                           *bv.args(axis), val.data_ptr(), arg.data_ptr())
+    assert bad == 0, f"{bad} rays' lanes hold different maxima after the tree"
+    return val, arg
+
+
+def _bricked_ch(btwin, rows, vol, lab, axis, h, n, C, variant, tile, brick_shape):
+    """The twin's joseph_fwd_ch lanes (``_FWD_VARIANTS[variant]``, channels
+    in tiles of ``tile``, 0: all) on the bricked copies of ``vol`` and the
+    labelmap ``lab``: (C, R)."""
+    rows = rows.contiguous()
+    R = rows.shape[1]
+    bv, bl = _brick_any(vol, brick_shape), _brick_any(lab, brick_shape)
+    out = torch.full((C, R), float("nan"))
+    btwin(brick_shape).bt_joseph_ch(variant, tile, rows.data_ptr(), R, bv.data.data_ptr(),
+                                    *bv.args(axis), bl.data.data_ptr(), h, n,
+                                    int(J.is_blend(h)), C, out.data_ptr())
+    return out
+
+
+@_BRICKS
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_max_bricked_equals_strided(twin, btwin, axis, brick_shape):
+    """siddon_fwd_max's lanes on the bricked copy (max_slabs and the tree),
+    one thread per ray at U = 1, 2, 4 slabs in flight, at G = 2, 8, 32 lanes
+    a ray, at the kernel's G with U = 1, 2, 4 and at the kernel's own: the
+    strided serial trace_fwd_max bit for bit, value and argmax (contiguous
+    and permuted density, extents not whole bricks, partial entry slabs,
+    rays that miss and keep the argmax -1, the NaN ray), and the plain
+    version exactly on the finite rays."""
+    rng = np.random.default_rng(200 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis)
+    ref_val, ref_arg = _run_twin_fwd_max(twin, rows, vol, axis)
+    assert ref_arg[-1] == -1 and (ref_arg[:-1] == -1).any() and (ref_arg >= 0).sum() > 80
+    for variant, gu in enumerate(_FWD_VARIANTS):
+        for v in (vol, vol_f):
+            val, arg = _bricked_max(btwin, rows, v, axis, variant, brick_shape)
+            assert torch.equal(arg, ref_arg), (gu, v.is_contiguous())
+            assert torch.equal(_bits(val), _bits(ref_val)), (gu, v.is_contiguous())
+    plain_val, plain_arg = siddon_fwd_max_plain(rows[:, :-1], vol, axis)
+    assert torch.equal(ref_arg[:-1], plain_arg)
+    torch.testing.assert_close(ref_val[:-1], plain_val, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bright", [False, True], ids=["flat", "two_bright_planes"])
+def test_twin_siddon_max_tie_keeps_the_first_maximum(twin, btwin, bright):
+    """Exact ties: rays along axis 0 with a = 1/64, b = 1/4 and transverse
+    slopes 0, so every slab's alphas are exact in float32 and each slab is
+    one segment (the third) of length 1/64. Through identical planes every
+    slab ties, and the first (slab 0: code 2) must win; with two equal
+    brighter planes p1 < p2, p1 (code 4 p1 + 2), though at 8 lanes p2 lies
+    on a lower lane than p1. Every variant of the lanes keeps it, as the
+    strided serial march and the plain version do."""
+    dims, n = (40, 9, 7), 24
+    rng = np.random.default_rng(210)
+    plane = rng.uniform(0.2, 0.6, dims[1:])
+    dens = np.repeat(plane[None], dims[0], 0)
+    p1, p2 = 5, 11  # lanes 5 and 3 of 8; in different groups of 2 and of 4 slabs
+    if bright:
+        dens[[p1, p2]] = 2.0 * plane
+    vol = torch.tensor(dens, dtype=torch.float32)
+    rows = torch.zeros((9, n))
+    rows[0], rows[1], rows[6], rows[8] = 1 / 64, 0.25, 1.0, 1.0  # a, b, w, amax
+    rows[2] = torch.tensor(rng.uniform(0.6, 7.4, n), dtype=torch.float32)  # gy, dy = 0
+    rows[4] = torch.tensor(rng.uniform(0.6, 5.4, n), dtype=torch.float32)  # gz, dz = 0
+    want = torch.full((n,), 4 * p1 + 2 if bright else 2, dtype=torch.int32)
+    ref_val, ref_arg = _run_twin_fwd_max(twin, rows, vol, 0)
+    plain_val, plain_arg = siddon_fwd_max_plain(rows, vol, 0)
+    assert torch.equal(ref_arg, want) and torch.equal(plain_arg, want)
+    torch.testing.assert_close(ref_val, plain_val, rtol=0, atol=0)
+    for variant, gu in enumerate(_FWD_VARIANTS):
+        val, arg = _bricked_max(btwin, rows, vol, 0, variant)
+        assert torch.equal(arg, want) and torch.equal(_bits(val), _bits(ref_val)), gu
+
+
+@pytest.mark.parametrize("n_channels", [1, 3, 7])
+@pytest.mark.parametrize("h", [1.0, 0.5, 1.37], ids=["h1", "h0.5", "h1.37"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_channels_bricked_equal_strided(jtwin, btwin, axis, h, n_channels):
+    """joseph_fwd_ch's lanes (channel_samples and the ray's ChannelSums) on
+    the bricked copies of the density and the labelmap, at every variant of
+    _FWD_VARIANTS, with all C channels in one tile and in tiles of 2 and of
+    1, on 4x4x4 bricks (the package's) and 2x8x1: the strided serial
+    trace_fwd_ch bit for bit, every ray (off-grid, long, short and missing
+    rays, partial entry steps, the NaN ray, extents not whole bricks; at
+    h = 0.5 a plane-pair tie every other step), contiguous and permuted
+    density, labels -1..C (-1 and C drop) held in another memory order, and
+    joseph_fwd_ch_plain exactly on the finite rays."""
+    rng = np.random.default_rng(220 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    lab = torch.tensor(rng.integers(-1, n_channels + 1, _BRICK_DIMS[::-1]),
+                       dtype=torch.int32).permute(2, 1, 0)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h)
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    ref = _JosephTwin(jtwin, rows, vol, axis, h, n).fwd_ch(lab, n_channels)
+    plain = J.joseph_fwd_ch_plain(rows[:, :-1], vol, lab, axis, h, n, n_channels)
+    torch.testing.assert_close(ref[:, :-1], plain, rtol=0, atol=0)
+    assert (ref[:, -1] == 0).all() and (ref > 0).sum(0).ge(min(n_channels, 2)).sum() > 50
+    for brick_shape in ((4, 4, 4), (2, 8, 1)):
+        for variant, gu in enumerate(_FWD_VARIANTS):
+            for tile in (0, 2, 1):
+                for v in (vol, vol_f):
+                    got = _bricked_ch(btwin, rows, v, lab, axis, h, n, n_channels, variant, tile,
+                                      brick_shape)
+                    assert torch.equal(_bits(got), _bits(ref)), \
+                        (brick_shape, gu, tile, v.is_contiguous())
 
 
 @pytest.mark.parametrize("dims", [(21, 23, 13), (8, 8, 4), (1, 5, 2), (4, 4, 4), (5, 1, 9),
@@ -1359,6 +1602,107 @@ def test_cuda_joseph_fwd_bricked_matches_plain(axis, h):
         assert (ref > 0).sum() > rows.shape[1] // 2, label
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * ref.abs().max().item(),
                                    msg=label)
+
+
+def _gpu_scene_rows(axis, vol, geo, extra, **prep):
+    """The rows of a ``_gpu_fwd_scenes`` scene, its mixed rays appended."""
+    rows = prep_rays(*geo, axis, vol.shape, **prep)
+    if extra is not None:
+        rows = torch.cat([rows, prep_rays(*(t.cuda() for t in extra), axis, vol.shape, **prep)], 1)
+    return rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_siddon_fwd_max_bricked_matches_plain(axis):
+    """On a card: siddon_fwd_max (kMaxLanes lanes a ray on the bricked copy)
+    against its plain version, argmax exact and value atol 1e-4 * max, at
+    64x64 with mixed rays and at 200x200 on a 128x128x64 volume; a second
+    launch gives the same bits."""
+    for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+        rows = _gpu_scene_rows(axis, vol, geo, extra)
+        val, arg = K.siddon_fwd_max(rows, vol, axis)
+        val2, arg2 = K.siddon_fwd_max(rows, vol, axis)
+        ref_val, ref_arg = K.siddon_fwd_max_plain(rows, vol, axis)
+        torch.cuda.synchronize()
+        assert (ref_arg >= 0).sum() > rows.shape[1] // 2, label
+        assert torch.equal(arg, ref_arg) and torch.equal(arg2, arg), label
+        assert torch.equal(_bits(val2), _bits(val)), label
+        torch.testing.assert_close(val, ref_val, rtol=0, atol=1e-4 * ref_val.abs().max().item(),
+                                   msg=label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.5, 0.26])
+@pytest.mark.parametrize("axis", [0, 2])
+def test_cuda_joseph_fwd_ch_bricked_matches_plain(axis, h):
+    """On a card: joseph_fwd_ch (kFwdChLanes lanes a ray on the bricked
+    copies, the sums in shared memory) equals its plain version exactly
+    (the serial order of sums) at every stride of
+    test_cuda_joseph_channel_kernels_match_plain_versions, at 64x64 with
+    mixed rays and at 200x200, for C = 1, 3 and 7 with labels -1..C (-1 and
+    C drop)."""
+    rng = np.random.default_rng(30 + axis)
+    for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+        rows = _gpu_scene_rows(axis, vol, geo, extra, quadrature="joseph", h=h)
+        n = int(-(-vol.shape[axis] // h))
+        for C in (1, 3, 7):
+            lab = torch.tensor(rng.integers(-1, C + 1, tuple(vol.shape)), dtype=torch.int32,
+                               device="cuda")
+            got = J.joseph_fwd_ch(rows, vol, lab, axis, h, n, C)
+            ref = J.joseph_fwd_ch_plain(rows, vol, lab, axis, h, n, C)
+            torch.cuda.synchronize()
+            assert (ref > 0).any(0).sum() > rows.shape[1] // 2, (label, C)
+            torch.testing.assert_close(got, ref, rtol=0, atol=0, msg=f"{label} C={C}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_channels", [769, 3633, 7300])
+def test_cuda_joseph_fwd_ch_many_channels(n_channels):
+    """On a card: joseph_fwd_ch with more channel sums than a block's
+    default 48 KB of shared memory holds (C > 768 for its 16 rays: the
+    kernel opts in to more), more than its opt-in limit holds (C > 3632 at
+    the H100's 227 KB: two tiles of channels, one march each) and three
+    tiles, equals its plain version exactly."""
+    vol, rows, _, n = _gpu_joseph_scene(1.37)
+    rng = np.random.default_rng(n_channels)
+    lab = torch.tensor(rng.integers(-1, n_channels + 1, tuple(vol.shape)), dtype=torch.int32,
+                       device="cuda")
+    got = J.joseph_fwd_ch(rows, vol, lab, 2, 1.37, n, n_channels)
+    ref = J.joseph_fwd_ch_plain(rows, vol, lab, 2, 1.37, n, n_channels)
+    torch.cuda.synchronize()
+    assert (ref > 0).any(1).sum() > n_channels // 2
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_forwards_brick_once_per_version():
+    """On a card: joseph_fwd_ch bricks the density and the labelmap once
+    each; a second render, joseph_bwd_rays_ch and siddon_fwd_max reuse the
+    copies; a write to the density makes one new copy of it, a write to the
+    labelmap one of the labelmap."""
+    vol, rows, g, n = _gpu_joseph_scene(1.0)
+    _, srows, _ = _gpu_scene()  # the Siddon rows of the same geometry and shape
+    lab = torch.tensor(np.random.default_rng(11).integers(0, 5, tuple(vol.shape)),
+                       dtype=torch.int32, device="cuda")
+    g5 = g[None].repeat(5, 1).contiguous()
+    clear_cache()
+    brick_density.launches = 0
+    J.joseph_fwd_ch(rows, vol, lab, 2, 1.0, n, 5)
+    assert brick_density.launches == 2
+    J.joseph_fwd_ch(rows, vol, lab, 2, 1.0, n, 5)
+    J.joseph_bwd_rays_ch(rows, vol, lab, 2, 1.0, n, g5)
+    K.siddon_fwd_max(srows, vol, 2)
+    assert brick_density.launches == 2
+    vol.add_(0.0)
+    J.joseph_fwd_ch(rows, vol, lab, 2, 1.0, n, 5)
+    K.siddon_fwd_max(srows, vol, 2)
+    assert brick_density.launches == 3
+    lab.add_(0)
+    J.joseph_fwd_ch(rows, vol, lab, 2, 1.0, n, 5)
+    J.joseph_bwd_rays_ch(rows, vol, lab, 2, 1.0, n, g5)
+    assert brick_density.launches == 4
+    clear_cache()
 
 
 @pytest.mark.gpu
