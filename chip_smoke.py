@@ -33,7 +33,8 @@ Phases (any failure raises and the exit code is non-zero):
      and one backward of sum(img**2) to the density and the pose, each
      kernel held against its plain version, one bricked copy (of the new
      density the MIP renders); a sum-mode pose backward with
-     fused_pose_bwd=False, equal to the fused one;
+     fused_pose_bwd=False (siddon_bwd_rays reading the CT's copy), equal to
+     the fused one to the last bit;
   4c. reconstruction at full size: 8 views of the same CT and detector on
      the reconstruction CLI's trajectory (the detector turned about its
      central ray, so every view marches axis 2), measured images rendered
@@ -56,7 +57,9 @@ Phases (any failure raises and the exit code is non-zero):
      each with the density's bricked copy cached (registration, renders)
      and made anew in each call (a reconstruction step), and the copy alone;
      siddon_fwdgrad likewise at the main path's rays; siddon_fwd_max one
-     call and back to back, its copy cached and made anew;
+     call and back to back, its copy cached and made anew; siddon_bwd_rays
+     in sum mode one call and back to back, against its plain version and
+     equal to siddon_fwdgrad's rows times g;
   7. the Joseph and trilinear renderers (csrc/joseph.cu):
   7a. every Joseph kernel against its plain version on the random volume of
      phase 3, at strides h = 1, 4 (axis 0 pinned), ~1.37 and ~0.26, in sum
@@ -69,7 +72,8 @@ Phases (any failure raises and the exit code is non-zero):
      bricked copy of the CT;
   7c. joseph MIP at the main pose: one backward to density and pose (fused:
      joseph_fwdgrad max + joseph_bwd_vol), one two-pass pose backward
-     (joseph_fwd_max + joseph_bwd_rays), the two pose gradients equal;
+     (joseph_fwd_max + joseph_bwd_rays), the two pose gradients equal; two
+     bricked copies (of the new density and of the CT);
   7d. trilinear reconstruction through the port's CLI
      (diffdrr_tpu_torch.experiments.reconstruction): a 512x512x128 CT, 8
      views of 200x200, 20 steps with checkpoints every 10, exactly
@@ -81,7 +85,10 @@ Phases (any failure raises and the exit code is non-zero):
   7f. the 512^3 CT with joseph_fwd at 200x200 and 1000x1000, each against
      the plain version;
   7g. timings of every Joseph kernel beside its bound and plain version, and
-     F.grid_sample over the same sample points as the library yardstick;
+     F.grid_sample over the same sample points as the library yardstick
+     (of joseph_fwd and joseph_fwd_max); joseph_fwd_max also back to back,
+     with its bricked copy made anew, and at a lateral pose (axis 0, the
+     trilinear stride 1.024) against its plain version;
      joseph_bwd_vol also alone; joseph_fwd at 200x200 and at the CLI's
      320,000 rays with its bricked copy cached and made anew, the copy
      alone, and F.grid_sample over those 320,000 rays' sample points;
@@ -115,9 +122,10 @@ made (as a registration or a render reads it) and ``ms_with_copy`` with a
 fresh copy in each call, which is what a reconstruction step pays; the two
 fused pose kernels' entries likewise at 200x200, with ``design`` naming
 their layout (the bricked copy, G lanes a ray), as the channel ray
-backward's and the channel and MIP forwards'; the channel entries and
-siddon_fwd_max's also give ``ms_back_to_back``, the forwards
-``ms_with_copy``.
+backward's, the channel and MIP forwards' and siddon_bwd_rays'; the channel
+entries, the MIP forwards' and siddon_bwd_rays' also give
+``ms_back_to_back``, the forwards ``ms_with_copy``, joseph_fwd_max its
+lateral pose's ``ms_lateral`` and ``ms_lateral_back_to_back``.
 Without a CUDA device, or without the package beside this file, the
 script exits non-zero and prints no result.
 """
@@ -157,6 +165,9 @@ SLAB_RANGE_OPS = 10
 N_REG_STEPS = 60
 BENCH_ROT = [[0.01, 3.141592653589793 / 2 + 0.02, -0.01]]
 BENCH_TRANS = [[0.0, 850.0, 0.0]]
+# The lateral pose of the timing scripts (experiments/*_timing.py): march
+# axis 0, the CT's 512 planes.
+LATERAL_ROT = [[3.141592653589793 / 2 + 0.02, 0.01, -0.01]]
 # Reconstruction (experiments/reconstruction.py:62-68): 8 views, rotation
 # [theta, pi/2, 0] for theta in linspace(0, pi, 8, endpoint=False).
 N_VIEWS = 8
@@ -454,6 +465,16 @@ def check_repeat(name, first, again):
         raise AssertionError(f"{name}: a repeated launch differs")
 
 
+def check_equal(name, got, ref):
+    """``got`` equals ``ref`` to the last bit; returns the max abs error, 0."""
+    import torch
+
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: not equal, max abs diff "
+                             f"{float(torch.max(torch.abs(got - ref))):.3e}")
+    return 0.0
+
+
 def check_max(name, got, ref):
     """MIP (value, argmax): the argmax exact, the value to 1e-4 * max."""
     import torch
@@ -671,10 +692,13 @@ def joseph_mip(T, subject, rot0, trans, kw, rows_m):
     """Phase 7c: the joseph MIP at the main pose, fused and two-pass."""
     import torch
 
+    from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
 
     drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="joseph")
     J.reset_launch_counts()
+    brick.clear_cache()
+    brick.brick_density.launches = 0
     rot_p = rot0.clone().requires_grad_(True)
     trans_p = trans.clone().requires_grad_(True)
     dens_p = drr.density.clone().requires_grad_(True)
@@ -685,11 +709,13 @@ def joseph_mip(T, subject, rot0, trans, kw, rows_m):
     torch.sum(drr(r, t, reducefn="max", fused_pose_bwd=False, **kw) ** 2).backward()
     pg_two = torch.cat([r.grad, t.grad], -1)
     torch.cuda.synchronize()
-    launches = joseph_launches()
+    launches = dict(joseph_launches(), brick_copy=brick.brick_density.launches)
     log(f"[joseph mip] launches {launches}")
+    # Two copies: joseph_fwdgrad's of the new density dens_p, joseph_fwd_max's
+    # of the CT (the cache was emptied above).
     expect_launches("joseph MIP", launches,
                     {"joseph_fwdgrad": 1, "joseph_bwd_vol": 1, "joseph_fwd_max": 1,
-                     "joseph_bwd_rays": 1, "joseph_fwd": 0})
+                     "joseph_bwd_rays": 1, "joseph_fwd": 0, "brick_copy": 2})
     if not (torch.isfinite(mip).all() and torch.isfinite(dens_p.grad).all()
             and torch.isfinite(pg_fused).all()):
         raise AssertionError("joseph MIP render or gradients not finite")
@@ -900,6 +926,42 @@ def grid_sample_ms(rows, density, axis, h, n, time_ms=None):
                              align_corners=True)
 
     return time_ms(call) if time_ms is not None else median_ms(call, 20)
+
+
+def joseph_max_timings(drr_t, dens, rows_m, X, kw):
+    """Phase 7g: joseph_fwd_max at the main pose's 200^2 rays (axis 2, h = 1)
+    back to back and with its bricked copy made anew in each call, and at
+    the lateral pose (axis 0, the trilinear stride over 512 planes) one call
+    and back to back, there against its plain version (argmax exact, value
+    1e-4 * max). The times by name, and the lateral error."""
+    import torch
+
+    from diffdrr_tpu_torch.experiments.fwdgrad_timing import burst_ms
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
+
+    def main():
+        return J.joseph_fwd_max(rows_m, dens, 2, 1.0, X)
+
+    out = {"ms_back_to_back": burst_ms(main),
+           "ms_with_copy": median_ms(main, 20, before=brick.clear_cache)}
+    h, n = raymarch_steps(dens.shape[0], 500)
+    rows_l = jrays_of(drr_t, torch.tensor(LATERAL_ROT, device=dens.device),
+                      torch.tensor(BENCH_TRANS, device=dens.device), 0, h)
+
+    def lateral():
+        return J.joseph_fwd_max(rows_l, dens, 0, h, n)
+
+    out["err_lateral"] = check_max(f"joseph_fwd_max lateral (axis 0, h {h:g}) @200^2", lateral(),
+                                   J.joseph_fwd_max_plain(rows_l, dens, 0, h, n))
+    out["ms_lateral"] = median_ms(lateral, 20)
+    out["ms_lateral_back_to_back"] = burst_ms(lateral)
+    log(f"[time] joseph_fwd_max at 200^2: {out['ms_back_to_back']:.4f} ms back to back, "
+        f"{out['ms_with_copy']:.4f} ms making its bricked copy anew; lateral pose (axis 0, "
+        f"h {h:g}, {n} steps) {out['ms_lateral']:.4f} ms one call, "
+        f"{out['ms_lateral_back_to_back']:.4f} back to back, vs plain {out['err_lateral']:.3e}")
+    return out
 
 
 CH_KERNELS = ("joseph_fwd_ch", "joseph_bwd_rays_ch", "joseph_bwd_vol_ch")
@@ -1342,8 +1404,10 @@ def main(argv) -> int:
     if drr.siddon_escapes != 0 or min(mip_launches[n] for n in (
             "siddon_fwd_max", "siddon_bwd_rays", "siddon_bwd_vol")) < 1:
         raise AssertionError("the MIP path did not run through its kernels")
-    # dens_p is a new density: siddon_fwd_max bricks it once; the two pose
-    # gradients render the CT, whose copy phase 6a left cached.
+    # dens_p is a new density: siddon_fwd_max bricks it once (the MIP
+    # backward's siddon_bwd_rays reads the density itself); the two pose
+    # gradients render the CT, whose copy phase 6a left cached, and the
+    # two-pass one's siddon_bwd_rays (sum mode) reads that copy.
     if mip_launches["brick_copy"] != 1:
         raise AssertionError(f"the MIP path made {mip_launches['brick_copy']} bricked copies")
     if not (torch.isfinite(mip).all() and torch.isfinite(dens_p.grad).all()
@@ -1361,8 +1425,8 @@ def main(argv) -> int:
                          K.siddon_bwd_rays_plain(rows_m, drr.density, ax_m, g_mip, arg_m))
     ref_vol = K.siddon_bwd_vol_plain(rows_m, g_mip, drr.density.shape, ax_m, arg_m)
     err_bv_mip = check_close("MIP density gradient 512x512x133", dens_p.grad, ref_vol, 1e-4)
-    err_pose = check_close("pose gradient, fused_pose_bwd=False vs fused", pg_two, pg_fused,
-                           1e-5)
+    # siddon_bwd_rays' sum-mode rows are siddon_fwdgrad's times g, bit for bit.
+    err_pose = check_equal("pose gradient, fused_pose_bwd=False vs fused", pg_two, pg_fused)
     log(f"[mip] render vs plain max abs err {err_max:.3e} (image max "
         f"{mip.max().item():.3f}, {int((arg_m >= 0).sum())} of {arg_m.numel()} rays with a "
         f"maximum); rows vs plain {err_br:.3e}; density gradient vs plain "
@@ -1439,7 +1503,18 @@ def main(argv) -> int:
     t_max_b2b = burst_ms(fwd_max)
     t_max_copy = median_ms(fwd_max, 20, before=brick.clear_cache)
     t_max_plain = median_ms(lambda: K.siddon_fwd_max_plain(rows_m, drr.density, ax_m), 3, 1)
-    t_br = median_ms(lambda: K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_m), 20)
+    def bwd_rays():
+        return K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_m)
+
+    # Sum mode at full width: its plain version, and siddon_fwdgrad's rows
+    # times g to the last bit.
+    err_br_sum = max(
+        check_fused("siddon_bwd_rays[sum] 512x512x133 @200^2", bwd_rays(),
+                    K.siddon_bwd_rays_plain(rows_m, drr.density, ax_m, g_m)),
+        check_equal("siddon_bwd_rays[sum] vs siddon_fwdgrad rows * g @200^2", bwd_rays(),
+                    K.siddon_fwdgrad(rows_m, drr.density, ax_m)[:9] * g_m))
+    t_br = median_ms(bwd_rays, 20)
+    t_br_b2b = burst_ms(bwd_rays)
     t_br_plain = median_ms(lambda: K.siddon_bwd_rays_plain(rows_m, drr.density, ax_m, g_m), 3, 1)
     t_br_mip = median_ms(lambda: K.siddon_bwd_rays(rows_m, drr.density, ax_m, g_m, arg_m), 20)
     shape = drr.density.shape
@@ -1481,9 +1556,10 @@ def main(argv) -> int:
     log(f"[time] siddon_fwd_max {t_max:.4f} ms one call, {t_max_b2b:.4f} back to back with "
         f"the bricked copy cached, {t_max_copy:.4f} making it anew "
         f"(plain {t_max_plain:.2f}, bound {b_max:.4f} by "
-        f"{by_max}); siddon_bwd_rays sum {t_br:.4f} ms (plain {t_br_plain:.2f}, bound "
-        f"{b_br:.4f} by {by_br}), mip {t_br_mip:.4f} ms (bound {b_br_mip:.4f} by {by_br_mip}); "
-        f"all at 200^2 rays, axis {ax_m}")
+        f"{by_max}); siddon_bwd_rays sum {t_br:.4f} ms one call, {t_br_b2b:.4f} back to back "
+        f"(plain {t_br_plain:.2f}, bound {b_br:.4f} by {by_br}; vs plain {err_br_sum:.3e}, "
+        f"equal to siddon_fwdgrad's rows * g), mip {t_br_mip:.4f} ms (bound {b_br_mip:.4f} by "
+        f"{by_br_mip}); all at 200^2 rays, axis {ax_m}")
     log(f"[time] siddon_bwd_vol at {rows_v.shape[1]} rays {t_bv:.4f} ms with its zero fill, "
         f"{t_bv_alone:.4f} ms alone ({int((g_v == 0).sum())} rays with g = 0; plain "
         f"{t_bv_plain:.2f}, bound {b_bv:.4f} by {by_bv}); the zero fill alone "
@@ -1588,6 +1664,7 @@ def main(argv) -> int:
         log(f"[time] joseph_{name} {jtimes[name][0]:.4f} ms (plain {jtimes[name][1]:.2f}, bound "
             f"{b:.4f} by {by})")
     t_lib = grid_sample_ms(rows_m, dens_m, 2, 1.0, X)
+    jmax_extra = joseph_max_timings(tri["drr"], dens_m, rows_m, X, kw)
     # The recon-CLI cell's 320,000 rays: the scatter alone and its zero fill
     # alone, and the forward it runs 21 times.
     rows_v, g_v, h_v, n_v = rec["rows_v"], rec["g_v"], rec["h"], rec["n"]
@@ -1647,8 +1724,8 @@ def main(argv) -> int:
          "ms": t_fv, "ms_with_copy": t_fv_copy, "plain_ms": t_fv_plain, "bound_ms": b_fv,
          "bound_by": by_fv, "library_ms": None},
         {"name": "brick_copy", "route": "cuda", "source": "diffdrr_tpu_torch/csrc/brick.cu",
-         "replaces": "none: layout glue that the forwards (siddon_fwd_max and "
-                     "joseph_fwd_ch too), the fused kernels and joseph_bwd_rays_ch read",
+         "replaces": "none: layout glue that the forwards (the MIP and channel ones "
+                     "too), the fused kernels, siddon_bwd_rays and joseph_bwd_rays_ch read",
          "launches": recon_launches["brick_copy"], "max_abs_err": 0.0,
          "ms": t_copy, "plain_ms": t_copy_plain, "bound_ms": b_copy, "bound_by": by_copy,
          "library_ms": None},
@@ -1663,11 +1740,14 @@ def main(argv) -> int:
          "launches": mip_launches["siddon_fwd_max"], "max_abs_err": err_max,
          "ms": t_max, "ms_back_to_back": t_max_b2b, "ms_with_copy": t_max_copy,
          "plain_ms": t_max_plain, "bound_ms": b_max, "bound_by": by_max, "library_ms": None},
-        {"name": "siddon_bwd_rays", "route": "cuda", "source": src,
-         "replaces": "diffdrr_tpu/ops/pallas/siddon.py:248",
-         "launches": mip_launches["siddon_bwd_rays"], "max_abs_err": max(err_br, err_pose),
-         "ms": t_br, "plain_ms": t_br_plain, "bound_ms": b_br, "bound_by": by_br,
-         "library_ms": None},
+        {"name": "siddon_bwd_rays", "route": "cuda",
+         "design": fused_design("siddon.cuh", "kBwdLanes")
+         + " (sum); one thread per ray, strided (MIP)",
+         "source": src, "replaces": "diffdrr_tpu/ops/pallas/siddon.py:248",
+         "launches": mip_launches["siddon_bwd_rays"],
+         "max_abs_err": max(err_br, err_br_sum, err_pose, e4["sum"], e4["mip"]),
+         "ms": t_br, "ms_back_to_back": t_br_b2b, "ms_mip": t_br_mip, "plain_ms": t_br_plain,
+         "bound_ms": b_br, "bound_by": by_br, "library_ms": None},
         {"name": "siddon_bwd_vol", "route": "cuda", "source": src,
          "replaces": "diffdrr_tpu/ops/pallas/siddon.py:501",
          "launches": recon_launches["siddon_bwd_vol"],
@@ -1695,8 +1775,10 @@ def main(argv) -> int:
          "replaces": f"{jpal}:487", "launches": jc["launches"], "max_abs_err": jc["err"],
          "ms": jc["t"], "plain_ms": jc["t_plain"], "bound_ms": jc["b"], "bound_by": jc["by"],
          "library_ms": None},
-        jrec("joseph_fwd_max", "fwd_max", 376, jm["launches"]["joseph_fwd_max"],
-             max(jm["err_max"], jsmall["fwd_max"])),
+        dict(jrec("joseph_fwd_max", "fwd_max", 376, jm["launches"]["joseph_fwd_max"],
+                  max(jm["err_max"], jsmall["fwd_max"], jmax_extra.pop("err_lateral")),
+                  library_ms=t_lib),
+             design=fused_design("joseph.cuh", "kMaxLanes"), **jmax_extra),
         dict(jrec("joseph_fwdgrad", "fwdgrad", 732, tri["launches"]["joseph_fwdgrad"],
                   max(tri["err_fg"], jsmall["fwdgrad_sum"], jsmall["fwdgrad_max"])),
              design=fused_design("joseph.cuh"), ms_with_copy=t_jfg_copy),

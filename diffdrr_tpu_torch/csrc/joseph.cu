@@ -21,12 +21,12 @@
 //                      the cotangent of its channel.
 // Each takes integer and fractional h.
 //
-// Design: one thread per ray (the fused march, the channel forward and ray
-// backward and the scatters aside, below), walking only its own in-slab steps
-// (step_range in joseph.cuh) and reading the 4 in-plane neighbours of each
-// sample (8 at fractional h) straight from the float32 density through its
-// strides (the forwards joseph_fwd and joseph_fwd_ch, the fused march and
-// the channel ray backward: its bricked copy). The TPU needed tile
+// Design: one thread per ray (the MIP forward, the fused march, the channel
+// forward and ray backward and the scatters aside, below), walking only its
+// own in-slab steps (step_range in joseph.cuh) and reading the 4 in-plane
+// neighbours of each sample (8 at fractional h) straight from the float32
+// density through its strides (the forwards, the fused march and the
+// channel ray backward: its bricked copy). The TPU needed tile
 // windows, a starts table, a lane roll and tent-weight matmuls on the MXU
 // to avoid gathers; on the H100 a gather is a load, so none of that is
 // carried over, and with no window there is no footprint to overflow.
@@ -57,6 +57,23 @@
 // the march without them (0.20 ms of the kernel's 0.43-0.46). At 1000x1000
 // on the 512^3 CT, rays ~0.4 voxel apart, it is within ~2% of the strided
 // kernel (PERF.md).
+//
+// joseph_fwd_max, the MIP render's kernel, is joseph_fwd's march with a
+// compare in place of the sum. One thread per ray on the strided density it
+// took 0.13 ms back to back against a 0.025 ms byte bound at 200x200, 0.62
+// at the lateral pose (512 steps along the density's slowest axis;
+// max_rays_timing.py, PERF.md): a serial chain of dependent window loads,
+// and 40,000 threads. It now takes siddon_fwd_max's design on the bricked
+// copy (fwd_max_lanes in joseph.cuh): G = kMaxLanes lanes a ray, lane j
+// taking steps lo + j, lo + j + G, ..., each lane the first maximum of its
+// steps by the serial strict >, then lanes.cuh's tree (the larger value,
+// of two equal ones the smaller step): the serial first maximum, value and
+// step bit for bit, and -1 where no sample beats 0. G = 8 and U = 1
+// (kMaxSteps) from the probes: 0.068 ms at the main pose and 0.276 at the
+// lateral one (G = 4 and 16 within 6%, U = 2 or 4 no faster); the same
+// lanes on the strided density took 0.094 and 0.485, so the copy ships,
+// though a MIP render of a new density pays it (~0.18 ms). What bounds it
+// now: its march (without loads 0.042 of the 0.068 ms) and the loads.
 //
 // joseph_fwdgrad, the trilinear registration step's kernel, also reads the
 // bricked copy, and splits each ray over G = kFusedLanes lanes
@@ -157,12 +174,15 @@ joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<
   out[r] = joseph::trace_fwd<joseph::kFwdSteps>(joseph::load_ray(rows, n_rays, r), vol, m);
 }
 
+// G = kMaxLanes lanes a ray on the bricked copy, each lane the first
+// maximum of its steps, then the lanes' tree (fwd_max_lanes; the note at the
+// top of this file says why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
+joseph_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
                       joseph::March m, float* __restrict__ out, int* __restrict__ arg) {
-  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n_rays) return;
-  joseph::trace_fwd_max(joseph::load_ray(rows, n_rays, r), vol, m, out + r, arg + r);
+  joseph::fwd_max_lanes<joseph::kMaxLanes, joseph::kMaxSteps>(
+      rows, n_rays, vol, m, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
 // G = kFusedLanes lanes a ray on the bricked copy, in passes of G steps
@@ -366,10 +386,10 @@ unsigned int n_blocks(int64_t n_threads) {
 // zero-filled float32 volume with the density's extents and its own strides
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError().
-// joseph_fwd and joseph_fwdgrad read the density's bricked copy (brick.cuh)
-// instead: vol is the copy, axis the march axis, then the brick strides and
-// the density's extents of the march-permuted (s, y, z) axes. They return
-// -1 for an axis outside 0..2.
+// joseph_fwd, joseph_fwd_max and joseph_fwdgrad read the density's bricked
+// copy (brick.cuh) instead: vol is the copy, axis the march axis, then the
+// brick strides and the density's extents of the march-permuted (s, y, z)
+// axes. They return -1 for an axis outside 0..2.
 extern "C" int joseph_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                           int n_steps, int blend, float* out, void* stream) {
@@ -384,15 +404,19 @@ extern "C" int joseph_fwd(const float* rows, int64_t n_rays, const float* vol, i
   });
 }
 
-extern "C" int joseph_fwd_max(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
-                              int64_t sy, int64_t sz, int X, int Y, int Z, float h,
+extern "C" int joseph_fwd_max(const float* rows, int64_t n_rays, const float* vol, int axis,
+                              int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                               int n_steps, int blend, float* out, int* arg, void* stream) {
-  if (n_rays > 0) {
-    joseph_fwd_max_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), make_march(h, n_steps, blend),
-        out, arg);
-  }
-  return (int)cudaGetLastError();
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      joseph_fwd_max_kernel<A>
+          <<<n_blocks(n_rays * joseph::kMaxLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
+              make_march(h, n_steps, blend), out, arg);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int joseph_fwdgrad(const float* rows, int64_t n_rays, const float* vol, int axis,

@@ -6,7 +6,7 @@
 //
 // Geometry (the rows are packed by diffdrr_tpu_torch/ops/kernels/prep.py with
 // the Joseph quadrature): the volume is read through its strides in (s, y, z)
-// order, s being the march axis, or (trace_fwd, fused_terms,
+// order, s being the march axis, or (trace_fwd, max_steps, fused_terms,
 // channel_samples, channel_terms) through its bricked copy in the same
 // order (brick.cuh). Step p samples the ray at axis position k = p * h,
 // where alpha = k * a + b and the transverse position is
@@ -32,7 +32,9 @@
 //
 // MIP (reducefn="max"): the value is the largest sample * sc over the ray's
 // steps, the argmax is the step p (-1 when no sample beats 0), and every
-// gradient is gated to that step.
+// gradient is gated to that step. The forward splits a ray over G lanes,
+// each the first maximum of its steps, combined in lanes.cuh's tree
+// (fwd_max_lanes): the serial first maximum.
 //
 // Channels (mask_to_channels): each step also reads the labelmap at the
 // sample's nearest voxel (label_at) and lands in that label's channel; a
@@ -208,6 +210,12 @@ JOSEPH_HD float bilinear(const Step& s, const float win[2][2]) {
   return s.wy[0] * t4a + s.wy[1] * t4b;
 }
 
+// The step's sample times its scale: what trace_fwd adds and trace_fwd_max
+// compares (0 outside the slab).
+JOSEPH_HD float sample(const Step& s, const float win[2][2]) {
+  return bilinear(s, win) * s.scale;
+}
+
 // The step's 7 terms d(value)/d(row) and its value contribution
 // (_fwdgrad_kernel's body): dry = scale sum_m tent'(uy_m) t4_m,
 // drz = scale sum_m wy_m t3_m, dsc = the unscaled sample inside the slab.
@@ -276,33 +284,99 @@ JOSEPH_HD float trace_fwd(const Ray& r, const Vol& v, const March& m) {
     }
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (in[u]) acc += bilinear(st[u], win[u]) * st[u].scale;
+      if (in[u]) acc += sample(st[u], win[u]);
   }
   return acc;
 }
 
 // MIP: the largest sample * scale and its step. A strict > keeps the first
-// maximum; the running max starts at 0 and the step at -1.
-JOSEPH_HD void trace_fwd_max(const Ray& r, const Volume& v, const March& m, float* val,
-                             int* arg) {
+// maximum; the running max starts at 0 and the step at -1, so a ray whose
+// samples never beat 0 keeps -1. A step outside the slab samples 0, which
+// cannot beat the running max: skip its reads and its compare.
+//
+// The running first maximum (*best, *best_p) taken over the U steps p0,
+// p0 + step, ..., p0 + (U - 1) step below hi, from the strided density
+// (Volume) or its bricked copy (brick::Volume): their windows first (4U
+// loads in flight, 8U in blend mode), then the compares in step order.
+template <int U, class Vol>
+JOSEPH_HD void max_steps(const Ray& r, const Vol& v, const March& m, int p0, int step, int hi,
+                         float* best, int* best_p) {
+  Step st[U];
+  bool in[U];
+  float win[U][2][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    st[u] = step_at(r, m, v.X, p0 + u * step);
+    in[u] = p0 + u * step < hi && st[u].inslab;
+    if (in[u]) {
+      window(v, st[u], m.blend, win[u]);
+    } else {
+      win[u][0][0] = win[u][0][1] = win[u][1][0] = win[u][1][1] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (!in[u]) continue;
+    float x = sample(st[u], win[u]);
+    if (x > *best) {
+      *best = x;
+      *best_p = p0 + u * step;
+    }
+  }
+}
+
+// The MIP value and step of one ray, U steps at a time (max_steps): the
+// same bits and step whatever U.
+template <int U = 1, class Vol>
+JOSEPH_HD void trace_fwd_max(const Ray& r, const Vol& v, const March& m, float* val, int* arg) {
   int lo, hi;
   step_range(r, m, &lo, &hi);
   float best = 0.f;
   int best_p = -1;
-  for (int p = lo; p < hi; ++p) {
-    Step s = step_at(r, m, v.X, p);
-    if (!s.inslab) continue;
-    float win[2][2];
-    window(v, s, m.blend, win);
-    float x = bilinear(s, win) * s.scale;
-    if (x > best) {
-      best = x;
-      best_p = p;
-    }
-  }
+  for (int p0 = lo; p0 < hi; p0 += U) max_steps<U>(r, v, m, p0, 1, hi, &best, &best_p);
   *val = best;
   *arg = best_p;
 }
+
+// joseph_fwd_max's lanes a ray (G) and the steps a lane keeps in flight
+// (U), from max_rays_timing.py's probes (joseph.cu says why these).
+constexpr int kMaxLanes = 8;
+constexpr int kMaxSteps = 1;
+
+#if defined(__CUDACC__)
+// Thread t's part in joseph_fwd_max (and the probes): lane t % G of ray
+// t / G takes the steps lo + lane, lo + lane + G, ... (U at a time,
+// max_steps), keeping the first maximum of its own steps; the ray's lanes
+// then combine in lanes.cuh's tree, the larger value winning and of two
+// equal ones the smaller step, which is the serial first maximum (-1 where
+// no sample beats 0). Lane 0 writes the value to out[r] and the step to
+// arg[r]. Every thread of a warp must call this (those of rays past the end
+// too): the tree shuffles.
+template <int G, int U, class Vol>
+__device__ __forceinline__ void fwd_max_lanes(const float* __restrict__ rows, int64_t n_rays,
+                                              const Vol& v, const March& m,
+                                              float* __restrict__ out, int* __restrict__ arg,
+                                              int64_t t) {
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  bool live = r < n_rays;
+  Ray ray{};
+  int lo = 0, hi = 0;
+  if (live) {
+    ray = load_ray(rows, n_rays, r);
+    step_range(ray, m, &lo, &hi);
+  }
+  float best[1] = {0.f};
+  int best_p = -1;
+  for (int p0 = lo + lane; p0 < hi; p0 += G * U)
+    max_steps<U>(ray, v, m, p0, G, hi, best, &best_p);
+  lanes::combine_max_warp<G, 1, 0>(best, &best_p);
+  if (live && lane == 0) {
+    out[r] = best[0];
+    arg[r] = best_p;
+  }
+}
+#endif
 
 // The fused march: acc[0..6] = d(value)/d(row), acc[7] = value. In MIP mode
 // the terms are replaced whenever a step beats the running max, and *arg
@@ -621,7 +695,7 @@ JOSEPH_HD void trace_fwd_ch(const Ray& r, const Volume& v, const Labels& l, cons
     if (c < 0) continue;
     float win[2][2];
     window(v, s, m.blend, win);
-    out[c * n_rays] += bilinear(s, win) * s.scale;
+    out[c * n_rays] += sample(s, win);
   }
 }
 
@@ -653,7 +727,7 @@ JOSEPH_HD void channel_samples(const Ray& r, const Vol& v, const Lab& l, const M
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     c[u] = channel_of(lab[u], n_channels);
-    x[u] = bilinear(st[u], win[u]) * st[u].scale;
+    x[u] = sample(st[u], win[u]);
   }
 }
 

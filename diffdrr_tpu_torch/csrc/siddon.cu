@@ -10,11 +10,12 @@
 // _bwd_rays_kernel (the two-pass pose backward, sum or MIP) and
 // siddon_bwd_vol replaces _bwd_vol_kernel (the density gradient).
 //
-// Design: one thread per ray (the fused march, the MIP forward and the
-// scatter aside, below), walking only its own slabs (slab_range in
-// siddon.cuh) and reading the <= 3 voxels of each slab straight from the
-// float32 volume through its strides (the forwards siddon_fwd and
-// siddon_fwd_max and the fused march: its bricked copy). The TPU needed
+// Design: one thread per ray (the fused march, the MIP forward, the
+// two-pass backward's sum mode and the scatter aside, below), walking only
+// its own slabs (slab_range in siddon.cuh) and reading the <= 3 voxels of
+// each slab straight from the float32 volume through its strides (the
+// forwards siddon_fwd and siddon_fwd_max, the fused march and the two-pass
+// backward's sum mode: its bricked copy). The TPU needed
 // tile windows, a starts table, one-hot matmuls and a permuted, padded copy
 // of the volume to turn these gathers into MXU work; on the H100 a gather
 // is a load, so none of that is carried over. A MIP backward visits only
@@ -93,6 +94,25 @@
 // it now: its march's arithmetic (the march without loads takes 0.091 of
 // the kernel's 0.099 ms at 200x200, PERF.md).
 //
+// siddon_bwd_rays, the two-pass pose backward (fused_pose_bwd=False, and
+// every MIP pose backward), was one thread per ray on the strided density.
+// In sum mode it walked the fused march's ~135-slab chain with 9
+// accumulators: 0.149 ms back to back at 200x200 against a 0.011 ms byte
+// bound, 0.44 at the lateral pose (max_rays_timing.py, PERF.md), as
+// siddon_fwdgrad once was. Its sum mode now is siddon_fwdgrad's lanes
+// (fwdgrad_lanes with N = 9 rows and g): G = kBwdLanes lanes a ray on the
+// bricked copy, which the forward of the same density has made, each
+// pass's summands taken in slab order, then one product by g, so its rows
+// are trace_bwd_rays' and siddon_fwdgrad's rows times g bit for bit (the
+// fused and the two-pass pose gradients agree to the last bit). G = 8 and
+// U = 1 (kBwdSlabs) from the probes: 0.093 ms and 0.265 (16 lanes and
+// U = 2 within 2%; the strided density as fast, within 4%: the march
+// without loads takes 0.076 of the 0.093 ms and bounds it). MIP mode has
+// one slab of work a ray, so it stays one thread per ray on the strided
+// density: on the copy the kernel alone was ~5-9% faster (0.013 against
+// 0.015 ms), but the wrapper's lookup of the cached copy cost more host
+// time than that, and a call back to back was slower at both poses.
+//
 // The scatter (siddon_bwd_vol) is laid out otherwise: one warp per ray.
 // It adds len * w * g for each non-empty segment into the f32 gradient,
 // which the wrapper zero-fills, with a float atomicAdd. The bytes it must
@@ -159,16 +179,29 @@ siddon_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
       rows, n_rays, vol, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
-// arg == nullptr: sum mode; else MIP, gated to arg[r].
+// The two-pass pose backward in sum mode: G = kBwdLanes lanes a ray on the
+// bricked copy, in passes of G slabs whose summands the ray's rows take in
+// slab order, then one product by g (fwdgrad_lanes; the note at the top of
+// this file says why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-siddon_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
-                       const float* __restrict__ g, const int* __restrict__ arg,
-                       float* __restrict__ out) {
+siddon_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+                       const float* __restrict__ g, float* __restrict__ out) {
+  siddon::fwdgrad_lanes<siddon::kBwdLanes, siddon::kBwdSlabs, siddon::kRows>(
+      rows, n_rays, vol, out, (int64_t)blockIdx.x * kThreads + threadIdx.x, g);
+}
+
+// MIP: one thread per ray on the strided density, gated to the slab and
+// segment arg[r] (one slab of work: lanes would idle; the note at the top
+// of this file says why not the copy).
+__global__ void __launch_bounds__(kThreads)
+siddon_bwd_rays_mip_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
+                           const float* __restrict__ g, const int* __restrict__ arg,
+                           float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
-  siddon::Ray ray = siddon::load_ray(rows, n_rays, r);
   float acc[siddon::kRows];
-  siddon::trace_bwd_rays(ray, vol, g[r], arg ? arg[r] : -1, arg != nullptr, acc);
+  siddon::trace_bwd_rays(siddon::load_ray(rows, n_rays, r), vol, g[r], arg[r], true, acc);
 #pragma unroll
   for (int k = 0; k < siddon::kRows; ++k) out[k * n_rays + r] = acc[k];
 }
@@ -255,19 +288,18 @@ unsigned int n_blocks(int64_t n_threads) {
 }  // namespace
 
 // Plain C interface (loaded with ctypes). rows: (9, n_rays) float32; vol: the
-// density with element strides (ss, sy, sz) of the march-permuted axes and
-// extents (X, Y, Z); out: (n_rays,) for siddon_fwd, (10, n_rays) for
-// siddon_fwdgrad, (n_rays,) values and (n_rays,) int32 codes for
-// siddon_fwd_max, (9, n_rays) for siddon_bwd_rays; g: (n_rays,) float32;
-// arg: (n_rays,) int32 argmax codes for MIP, or NULL for sum mode; grad: a
+// density's bricked copy (brick.cuh), axis the march axis, then the brick
+// strides and the density's extents of the march-permuted (s, y, z) axes
+// (siddon_bwd_rays_mip: the density itself, with the element strides
+// (ss, sy, sz) and extents (X, Y, Z) of those axes); out: (n_rays,) for
+// siddon_fwd, (10, n_rays) for siddon_fwdgrad, (n_rays,) values and
+// (n_rays,) int32 codes for siddon_fwd_max, (9, n_rays) for siddon_bwd_rays
+// (sum mode) and siddon_bwd_rays_mip; g: (n_rays,) float32; arg: (n_rays,)
+// int32 argmax codes (MIP, or NULL for siddon_bwd_vol's sum mode); grad: a
 // zero-filled float32 volume with the density's extents and its own strides
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
-// not synchronise, and returns cudaGetLastError().
-//
-// siddon_fwd, siddon_fwdgrad and siddon_fwd_max read the density's bricked
-// copy (brick.cuh) instead: vol is the copy, axis the march axis, then the
-// brick strides and the density's extents of the march-permuted (s, y, z)
-// axes. They return -1 for an axis outside 0..2.
+// not synchronise, and returns cudaGetLastError(); those that read the copy
+// return -1 for an axis outside 0..2.
 extern "C" int siddon_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
                           void* stream) {
@@ -309,11 +341,25 @@ extern "C" int siddon_fwd_max(const float* rows, int64_t n_rays, const float* vo
   });
 }
 
-extern "C" int siddon_bwd_rays(const float* rows, int64_t n_rays, const float* vol,
-                               int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
-                               const float* g, const int* arg, float* out, void* stream) {
+extern "C" int siddon_bwd_rays(const float* rows, int64_t n_rays, const float* vol, int axis,
+                               int bs_s, int bs_y, int bs_z, int X, int Y, int Z, const float* g,
+                               float* out, void* stream) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      siddon_bwd_rays_kernel<A>
+          <<<n_blocks(n_rays * siddon::kBwdLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), g, out);
+    }
+    return (int)cudaGetLastError();
+  });
+}
+
+extern "C" int siddon_bwd_rays_mip(const float* rows, int64_t n_rays, const float* vol,
+                                   int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
+                                   const float* g, const int* arg, float* out, void* stream) {
   if (n_rays > 0) {
-    siddon_bwd_rays_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+    siddon_bwd_rays_mip_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
         rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), g, arg, out);
   }
   return (int)cudaGetLastError();

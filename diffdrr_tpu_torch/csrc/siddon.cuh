@@ -23,9 +23,10 @@
 // MIP (reducefn="max"): the value is the largest len_j * w * V_j over the
 // ray's segments, and the argmax codes the winning segment as slab * 4 +
 // segment (-1 when no segment beats 0). Every other segment's gradient is
-// gated to zero, so a MIP backward only has to visit the argmax slab. The
-// forward splits a ray over G lanes, each the first maximum of its slabs,
-// combined in lanes.cuh's tree (fwd_max_lanes): the serial first maximum.
+// gated to zero, so a MIP backward only has to visit the argmax slab (one
+// thread per ray). The forward splits a ray over G lanes, each the first
+// maximum of its slabs, combined in lanes.cuh's tree (fwd_max_lanes): the
+// serial first maximum.
 #pragma once
 
 #include <math.h>
@@ -393,20 +394,29 @@ SIDDON_HD void fused_terms(const Ray& r, const Vol& v, int s0, int step, int hi,
   }
 }
 
+// siddon_bwd_rays' lanes a ray (G) and slabs a lane keeps in flight (U) in
+// sum mode, from max_rays_timing.py's probes (siddon.cu says why these).
+constexpr int kBwdLanes = 8;
+constexpr int kBwdSlabs = 1;
+
 #if defined(__CUDACC__)
 // Thread t's part in a fused launch of G lanes a ray and U slabs in flight
-// a lane (siddon_fwdgrad, and the probes), from the strided density or its
-// bricked copy: lane t % G of ray t / G, in passes of G * U slabs
-// (lanes.cuh), lane k % G writing row k of out (10, n_rays). Blocks of
-// kFusedThreads; every thread of a warp must call this (those of rays past
-// the end too): the passes hand summands over through the warp's shared
-// memory. A warp holds 32 / G whole rays.
-template <int G, int U, class Vol>
+// a lane (siddon_fwdgrad, siddon_bwd_rays' sum mode, and the probes), from
+// the strided density or its bricked copy: lane t % G of ray t / G, in
+// passes of G * U slabs (lanes.cuh), lane k % G writing row k of out
+// (N, n_rays): the fused march's first N rows (fused_terms), all 10 for
+// siddon_fwdgrad, or the 9 gradient rows each times g[r] once they are
+// summed when g is given (siddon_bwd_rays: trace_bwd_rays' rows, bit for
+// bit). Blocks of kFusedThreads; every thread of a warp must call this
+// (those of rays past the end too): the passes hand summands over through
+// the warp's shared memory. A warp holds 32 / G whole rays.
+template <int G, int U, int N = kFusedRows, class Vol>
 __device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, int64_t n_rays,
-                                              const Vol& v, float* __restrict__ out, int64_t t) {
+                                              const Vol& v, float* __restrict__ out, int64_t t,
+                                              const float* __restrict__ g = nullptr) {
   constexpr int kSlabs = G * U;       // a ray's slabs a pass
   constexpr int kStride = 32 * U + 1;  // a row of the warp's hand-over (+1: no bank conflicts)
-  __shared__ float hand[kFusedThreads / 32][kFusedRows * kStride];
+  __shared__ float hand[kFusedThreads / 32][N * kStride];
   int64_t r = t / G;
   int lane = (int)(t % G);
   bool live = r < n_rays;
@@ -418,32 +428,37 @@ __device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, in
   }
   int passes = lanes::warp_passes((hi - lo + kSlabs - 1) / kSlabs);
   float* mine = hand[threadIdx.x / 32] + (threadIdx.x % 32) / G * kSlabs;  // the ray's columns
-  float acc[lanes::kSlots<G, kFusedRows>] = {};
+  float acc[lanes::kSlots<G, N>] = {};
   for (int p = 0; p < passes; ++p) {
     float tm[U][kFusedRows];
     fused_terms<U>(ray, v, lo + p * kSlabs + lane, G, hi, tm);
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int k = 0; k < kFusedRows; ++k) mine[k * kStride + u * G + lane] = tm[u][k];
+      for (int k = 0; k < N; ++k) mine[k * kStride + u * G + lane] = tm[u][k];
     __syncwarp();
-    lanes::take_in_order<G, kFusedRows, kSlabs>(mine, kStride, lane, acc);
+    lanes::take_in_order<G, N, kSlabs>(mine, kStride, lane, acc);
     __syncwarp();
   }
   if (!live) return;
+  float gr = g ? g[r] : 0.f;
 #pragma unroll
-  for (int slot = 0; slot < lanes::kSlots<G, kFusedRows>; ++slot) {
+  for (int slot = 0; slot < lanes::kSlots<G, N>; ++slot) {
     int k = lane + slot * G;
-    if (k < kFusedRows) out[k * n_rays + r] = acc[slot];
+    if (k < N) out[k * n_rays + r] = g ? acc[slot] * gr : acc[slot];
   }
 }
 #endif
 
-// The two-pass pose backward: acc[0..8] = g * d(value)/d(row). In MIP mode
-// only the argmax slab carries a gradient (none when arg is -1), and
-// inside it V is gated to the argmax segment before any term is formed, the
-// boundary terms d_alo = -w V1 and d_ahi = w V3 included.
-SIDDON_HD void trace_bwd_rays(const Ray& r, const Volume& v, float g, int arg, bool mip,
+// The two-pass pose backward: acc[0..8] = g * d(value)/d(row), from the
+// strided density (Volume) or, in the probes, its bricked copy
+// (brick::Volume), slab after slab (the order of sums that fwdgrad_lanes
+// keeps), then one product by g.
+// In MIP mode only the argmax slab carries a gradient (none when arg is
+// -1), and inside it V is gated to the argmax segment before any term is
+// formed, the boundary terms d_alo = -w V1 and d_ahi = w V3 included.
+template <class Vol>
+SIDDON_HD void trace_bwd_rays(const Ray& r, const Vol& v, float g, int arg, bool mip,
                               float acc[kRows]) {
   for (int k = 0; k < kRows; ++k) acc[k] = 0.f;
   int lo, hi;

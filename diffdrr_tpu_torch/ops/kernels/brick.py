@@ -1,12 +1,14 @@
 """The bricked copy of the density that the gathers read, and its cache.
 
-The forwards ``siddon_fwd``, ``siddon_fwd_max``, ``joseph_fwd`` and
-``joseph_fwd_ch`` launch one thread per ray, and a warp's 32 rays are
-neighbouring detector pixels (the fused pose kernels ``siddon_fwdgrad`` and
-``joseph_fwdgrad`` and the channel pose backward ``joseph_bwd_rays_ch`` read
-the same copy, a few lanes a ray). In the density's own layout the rays of
-a warp read 32 different columns at each slab whenever the march axis is
-the unit-stride one, so one warp load touches ~32 cache lines. The bricked
+The forwards ``siddon_fwd`` and ``joseph_fwd`` launch one thread per ray,
+and a warp's 32 rays are neighbouring detector pixels (the MIP forwards
+``siddon_fwd_max`` and ``joseph_fwd_max``, the channel forward
+``joseph_fwd_ch``, the fused pose kernels ``siddon_fwdgrad`` and
+``joseph_fwdgrad`` and the pose backwards ``siddon_bwd_rays`` and
+``joseph_bwd_rays_ch`` read the same copy, most a few lanes a ray). In the
+density's own layout the rays of a warp read 32 different columns at each
+slab whenever the march axis is the unit-stride one, so one warp load
+touches ~32 cache lines. The bricked
 copy cuts the density into bricks of ``BRICK`` voxels (a shape fixed when
 the kernels are compiled), each brick contiguous (64 floats, two 128-byte
 lines) and the bricks in row-major order, so the voxels those rays read at
@@ -22,8 +24,9 @@ CUDA tensor and by a pad, a reshape and a permute
 the kernel's launches.
 
 :func:`bricked` keeps the copy of an unchanged density: registration and
-plain renders of one CT make it once, a reconstruction step (whose density
-Adam updates in place) once per step. An entry is keyed on the density's
+plain renders of one CT make it once, a render and its two-pass pose
+backward once, a reconstruction step (whose density Adam updates in place)
+once per step. An entry is keyed on the density's
 data pointer, version counter, shape and strides, and holds only a weak
 reference to the density, so it never keeps a density alive and goes when
 the density does. A write that bypasses the version counter (through

@@ -54,12 +54,13 @@ _SIGNATURES = {
         "siddon_fwd": _BVOL + [_VOID] * 2,
         "siddon_fwdgrad": _BVOL + [_VOID] * 2,
         "siddon_fwd_max": _BVOL + [_VOID] * 3,
-        "siddon_bwd_rays": _VOL + [_VOID] * 4,
+        "siddon_bwd_rays": _BVOL + [_VOID] * 3,
+        "siddon_bwd_rays_mip": _VOL + [_VOID] * 4,
         "siddon_bwd_vol": _GRAD + [_VOID],
     },
     "joseph": {
         "joseph_fwd": _BVOL + _MARCH + [_VOID] * 2,
-        "joseph_fwd_max": _VOL + _MARCH + [_VOID] * 3,
+        "joseph_fwd_max": _BVOL + _MARCH + [_VOID] * 3,
         "joseph_fwdgrad": _BVOL + _MARCH + [_VOID] * 3,
         "joseph_bwd_rays": _VOL + _MARCH + [_VOID] * 4,
         "joseph_bwd_vol": _GRAD + _MARCH + [_VOID],

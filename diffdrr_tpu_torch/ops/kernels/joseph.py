@@ -396,14 +396,20 @@ def joseph_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
 def joseph_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
                    n_steps: int):
     """MIP ``(value (R,), argmax (R,) int32)``: the largest sample * sc over
-    each ray's steps and its step (-1: none beat 0)."""
+    each ray's steps and its step (-1: none beat 0). The kernel reads the
+    density's bricked copy, as ``joseph_fwd`` does, with several lanes a
+    ray."""
     check("joseph", rows, density, axis)
     _check_march(h, n_steps)
     if runs_plain("joseph_fwd_max", rows):
         return joseph_fwd_max_plain(rows, density, axis, h, n_steps)
+    vol = bricked(density)
+    rows = rows.contiguous()
     val = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     arg = torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
-    _launch("joseph_fwd_max", rows, density, axis, h, n_steps, val.data_ptr(), arg.data_ptr())
+    call("joseph", "joseph_fwd_max", rows.device, rows.data_ptr(), rows.shape[1],
+         vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), val.data_ptr(),
+         arg.data_ptr())
     joseph_fwd_max.launches += 1
     return val, arg
 

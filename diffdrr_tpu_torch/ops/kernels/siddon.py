@@ -247,14 +247,6 @@ def siddon_bwd_vol_plain(rows: torch.Tensor, g: torch.Tensor, shape, axis: int,
 # -----------------------------------------------------------------------------
 
 
-def _launch(fn_name: str, rows: torch.Tensor, density: torch.Tensor, axis: int,
-            *args) -> None:
-    """``fn_name(rows, R, density, strides, extents, *args, stream)``."""
-    rows = rows.contiguous()
-    call("siddon", fn_name, rows.device, rows.data_ptr(), rows.shape[1], density.data_ptr(),
-         *strides_extents(density, axis), *args)
-
-
 def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
     """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``.
     The kernel reads the density's bricked copy (``brick.bricked``: made
@@ -306,13 +298,26 @@ def siddon_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int):
 
 def siddon_bwd_rays(rows: torch.Tensor, density: torch.Tensor, axis: int,
                     g: torch.Tensor, arg=None) -> torch.Tensor:
-    """``(9, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given."""
+    """``(9, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given.
+    In sum mode the kernel reads the density's bricked copy, which the
+    forward of the same density has made (so the two-pass backward makes
+    none), with several lanes a ray: its rows are ``siddon_fwdgrad``'s times
+    g bit for bit. In MIP (one slab a ray) it runs one thread per ray on
+    the density itself."""
     check("siddon", rows, density, axis)
     g = check_cotangent(rows, g, arg)
     if runs_plain("siddon_bwd_rays", rows):
         return siddon_bwd_rays_plain(rows, density, axis, g, arg)
+    rows = rows.contiguous()
     out = torch.empty((NROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    _launch("siddon_bwd_rays", rows, density, axis, g.data_ptr(), ptr(arg), out.data_ptr())
+    if arg is None:
+        vol = bricked(density)
+        call("siddon", "siddon_bwd_rays", rows.device, rows.data_ptr(), rows.shape[1],
+             vol.data.data_ptr(), *vol.args(axis), g.data_ptr(), out.data_ptr())
+    else:
+        call("siddon", "siddon_bwd_rays_mip", rows.device, rows.data_ptr(), rows.shape[1],
+             density.data_ptr(), *strides_extents(density, axis), g.data_ptr(), arg.data_ptr(),
+             out.data_ptr())
     siddon_bwd_rays.launches += 1
     return out
 

@@ -1046,8 +1046,8 @@ extern "C" void bt_joseph(int unroll, const float* rows, int64_t R, BRICK_ARGS, 
 }
 // f(G, U) of a variant of the MIP and channel forwards' lanes: G lanes a
 // ray and U slabs (steps) in flight a lane, 0 taking the kernel's own
-// (kMaxLanes and kMaxSlabs, kFwdChLanes and kFwdChSteps); _FWD_VARIANTS in
-// the tests lists them in this order.
+// (kMaxLanes and kMaxSlabs or kMaxSteps, kFwdChLanes and kFwdChSteps);
+// _FWD_VARIANTS in the tests lists them in this order.
 template <int N>
 using IC = std::integral_constant<int, N>;
 template <class F>
@@ -1065,11 +1065,31 @@ static void with_lanes(int variant, F f) {
     default: f(IC<0>(), IC<0>()); break;
   }
 }
-// siddon_fwd_max on the bricked copy as its lanes run it (fwd_max_lanes),
-// lane after lane: each of a ray's G lanes the first maximum of its slabs
-// lo + j, lo + j + G, ... (max_slabs, U at a time), then the lanes' tree
-// (combine_max_lanes). Returns the number of rays whose lanes still differ
-// after the tree.
+// One ray's first maximum as the MIP forwards' lanes run it (fwd_max_lanes),
+// lane after lane: each of G lanes the first maximum of its slabs (steps)
+// lo + j, lo + j + G, ..., U at a time (max_u(s0, best, arg): max_slabs or
+// max_steps from s0, G apart), then the lanes' tree (combine_max_lanes).
+// Returns whether the lanes still differ after the tree.
+template <int G, int U, class MaxU>
+static bool lanes_max(int lo, int hi, MaxU max_u, float* val, int* arg) {
+  float best[G][1];
+  int best_arg[G];
+  for (int j = 0; j < G; ++j) {
+    best[j][0] = 0.f;
+    best_arg[j] = -1;
+    for (int s0 = lo + j; s0 < hi; s0 += G * U) max_u(s0, &best[j][0], &best_arg[j]);
+  }
+  lanes::combine_max_lanes<G, 1, 0>(best, best_arg);
+  bool differ = false;
+  for (int j = 1; j < G; ++j)
+    differ |= memcmp(best[j], best[0], sizeof(best[0])) != 0 || best_arg[j] != best_arg[0];
+  *val = best[0][0];
+  *arg = best_arg[0];
+  return differ;
+}
+// siddon_fwd_max on the bricked copy as its lanes run it (max_slabs in
+// lanes_max). Returns the number of rays whose lanes still differ after the
+// tree.
 extern "C" int bt_siddon_max(int variant, const float* rows, int64_t R, BRICK_ARGS, float* out,
                              int* arg) {
   int bad = 0;
@@ -1082,22 +1102,36 @@ extern "C" int bt_siddon_max(int variant, const float* rows, int64_t R, BRICK_AR
         siddon::Ray ray = siddon::load_ray(rows, R, r);
         int lo, hi;
         siddon::slab_range(ray, X, &lo, &hi);
-        float best[G][1];
-        int best_arg[G];
-        for (int j = 0; j < G; ++j) {
-          best[j][0] = 0.f;
-          best_arg[j] = -1;
-          for (int s0 = lo + j; s0 < hi; s0 += G * U)
-            siddon::max_slabs<U>(ray, v, s0, G, hi, &best[j][0], &best_arg[j]);
-        }
-        lanes::combine_max_lanes<G, 1, 0>(best, best_arg);
-        for (int j = 1; j < G; ++j)
-          if (memcmp(best[j], best[0], sizeof(best[0])) != 0 || best_arg[j] != best_arg[0]) {
-            ++bad;
-            break;
-          }
-        out[r] = best[0][0];
-        arg[r] = best_arg[0];
+        bad += lanes_max<G, U>(lo, hi, [&](int s0, float* best, int* best_arg) {
+          siddon::max_slabs<U>(ray, v, s0, G, hi, best, best_arg);
+        }, out + r, arg + r);
+      }
+    });
+  });
+  return bad;
+}
+// joseph_fwd_max on the bricked copy as its lanes run it (max_steps in
+// lanes_max). Returns the number of rays whose lanes still differ after the
+// tree.
+extern "C" int bt_joseph_max(int variant, const float* rows, int64_t R, BRICK_ARGS, float h,
+                             int n, int blend, float* out, int* arg) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  int bad = 0;
+  with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    with_lanes(variant, [&](auto g, auto u) {
+      constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kMaxLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kMaxSteps;
+      for (int64_t r = 0; r < R; ++r) {
+        joseph::Ray ray = joseph::load_ray(rows, R, r);
+        int lo, hi;
+        joseph::step_range(ray, m, &lo, &hi);
+        bad += lanes_max<G, U>(lo, hi, [&](int p0, float* best, int* best_p) {
+          joseph::max_steps<U>(ray, v, m, p0, G, hi, best, best_p);
+        }, out + r, arg + r);
       }
     });
   });
@@ -1176,11 +1210,13 @@ def btwin(tmp_path_factory):
             so.bt_siddon.argtypes = [i32, ptr, i64] + bvol + [ptr]
             so.bt_joseph.argtypes = [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr]
             so.bt_siddon_max.argtypes = [i32, ptr, i64] + bvol + [ptr, ptr]
+            so.bt_joseph_max.argtypes = [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32,
+                                                                  ptr, ptr]
             so.bt_joseph_ch.argtypes = [i32, i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32,
                                                                       i32, i32, ptr]
             for fn in (so.bt_siddon, so.bt_joseph, so.bt_joseph_ch):
                 fn.restype = None
-            so.bt_siddon_max.restype = i32
+            so.bt_siddon_max.restype = so.bt_joseph_max.restype = i32
             built[shape] = so
         return built[shape]
 
@@ -1388,6 +1424,99 @@ def test_twin_siddon_max_tie_keeps_the_first_maximum(twin, btwin, bright):
     for variant, gu in enumerate(_FWD_VARIANTS):
         val, arg = _bricked_max(btwin, rows, vol, 0, variant)
         assert torch.equal(arg, want) and torch.equal(_bits(val), _bits(ref_val)), gu
+
+
+def _bricked_jmax(btwin, rows, vol, axis, h, n, variant, brick_shape=brick.BRICK):
+    """The twin's joseph_fwd_max lanes (``_FWD_VARIANTS[variant]``) on
+    ``vol``'s bricked copy: (value, argmax step)."""
+    rows = rows.contiguous()
+    R = rows.shape[1]
+    bv = _brick_any(vol, brick_shape)
+    val = torch.full((R,), float("nan"))
+    arg = torch.full((R,), -2, dtype=torch.int32)
+    bad = btwin(brick_shape).bt_joseph_max(variant, rows.data_ptr(), R, bv.data.data_ptr(),
+                                           *bv.args(axis), h, n, int(J.is_blend(h)),
+                                           val.data_ptr(), arg.data_ptr())
+    assert bad == 0, f"{bad} rays' lanes hold different maxima after the tree"
+    return val, arg
+
+
+_STRIDES = pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6, 0.26],
+                                   ids=["h1", "h4", "h1.37", "h0.6", "h0.26"])
+
+
+@_STRIDES
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_max_bricked_equals_strided(jtwin, btwin, axis, h):
+    """joseph_fwd_max's lanes on the bricked copy (max_steps and the tree),
+    one thread per ray at U = 1, 2, 4 steps in flight, at G = 2, 8, 32 lanes
+    a ray, at the kernel's G with U = 1, 2, 4 and at the kernel's own, on
+    4x4x4 bricks (the package's) and 2x8x1: the strided serial
+    trace_fwd_max bit for bit, value and argmax step, at integer and
+    fractional h (contiguous and permuted density, extents not whole
+    bricks, partial entry steps, rays that miss and keep the argmax -1, the
+    NaN ray), and the plain version exactly on the finite rays."""
+    rng = np.random.default_rng(230 + axis)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h)
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    ref_val, ref_arg = _JosephTwin(jtwin, rows, vol, axis, h, n).fwd_max()
+    assert ref_arg[-1] == -1 and (ref_arg[:-1] == -1).any() and (ref_arg >= 0).sum() > 80
+    for brick_shape in ((4, 4, 4), (2, 8, 1)):
+        for variant, gu in enumerate(_FWD_VARIANTS):
+            for v in (vol, vol_f):
+                val, arg = _bricked_jmax(btwin, rows, v, axis, h, n, variant, brick_shape)
+                assert torch.equal(arg, ref_arg), (brick_shape, gu, v.is_contiguous())
+                assert torch.equal(_bits(val), _bits(ref_val)), \
+                    (brick_shape, gu, v.is_contiguous())
+    plain_val, plain_arg = J.joseph_fwd_max_plain(rows[:, :-1], vol, axis, h, n)
+    assert torch.equal(ref_arg[:-1], plain_arg)
+    torch.testing.assert_close(ref_val[:-1], plain_val, rtol=0, atol=0)
+
+
+_TIE_PLANES = (5, 11)  # lanes 5 and 3 of 8; in different groups of 2 and of 4 steps
+
+
+def _joseph_tie_scene(case):
+    """(rows, density, want) of the Joseph MIP ties: 23 rays along axis 0
+    of a 40x9x7 density with a = 1/64, b = 1/4, sc = 1, [amin, amax] = [0,
+    1] and transverse slopes 0, so every one of the 40 steps (h = 1) is in
+    the slab and samples its plane at the ray's (gy, gz) with the same
+    weights. ``flat``: identical planes, every step ties, step 0 wins;
+    ``two_bright_planes``: the planes _TIE_PLANES twice as bright, the
+    first of them wins; ``zero``: no sample beats 0, the argmax is -1."""
+    dims, n = (40, 9, 7), 23
+    rng = np.random.default_rng(240)
+    plane = rng.uniform(0.2, 0.6, dims[1:])
+    dens = np.repeat(plane[None], dims[0], 0)
+    if case == "two_bright_planes":
+        dens[list(_TIE_PLANES)] = 2.0 * plane
+    elif case == "zero":
+        dens[:] = 0.0
+    rows = torch.zeros((9, n))
+    rows[0], rows[1], rows[6], rows[8] = 1 / 64, 0.25, 1.0, 1.0  # a, b, sc, amax
+    rows[2] = torch.tensor(rng.uniform(0.6, 7.4, n), dtype=torch.float32)  # gy, dy = 0
+    rows[4] = torch.tensor(rng.uniform(0.6, 5.4, n), dtype=torch.float32)  # gz, dz = 0
+    want = {"flat": 0, "two_bright_planes": _TIE_PLANES[0], "zero": -1}[case]
+    return rows, torch.tensor(dens, dtype=torch.float32), want
+
+
+@pytest.mark.parametrize("case", ["flat", "two_bright_planes", "zero"])
+def test_twin_joseph_max_tie_keeps_the_first_maximum(jtwin, btwin, case):
+    """Exact ties in joseph_fwd_max (``_joseph_tie_scene``): the first of
+    equal maxima wins, though at 8 lanes the second bright plane lies on a
+    lower lane than the first, and a ray whose samples are all 0 keeps the
+    argmax -1 and the value 0. Every variant of the lanes keeps it, as the
+    strided serial march and the plain version do."""
+    rows, vol, want = _joseph_tie_scene(case)
+    ref_val, ref_arg = _JosephTwin(jtwin, rows, vol, 0, 1.0, 40).fwd_max()
+    plain_val, plain_arg = J.joseph_fwd_max_plain(rows, vol, 0, 1.0, 40)
+    assert (ref_arg == want).all() and torch.equal(plain_arg, ref_arg)
+    torch.testing.assert_close(ref_val, plain_val, rtol=0, atol=0)
+    assert bool((ref_val == 0).all()) == (case == "zero")
+    for variant, gu in enumerate(_FWD_VARIANTS):
+        val, arg = _bricked_jmax(btwin, rows, vol, 0, 1.0, 40, variant)
+        assert (arg == want).all() and torch.equal(_bits(val), _bits(ref_val)), gu
 
 
 @pytest.mark.parametrize("n_channels", [1, 3, 7])
@@ -1632,6 +1761,56 @@ def test_cuda_siddon_fwd_max_bricked_matches_plain(axis):
                                    msg=label)
 
 
+def _nan_ray(rows):
+    """``rows`` with a ray of NaN rows appended: a ray count no multiple of
+    32 / G for any G > 1 above, and a ray that finds no maximum. The plain
+    versions take only finite rays."""
+    return torch.cat([rows, torch.full((9, 1), float("nan"), device=rows.device)], 1)
+
+
+@pytest.mark.gpu
+@_STRIDES
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_joseph_fwd_max_lanes_match_plain(axis, h):
+    """On a card: joseph_fwd_max (kMaxLanes lanes a ray on the bricked copy)
+    against its plain version on the finite rays, argmax exact and value
+    atol 1e-4 * max, at 64x64 with mixed rays and at 200x200, each with a
+    NaN ray (value 0, argmax -1; the plain version cannot index with NaN);
+    a second launch gives the same bits, and both read one copy."""
+    for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+        rows = _nan_ray(_gpu_scene_rows(axis, vol, geo, extra, quadrature="joseph", h=h))
+        n = int(-(-vol.shape[axis] // h))
+        clear_cache()
+        copies = brick_density.launches
+        val, arg = J.joseph_fwd_max(rows, vol, axis, h, n)
+        val2, arg2 = J.joseph_fwd_max(rows, vol, axis, h, n)
+        ref_val, ref_arg = J.joseph_fwd_max_plain(rows[:, :-1], vol, axis, h, n)
+        torch.cuda.synchronize()
+        assert brick_density.launches == copies + 1, label
+        assert (ref_arg >= 0).sum() > rows.shape[1] // 2, label
+        assert arg[-1] == -1 and val[-1] == 0, label
+        assert torch.equal(arg[:-1], ref_arg) and torch.equal(arg2, arg), label
+        assert torch.equal(_bits(val2), _bits(val)), label
+        torch.testing.assert_close(val[:-1], ref_val, rtol=0,
+                                   atol=1e-4 * ref_val.abs().max().item(), msg=label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flat", "two_bright_planes", "zero"])
+def test_cuda_joseph_fwd_max_tie_keeps_the_first_maximum(case):
+    """On a card: joseph_fwd_max on ``_joseph_tie_scene`` (23 rays) keeps
+    the first of equal maxima, and -1 where no sample beats 0, as its plain
+    version does, the values exactly the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rows, vol, want = (t.cuda() if torch.is_tensor(t) else t for t in _joseph_tie_scene(case))
+    val, arg = J.joseph_fwd_max(rows, vol, 0, 1.0, 40)
+    ref_val, ref_arg = J.joseph_fwd_max_plain(rows, vol, 0, 1.0, 40)
+    torch.cuda.synchronize()
+    assert (arg == want).all() and torch.equal(arg, ref_arg)
+    torch.testing.assert_close(val, ref_val, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.5, 0.26])
 @pytest.mark.parametrize("axis", [0, 2])
@@ -1754,7 +1933,8 @@ _FUSED_TWIN_SRC = r"""
 template <int N>
 using IC = std::integral_constant<int, N>;
 // f(G, U) of the variant: G lanes a ray and U slabs (steps) in flight, 0
-// taking the kernel's own (kFusedLanes, kFusedSlabs or kFusedSteps).
+// taking the kernel's own (kFusedLanes, kFusedSlabs or kFusedSteps;
+// kBwdLanes, kBwdSlabs).
 template <class F>
 static void with_variant(int variant, F f) {
   switch (variant) {
@@ -1764,7 +1944,8 @@ static void with_variant(int variant, F f) {
     case 3: f(IC<32>(), IC<0>()); break;
     case 4: f(IC<0>(), IC<1>()); break;
     case 5: f(IC<0>(), IC<2>()); break;
-    default: f(IC<0>(), IC<4>()); break;
+    case 6: f(IC<0>(), IC<4>()); break;
+    default: f(IC<0>(), IC<0>()); break;
   }
 }
 // One ray's fused march as fwdgrad_lanes runs it, lane after lane: passes
@@ -1823,6 +2004,34 @@ extern "C" void ft_siddon(int variant, const float* rows, int64_t R, BRICK_ARGS,
           siddon::fused_terms<U>(ray, v, s0, G, hi, tm);
         }, o, nullptr);
         for (int k = 0; k < N; ++k) out[k * R + r] = o[k];
+      }
+    });
+    return 0;
+  });
+}
+// siddon_bwd_rays' sum mode on the bricked copy, out (9, R): its lanes (G
+// and U of the variant, 0 taking kBwdLanes, kBwdSlabs), the fused march's 9
+// gradient rows in passes (fused_terms, lanes_march), each times g[r] once
+// summed.
+extern "C" void ft_siddon_bwd_rays(int variant, const float* rows, int64_t R, BRICK_ARGS,
+                                   const float* g, float* out) {
+  brick::with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    with_variant(variant, [&](auto lanes_g, auto u) {
+      constexpr int G = decltype(lanes_g)::value ? decltype(lanes_g)::value : siddon::kBwdLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kBwdSlabs;
+      constexpr int N = siddon::kRows;
+      for (int64_t r = 0; r < R; ++r) {
+        siddon::Ray ray = siddon::load_ray(rows, R, r);
+        int lo, hi;
+        siddon::slab_range(ray, X, &lo, &hi);
+        float o[N];
+        lanes_march<G, U, N>(lo, hi, false, [&](int s0, float (*tm)[N]) {
+          float t[U][siddon::kFusedRows];
+          siddon::fused_terms<U>(ray, v, s0, G, hi, t);
+          for (int k = 0; k < U; ++k) memcpy(tm[k], t[k], sizeof(tm[k]));
+        }, o, nullptr);
+        for (int k = 0; k < N; ++k) out[k * R + r] = o[k] * g[r];
       }
     });
     return 0;
@@ -1896,9 +2105,10 @@ extern "C" int ft_joseph(int variant, int mip, const float* rows, int64_t R, BRI
 
 # (G, U) of each variant of the twin (None: the kernel's own), in its order.
 _FUSED_VARIANTS = ((1, None), (2, None), (8, None), (32, None),
-                   (None, 1), (None, 2), (None, 4))
+                   (None, 1), (None, 2), (None, 4), (None, None))
 _LANES = (0, 1, 2, 3)  # G = 1, 2, 8, 32, each with the kernel's U
 _UNROLLED = (4, 5, 6)  # the kernel's G with U = 1, 2, 4
+_OWN = 7  # the kernel's own G and U
 
 
 @pytest.fixture(scope="module")
@@ -1911,7 +2121,8 @@ def ftwin(tmp_path_factory):
     so.ft_joseph.argtypes = [i32, i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr, ptr]
     so.ft_joseph_ch.argtypes = [i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32, i32, i32,
                                                           ptr, ptr]
-    so.ft_siddon.restype = so.ft_joseph_ch.restype = None
+    so.ft_siddon_bwd_rays.argtypes = [i32, ptr, i64] + bvol + [ptr, ptr]
+    so.ft_siddon.restype = so.ft_joseph_ch.restype = so.ft_siddon_bwd_rays.restype = None
     so.ft_joseph.restype = i32
     return so
 
@@ -2080,6 +2291,124 @@ def test_twin_fused_lanes_deterministic(ftwin):
             c, c_arg = _fused_joseph(ftwin, variant, mip, rows_j, vol, 2, 1.37, n)
             assert torch.equal(_bits(b), _bits(c))
             assert (b_arg is None) or torch.equal(b_arg, c_arg)
+
+
+def _bwd_rays_lanes(ftwin, variant, rows, vol, axis, g):
+    """(9, R) of the twin's siddon_bwd_rays sum-mode lanes (the variant) on
+    ``vol``'s bricked copy."""
+    rows = rows.contiguous()
+    bv = brick_density(vol)
+    out = torch.full((9, rows.shape[1]), float("nan"))
+    ftwin.ft_siddon_bwd_rays(variant, rows.data_ptr(), rows.shape[1], bv.data.data_ptr(),
+                             *bv.args(axis), g.data_ptr(), out.data_ptr())
+    return out
+
+
+def _bwd_rays_case(axis, seed):
+    """(density, its Fortran-ordered copy, rows, g) of the two-pass
+    backward's cases: ``_fwd_rays`` on ``_BRICK_DIMS`` and a random
+    cotangent that is 0 on every fifth ray."""
+    rng = np.random.default_rng(seed)
+    vol, vol_f = _densities(rng, _BRICK_DIMS)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis)
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32)
+    g[::5] = 0.0
+    return vol, vol_f, rows, g
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_bwd_rays_lanes_equal_serial(twin, ftwin, axis):
+    """siddon_bwd_rays' sum-mode lanes on the bricked copy (fused_terms and
+    take_in_order in passes of G * U slabs, then one product by g) at G = 1,
+    2, 8, 32, at the kernel's G with U = 1, 2, 4 and at the kernel's own:
+    the strided serial trace_bwd_rays bit for bit, every ray (off-grid,
+    long, short and missing rays, partial entry slabs, the NaN ray, extents
+    not whole bricks), contiguous and permuted density, a cotangent with
+    zeros. (The serial rows against the plain version, and the MIP mode,
+    the strided serial kernel's: test_twin_backward_matches_plain_random_rays.)"""
+    vol, vol_f, rows, g = _bwd_rays_case(axis, 250 + axis)
+    serial = _bits(_run_twin_bwd_rays(twin, rows, vol, axis, g, None))
+    assert (serial != 0).any(0).sum() > rows.shape[1] // 2
+    for variant in _LANES + _UNROLLED + (_OWN,):
+        for v in (vol, vol_f):
+            got = _bwd_rays_lanes(ftwin, variant, rows, v, axis, g)
+            assert torch.equal(_bits(got), serial), (_FUSED_VARIANTS[variant], v.is_contiguous())
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_bwd_rays_equal_fused_rows_times_g(twin, ftwin, axis):
+    """The two-pass pose backward's sum-mode rows, from its lanes on the
+    bricked copy at the kernel's G and U and from the strided serial
+    trace_bwd_rays, are siddon_fwdgrad's rows 0-8 (its lanes at the kernel's
+    G and U, and the strided serial trace_fwdgrad) times g bit for bit: the
+    fused and the two-pass pose gradients agree to the last bit."""
+    vol, _, rows, g = _bwd_rays_case(axis, 260 + axis)
+    want = _bits(_run_twin(twin, True, rows, vol, axis)[:9] * g)
+    assert torch.equal(_bits(_fused_siddon(ftwin, _OWN, rows, vol, axis)[:9] * g), want)
+    assert torch.equal(_bits(_run_twin_bwd_rays(twin, rows, vol, axis, g, None)), want)
+    assert torch.equal(_bits(_bwd_rays_lanes(ftwin, _OWN, rows, vol, axis, g)), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_siddon_bwd_rays_lanes_match_plain(axis):
+    """On a card: siddon_bwd_rays in sum mode (kBwdLanes lanes a ray on the
+    bricked copy) is siddon_fwdgrad's rows 0-8 times g bit for bit, and in
+    either mode (MIP: one thread per ray on the density itself) its plain
+    version to 1e-3 * max|row| on the finite rays; at 64x64 with mixed
+    rays and at 200x200, each with a NaN ray, a cotangent that is 0 on
+    every fifth ray and MIP argmaxes of -1; the forwards make one copy and
+    the sum mode reads it; a second launch gives the same bits."""
+    rng = np.random.default_rng(40 + axis)
+    for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+        rows = _nan_ray(_gpu_scene_rows(axis, vol, geo, extra))
+        g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device="cuda")
+        g[::5] = 0.0
+        clear_cache()
+        copies = brick_density.launches
+        fused = K.siddon_fwdgrad(rows, vol, axis)
+        arg = K.siddon_fwd_max(rows, vol, axis)[1]
+        got = K.siddon_bwd_rays(rows, vol, axis, g)
+        again = K.siddon_bwd_rays(rows, vol, axis, g)
+        got_mip = K.siddon_bwd_rays(rows, vol, axis, g, arg)
+        torch.cuda.synchronize()
+        assert brick_density.launches == copies + 1, label
+        assert (arg == -1).any() and (arg >= 0).sum() > rows.shape[1] // 2, label
+        assert torch.equal(_bits(got), _bits(fused[:9] * g)), label
+        assert torch.equal(_bits(again), _bits(got)), label
+        for out, a in ((got, None), (got_mip, arg[:-1])):
+            ref = K.siddon_bwd_rays_plain(rows[:, :-1], vol, axis, g[:-1], a)
+            for k in range(9):
+                torch.testing.assert_close(out[k, :-1], ref[k], rtol=0,
+                                           atol=1e-3 * ref[k].abs().max().item() + 1e-30,
+                                           msg=f"{label} {'mip' if a is not None else 'sum'}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [0, 2])
+def test_cuda_siddon_two_pass_pose_gradient_equals_fused(axis):
+    """On a card: through siddon_slab_raycast, the gradient of sum(img**2)
+    with respect to the sources and targets with fused=False (siddon_fwd,
+    then siddon_bwd_rays' sum-mode lanes) equals the fused one
+    (siddon_fwdgrad's rows times g) to the last bit, and so do the images;
+    all four launches read one bricked copy."""
+    for label, vol, geo, _ in _gpu_fwd_scenes(axis):
+        res = []
+        clear_cache()
+        copies = brick_density.launches
+        K.reset_launch_counts()
+        for fused in (True, False):
+            src, tgt = (t.clone().requires_grad_(True) for t in geo[:2])
+            img = K.siddon_slab_raycast(vol, src, tgt, geo[2], axis=axis, fused=fused)
+            (img ** 2).sum().backward()
+            res.append([img.detach(), src.grad, tgt.grad])
+        torch.cuda.synchronize()
+        assert brick_density.launches == copies + 1, label
+        assert (K.siddon_fwdgrad.launches, K.siddon_fwd.launches,
+                K.siddon_bwd_rays.launches) == (1, 1, 1), label
+        assert res[0][2].abs().max() > 0, label
+        for a, b in zip(*res):
+            assert torch.equal(_bits(a), _bits(b)), label
 
 
 def _channel_lanes(ftwin, variant, rows, vol, lab, axis, h, n, g):
