@@ -72,8 +72,12 @@ Phases (any failure raises and the exit code is non-zero):
      bricked copy of the CT;
   7c. joseph MIP at the main pose: one backward to density and pose (fused:
      joseph_fwdgrad max + joseph_bwd_vol), one two-pass pose backward
-     (joseph_fwd_max + joseph_bwd_rays), the two pose gradients equal; two
-     bricked copies (of the new density and of the CT);
+     (joseph_fwd_max + joseph_bwd_rays), the two pose gradients equal (the
+     values; the bits may differ in the sign of a zero); two bricked copies
+     (of the new density and of the CT); then a sum-mode two-pass pose
+     backward (fused_pose_bwd=False: joseph_fwd + joseph_bwd_rays' lanes,
+     counted alone, reading the CT's cached copy: no copy made), equal to
+     the fused one to the last bit;
   7d. trilinear reconstruction through the port's CLI
      (diffdrr_tpu_torch.experiments.reconstruction): a 512x512x128 CT, 8
      views of 200x200, 20 steps with checkpoints every 10, exactly
@@ -88,7 +92,9 @@ Phases (any failure raises and the exit code is non-zero):
      F.grid_sample over the same sample points as the library yardstick
      (of joseph_fwd and joseph_fwd_max); joseph_fwd_max also back to back,
      with its bricked copy made anew, and at a lateral pose (axis 0, the
-     trilinear stride 1.024) against its plain version;
+     trilinear stride 1.024) against its plain version; joseph_bwd_rays in
+     sum mode one call, back to back and at the lateral pose, against its
+     plain version and equal to joseph_fwdgrad's rows times g;
      joseph_bwd_vol also alone; joseph_fwd at 200x200 and at the CLI's
      320,000 rays with its bricked copy cached and made anew, the copy
      alone, and F.grid_sample over those 320,000 rays' sample points;
@@ -122,10 +128,11 @@ made (as a registration or a render reads it) and ``ms_with_copy`` with a
 fresh copy in each call, which is what a reconstruction step pays; the two
 fused pose kernels' entries likewise at 200x200, with ``design`` naming
 their layout (the bricked copy, G lanes a ray), as the channel ray
-backward's, the channel and MIP forwards' and siddon_bwd_rays'; the channel
-entries, the MIP forwards' and siddon_bwd_rays' also give
-``ms_back_to_back``, the forwards ``ms_with_copy``, joseph_fwd_max its
-lateral pose's ``ms_lateral`` and ``ms_lateral_back_to_back``.
+backward's, the channel and MIP forwards' and the two two-pass ray
+backwards'; the channel entries, the MIP forwards' and the two-pass ray
+backwards' also give ``ms_back_to_back``, the forwards ``ms_with_copy``,
+joseph_fwd_max and joseph_bwd_rays their lateral pose's ``ms_lateral`` and
+``ms_lateral_back_to_back``, the two-pass ray backwards ``ms_mip``.
 Without a CUDA device, or without the package beside this file, the
 script exits non-zero and prints no result.
 """
@@ -689,7 +696,8 @@ def trilinear_registration(T, subject, rot0, trans, kw, profile):
 
 
 def joseph_mip(T, subject, rot0, trans, kw, rows_m):
-    """Phase 7c: the joseph MIP at the main pose, fused and two-pass."""
+    """Phase 7c: the joseph MIP at the main pose, fused and two-pass, then
+    the sum-mode two-pass pose backward against the fused one."""
     import torch
 
     from diffdrr_tpu_torch.ops.kernels import brick
@@ -731,13 +739,40 @@ def joseph_mip(T, subject, rot0, trans, kw, rows_m):
                         J.joseph_bwd_rays_plain(rows_m, drr.density, 2, 1.0, X, g, arg))
     err_bv = check_close("joseph MIP density gradient", dens_p.grad,
                          J.joseph_bwd_vol_plain(rows_m, g, drr.density.shape, 2, 1.0, X, arg), 1e-4)
-    err_pose = check_close("joseph MIP pose gradient, two-pass vs fused", pg_two, pg_fused, 1e-5)
+    # Equal values; the bits may differ in the sign of a zero (the serial MIP
+    # backward adds the argmax step's terms to +0, the fused rows keep a -0).
+    err_pose = check_equal("joseph MIP pose gradient, two-pass vs fused", pg_two, pg_fused)
     log(f"[joseph mip] render vs plain {err_max:.3e} ({int((arg >= 0).sum())} of {arg.numel()} "
         f"rays with a maximum); bwd_rays vs plain {err_br:.3e}; density gradient vs plain "
         f"{err_bv:.3e}; two-pass vs fused pose gradient {err_pose:.3e} (max "
         f"{pg_fused.abs().max().item():.3e})")
-    return dict(drr=drr, launches=launches, arg=arg, err_max=err_max,
-                err_br=max(err_br, err_pose), err_bv_mip=err_bv)
+
+    # The sum-mode two-pass pose backward (joseph_fwd, then joseph_bwd_rays'
+    # lanes on the CT's copy, which joseph_fwd_max made above) against the
+    # fused one (joseph_fwdgrad), counted alone.
+    def pose_grad(fused):
+        r, t = rot0.clone().requires_grad_(True), trans.clone().requires_grad_(True)
+        torch.sum(drr(r, t, reducefn="sum", fused_pose_bwd=fused, **kw) ** 2).backward()
+        return torch.cat([r.grad, t.grad], -1)
+
+    pg_sum_fused = pose_grad(True)
+    J.reset_launch_counts()
+    brick.brick_density.launches = 0
+    pg_sum_two = pose_grad(False)
+    torch.cuda.synchronize()
+    sum_launches = dict(joseph_launches(), brick_copy=brick.brick_density.launches)
+    log(f"[joseph two-pass sum] launches {sum_launches}")
+    expect_launches("joseph two-pass sum", sum_launches,
+                    {"joseph_fwd": 1, "joseph_bwd_rays": 1, "joseph_fwdgrad": 0,
+                     "joseph_fwd_max": 0, "joseph_bwd_vol": 0, "brick_copy": 0})
+    err_pose_sum = check_equal("joseph pose gradient (sum), two-pass vs fused", pg_sum_two,
+                               pg_sum_fused)
+    if not (torch.isfinite(pg_sum_fused).all() and pg_sum_fused.abs().max() > 0):
+        raise AssertionError("joseph sum-mode pose gradient not finite or zero")
+    log(f"[joseph two-pass sum] two-pass vs fused pose gradient {err_pose_sum:.3e} (max "
+        f"{pg_sum_fused.abs().max().item():.3e})")
+    return dict(drr=drr, launches=launches, sum_launches=sum_launches, arg=arg,
+                err_max=err_max, err_br=max(err_br, err_pose, err_pose_sum), err_bv_mip=err_bv)
 
 
 def trilinear_reconstruction(profile):
@@ -928,27 +963,35 @@ def grid_sample_ms(rows, density, axis, h, n, time_ms=None):
     return time_ms(call) if time_ms is not None else median_ms(call, 20)
 
 
-def joseph_max_timings(drr_t, dens, rows_m, X, kw):
-    """Phase 7g: joseph_fwd_max at the main pose's 200^2 rays (axis 2, h = 1)
-    back to back and with its bricked copy made anew in each call, and at
-    the lateral pose (axis 0, the trilinear stride over 512 planes) one call
-    and back to back, there against its plain version (argmax exact, value
-    1e-4 * max). The times by name, and the lateral error."""
+def lateral_jrays(drr_t, dens):
+    """(rows, h, n_steps) of the lateral pose's 200^2 rays: axis 0, the
+    trilinear stride (n_points 500) over the 512 planes."""
     import torch
 
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
+
+    h, n = raymarch_steps(dens.shape[0], 500)
+    rows_l = jrays_of(drr_t, torch.tensor(LATERAL_ROT, device=dens.device),
+                      torch.tensor(BENCH_TRANS, device=dens.device), 0, h)
+    return rows_l, h, n
+
+
+def joseph_max_timings(dens, rows_m, X, lateral_rays):
+    """Phase 7g: joseph_fwd_max at the main pose's 200^2 rays (axis 2, h = 1)
+    back to back and with its bricked copy made anew in each call, and at
+    the lateral pose (``lateral_jrays``) one call and back to back, there
+    against its plain version (argmax exact, value 1e-4 * max). The times
+    by name, and the lateral error."""
     from diffdrr_tpu_torch.experiments.fwdgrad_timing import burst_ms
     from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
-    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
 
     def main():
         return J.joseph_fwd_max(rows_m, dens, 2, 1.0, X)
 
     out = {"ms_back_to_back": burst_ms(main),
            "ms_with_copy": median_ms(main, 20, before=brick.clear_cache)}
-    h, n = raymarch_steps(dens.shape[0], 500)
-    rows_l = jrays_of(drr_t, torch.tensor(LATERAL_ROT, device=dens.device),
-                      torch.tensor(BENCH_TRANS, device=dens.device), 0, h)
+    rows_l, h, n = lateral_rays
 
     def lateral():
         return J.joseph_fwd_max(rows_l, dens, 0, h, n)
@@ -962,6 +1005,38 @@ def joseph_max_timings(drr_t, dens, rows_m, X, kw):
         f"h {h:g}, {n} steps) {out['ms_lateral']:.4f} ms one call, "
         f"{out['ms_lateral_back_to_back']:.4f} back to back, vs plain {out['err_lateral']:.3e}")
     return out
+
+
+def joseph_bwd_rays_timings(dens, rows_m, X, g, lateral_rays):
+    """Phase 7g: joseph_bwd_rays in sum mode at the main pose's 200^2 rays
+    (axis 2, h = 1) back to back, and at the lateral pose
+    (``lateral_jrays``) one call and back to back; at both poses against
+    its plain version (rows 1e-3 * max|row|) and equal to joseph_fwdgrad's
+    rows 0-6 times g to the last bit. The times by name, and the worst
+    error."""
+    from diffdrr_tpu_torch.experiments.fwdgrad_timing import burst_ms
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+
+    rows_l, h, n = lateral_rays
+    out, errs = {}, []
+    for label, rows, axis, hh, nn in (("main", rows_m, 2, 1.0, X), ("lateral", rows_l, 0, h, n)):
+        def call():
+            return J.joseph_bwd_rays(rows, dens, axis, hh, nn, g)
+
+        name = f"joseph_bwd_rays[sum] {label} (axis {axis}, h {hh:g}) @200^2"
+        errs.append(check_rows(name, call(), J.joseph_bwd_rays_plain(rows, dens, axis, hh, nn, g)))
+        errs.append(check_equal(f"{name} vs joseph_fwdgrad rows * g", call(),
+                                J.joseph_fwdgrad(rows, dens, axis, hh, nn)[0][:7] * g))
+        if label == "lateral":
+            out["ms_lateral"] = median_ms(call, 20)
+            out["ms_lateral_back_to_back"] = burst_ms(call)
+        else:
+            out["ms_back_to_back"] = burst_ms(call)
+    log(f"[time] joseph_bwd_rays sum at 200^2: {out['ms_back_to_back']:.4f} ms back to back; "
+        f"lateral pose (axis 0, h {h:g}, {n} steps) {out['ms_lateral']:.4f} ms one call, "
+        f"{out['ms_lateral_back_to_back']:.4f} back to back; vs plain and vs joseph_fwdgrad "
+        f"rows * g {max(errs):.3e}")
+    return out, max(errs)
 
 
 CH_KERNELS = ("joseph_fwd_ch", "joseph_bwd_rays_ch", "joseph_bwd_vol_ch")
@@ -1664,7 +1739,9 @@ def main(argv) -> int:
         log(f"[time] joseph_{name} {jtimes[name][0]:.4f} ms (plain {jtimes[name][1]:.2f}, bound "
             f"{b:.4f} by {by})")
     t_lib = grid_sample_ms(rows_m, dens_m, 2, 1.0, X)
-    jmax_extra = joseph_max_timings(tri["drr"], dens_m, rows_m, X, kw)
+    lat = lateral_jrays(tri["drr"], dens_m)
+    jmax_extra = joseph_max_timings(dens_m, rows_m, X, lat)
+    jbr_extra, err_jbr = joseph_bwd_rays_timings(dens_m, rows_m, X, g_j, lat)
     # The recon-CLI cell's 320,000 rays: the scatter alone and its zero fill
     # alone, and the forward it runs 21 times.
     rows_v, g_v, h_v, n_v = rec["rows_v"], rec["g_v"], rec["h"], rec["n"]
@@ -1725,7 +1802,8 @@ def main(argv) -> int:
          "bound_by": by_fv, "library_ms": None},
         {"name": "brick_copy", "route": "cuda", "source": "diffdrr_tpu_torch/csrc/brick.cu",
          "replaces": "none: layout glue that the forwards (the MIP and channel ones "
-                     "too), the fused kernels, siddon_bwd_rays and joseph_bwd_rays_ch read",
+                     "too), the fused kernels, the two two-pass ray backwards' sum modes "
+                     "and joseph_bwd_rays_ch read",
          "launches": recon_launches["brick_copy"], "max_abs_err": 0.0,
          "ms": t_copy, "plain_ms": t_copy_plain, "bound_ms": b_copy, "bound_by": by_copy,
          "library_ms": None},
@@ -1782,8 +1860,12 @@ def main(argv) -> int:
         dict(jrec("joseph_fwdgrad", "fwdgrad", 732, tri["launches"]["joseph_fwdgrad"],
                   max(tri["err_fg"], jsmall["fwdgrad_sum"], jsmall["fwdgrad_max"])),
              design=fused_design("joseph.cuh"), ms_with_copy=t_jfg_copy),
-        jrec("joseph_bwd_rays", "bwd_rays", 600, jm["launches"]["joseph_bwd_rays"],
-             max(jm["err_br"], jsmall["bwd_rays_sum"], jsmall["bwd_rays_mip"])),
+        dict(jrec("joseph_bwd_rays", "bwd_rays", 600,
+                  jm["sum_launches"]["joseph_bwd_rays"] + jm["launches"]["joseph_bwd_rays"],
+                  max(jm["err_br"], err_jbr, jsmall["bwd_rays_sum"], jsmall["bwd_rays_mip"])),
+             design=fused_design("joseph.cuh", "kBwdLanes")
+             + " (sum); one thread per ray, strided (MIP)", ms_mip=jtimes["bwd_rays_mip"][0],
+             **jbr_extra),
         jrec("joseph_bwd_vol", "bwd_vol", 903, rec["launches"]["joseph_bwd_vol"],
              max(rec["err_bv"], jm["err_bv_mip"], err_jbv0, jsmall["bwd_vol_sum"],
                  jsmall["bwd_vol_mip"])),

@@ -21,15 +21,17 @@
 //                      the cotangent of its channel.
 // Each takes integer and fractional h.
 //
-// Design: one thread per ray (the MIP forward, the fused march, the channel
-// forward and ray backward and the scatters aside, below), walking only its
-// own in-slab steps (step_range in joseph.cuh) and reading the 4 in-plane
-// neighbours of each sample (8 at fractional h) straight from the float32
-// density through its strides (the forwards, the fused march and the
-// channel ray backward: its bricked copy). The TPU needed tile
-// windows, a starts table, a lane roll and tent-weight matmuls on the MXU
-// to avoid gathers; on the H100 a gather is a load, so none of that is
-// carried over, and with no window there is no footprint to overflow.
+// Design: one thread per ray (joseph_fwd and the MIP pose backward; the
+// MIP forward, the fused march, the two-pass pose backward's sum mode, the
+// channel forward and ray backward run G lanes a ray and the scatters a
+// warp, below), walking only its own in-slab steps (step_range in
+// joseph.cuh) and reading the 4 in-plane neighbours of each sample (8 at
+// fractional h) straight from the float32 density through its strides (the
+// MIP pose backward) or from its bricked copy (the others that read it).
+// The TPU needed tile windows, a starts table, a lane roll and tent-weight
+// matmuls on the MXU to avoid gathers; on the H100 a gather is a load, so
+// none of that is carried over, and with no window there is no footprint
+// to overflow.
 //
 // What bounds them: per ray and in-slab step, 4 (or 8) 4-byte gathers at
 // data-dependent addresses and about 35 float operations for a value, about
@@ -90,6 +92,29 @@
 // (kFusedSteps) from fwdgrad_timing.py's probes, as for Siddon; it now
 // sits between its march without loads (0.067 ms at 200x200) and its
 // loads alone (0.089), 0.081 ms (PERF.md).
+//
+// joseph_bwd_rays, the two-pass pose backward (fused_pose_bwd=False, and
+// every MIP pose backward), was one thread per ray on the strided density.
+// In sum mode it walked the fused march's ~133-step chain with 7
+// accumulators, 4 dependent loads a step (8 at fractional h): 0.19 ms one
+// call at 200x200 against a 0.025 ms byte bound (PERF.md), bound by latency
+// and 40,000 threads as joseph_fwdgrad once was. Its sum mode now is
+// joseph_fwdgrad's lanes (fwdgrad_lanes with N = 7 rows and g): G =
+// kBwdLanes lanes a ray on the bricked copy, which the forward of the same
+// density has made, each pass's summands taken in step order from +0 (a
+// step outside the slab adds an exact +0, where the serial march skips
+// it), then one product by g, so its rows are trace_bwd_rays' and
+// joseph_fwdgrad's rows times g bit for bit (the fused and the two-pass
+// pose gradients agree to the last bit). G = 8 and U = 1 (kBwdSteps) from
+// bwd_rays_timing.py's probes: 0.074 ms at the main pose and 0.332 at the
+// lateral one (512 steps, h = 1.024; 16 lanes 3% faster there but 8%
+// slower at the main pose, U = 2 the reverse, 5% and 7%); the same lanes
+// on the strided density took 0.101 and 0.449. What bounds it now: its
+// march, the march without loads taking 0.062 of the 0.074 ms (PERF.md).
+// MIP mode has one step of work a ray, so it stays one thread per ray on
+// the strided density (joseph_bwd_rays_mip): on the copy its kernel was
+// no faster (0.016 ms either way), and back to back through the wrapper,
+// the copy's cache lookup included, it won at the lateral pose only.
 //
 // The scatters (joseph_bwd_vol, joseph_bwd_vol_ch) are laid out otherwise:
 // one warp per ray (warp_scatter). Each
@@ -197,16 +222,29 @@ joseph_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
       rows, n_rays, vol, m, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
-// arg == nullptr: sum mode; else MIP, gated to the step arg[r].
+// The two-pass pose backward in sum mode: G = kBwdLanes lanes a ray on the
+// bricked copy, in passes of G steps whose summands the ray's rows take in
+// step order, then one product by g (fwdgrad_lanes; the note at the top of
+// this file says why); A: the march axis.
+template <int A>
 __global__ void __launch_bounds__(kThreads)
-joseph_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
-                       joseph::March m, const float* __restrict__ g,
-                       const int* __restrict__ arg, float* __restrict__ out) {
+joseph_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+                       joseph::March m, const float* __restrict__ g, float* __restrict__ out) {
+  joseph::fwdgrad_lanes<joseph::kBwdLanes, joseph::kBwdSteps, joseph::kRows>(
+      rows, n_rays, vol, m, out, nullptr, (int64_t)blockIdx.x * kThreads + threadIdx.x, g);
+}
+
+// MIP: one thread per ray on the strided density, gated to the step arg[r]
+// (one step of work: lanes would idle; the note at the top of this file
+// says why not the copy).
+__global__ void __launch_bounds__(kThreads)
+joseph_bwd_rays_mip_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
+                           joseph::March m, const float* __restrict__ g,
+                           const int* __restrict__ arg, float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
   float acc[joseph::kRows];
-  joseph::trace_bwd_rays(joseph::load_ray(rows, n_rays, r), vol, m, g[r], arg ? arg[r] : -1,
-                         arg != nullptr, acc);
+  joseph::trace_bwd_rays(joseph::load_ray(rows, n_rays, r), vol, m, g[r], arg[r], true, acc);
 #pragma unroll
   for (int i = 0; i < joseph::kRows; ++i) out[i * n_rays + r] = acc[i];
 }
@@ -381,15 +419,17 @@ unsigned int n_blocks(int64_t n_threads) {
 // a fractional h (h is the float32 rounding of the caller's stride); out:
 // (n_rays,) for joseph_fwd, (n_rays,) values and (n_rays,) int32 steps for
 // joseph_fwd_max, (8, n_rays) for joseph_fwdgrad, (7, n_rays) for
-// joseph_bwd_rays; g: (n_rays,) float32; arg: (n_rays,) int32 argmax steps
-// for MIP, or NULL for sum mode (joseph_fwdgrad writes it); grad: a
-// zero-filled float32 volume with the density's extents and its own strides
-// (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
-// not synchronise, and returns cudaGetLastError().
-// joseph_fwd, joseph_fwd_max and joseph_fwdgrad read the density's bricked
-// copy (brick.cuh) instead: vol is the copy, axis the march axis, then the
-// brick strides and the density's extents of the march-permuted (s, y, z)
-// axes. They return -1 for an axis outside 0..2.
+// joseph_bwd_rays and joseph_bwd_rays_mip; g: (n_rays,) float32; arg:
+// (n_rays,) int32 argmax steps (joseph_bwd_rays_mip; joseph_bwd_vol: MIP,
+// or NULL for sum mode; joseph_fwdgrad writes it in max mode, NULL in sum
+// mode); grad: a zero-filled float32 volume with the density's extents and
+// its own strides (gs, gy, gz) in the same permuted order. Each launches on
+// `stream`, does not synchronise, and returns cudaGetLastError().
+// joseph_fwd, joseph_fwd_max, joseph_fwdgrad and joseph_bwd_rays (sum
+// mode) read the density's bricked copy (brick.cuh) instead: vol is the
+// copy, axis the march axis, then the brick strides and the density's
+// extents of the march-permuted (s, y, z) axes. They return -1 for an axis
+// outside 0..2.
 extern "C" int joseph_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                           int n_steps, int blend, float* out, void* stream) {
@@ -434,12 +474,28 @@ extern "C" int joseph_fwdgrad(const float* rows, int64_t n_rays, const float* vo
   });
 }
 
-extern "C" int joseph_bwd_rays(const float* rows, int64_t n_rays, const float* vol, int64_t ss,
-                               int64_t sy, int64_t sz, int X, int Y, int Z, float h,
-                               int n_steps, int blend, const float* g, const int* arg,
-                               float* out, void* stream) {
+extern "C" int joseph_bwd_rays(const float* rows, int64_t n_rays, const float* vol, int axis,
+                               int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
+                               int n_steps, int blend, const float* g, float* out,
+                               void* stream) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      joseph_bwd_rays_kernel<A>
+          <<<n_blocks(n_rays * joseph::kBwdLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
+              make_march(h, n_steps, blend), g, out);
+    }
+    return (int)cudaGetLastError();
+  });
+}
+
+extern "C" int joseph_bwd_rays_mip(const float* rows, int64_t n_rays, const float* vol,
+                                   int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
+                                   float h, int n_steps, int blend, const float* g,
+                                   const int* arg, float* out, void* stream) {
   if (n_rays > 0) {
-    joseph_bwd_rays_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+    joseph_bwd_rays_mip_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
         rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), make_march(h, n_steps, blend), g,
         arg, out);
   }

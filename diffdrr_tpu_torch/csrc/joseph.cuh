@@ -445,24 +445,33 @@ JOSEPH_HD void fused_terms(const Ray& r, const Vol& v, const March& m, int p0, i
   }
 }
 
+// joseph_bwd_rays' lanes a ray (G) and steps a lane keeps in flight (U) in
+// sum mode, from bwd_rays_timing.py's probes (joseph.cu says why these).
+constexpr int kBwdLanes = 8;
+constexpr int kBwdSteps = 1;
+
 #if defined(__CUDACC__)
 // Thread t's part in a fused launch of G lanes a ray and U steps in flight
-// a lane (joseph_fwdgrad, and the probes), from the strided density or its
-// bricked copy: lane t % G of ray t / G, in passes of G * U steps
-// (lanes.cuh). Sum mode (arg == nullptr): lane i % G writes row i of out
-// (8, n_rays). MIP: each lane keeps the first maximum of its own steps, the
-// lanes' tree combines them, and lane 0 writes the argmax step to arg[r].
+// a lane (joseph_fwdgrad, joseph_bwd_rays' sum mode, and the probes), from
+// the strided density or its bricked copy: lane t % G of ray t / G, in
+// passes of G * U steps (lanes.cuh). Sum mode (arg == nullptr): lane i % G
+// writes row i of out (N, n_rays), the fused march's first N rows
+// (fused_terms): all 8 for joseph_fwdgrad, or the 7 gradient rows each
+// times g[r] once they are summed when g is given (joseph_bwd_rays:
+// trace_bwd_rays' rows, bit for bit). MIP: each lane keeps the first
+// maximum of its own steps, the lanes' tree combines them, lane 0 writes
+// the argmax step to arg[r], and out gets the argmax step's first N rows.
 // Blocks of kFusedThreads; every thread of a warp must call this (those of
 // rays past the end too): the passes hand summands over through the warp's
 // shared memory, and the tree shuffles. A warp holds 32 / G whole rays.
-template <int G, int U, class Vol>
+template <int G, int U, int N = kFusedRows, class Vol>
 __device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, int64_t n_rays,
                                               const Vol& v, const March& m,
                                               float* __restrict__ out, int* __restrict__ arg,
-                                              int64_t t) {
+                                              int64_t t, const float* __restrict__ g = nullptr) {
   constexpr int kSteps = G * U;        // a ray's steps a pass
   constexpr int kStride = 32 * U + 1;  // a row of the warp's hand-over (+1: no bank conflicts)
-  __shared__ float hand[kFusedThreads / 32][kFusedRows * kStride];
+  __shared__ float hand[kFusedThreads / 32][N * kStride];
   int64_t r = t / G;
   int lane = (int)(t % G);
   bool live = r < n_rays;
@@ -475,7 +484,7 @@ __device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, in
   }
   int passes = lanes::warp_passes((hi - lo + kSteps - 1) / kSteps);
   float* mine = hand[threadIdx.x / 32] + (threadIdx.x % 32) / G * kSteps;  // the ray's columns
-  float acc[lanes::kSlots<G, kFusedRows>] = {};
+  float acc[lanes::kSlots<G, N>] = {};
   float best[kFusedRows] = {};
   int best_p = -1;
   for (int p = 0; p < passes; ++p) {
@@ -495,9 +504,9 @@ __device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, in
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int i = 0; i < kFusedRows; ++i) mine[i * kStride + u * G + lane] = tm[u][i];
+        for (int i = 0; i < N; ++i) mine[i * kStride + u * G + lane] = tm[u][i];
       __syncwarp();
-      lanes::take_in_order<G, kFusedRows, kSteps>(mine, kStride, lane, acc);
+      lanes::take_in_order<G, N, kSteps>(mine, kStride, lane, acc);
       __syncwarp();
     }
   }
@@ -505,22 +514,27 @@ __device__ __forceinline__ void fwdgrad_lanes(const float* __restrict__ rows, in
   if (!live) return;
   if (mip) {
 #pragma unroll
-    for (int i = 0; i < kFusedRows; ++i)
+    for (int i = 0; i < N; ++i)
       if (i % G == lane) out[i * n_rays + r] = best[i];
     if (lane == 0) arg[r] = best_p;
   } else {
+    float gr = g ? g[r] : 0.f;
 #pragma unroll
-    for (int slot = 0; slot < lanes::kSlots<G, kFusedRows>; ++slot) {
+    for (int slot = 0; slot < lanes::kSlots<G, N>; ++slot) {
       int i = lane + slot * G;
-      if (i < kFusedRows) out[i * n_rays + r] = acc[slot];
+      if (i < N) out[i * n_rays + r] = g ? acc[slot] * gr : acc[slot];
     }
   }
 }
 #endif
 
-// The two-pass pose backward: acc[0..6] = g * d(value)/d(row). In MIP mode
-// only the argmax step counts (none when arg is -1).
-JOSEPH_HD void trace_bwd_rays(const Ray& r, const Volume& v, const March& m, float g, int arg,
+// The two-pass pose backward: acc[0..6] = g * d(value)/d(row), from the
+// strided density (Volume) or, in the probes, its bricked copy
+// (brick::Volume), step after step (the order of sums that fwdgrad_lanes
+// keeps), then one product by g. In MIP mode only the argmax step counts
+// (none when arg is -1).
+template <class Vol>
+JOSEPH_HD void trace_bwd_rays(const Ray& r, const Vol& v, const March& m, float g, int arg,
                               bool mip, float acc[kRows]) {
   for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
   int lo, hi;

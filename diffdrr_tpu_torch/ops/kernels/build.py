@@ -62,7 +62,8 @@ _SIGNATURES = {
         "joseph_fwd": _BVOL + _MARCH + [_VOID] * 2,
         "joseph_fwd_max": _BVOL + _MARCH + [_VOID] * 3,
         "joseph_fwdgrad": _BVOL + _MARCH + [_VOID] * 3,
-        "joseph_bwd_rays": _VOL + _MARCH + [_VOID] * 4,
+        "joseph_bwd_rays": _BVOL + _MARCH + [_VOID] * 3,
+        "joseph_bwd_rays_mip": _VOL + _MARCH + [_VOID] * 4,
         "joseph_bwd_vol": _GRAD + _MARCH + [_VOID],
         # channel mode: the march, then n_channels
         # the bricked density and labelmap share the brick strides and extents

@@ -18,7 +18,8 @@ functions of the rows and the density:
     one march, the function of ``_fwdgrad_kernel``; under max the rows are
     the argmax step's, and ``arg`` the argmax (None in sum mode);
   * ``joseph_bwd_rays(..., g, arg=None) -> (7, R)``: g * the gradient rows,
-    gated to the argmax step in MIP, the function of ``_bwd_rays_kernel``;
+    gated to the argmax step in MIP, the function of ``_bwd_rays_kernel``
+    (in sum mode ``joseph_fwdgrad``'s rows times g, bit for bit);
   * ``joseph_bwd_vol(rows, g, shape, axis, h, n_steps, arg=None) -> shape``:
     the density gradient, the function of ``_bwd_vol_kernel``.
 
@@ -368,13 +369,6 @@ def _march(h: float, n_steps: int) -> list:
     return [float(h), int(n_steps), int(is_blend(h))]
 
 
-def _launch(fn_name: str, rows, density, axis: int, h: float, n_steps: int, *args) -> None:
-    """``fn_name(rows, R, density, strides, extents, h, n_steps, blend, *args, stream)``."""
-    rows = rows.contiguous()
-    call("joseph", fn_name, rows.device, rows.data_ptr(), rows.shape[1], density.data_ptr(),
-         *strides_extents(density, axis), *_march(h, n_steps), *args)
-
-
 def joseph_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
                n_steps: int) -> torch.Tensor:
     """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``.
@@ -439,15 +433,28 @@ def joseph_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int, h: floa
 
 def joseph_bwd_rays(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
                     n_steps: int, g: torch.Tensor, arg=None) -> torch.Tensor:
-    """``(7, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given."""
+    """``(7, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given.
+    In sum mode the kernel reads the density's bricked copy, which the
+    forward of the same density has made (so the two-pass backward makes
+    none), with several lanes a ray: its rows are ``joseph_fwdgrad``'s rows
+    0-6 times g bit for bit. In MIP (one step a ray) it runs one thread per
+    ray on the density itself."""
     check("joseph", rows, density, axis)
     _check_march(h, n_steps)
     g = check_cotangent(rows, g, arg)
     if runs_plain("joseph_bwd_rays", rows):
         return joseph_bwd_rays_plain(rows, density, axis, h, n_steps, g, arg)
+    rows = rows.contiguous()
     out = torch.empty((GRAD_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    _launch("joseph_bwd_rays", rows, density, axis, h, n_steps, g.data_ptr(), ptr(arg),
-            out.data_ptr())
+    if arg is None:
+        vol = bricked(density)
+        call("joseph", "joseph_bwd_rays", rows.device, rows.data_ptr(), rows.shape[1],
+             vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), g.data_ptr(),
+             out.data_ptr())
+    else:
+        call("joseph", "joseph_bwd_rays_mip", rows.device, rows.data_ptr(), rows.shape[1],
+             density.data_ptr(), *strides_extents(density, axis), *_march(h, n_steps),
+             g.data_ptr(), arg.data_ptr(), out.data_ptr())
     joseph_bwd_rays.launches += 1
     return out
 
@@ -595,7 +602,9 @@ class JosephMarch(torch.autograd.Function):
     ``joseph_fwd`` or ``joseph_fwd_max``; the max modes keep the argmax,
     which gates the backward. Backward: the rays' cotangent from the fused
     rows or ``joseph_bwd_rays`` (zero for amin/amax), the density's from
-    ``joseph_bwd_vol``, each only when asked for.
+    ``joseph_bwd_vol``, each only when asked for. In sum mode
+    ``joseph_bwd_rays`` reads the bricked copy that ``joseph_fwd`` made, and
+    the fused and the two-pass pose gradients agree to the last bit.
     """
 
     @staticmethod

@@ -1934,7 +1934,7 @@ template <int N>
 using IC = std::integral_constant<int, N>;
 // f(G, U) of the variant: G lanes a ray and U slabs (steps) in flight, 0
 // taking the kernel's own (kFusedLanes, kFusedSlabs or kFusedSteps;
-// kBwdLanes, kBwdSlabs).
+// kBwdLanes, kBwdSlabs or kBwdSteps).
 template <class F>
 static void with_variant(int variant, F f) {
   switch (variant) {
@@ -2037,6 +2037,38 @@ extern "C" void ft_siddon_bwd_rays(int variant, const float* rows, int64_t R, BR
     return 0;
   });
 }
+// joseph_bwd_rays' sum mode on the bricked copy, out (7, R): its lanes (G
+// and U of the variant, 0 taking kBwdLanes, kBwdSteps), the fused march's 7
+// gradient rows in passes (fused_terms, lanes_march), each times g[r] once
+// summed.
+extern "C" void ft_joseph_bwd_rays(int variant, const float* rows, int64_t R, BRICK_ARGS,
+                                   float h, int n, int blend, const float* g, float* out) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  brick::with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    with_variant(variant, [&](auto lanes_g, auto u) {
+      constexpr int G = decltype(lanes_g)::value ? decltype(lanes_g)::value : joseph::kBwdLanes;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kBwdSteps;
+      constexpr int N = joseph::kRows;
+      for (int64_t r = 0; r < R; ++r) {
+        joseph::Ray ray = joseph::load_ray(rows, R, r);
+        int lo, hi;
+        joseph::step_range(ray, m, &lo, &hi);
+        float o[N];
+        lanes_march<G, U, N>(lo, hi, false, [&](int p0, float (*tm)[N]) {
+          float t[U][joseph::kFusedRows];
+          joseph::fused_terms<U>(ray, v, m, p0, G, hi, t);
+          for (int k = 0; k < U; ++k) memcpy(tm[k], t[k], sizeof(tm[k]));
+        }, o, nullptr);
+        for (int i = 0; i < N; ++i) out[i * R + r] = o[i] * g[r];
+      }
+    });
+    return 0;
+  });
+}
 // joseph_bwd_rays_ch's lanes (channel_terms, G and U of the variant, 0
 // taking kChannelLanes, kChannelSteps) on the bricked copies of the density
 // and the labelmap (blab, sharing the density copy's arguments): out (7, R).
@@ -2122,7 +2154,10 @@ def ftwin(tmp_path_factory):
     so.ft_joseph_ch.argtypes = [i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32, i32, i32,
                                                           ptr, ptr]
     so.ft_siddon_bwd_rays.argtypes = [i32, ptr, i64] + bvol + [ptr, ptr]
-    so.ft_siddon.restype = so.ft_joseph_ch.restype = so.ft_siddon_bwd_rays.restype = None
+    so.ft_joseph_bwd_rays.argtypes = [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr,
+                                                                ptr]
+    for fn in (so.ft_siddon, so.ft_joseph_ch, so.ft_siddon_bwd_rays, so.ft_joseph_bwd_rays):
+        fn.restype = None
     so.ft_joseph.restype = i32
     return so
 
@@ -2304,13 +2339,14 @@ def _bwd_rays_lanes(ftwin, variant, rows, vol, axis, g):
     return out
 
 
-def _bwd_rays_case(axis, seed):
+def _bwd_rays_case(axis, seed, **prep):
     """(density, its Fortran-ordered copy, rows, g) of the two-pass
-    backward's cases: ``_fwd_rays`` on ``_BRICK_DIMS`` and a random
-    cotangent that is 0 on every fifth ray."""
+    backwards' cases: ``_fwd_rays`` on ``_BRICK_DIMS`` (``prep``: prep_rays'
+    quadrature and stride) and a random cotangent that is 0 on every fifth
+    ray."""
     rng = np.random.default_rng(seed)
     vol, vol_f = _densities(rng, _BRICK_DIMS)
-    rows = _fwd_rays(rng, _BRICK_DIMS, axis)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis, **prep)
     g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32)
     g[::5] = 0.0
     return vol, vol_f, rows, g
@@ -2409,6 +2445,137 @@ def test_cuda_siddon_two_pass_pose_gradient_equals_fused(axis):
         assert res[0][2].abs().max() > 0, label
         for a, b in zip(*res):
             assert torch.equal(_bits(a), _bits(b)), label
+
+
+def _joseph_bwd_rays_lanes(ftwin, variant, rows, vol, axis, h, n, g):
+    """(7, R) of the twin's joseph_bwd_rays sum-mode lanes (the variant) on
+    ``vol``'s bricked copy."""
+    rows = rows.contiguous()
+    bv = brick_density(vol)
+    out = torch.full((7, rows.shape[1]), float("nan"))
+    ftwin.ft_joseph_bwd_rays(variant, rows.data_ptr(), rows.shape[1], bv.data.data_ptr(),
+                             *bv.args(axis), h, n, int(J.is_blend(h)), g.data_ptr(),
+                             out.data_ptr())
+    return out
+
+
+@_FUSED_H
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_bwd_rays_lanes_equal_serial(jtwin, ftwin, axis, h):
+    """joseph_bwd_rays' sum-mode lanes on the bricked copy (fused_terms and
+    take_in_order in passes of G * U steps, then one product by g) at G = 1,
+    2, 8, 32, at the kernel's G with U = 1, 2, 4 and at the kernel's own,
+    integer and fractional h: the strided serial trace_bwd_rays bit for
+    bit, every ray (off-grid, long, short and missing rays, partial entry
+    steps, the NaN ray, extents not whole bricks), contiguous and permuted
+    density, a cotangent with zeros; the serial rows against
+    joseph_bwd_rays_plain to 1e-6 * max|row| on the finite rays. (The MIP
+    mode, the strided serial kernel's: test_twin_joseph_matches_plain.)"""
+    vol, vol_f, rows, g = _bwd_rays_case(axis, 270 + axis, quadrature="joseph", h=h)
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    serial = _JosephTwin(jtwin, rows, vol, axis, h, n).bwd_rays(g, None)
+    _assert_rows_close(serial[:, :-1], J.joseph_bwd_rays_plain(rows[:, :-1], vol, axis, h, n,
+                                                               g[:-1]))
+    assert (serial != 0).any(0).sum() > rows.shape[1] // 2
+    for variant in _LANES + _UNROLLED + (_OWN,):
+        for v in (vol, vol_f):
+            got = _joseph_bwd_rays_lanes(ftwin, variant, rows, v, axis, h, n, g)
+            assert torch.equal(_bits(got), _bits(serial)), (_FUSED_VARIANTS[variant],
+                                                            v.is_contiguous())
+
+
+@_FUSED_H
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_bwd_rays_equal_fused_rows_times_g(jtwin, ftwin, axis, h):
+    """The Joseph two-pass pose backward's sum-mode rows, from its lanes on
+    the bricked copy at the kernel's G and U and from the strided serial
+    trace_bwd_rays, are joseph_fwdgrad's rows 0-6 (its lanes at the
+    kernel's G and U, and the strided serial trace_fwdgrad) times g bit for
+    bit: the fused and the two-pass pose gradients agree to the last bit."""
+    vol, _, rows, g = _bwd_rays_case(axis, 280 + axis, quadrature="joseph", h=h)
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    tw = _JosephTwin(jtwin, rows, vol, axis, h, n)
+    want = _bits(tw.fwdgrad(False)[0][:7] * g)
+    fused = _fused_joseph(ftwin, _OWN, False, rows, vol, axis, h, n)[0]
+    assert torch.equal(_bits(fused[:7] * g), want)
+    assert torch.equal(_bits(tw.bwd_rays(g, None)), want)
+    assert torch.equal(_bits(_joseph_bwd_rays_lanes(ftwin, _OWN, rows, vol, axis, h, n, g)), want)
+
+
+@pytest.mark.gpu
+@_FUSED_H
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_joseph_bwd_rays_lanes_match_plain(axis, h):
+    """On a card: joseph_bwd_rays in sum mode (kBwdLanes lanes a ray on the
+    bricked copy) is joseph_fwdgrad's rows 0-6 times g bit for bit, and in
+    either mode (MIP: one thread per ray on the density itself) its plain
+    version to 1e-3 * max|row| on the finite rays; at 64x64 with mixed
+    rays and at 200x200, integer and fractional h, each with a NaN ray, a
+    cotangent that is 0 on every fifth ray and MIP argmaxes of -1; the
+    forwards make one copy and the sum mode reads it; a second launch gives
+    the same bits."""
+    rng = np.random.default_rng(50 + axis)
+    for label, vol, geo, extra in _gpu_fwd_scenes(axis):
+        rows = _nan_ray(_gpu_scene_rows(axis, vol, geo, extra, quadrature="joseph", h=h))
+        n = int(-(-vol.shape[axis] // h))
+        g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device="cuda")
+        g[::5] = 0.0
+        clear_cache()
+        copies = brick_density.launches
+        fused = J.joseph_fwdgrad(rows, vol, axis, h, n)[0]
+        arg = J.joseph_fwd_max(rows, vol, axis, h, n)[1]
+        got = J.joseph_bwd_rays(rows, vol, axis, h, n, g)
+        again = J.joseph_bwd_rays(rows, vol, axis, h, n, g)
+        got_mip = J.joseph_bwd_rays(rows, vol, axis, h, n, g, arg)
+        torch.cuda.synchronize()
+        assert brick_density.launches == copies + 1, label
+        assert (arg == -1).any() and (arg >= 0).sum() > rows.shape[1] // 2, label
+        assert torch.equal(_bits(got), _bits(fused[:7] * g)), label
+        assert torch.equal(_bits(again), _bits(got)), label
+        for out, a in ((got, None), (got_mip, arg[:-1])):
+            ref = J.joseph_bwd_rays_plain(rows[:, :-1], vol, axis, h, n, g[:-1], a)
+            for k in range(7):
+                torch.testing.assert_close(out[k, :-1], ref[k], rtol=0,
+                                           atol=1e-3 * ref[k].abs().max().item() + 1e-30,
+                                           msg=f"{label} {'mip' if a is not None else 'sum'}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+@pytest.mark.parametrize("h", [1.0, 1.37], ids=["h1", "h1.37"])
+@pytest.mark.parametrize("axis", [0, 2])
+def test_cuda_joseph_two_pass_pose_gradient_equals_fused(axis, h, reduce):
+    """On a card: through joseph_march_raycast, the gradient of sum(img**2)
+    with respect to the sources and targets with fused=False (joseph_fwd,
+    then joseph_bwd_rays' sum-mode lanes; under max joseph_fwd_max, then the
+    MIP backward) equals the fused one (joseph_fwdgrad's rows times g), and
+    so do the images; all launches read one bricked copy. In sum mode to
+    the last bit. Under max the values are equal, but not always the bits:
+    the serial MIP backward adds the argmax step's terms to +0, which turns
+    a -0 term into +0 where the fused rows keep it, so only the sign of a
+    zero can differ."""
+    for label, vol, geo, _ in _gpu_fwd_scenes(axis):
+        res = []
+        clear_cache()
+        copies = brick_density.launches
+        J.reset_launch_counts()
+        for fused in (True, False):
+            src, tgt = (t.clone().requires_grad_(True) for t in geo[:2])
+            img = J.joseph_march_raycast(vol, src, tgt, geo[2], axis=axis, step=h,
+                                         reduce=reduce, fused=fused)
+            (img ** 2).sum().backward()
+            res.append([img.detach(), src.grad, tgt.grad])
+        torch.cuda.synchronize()
+        fwd = J.joseph_fwd if reduce == "sum" else J.joseph_fwd_max
+        assert brick_density.launches == copies + 1, label
+        assert (J.joseph_fwdgrad.launches, fwd.launches,
+                J.joseph_bwd_rays.launches) == (1, 1, 1), label
+        assert res[0][2].abs().max() > 0, label
+        for a, b in zip(*res):
+            if reduce == "sum":
+                assert torch.equal(_bits(a), _bits(b)), label
+            else:
+                assert torch.equal(a, b), label
 
 
 def _channel_lanes(ftwin, variant, rows, vol, lab, axis, h, n, g):
