@@ -118,6 +118,36 @@ Phases (any failure raises and the exit code is non-zero):
   8e. timings of the channel kernels at 200^2 with 7 channels: one call
      and back to back, joseph_fwd_ch and joseph_bwd_rays_ch with their
      bricked copies cached and made anew.
+  9. the registration CLI (diffdrr_tpu_torch.experiments.registration) at
+     full width, through main(argv): a 512x512x128 CT, 200x200 detector;
+  9a. --multiscale 0.25,0.5,1.0 --iters-per-scale 20,20,20 --lr-decay 0.1
+     --polish-iters 20 --n-runs 2 (trilinear): exactly joseph_fwd 1 (the
+     target), joseph_fwdgrad one a step (the warm-up run's too), no other
+     kernel, and one bricked copy for all scales; each run's double
+     geodesic below its start;
+  9b. one serial Siddon run of 60 steps: siddon_fwd 1, siddon_fwdgrad one a
+     step, one bricked copy, no slab escape;
+  9c. --multistart --n-runs 4 --n-iters 60: joseph_fwdgrad one a batched
+     step (warm-up included), joseph_fwd 3 (the target, each run's final
+     scores); the restarts independent bit for bit (each one's trace,
+     final pose and score unchanged when the other three starts are
+     replaced); 4 single-pose runs from the same starts, their distance to
+     the batched run's poses logged (batches of one and of four round
+     differently on the card, and the float32 patch NCC amplifies it);
+  9d. optimize_until from translation + 5 mm, at most 40 steps: with a tol
+     never met it runs to max_iters, with the distance that run reached at
+     step 20 it stops at the first step at or below it, as a replay of its
+     steps shows;
+  9e. a pose gradient with checkpoint_gradients=True equal to the plain one
+     to the last bit, joseph_fwdgrad 2 and no bricked copy (the rerun in
+     the backward reads the cached one); two cache_volume=False renders
+     make two copies;
+  9f. mutual information at 200^2 (three streamed chunks) against its
+     dense formula on the card, value 1e-5 relative and gradient 1e-4 x
+     max;
+  9g. CUDA-event step times per scale and of the polish, of the serial
+     Siddon step, and of a 4-pose multistart step against a single-pose
+     step, beside the card's name and power limit.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -1271,6 +1301,321 @@ def channel_timings(ch):
     return times, extra
 
 
+# The registration CLI (diffdrr_tpu_torch.experiments.registration) at full
+# width: the recon CLI's 512x512x128 CT and 200x200 detector (2 mm pixels).
+REG_CLI = ["--volume-size", str(CLI_VOLUME_SIZE), "--height", str(CLI_HEIGHT)]
+REG_SCALES = (0.25, 0.5, 1.0)
+REG_ITERS = (20, 20, 20)
+REG_POLISH = 20
+REG_RUNS = 2
+REG_SIDDON_STEPS = 60
+REG_RESTARTS = 4
+REG_UNTIL_STEPS = 40
+# Rotation held nearly still, so the double geodesic follows the translation
+# (phase 7b's error falls on every axis) and the distance falls below its start.
+REG_LR = dict(lr_rotation=1e-5, lr_translation=1e-1)
+
+
+def all_launches():
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.ops.kernels import siddon as K
+
+    return dict(joseph_launches(), **{fn.__name__: fn.launches for fn in K.KERNELS},
+                brick_copy=brick.brick_density.launches)
+
+
+def reset_all_launches():
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels import siddon as K
+
+    J.reset_launch_counts()
+    K.reset_launch_counts()
+    brick.brick_density.launches = 0
+
+
+def no_other_launches(phase, launches, want):
+    """``want`` exactly, and 0 for every other kernel."""
+    expect_launches(phase, launches, {k: want.get(k, 0) for k in launches})
+
+
+def mi_dense(x1, x2, sigma=0.1, num_bins=256, epsilon=1e-10):
+    """Normalized mutual information of (B, 1, H, W) images from the whole
+    (B, N, bins) Parzen tensors at once (the formula the streamed sums
+    replace)."""
+    import torch
+
+    B = x1.shape[0]
+    bins = torch.linspace(0.0, 1.0, num_bins, dtype=x1.dtype, device=x1.device)
+    k1 = torch.exp(-0.5 * ((x1.reshape(B, -1, 1) - bins) / sigma) ** 2)
+    k2 = torch.exp(-0.5 * ((x2.reshape(B, -1, 1) - bins) / sigma) ** 2)
+    N = k1.shape[1]
+    p1 = k1.sum(1) / N
+    p1 = p1 / (p1.sum(1, keepdim=True) + epsilon)
+    p2 = k2.sum(1) / N
+    p2 = p2 / (p2.sum(1, keepdim=True) + epsilon)
+    j12 = torch.einsum("bni,bnj->bij", k1, k2)
+    p12 = j12 / (j12.sum((1, 2), keepdim=True) + epsilon)
+    h1 = -(p1 * torch.log2(p1 + epsilon)).sum(1)
+    h2 = -(p2 * torch.log2(p2 + epsilon)).sum(1)
+    h12 = -(p12 * torch.log2(p12 + epsilon)).sum((1, 2))
+    return 2 * (h1 + h2 - h12) / (h1 + h2)
+
+
+def registration_cli_phase(card: str) -> dict:
+    """Phase 9: the registration CLI end to end at full width, with exact
+    launch counts, then optimize_until, checkpoint_gradients, cache_volume,
+    streamed MI and step timings."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import diffdrr_tpu_torch as T
+    from diffdrr_tpu_torch.experiments import registration as reg_cli
+    from diffdrr_tpu_torch.metrics import (DoubleGeodesicSE3, MultiscaleNormalizedCrossCorrelation2d,
+                                           mutual_information)
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.registration import (make_multistart_step, make_registration_step,
+                                                optimize, optimize_multistart, optimize_until)
+
+    kw = dict(parameterization="euler_angles", convention="ZXY")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reg_") as outdir:
+        # (a) Multiscale with the gradient-NCC polish, trilinear: every step
+        # (the warm-up run's too) one joseph_fwdgrad; the target one joseph_fwd;
+        # all scales read one bricked copy.
+        brick.clear_cache()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = reg_cli.main(REG_CLI + [
+            "--multiscale", ",".join(map(str, REG_SCALES)),
+            "--iters-per-scale", ",".join(map(str, REG_ITERS)), "--lr-decay", "0.1",
+            "--polish-iters", str(REG_POLISH), "--n-runs", str(REG_RUNS),
+            "--outdir", f"{outdir}/multiscale"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = all_launches()
+        steps = (REG_RUNS + 1) * (sum(REG_ITERS) + REG_POLISH)
+        log(f"[regcli] multiscale launches {launches}")
+        no_other_launches("registration CLI multiscale", launches,
+                          {"joseph_fwd": 1, "joseph_fwdgrad": steps, "brick_copy": 1})
+        for i, run in enumerate(res["runs"]):
+            if not (np.isfinite(run["final_mm"]) and run["final_mm"] < run["start_mm"]):
+                raise AssertionError(f"multiscale run {i}: {run['start_mm']} -> "
+                                     f"{run['final_mm']} mm")
+            log(f"[regcli] multiscale run {i}: double geodesic {run['start_mm']:.3f} -> "
+                f"{run['final_mm']:.3f} mm; scores per stage "
+                + ", ".join(f"{lab} {sc[0]:.4f} -> {sc[-1]:.4f}"
+                            for lab, sc in zip(res["stages"], run["scores"])))
+        rows = (Path(outdir) / "multiscale" / "multiscale_summary.csv").read_text().splitlines()
+        if len(rows) != REG_RUNS + 1:
+            raise AssertionError(f"multiscale_summary.csv has {len(rows)} lines")
+        # Each stage's step times past its first two steps, over the runs.
+        stage_ms = {lab: statistics.median([t for run in res["runs"]
+                                            for t in run["step_ms"][k][2:] or run["step_ms"][k]])
+                    for k, lab in enumerate(res["stages"])}
+        out.update(multiscale_launches=launches, stage_ms=stage_ms, multiscale_s=secs,
+                   final_mm=[r["final_mm"] for r in res["runs"]],
+                   start_mm=[r["start_mm"] for r in res["runs"]])
+        del res
+
+        # (b) One serial Siddon run: siddon_fwdgrad once a step.
+        brick.clear_cache()
+        reset_all_launches()
+        res = reg_cli.main(REG_CLI + ["--renderer", "siddon", "--n-runs", "1",
+                                      "--n-iters", str(REG_SIDDON_STEPS),
+                                      "--outdir", f"{outdir}/siddon"])
+        torch.cuda.synchronize()
+        launches = all_launches()
+        run = res["runs"][0]
+        log(f"[regcli] siddon serial launches {launches}, slab escapes "
+            f"{res['drr'].siddon_escapes}")
+        if res["drr"].siddon_escapes:
+            raise AssertionError("the serial Siddon run escaped to the oracle")
+        no_other_launches("registration CLI siddon", launches,
+                          {"siddon_fwd": 1, "siddon_fwdgrad": len(run["scores"]),
+                           "brick_copy": 1})
+        if not np.isfinite(run["scores"]).all():
+            raise AssertionError("serial Siddon scores are not finite")
+        log(f"[regcli] siddon serial {len(run['scores'])} steps: score {run['scores'][0]:.4f} -> "
+            f"{run['scores'][-1]:.4f}, double geodesic {run['start_mm']:.3f} -> "
+            f"{run['final_mm']:.3f} mm")
+        out.update(siddon_launches=launches,
+                   siddon_step_ms=statistics.median(run["step_ms"][2:] or run["step_ms"]))
+        del res, run
+
+        # (c) Multistart: 4 restarts as one batched run (one joseph_fwdgrad a
+        # step, warm-up included; the target and each run's final scores one
+        # joseph_fwd each). Independence, bit for bit: a rerun gives the CLI's
+        # result, and each restart's trajectory (trace, final pose and score)
+        # is unchanged when the other three starts are replaced. Then 4
+        # single-pose runs from the same starts, their difference reported:
+        # the card's kernels for a batch of one and of four round differently
+        # in the last bit, which the float32 patch NCC and Adam amplify.
+        brick.clear_cache()
+        reset_all_launches()
+        res = reg_cli.main(REG_CLI + ["--multistart", "--n-runs", str(REG_RESTARTS),
+                                      "--n-iters", str(N_REG_STEPS),
+                                      "--outdir", f"{outdir}/multistart"])
+        torch.cuda.synchronize()
+        launches = all_launches()
+        log(f"[regcli] multistart launches {launches}")
+        no_other_launches("registration CLI multistart", launches,
+                          {"joseph_fwd": 3, "joseph_fwdgrad": 2 * N_REG_STEPS, "brick_copy": 1})
+        drr, target = res["drr"], res["target"]
+        metric = MultiscaleNormalizedCrossCorrelation2d([None, 13], [0.5, 0.5])
+        ms_kw = dict(n_iters=N_REG_STEPS, metric=metric, lr_rotation=5e-3, lr_translation=5e-1)
+        rots0, transs0 = res["rotation0"], res["translation0"]
+        ref = optimize_multistart(drr, target, rots0, transs0, "euler_angles", "ZXY", **ms_kw)
+        if not (torch.equal(ref[0], res["rotations"]) and torch.equal(ref[1], res["translations"])):
+            raise AssertionError("a rerun of the CLI's multistart gives other poses")
+        for i in range(REG_RESTARTS):
+            others = torch.arange(REG_RESTARTS, device=rots0.device) != i
+            rots, transs = rots0.clone(), transs0.clone()
+            rots[others] = rots0[others].flip(0) + 0.01
+            transs[others] = transs0[others].flip(0) - 3.0
+            alt = optimize_multistart(drr, target, rots, transs, "euler_angles", "ZXY", **ms_kw)
+            if not (torch.equal(alt[0][i], ref[0][i]) and torch.equal(alt[1][i], ref[1][i])
+                    and torch.equal(alt[2][i], ref[2][i])
+                    and torch.equal(alt[3][:, i], ref[3][:, i])):
+                raise AssertionError(f"restart {i} depends on the other restarts' starts")
+        dev_r = dev_t = 0.0
+        for i in range(REG_RESTARTS):
+            r, t, _ = optimize(drr, target, rots0[i:i + 1], transs0[i:i + 1], "euler_angles",
+                               "ZXY", **ms_kw)
+            dev_r = max(dev_r, (r[0] - ref[0][i]).abs().max().item())
+            dev_t = max(dev_t, (t[0] - ref[1][i]).abs().max().item())
+        log(f"[regcli] multistart {REG_RESTARTS} x {N_REG_STEPS} steps: final scores "
+            + ", ".join(f"{s:.4f}" for s in res["final_scores"]) + "; double geodesics "
+            + ", ".join(f"{m:.3f}" for m in res["final_mm"]) + " mm; each restart's trajectory "
+            f"bit for bit unchanged with the other starts replaced; {REG_RESTARTS} single-pose "
+            f"runs from the same starts end {dev_r:.3e} rad and {dev_t:.3e} mm away")
+        out.update(multistart_launches=launches, multistart_dev=(dev_r, dev_t))
+
+        # (d) optimize_until from translation + 5 mm, against a replay of its
+        # steps: first with a tolerance never met (it runs to max_iters), then
+        # with the distance that run reached half way (it stops at the first
+        # step at or below it).
+        rot_true, trans_true = res["rot_true"], res["trans_true"]
+        true_pose = T.convert(rot_true, trans_true, **kw)
+        geo = DoubleGeodesicSE3(sdd=1020.0)
+        init_fn, step_fn = make_registration_step(drr, target, "euler_angles", "ZXY", **REG_LR)
+        params, opt = init_fn(rot_true, trans_true + 5.0)
+        dists = []  # after 0, 1, ..., REG_UNTIL_STEPS steps
+        for k in range(REG_UNTIL_STEPS + 1):
+            with torch.no_grad():
+                dists.append(float(geo(true_pose, T.convert(params["rotation"],
+                                                            params["translation"], **kw))[2]))
+            if k < REG_UNTIL_STEPS:
+                params, opt, _ = step_fn(params, opt)
+        half = dists[REG_UNTIL_STEPS // 2]
+        if not half < dists[0]:
+            raise AssertionError(f"optimize_until's run did not come nearer: {dists}")
+        for tol in (0.0, half):
+            _, _, n_u, d_u = optimize_until(drr, target, rot_true, trans_true + 5.0,
+                                            "euler_angles", "ZXY", true_pose=true_pose,
+                                            tol_mm=tol, max_iters=REG_UNTIL_STEPS, **REG_LR)
+            want = next((k for k, d in enumerate(dists) if d <= tol), REG_UNTIL_STEPS)
+            if not (n_u == want and d_u == dists[want]):
+                raise AssertionError(f"optimize_until (tol {tol} mm) stopped at step {n_u} "
+                                     f"({d_u} mm); the replay's distances {dists}")
+        log(f"[regcli] optimize_until from translation + 5 mm ({dists[0]:.3f} mm): tol 0 runs "
+            f"the {REG_UNTIL_STEPS} steps to {dists[-1]:.3f} mm; tol {half:.3f} mm (where that "
+            f"run was at step {REG_UNTIL_STEPS // 2}) stops at step {n_u}, as a replay says")
+        out.update(until=(n_u, d_u))
+
+        # (e) checkpoint_gradients: the pose gradient equals the plain one and
+        # the rerun in the backward reads the cached copy; cache_volume=False
+        # bricks every render anew.
+        def pose_grad(d):
+            r = rot_true.clone().requires_grad_(True)
+            t = (trans_true + 5.0).requires_grad_(True)
+            torch.mean(metric(d(r, t, **kw), target)).backward()
+            return torch.cat([r.grad, t.grad], -1)
+
+        ckpt = T.DRR(drr.subject, sdd=1020.0, height=CLI_HEIGHT, delx=2.0, renderer="trilinear",
+                     checkpoint_gradients=True)
+        nocache = T.DRR(drr.subject, sdd=1020.0, height=CLI_HEIGHT, delx=2.0,
+                        renderer="trilinear", cache_volume=False)
+        if not (ckpt.density is drr.density is nocache.density):
+            raise AssertionError("the DRRs of one subject do not share its density")
+        reset_all_launches()
+        g_plain = pose_grad(drr)
+        torch.cuda.synchronize()
+        l_plain = all_launches()
+        reset_all_launches()
+        g_ckpt = pose_grad(ckpt)
+        torch.cuda.synchronize()
+        l_ckpt = all_launches()
+        no_other_launches("plain pose gradient", l_plain, {"joseph_fwdgrad": 1})
+        no_other_launches("checkpointed pose gradient", l_ckpt, {"joseph_fwdgrad": 2})
+        if not torch.equal(g_ckpt, g_plain):
+            raise AssertionError(f"checkpointed pose gradient {g_ckpt} != {g_plain}")
+        reset_all_launches()
+        with torch.no_grad():
+            imgs = [nocache(rot_true, trans_true, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        l_nocache = all_launches()
+        no_other_launches("cache_volume=False renders", l_nocache,
+                          {"joseph_fwd": 2, "brick_copy": 2})
+        if not all(torch.equal(img, target) for img in imgs):
+            raise AssertionError("cache_volume=False renders differ from the target")
+        log(f"[regcli] checkpoint_gradients: pose gradient equal to the plain one to the last "
+            f"bit; launches plain {l_plain['joseph_fwdgrad']} joseph_fwdgrad, checkpointed "
+            f"{l_ckpt['joseph_fwdgrad']} and brick_copy {l_ckpt['brick_copy']}; cache_volume=False: "
+            f"2 renders, brick_copy {l_nocache['brick_copy']}")
+        out.update(ckpt_launches=l_ckpt)
+
+        # (f) Mutual information at 200^2 (40,000 pixels: three streamed
+        # chunks) against its dense formula, forward and backward.
+        with torch.no_grad():
+            moved = drr(rot_true, trans_true + 5.0, **kw)
+        x2 = (target / target.max()).detach()
+        x1 = (moved / moved.max()).detach().requires_grad_(True)
+        mi = mutual_information(x1, x2)
+        (g_mi,) = torch.autograd.grad(mi.sum(), x1)
+        x1d = x1.detach().requires_grad_(True)
+        mi_ref = mi_dense(x1d, x2)
+        (g_ref,) = torch.autograd.grad(mi_ref.sum(), x1d)
+        err_mi = abs(mi.item() - mi_ref.item()) / abs(mi_ref.item())
+        err_g = ((g_mi - g_ref).abs().max() / g_ref.abs().max()).item()
+        if not (err_mi <= 1e-5 and err_g <= 1e-4):
+            raise AssertionError(f"MI streamed vs dense: value {err_mi}, gradient {err_g}")
+        t_mi = median_ms(lambda: torch.autograd.grad(mutual_information(x1, x2).sum(), x1), 10)
+        t_mi_dense = median_ms(lambda: torch.autograd.grad(mi_dense(x1d, x2).sum(), x1d), 10)
+        log(f"[regcli] MI at 200^2: {mi.item():.6f} streamed, {mi_ref.item():.6f} dense "
+            f"(relative {err_mi:.2e}); gradient {err_g:.2e} of its max; forward and backward "
+            f"{t_mi:.3f} ms streamed, {t_mi_dense:.3f} ms dense")
+        out.update(mi=(err_mi, err_g, t_mi, t_mi_dense))
+
+        # (g) A 4-pose multistart step against a single-pose step (CUDA events).
+        starts = (res["rotation0"], res["translation0"])
+        init4, step4 = make_multistart_step(drr, target, "euler_angles", "ZXY", metric=metric,
+                                            lr_rotation=5e-3, lr_translation=5e-1)
+        state4 = list(init4(*starts))
+        init1, step1 = make_registration_step(drr, target, "euler_angles", "ZXY", metric=metric,
+                                              lr_rotation=5e-3, lr_translation=5e-1)
+        state1 = list(init1(starts[0][:1], starts[1][:1]))
+
+        def run4():
+            state4[0], state4[1], _ = step4(*state4)
+
+        def run1():
+            state1[0], state1[1], _ = step1(*state1)
+
+        t4 = statistics.median(events_step(run4, 25)[1][5:])
+        t1 = statistics.median(events_step(run1, 25)[1][5:])
+        out.update(multistart_step_ms=t4, single_step_ms=t1)
+        del res, drr, target, ckpt, nocache
+    log(f"[regcli] {card}: step medians (CUDA events) per stage "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in out["stage_ms"].items())
+        + f"; serial Siddon step {out['siddon_step_ms']:.3f} ms; a {REG_RESTARTS}-pose "
+        f"multistart step {t4:.3f} ms against a single-pose step {t1:.3f} ms; the multiscale "
+        f"CLI call {out['multiscale_s']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -1881,6 +2226,9 @@ def main(argv) -> int:
                 for key, line in (("fwd_ch", 376), ("bwd_rays_ch", 600), ("bwd_vol_ch", 903))]
     log(f"[channels] Siddon channel sum vs siddon_fwd {err_sid_ch:.3e}; p_subsample=0.1 render "
         f"{t_sub:.3f} ms, full render {t_full:.3f} ms")
+
+    # 9. The registration CLI at full width -----------------------------------
+    registration_cli_phase(card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -55,21 +55,35 @@ is pinned, from the mean ray direction of the whole ray set, as the JAX
 package's does. None of the JAX package's TPU planning (tile windows, the
 footprint guard, bf16 storage, sparse-render strategies) exists here: the
 volume is stored once, in float32.
+
+Constructor options of the reference: ``persistent`` and
+``compile_renderer`` are accepted and do nothing, as in the JAX package.
+``checkpoint_gradients=True`` runs the render under
+``torch.utils.checkpoint`` (non-reentrant): the backward renders again
+instead of keeping the forward's saved tensors, so a kernel forward
+launches twice a step; the rerun finds the density's bricked copy in the
+cache and makes none. ``cache_volume=False`` drops the rendered density's
+bricked copy from the cache before each render, so every render makes its
+copy anew (the counterpart of the JAX package's prepped-volume cache).
+``set_density`` swaps the stored density; the copy cache, keyed on the
+tensor, then bricks the new one at its first render.
 """
 
 from __future__ import annotations
 
 import warnings
 from functools import partial
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ._device import DeviceLike, resolve_device
+from ._device import DeviceLike, pin_f32, resolve_device
 from .data import Subject
 from .detector import Detector
 from .ops.joseph import joseph_raycast
+from .ops.kernels import brick
 from .ops.kernels.joseph import as_labels, joseph_march_raycast
 from .ops.kernels.raymarch import raymarch_raycast
 from .ops.kernels.siddon import siddon_slab_raycast
@@ -114,9 +128,14 @@ class DRR:
         patch_size: Optional[int] = None,
         renderer: str = "siddon",
         voxel_shift: float = 0.5,
+        persistent: bool = True,  # the reference's module option; nothing to persist
+        compile_renderer: bool = False,  # the reference's option; the kernels are compiled
+        checkpoint_gradients: bool = False,
+        cache_volume: bool = True,
         device: DeviceLike = None,
         **renderer_kwargs,
     ):
+        del persistent, compile_renderer
         if renderer not in _OPTIONS:
             raise ValueError(f"renderer must be one of {sorted(_OPTIONS)}, not {renderer!r}")
         unknown = set(renderer_kwargs) - _OPTIONS[renderer]
@@ -146,6 +165,8 @@ class DRR:
         self.renderer_kwargs = dict(renderer_kwargs)
         self.reshape = reshape
         self.patch_size = patch_size
+        self.checkpoint_gradients = bool(checkpoint_gradients)
+        self.cache_volume = bool(cache_volume)
         # Renders that took the slab-validity escape to the sort oracle.
         self.siddon_escapes = 0
 
@@ -178,6 +199,27 @@ class DRR:
     def dtype(self):
         return self.density.dtype
 
+    def set_density(self, density) -> None:
+        """Replace the stored density (float32 on the DRR's device)."""
+        self.density = torch.as_tensor(density, dtype=torch.float32,
+                                       device=self.device).contiguous()
+
+    def pallas_ray_compatibility(self, pose: RigidTransform) -> Tuple[int, float]:
+        """``(best_axis, worst_ratio)`` of a pose for the slab march (host helper).
+
+        ``worst_ratio`` is the largest transverse/axial slope of any ray,
+        in voxel space, at the axis where it is least; above 1 some rays
+        break the slab assumption and the Siddon kernels' integrals would be
+        inexact for them (the slab guard sends such poses to the oracle).
+        Judged over the full detector frame, whatever ``p_subsample``.
+        """
+        source, _ = self.detector(pose, None)
+        target = self.detector.full_plane_target(pose, None)
+        ratios = self.worst_ratios(self.affine_inverse(source),
+                                   self.affine_inverse(target)).tolist()
+        best = int(np.argmin(ratios))
+        return best, float(ratios[best])
+
     # ----------------------------------------------------------------- forward
     def __call__(self, *args, **kwargs):
         return self.forward(*args, **kwargs)
@@ -200,7 +242,11 @@ class DRR:
             # (whose corner rays judge the march axis, as in the JAX package).
             target = self.detector.full_plane_target(pose, calibration)
             sample = self.detector.subsample_index
-        img = self._render(self.density, source, target, mask_to_channels, sample, kwargs)
+        if self.checkpoint_gradients:
+            img = checkpoint(self._render, self.density, source, target, mask_to_channels,
+                             sample, kwargs, use_reentrant=False)
+        else:
+            img = self._render(self.density, source, target, mask_to_channels, sample, kwargs)
         return self.reshape_transform(img, batch_size=len(pose))
 
     def worst_ratios(self, source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -241,6 +287,8 @@ class DRR:
         unknown = set(opts) - _OPTIONS[self.renderer_name]
         if unknown:
             raise TypeError(f"unexpected renderer option(s) {sorted(unknown)}")
+        if not self.cache_volume:
+            brick.forget(density)
 
         weights = torch.linalg.vector_norm(target - source, dim=-1)[:, None, :]
         source = self.affine_inverse(source)
@@ -350,6 +398,63 @@ class DRR:
             else:
                 img = reshape_subsampled_drr(img, self.detector, batch_size)
         return img
+
+    # ----------------------------------------------- runtime intrinsics swaps
+    def set_intrinsics_(self, sdd: Optional[float] = None, height: Optional[int] = None,
+                        width: Optional[int] = None, delx: Optional[float] = None,
+                        dely: Optional[float] = None, x0: Optional[float] = None,
+                        y0: Optional[float] = None, n_subsample: Optional[int] = None,
+                        reverse_x_axis: Optional[bool] = None) -> None:
+        """Set new intrinsic parameters in place (``None`` keeps the current one;
+        ``x0``/``y0`` are the calibration entries, as the constructor takes them)."""
+        d = self.detector
+        self.detector = Detector(
+            d.sdd if sdd is None else sdd,
+            d.height if height is None else height,
+            d.width if width is None else width,
+            d.delx if delx is None else delx,
+            d.dely if dely is None else dely,
+            d._x0 if x0 is None else x0,
+            d._y0 if y0 is None else y0,
+            d._reorient.cpu().numpy(),
+            d.n_subsample if n_subsample is None else n_subsample,
+            d.reverse_x_axis if reverse_x_axis is None else reverse_x_axis,
+            device=self.device)
+
+    def rescale_detector_(self, scale: float) -> None:
+        """Rescale the detector plane in place: ``scale`` times the pixels, each
+        ``1 / scale`` times as large."""
+        self.set_intrinsics_(height=int(self.detector.height * scale),
+                             width=int(self.detector.width * scale),
+                             delx=float(self.detector.delx / scale),
+                             dely=float(self.detector.dely / scale))
+
+    # ------------------------------------------------------------- projections
+    def perspective_projection(self, pose: RigidTransform, pts: torch.Tensor) -> torch.Tensor:
+        """Project world points ``(B, N, 3)`` onto the pixel plane, ``(B, N, 2)``."""
+        pin_f32()
+        extrinsic = self.detector.reorient.compose(pose).inverse()
+        x = extrinsic(pts)
+        x = torch.einsum("ij,bnj->bni", self.detector.intrinsic, x)
+        x = x / x[..., -1:]
+        x1 = self.detector.height - x[..., 1]
+        x0 = x[..., 0]
+        if self.detector.reverse_x_axis:
+            x0 = self.detector.width - x0
+        return torch.stack([x0, x1], dim=-1)
+
+    def inverse_projection(self, pose: RigidTransform, pts: torch.Tensor) -> torch.Tensor:
+        """Backproject pixel points ``(B, N, 2)`` onto the detector plane in
+        world coordinates, ``(B, N, 3)``."""
+        pin_f32()
+        x1 = self.detector.height - pts[..., 1]
+        x0 = pts[..., 0]
+        if self.detector.reverse_x_axis:
+            x0 = self.detector.width - x0
+        homogeneous = torch.stack([x0, x1, torch.ones_like(x0)], dim=-1)
+        intrinsic_inv = torch.linalg.inv(self.detector.intrinsic)
+        x = self.detector.sdd * torch.einsum("ij,bnj->bni", intrinsic_inv, homogeneous)
+        return self.detector.reorient.compose(pose)(x)
 
 
 def reshape_subsampled_drr(img: torch.Tensor, detector: Detector,

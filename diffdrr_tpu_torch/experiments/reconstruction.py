@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import StepClock
 from ..checkpoint import CheckpointManager
 from ..data import load_example_ct
 from ..drr import DRR
@@ -97,34 +98,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             opt.load_state_dict(state["opt_state"])
             print(f"resumed from step {start} in {args.ckpt_dir}", flush=True)
 
-    cuda = dev.type == "cuda"
-    losses, marks = [], []
+    clock, losses = StepClock(dev), []
     t0 = time.perf_counter()
     for it in range(start, args.n_iters):
-        if cuda:
-            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            begin.record()
-        else:
-            begin = time.perf_counter()
+        begin = clock.start()
         density, opt, loss = step(density, opt)
-        if cuda:
-            end.record()
-        else:
-            end = time.perf_counter()
+        clock.stop(begin)
         losses.append(loss)
-        marks.append((begin, end))
         if it % 10 == 0 or it == args.n_iters - 1:
             print(f"iter {it:4d}  mse {float(loss):.6f}", flush=True)
         if mgr is not None:
             mgr.maybe_save(it + 1, {"density": density, "opt_state": opt.state_dict()},
                            every=args.ckpt_every)
-    if cuda:
-        torch.cuda.synchronize(dev)
+    step_ms = clock.ms()
     elapsed = time.perf_counter() - t0
     if mgr is not None:
         mgr.wait()
         mgr.close()
-    step_ms = [b.elapsed_time(e) if cuda else (e - b) * 1e3 for b, e in marks]
 
     with torch.no_grad():
         err = float(torch.sqrt(torch.mean((density - drr.density) ** 2)))

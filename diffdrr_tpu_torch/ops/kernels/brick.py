@@ -30,7 +30,8 @@ once per step. An entry is keyed on the density's
 data pointer, version counter, shape and strides, and holds only a weak
 reference to the density, so it never keeps a density alive and goes when
 the density does. A write that bypasses the version counter (through
-``tensor.data``) is not seen; the port makes none.
+``tensor.data``) is not seen; the port makes none. ``forget`` drops one density's copy (a
+``DRR`` with ``cache_volume=False`` does so before each render).
 
 An int32 labelmap is copied the same way, as the bits of its labels (a
 float32 view), which ``joseph_fwd_ch`` and ``joseph_bwd_rays_ch`` read back
@@ -49,7 +50,7 @@ from ._launch import call, runs_plain
 from .prep import march_perm
 
 __all__ = ["BRICK", "BrickedDensity", "brick_density", "brick_density_plain", "bricked",
-           "clear_cache"]
+           "forget", "clear_cache"]
 
 # Voxels of a brick along the density's axes 0, 1, 2: two 128-byte lines
 # (fwd_timing.py's probes chose it over 4x4x2, 2x2x8, 2x4x4, 1x4x8, 8x4x1).
@@ -161,6 +162,13 @@ def bricked(density: torch.Tensor) -> BrickedDensity:
     _entries.append(_Entry(weakref.ref(density, _drop), key, value))
     del _entries[:-_MAX_ENTRIES]
     return value
+
+
+def forget(density: torch.Tensor) -> None:
+    """Drop the copy of ``density``'s memory, if one is kept (its next
+    forward bricks it anew)."""
+    ptr = density.data_ptr()
+    _entries[:] = [e for e in _entries if e.key[0] != ptr]
 
 
 def clear_cache() -> None:

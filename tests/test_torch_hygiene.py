@@ -11,6 +11,7 @@ import torch
 import diffdrr_tpu_torch as T
 from diffdrr_tpu_torch import registration
 from diffdrr_tpu_torch.experiments import reconstruction
+from diffdrr_tpu_torch.experiments import registration as registration_cli
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -24,9 +25,10 @@ def test_import_pulls_in_no_jax():
         "diffdrr_tpu_torch.ops.kernels.joseph, diffdrr_tpu_torch.ops.kernels.raymarch, "
         "diffdrr_tpu_torch.checkpoint, diffdrr_tpu_torch.experiments.reconstruction, "
         "diffdrr_tpu_torch.nifti, diffdrr_tpu_torch.data, diffdrr_tpu_torch.detector, "
-        "diffdrr_tpu_torch.ops.siddon, diffdrr_tpu_torch.ops._raygeom\n"
+        "diffdrr_tpu_torch.ops.siddon, diffdrr_tpu_torch.ops._raygeom, "
+        "diffdrr_tpu_torch.experiments.registration\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'flax', 'diffdrr_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'flax', 'click', 'diffdrr_tpu'))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -35,7 +37,7 @@ def test_import_pulls_in_no_jax():
 
 
 def test_no_source_names_jax():
-    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|diffdrr_tpu)\b")
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|click|diffdrr_tpu)\b")
     for path in list((ROOT / "diffdrr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), f"{path}: {line}"
@@ -63,3 +65,5 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
             T.DRR(subject, sdd=800.0, height=4, delx=2.0, renderer=renderer)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         reconstruction.main(["--volume-size", "16", "--height", "4", "--n-iters", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registration_cli.main(["--volume-size", "16", "--height", "4", "--n-iters", "1"])
