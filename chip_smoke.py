@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive diffdrr_tpu_torch on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py                    # all phases, one card, ~a minute
+    python3 chip_smoke.py                    # all phases, one card, ~3-4 minutes
     python3 chip_smoke.py --profile OUT.txt  # also profile registration and
                                              # reconstruction steps: the
                                              # device's busy share (in a
@@ -148,6 +148,40 @@ Phases (any failure raises and the exit code is non-zero):
   9g. CUDA-event step times per scale and of the polish, of the serial
      Siddon step, and of a 4-pose multistart step against a single-pose
      step, beside the card's name and power limit.
+ 10. the rest of pose estimation at the registration CLI's full width (a
+     512x512x128 CT, 200x200 detector, 2 mm pixels, sdd 1020), counts
+     zeroed before each sub-phase:
+ 10a. --optimizer lbfgs (optax.lbfgs() in the port's copy): trilinear
+     --n-runs 2 --n-iters 20, one Siddon serial run of 20 steps, and
+     --multistart --n-runs 4 --n-iters 10; the fused pose kernel launched
+     exactly once an evaluation (the line searches' evaluations, which the
+     runs record step by step, plus each run's first), the forward once for
+     the target and once for each multistart call's final scores, one
+     bricked copy, nothing else; each serial run's loss non-increasing over
+     its accepted steps (those that met the line search's sufficient
+     decrease, up to its approximate-decrease allowance of 1e-6 relative)
+     and lower at its last step than its first, its double geodesic logged;
+     a Siddon evaluation past the slab guard renders on the oracle and
+     counts in siddon_escapes in place of a launch; CUDA-event ms per step
+     and per evaluation;
+ 10b. rotation_9d, rotation_10d and quaternion_adjugate: 10 Adam steps
+     each from the true pose + 5 mm, the score rising, joseph_fwdgrad once
+     a step and one bricked copy; special_procrustes' and the Jacobi
+     eigenvector's backwards on 16 random rotations (their matrices and
+     -q q^T, perturbed by N(0, 0.05)) on the card equal to the CPU's to
+     1e-5 x max;
+ 10c. the pose-regressor trainer (batch 8): rotation_6d 20 steps saving
+     every 10, a resume that starts at step 20 and runs 10 more, and
+     rotation_10d 10 steps; joseph_fwd exactly once a step, one bricked
+     copy a call, no pose kernel, the losses finite; ms per step; one
+     forward and backward of the "default" and "large" presets at batch 8,
+     256^2;
+ 10d. the scipy baseline (Nelder-Mead, 2 runs, maxiter 100): joseph_fwd
+     exactly once a function evaluation and once for the target, one
+     bricked copy; each run's final mm and seconds;
+ 10e. the pinhole camera of the main view: its projection matrix
+     reprojects the CT's 8 corners onto perspective_projection within
+     1e-2 px.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -163,6 +197,12 @@ backwards'; the channel entries, the MIP forwards' and the two-pass ray
 backwards' also give ``ms_back_to_back``, the forwards ``ms_with_copy``,
 joseph_fwd_max and joseph_bwd_rays their lateral pose's ``ms_lateral`` and
 ``ms_lateral_back_to_back``, the two-pass ray backwards ``ms_mip``.
+``library_ms`` is one PyTorch call over the same samples: F.grid_sample
+for the Joseph forwards; torch.ops.aten.grid_sampler_3d_backward's input
+gradient (grad_output g * scale) for joseph_bwd_vol and joseph_bwd_vol_ch
+(g the channel cotangent at each sample's label), its grid gradient for
+joseph_bwd_rays and joseph_fwdgrad, and its nearest-mode input gradient at
+the segments' midpoints (grad_output len * w * g) for siddon_bwd_vol.
 Without a CUDA device, or without the package beside this file, the
 script exits non-zero and prints no result.
 """
@@ -963,34 +1003,111 @@ def joseph_cube(T, cube, rot0, trans, kw):
                 t_k=t_k)
 
 
-def grid_sample_ms(rows, density, axis, h, n, time_ms=None):
-    """One F.grid_sample (trilinear, zero padding) over the march's sample
-    points: the library yardstick of joseph_fwd, without its weighted sum.
-    ``time_ms`` times a call (default: median of 20 CUDA-event runs)."""
+def march_grid(rows, density, axis, h, n):
+    """The march's sample points as a grid_sample input and grid (trilinear,
+    align_corners), and each sample's scale (0 outside the slab): ``(inp
+    (1, 1, X, Y, Z), grid (1, R, n, 1, 3), scale (R, n))``."""
     import torch
-    import torch.nn.functional as F
 
     from diffdrr_tpu_torch.ops.kernels import joseph as J
     from diffdrr_tpu_torch.ops.kernels.prep import march_perm
 
     vol = density.permute(march_perm(axis)).contiguous()
     X, Y, Z = vol.shape
-    cols = []
+    cols, scale = [], []
     for st in J.march_steps(rows, h, X, n):
         y, z = st["y"], st["z"]
         x = torch.full_like(y, st["k"])
         # grid_sample's (x, y, z) index (W, H, D) = the volume's (z, y, s) axes.
         cols.append(torch.stack([2 * z / (Z - 1) - 1, 2 * y / (Y - 1) - 1,
                                  2 * x / (X - 1) - 1], -1))
+        scale.append(st["scale"])
     grid = torch.stack(cols, 1)[None, :, :, None, :]  # (1, R, n, 1, 3)
-    del cols
-    inp = vol[None, None]
+    return vol[None, None], grid, torch.stack(scale, 1)
+
+
+def grid_sample_ms(rows, density, axis, h, n, time_ms=None):
+    """One F.grid_sample (trilinear, zero padding) over the march's sample
+    points: the library yardstick of joseph_fwd, without its weighted sum.
+    ``time_ms`` times a call (default: median of 20 CUDA-event runs)."""
+    import torch.nn.functional as F
+
+    inp, grid, _ = march_grid(rows, density, axis, h, n)
 
     def call():
         return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
                              align_corners=True)
 
     return time_ms(call) if time_ms is not None else median_ms(call, 20)
+
+
+def grid_backward_ms(inp, grid, grad_output, nearest=False, input_grad=True):
+    """Median CUDA-event time of one ``torch.ops.aten.grid_sampler_3d_backward``
+    (zero padding, align_corners) of ``grad_output`` (1, C, R, n, 1): the
+    input gradient (a backward to the volume) or the grid gradient (a
+    backward to the sample points)."""
+    import torch
+
+    mask = [input_grad, not input_grad]
+
+    def call():
+        return torch.ops.aten.grid_sampler_3d_backward(grad_output, inp, grid, int(nearest), 0,
+                                                       True, mask)
+
+    return median_ms(call, 20)
+
+
+def march_library_ms(rows, density, axis, h, n, g=None, input_grad=True, labels=None):
+    """The library yardstick of the Joseph backwards (and joseph_fwdgrad):
+    grid_sampler_3d_backward at the march's sample points with grad_output
+    g * scale (g = 1 for joseph_fwdgrad; with ``labels`` g is the (C, R)
+    channel cotangent taken at each sample's label, as the channel kernel
+    takes it), its input gradient (the density scatter) or grid gradient."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.prep import march_perm
+
+    inp, grid, scale = march_grid(rows, density, axis, h, n)
+    if labels is not None:
+        lab_p = labels.permute(march_perm(axis))
+        out = torch.stack([J._channel_cotangent(g, J._labels_at(lab_p, st))
+                           for st in J.march_steps(rows, h, lab_p.shape[0], n)], 1) * scale
+    else:
+        out = scale if g is None else g[:, None] * scale
+    return grid_backward_ms(inp, grid, out[None, None, :, :, None].contiguous(),
+                            input_grad=input_grad)
+
+
+def siddon_library_ms(rows, density, axis, g):
+    """The library yardstick of siddon_bwd_vol: grid_sampler_3d_backward's
+    nearest-mode input gradient at every segment's midpoint (three a slab),
+    with grad_output len * w * g."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import siddon as K
+    from diffdrr_tpu_torch.ops.kernels.prep import march_perm
+
+    r = K._rows_dict(rows)
+    vol = density.permute(march_perm(axis)).contiguous()
+    X, Y, Z = vol.shape
+    cols, outs = [], []
+    for s in range(X):
+        sl = K._slab(r, s)
+        bounds = [sl["alo"], torch.minimum(sl["ty"], sl["tz"]),
+                  torch.maximum(sl["ty"], sl["tz"]), sl["ahi"]]
+        for j, length in enumerate(sl["lens"]):
+            mid = (bounds[j] + bounds[j + 1]) * 0.5
+            y = r["gy"] + mid * r["dy"]
+            z = r["gz"] + mid * r["dz"]
+            x = torch.full_like(y, float(s))
+            cols.append(torch.stack([2 * z / (Z - 1) - 1, 2 * y / (Y - 1) - 1,
+                                     2 * x / (X - 1) - 1], -1))
+            outs.append(torch.clamp(length, min=0.0) * r["sc"] * g)
+    grid = torch.stack(cols, 1)[None, :, :, None, :]
+    out = torch.stack(outs, 1)[None, None, :, :, None].contiguous()
+    del cols, outs
+    return grid_backward_ms(vol[None, None], grid, out, nearest=True)
 
 
 def lateral_jrays(drr_t, dens):
@@ -1294,6 +1411,8 @@ def channel_timings(ch):
         extra[name] = {"ms_back_to_back": burst_ms(kernel)}
         if name in ("fwd_ch", "bwd_rays_ch"):
             extra[name]["ms_with_copy"] = median_ms(kernel, 20, before=brick.clear_cache)
+        if name == "bwd_vol_ch":
+            extra[name]["library_ms"] = march_library_ms(rows, dens, axis, h, n, g, labels=lab)
         log(f"[time] joseph_{name} {times[name][0]:.4f} ms one call, "
             + ", ".join(f"{k} {v:.4f}" for k, v in extra[name].items())
             + f" (plain {times[name][1]:.2f}, bound {bnd:.4f} by {by}) at 200^2 rays, "
@@ -1613,6 +1732,282 @@ def registration_cli_phase(card: str) -> dict:
         + f"; serial Siddon step {out['siddon_step_ms']:.3f} ms; a {REG_RESTARTS}-pose "
         f"multistart step {t4:.3f} ms against a single-pose step {t1:.3f} ms; the multiscale "
         f"CLI call {out['multiscale_s']:.1f} s")
+    return out
+
+
+# Phase 10: the rest of pose estimation at the registration CLI's full width.
+LBFGS_RUNS = 2
+LBFGS_STEPS = 20
+LBFGS_SIDDON_STEPS = 20
+LBFGS_RESTARTS = 4
+LBFGS_RESTART_STEPS = 10
+PARAM_STEPS = 10
+TRAIN_BATCH = 8
+TRAIN_STEPS = 20
+TRAIN_CKPT_EVERY = 10
+TRAIN_RESUME_STEPS = 10
+TRAIN_10D_STEPS = 10
+SCIPY_RUNS = 2
+SCIPY_MAXITER = 100
+
+
+def check_lbfgs_runs(phase, res):
+    """Each serial run's loss non-increasing over its accepted steps (those
+    whose line search met the sufficient-decrease criterion, up to its
+    approximate-decrease allowance of 1e-6 relative; a failed line search
+    returns its last, unchecked step, as optax's does) and lower at its last
+    step than at its first; its double geodesic, step and evaluation times
+    logged. (The geodesic is not held below its start: from the CLI's
+    second seeded start the patch NCC rises monotonically while the pose
+    ends ~2.6 mm farther; PERF.md §6, "the rest of pose estimation".)
+    Returns each run's (median step ms, ms an evaluation)."""
+    import numpy as np
+
+    per_step, failures = [], []
+    for i, run in enumerate(res.get("runs", [])):
+        ls = [n for n, _ in run["linesearch_steps"]]
+        accepted = [ok for _, ok in run["linesearch_steps"]]
+        scores = run["scores"]
+        step_ms = run["step_ms"]
+        n_eval = sum(ls) + 1
+        per_step.append((statistics.median(step_ms), sum(step_ms) / n_eval))
+        log(f"[lbfgs] {phase} run {i}: {len(scores)} steps, {n_eval} evaluations (line search "
+            f"{ls}), {sum(accepted)} steps met sufficient decrease ({accepted}); scores "
+            + " ".join(f"{x:.5f}" for x in scores) + f"; double geodesic "
+            f"{run['start_mm']:.3f} -> {run['final_mm']:.3f} mm; step median "
+            f"{per_step[-1][0]:.3f} ms, {per_step[-1][1]:.3f} ms an evaluation (CUDA events)")
+        worse = [(k, a, b) for k, (a, b) in enumerate(zip(scores, scores[1:]))
+                 if accepted[k] and b < a - 1e-6 * abs(a)]
+        if worse:
+            failures.append(f"{phase} run {i}: the loss rose at accepted steps {worse}")
+        if not (np.isfinite(run["final_mm"]) and np.isfinite(scores).all()
+                and scores[-1] > scores[0]):
+            failures.append(f"{phase} run {i}: score {scores[0]} -> {scores[-1]}, double "
+                            f"geodesic {run['start_mm']} -> {run['final_mm']} mm")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return per_step
+
+
+def lbfgs_cli_run(phase, argv, renderer_fwd, renderer_fwdgrad, n_fwd):
+    """One registration-CLI call with --optimizer lbfgs, counts zeroed before:
+    the fused pose kernel launched exactly once an evaluation (the line
+    searches' and each run's first), the forward ``n_fwd`` times, one
+    bricked copy and nothing else; each serial run checked by
+    ``check_lbfgs_runs``."""
+    import torch
+
+    from diffdrr_tpu_torch import lbfgs
+    from diffdrr_tpu_torch.experiments import registration as reg_cli
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    brick.clear_cache()
+    reset_all_launches()
+    lbfgs.reset_evaluations()
+    t0 = time.perf_counter()
+    res = reg_cli.main(REG_CLI + ["--optimizer", "lbfgs"] + argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, evals = all_launches(), dict(lbfgs.evaluations)
+    # A Siddon evaluation at a pose past the slab guard renders on the oracle
+    # (no kernel), and counts in siddon_escapes.
+    escapes = res["drr"].siddon_escapes
+    log(f"[lbfgs] {phase}: launches {launches}; evaluations {evals}, slab escapes {escapes} "
+        f"in {secs:.1f} s")
+    no_other_launches(f"LBFGS {phase}", launches,
+                      {renderer_fwd: n_fwd,
+                       renderer_fwdgrad: evals["linesearch"] + evals["first"] - escapes,
+                       "brick_copy": 1})
+    per_step = check_lbfgs_runs(phase, res)
+    if res["mode"] == "serial" and evals["linesearch"] != sum(
+            n for run in res["runs"] for n, _ in run["linesearch_steps"]):
+        raise AssertionError(f"{phase}: the recorded line-search evaluations differ from "
+                             f"the count {evals}")
+    if res["mode"] == "serial" and evals["first"] != len(res["runs"]):
+        raise AssertionError(f"{phase}: {evals['first']} first evaluations for "
+                             f"{len(res['runs'])} runs")
+    return res, launches, evals, per_step, secs
+
+
+def pose_estimation_phase(card: str) -> dict:
+    """Phase 10: LBFGS through the registration CLI, the three new rotation
+    parameterizations, the CNN pose regressor's trainer, the scipy baseline
+    and the pinhole camera, at the CLI's full width."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import diffdrr_tpu_torch as T
+    from diffdrr_tpu_torch import pose as P
+    from diffdrr_tpu_torch.experiments import pose_regressor as trainer
+    from diffdrr_tpu_torch.experiments import reg_scipy
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.registration import PoseRegressor, optimize
+    from diffdrr_tpu_torch.utils import get_pinhole_camera
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_") as tmp:
+        # (a) LBFGS: trilinear serial, one Siddon serial run, multistart (the
+        # warm-up and the timed call: 2 x 4 restarts, each its first evaluation).
+        res, *tri = lbfgs_cli_run("trilinear serial", [
+            "--n-runs", str(LBFGS_RUNS), "--n-iters", str(LBFGS_STEPS),
+            "--outdir", f"{tmp}/tri"], "joseph_fwd", "joseph_fwdgrad", 1)
+        drr, target = res["drr"], res["target"]
+        rot_true, trans_true = res["rot_true"], res["trans_true"]
+        dev = drr.device
+        _, *sid = lbfgs_cli_run("siddon serial", [
+            "--renderer", "siddon", "--n-runs", "1", "--n-iters", str(LBFGS_SIDDON_STEPS),
+            "--outdir", f"{tmp}/sid"], "siddon_fwd", "siddon_fwdgrad", 1)
+        ms_res, *ms = lbfgs_cli_run("multistart", [
+            "--multistart", "--n-runs", str(LBFGS_RESTARTS), "--n-iters",
+            str(LBFGS_RESTART_STEPS), "--outdir", f"{tmp}/ms"], "joseph_fwd", "joseph_fwdgrad",
+            3)
+        if ms[1]["first"] != 2 * LBFGS_RESTARTS:
+            raise AssertionError(f"multistart made {ms[1]['first']} first evaluations")
+        trace = np.asarray(ms_res["trace"])
+        if trace.shape != (LBFGS_RESTART_STEPS, LBFGS_RESTARTS) or not np.isfinite(trace).all():
+            raise AssertionError(f"multistart trace {trace.shape}")
+        log(f"[lbfgs] multistart {LBFGS_RESTARTS} x {LBFGS_RESTART_STEPS}: scores "
+            + ", ".join(f"{a:.4f} -> {b:.4f}" for a, b in zip(trace[0], trace[-1]))
+            + "; double geodesics " + ", ".join(f"{m:.3f}" for m in ms_res["final_mm"])
+            + f" mm; the call {ms[3]:.1f} s ({ms[1]['linesearch'] + ms[1]['first']} "
+            f"evaluations with its warm-up)")
+        out.update(lbfgs_tri=tri, lbfgs_sid=sid, lbfgs_ms=ms[:2] + [ms[3]])
+        del res, ms_res
+
+        # (b) rotation_9d, rotation_10d and quaternion_adjugate: 10 Adam steps
+        # from the truth + 5 mm; then the two autograd Functions' backwards on
+        # the card against the CPU's on 16 generic rotations.
+        true_pose = T.convert(rot_true, trans_true, parameterization="euler_angles",
+                              convention="ZXY")
+        for name in ("rotation_9d", "rotation_10d", "quaternion_adjugate"):
+            rot_p, trans_p = true_pose.convert(name)
+            brick.clear_cache()
+            reset_all_launches()
+            _, _, tr = optimize(drr, target, rot_p, trans_p + 5.0, name, n_iters=PARAM_STEPS,
+                                **REG_LR)
+            torch.cuda.synchronize()
+            launches = all_launches()
+            no_other_launches(f"{name} registration", launches,
+                              {"joseph_fwdgrad": PARAM_STEPS, "brick_copy": 1})
+            if not (np.isfinite(tr).all() and tr[-1] > tr[0]):
+                raise AssertionError(f"{name}: scores {tr}")
+            log(f"[param] {name}: {PARAM_STEPS} Adam steps from the truth + 5 mm, score "
+                f"{tr[0]:.5f} -> {tr[-1]:.5f}, joseph_fwdgrad {launches['joseph_fwdgrad']}")
+        # 16 random rotations as a network would output them: each one's 3x3
+        # matrix and symmetric 4x4 (-q q^T), perturbed by N(0, 0.05).
+        rng = np.random.default_rng(10)
+        q = torch.tensor(rng.normal(size=(16, 4)), dtype=torch.float32)
+        q = q / q.norm(dim=-1, keepdim=True)
+        errs = {}
+        for name, fn, x in (
+                ("special_procrustes", P.special_procrustes, P.quaternion_to_matrix(q)),
+                ("_smallest_eigvec4", lambda a: P._SmallestEigvec4.apply(a),
+                 -q[:, :, None] * q[:, None, :])):
+            x = x.numpy() + rng.normal(0, 0.05, x.shape).astype(np.float32)
+            if name == "_smallest_eigvec4":
+                x = (x + x.transpose(0, 2, 1)) / 2
+            grads = []
+            for where in ("cpu", dev):
+                xt = torch.tensor(x, device=where, requires_grad=True)
+                y = fn(xt)
+                ct = torch.tensor(np.random.default_rng(11).normal(size=y.shape),
+                                  dtype=torch.float32, device=where)
+                y.backward(ct)
+                grads.append(xt.grad.cpu())
+            err = ((grads[1] - grads[0]).abs().max() / grads[0].abs().max()).item()
+            if not (np.isfinite(err) and err <= 1e-5):
+                raise AssertionError(f"{name} backward on the card vs the CPU: {err}")
+            errs[name] = err
+        log(f"[param] backwards on 16 perturbed random rotations, card vs CPU (of the max): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        out.update(param_errs=errs)
+
+        # (c) The trainer: rotation_6d for 20 steps saving every 10, a resume
+        # that starts at step 20, rotation_10d for 10 steps; one joseph_fwd a
+        # step (8 poses in one batch), one bricked copy a call, no pose kernel.
+        train_cli = REG_CLI + ["--batch-size", str(TRAIN_BATCH)]
+        ckpt = f"{tmp}/ckpt"
+        runs = {}
+        for label, extra, steps in (
+                ("rotation_6d", ["--n-steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt,
+                                 "--ckpt-every", str(TRAIN_CKPT_EVERY)], TRAIN_STEPS),
+                ("rotation_6d resumed", ["--n-steps", str(TRAIN_STEPS + TRAIN_RESUME_STEPS),
+                                         "--ckpt-dir", ckpt, "--ckpt-every",
+                                         str(TRAIN_CKPT_EVERY)], TRAIN_RESUME_STEPS),
+                ("rotation_10d", ["--n-steps", str(TRAIN_10D_STEPS), "--parameterization",
+                                  "rotation_10d"], TRAIN_10D_STEPS)):
+            brick.clear_cache()
+            reset_all_launches()
+            run = trainer.main(train_cli + extra)
+            torch.cuda.synchronize()
+            launches = all_launches()
+            no_other_launches(f"trainer {label}", launches,
+                              {"joseph_fwd": steps, "brick_copy": 1})
+            if len(run["losses"]) != steps or not np.isfinite(run["losses"]).all():
+                raise AssertionError(f"trainer {label}: losses {run['losses']}")
+            want_start = TRAIN_STEPS if label.endswith("resumed") else 0
+            if run["start"] != want_start:
+                raise AssertionError(f"trainer {label} started at step {run['start']}")
+            step_ms = statistics.median(run["step_ms"][2:] or run["step_ms"])
+            runs[label] = step_ms
+            log(f"[train] {label}: steps {run['start']}..{run['start'] + steps}, loss "
+                f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}, joseph_fwd "
+                f"{launches['joseph_fwd']}, step median {step_ms:.3f} ms (CUDA events)")
+            del run
+        presets = {}
+        x = torch.randn(TRAIN_BATCH, 1, 256, 256, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        for preset in ("default", "large"):
+            model = PoseRegressor("rotation_6d", model_name=preset,
+                                  generator=torch.Generator().manual_seed(0)).to(dev)
+
+            def fwd_bwd():
+                pose = model(x)
+                torch.sum(pose.matrix ** 2).backward()
+
+            presets[preset] = median_ms(fwd_bwd, 10)
+        log(f"[train] {card}: one forward and backward at batch {TRAIN_BATCH}, 256^2: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in presets.items()))
+        out.update(train_ms=runs, preset_ms=presets)
+
+        # (d) The scipy baseline: one joseph_fwd a function evaluation, and one
+        # for the target.
+        brick.clear_cache()
+        reset_all_launches()
+        sc = reg_scipy.main(REG_CLI + ["--n-runs", str(SCIPY_RUNS), "--maxiter",
+                                       str(SCIPY_MAXITER)])
+        torch.cuda.synchronize()
+        launches = all_launches()
+        nfev = sum(r["nfev"] for r in sc["runs"])
+        no_other_launches("reg_scipy", launches, {"joseph_fwd": nfev + 1, "brick_copy": 1})
+        log(f"[scipy] Nelder-Mead, maxiter {SCIPY_MAXITER}: "
+            + "; ".join(f"run {i} nfev {r['nfev']}, final {r['final_mm']:.3f} mm, "
+                        f"{r['seconds']:.2f} s" for i, r in enumerate(sc["runs"]))
+            + f"; joseph_fwd {launches['joseph_fwd']}")
+        out.update(scipy=[(r["nfev"], r["final_mm"], r["seconds"]) for r in sc["runs"]])
+        del sc
+
+        # (e) The pinhole camera of the main cell's view: its projection
+        # matrix reprojects the volume's corners onto perspective_projection.
+        cam = get_pinhole_camera(drr, true_pose)
+        bounds = drr.subject.volume.get_bounds()
+        corners = np.array([[bounds[0][i], bounds[1][j], bounds[2][k]]
+                            for i in (0, 1) for j in (0, 1) for k in (0, 1)])
+        with torch.no_grad():
+            expect = drr.perspective_projection(
+                true_pose, torch.tensor(corners[None], dtype=torch.float32,
+                                        device=dev))[0].cpu().numpy()
+        proj = (cam.projmat[0].astype(np.float64)
+                @ np.concatenate([corners, np.ones((8, 1))], 1).T).T
+        err_px = float(np.abs(proj[:, :2] / proj[:, 2:] - expect).max())
+        if not err_px <= 1e-2:
+            raise AssertionError(f"pinhole camera reprojection {err_px} px")
+        log(f"[pinhole] the camera's projection matrix reprojects the 8 corners within "
+            f"{err_px:.2e} px of perspective_projection")
+        out.update(pinhole_px=err_px)
+        del drr, target
     return out
 
 
@@ -1941,6 +2336,7 @@ def main(argv) -> int:
     t_bv = median_ms(lambda: K.siddon_bwd_vol(rows_v, g_v, shape, ax_v), 20)
     t_bv_alone = scatter_alone_ms("siddon", "siddon_bwd_vol", rows_v, g_v, shape, ax_v)
     t_bv_plain = median_ms(lambda: K.siddon_bwd_vol_plain(rows_v, g_v, shape, ax_v), 2, 1)
+    t_bv_lib = siddon_library_ms(rows_v, drr.density, ax_v, g_v)
     t_zero = median_ms(lambda: torch.zeros(shape, device=dev), 20)
     dens_v = dens_r.detach()
     # siddon_fwd with the density's bricked copy cached (registration, a
@@ -1982,7 +2378,8 @@ def main(argv) -> int:
         f"{by_br_mip}); all at 200^2 rays, axis {ax_m}")
     log(f"[time] siddon_bwd_vol at {rows_v.shape[1]} rays {t_bv:.4f} ms with its zero fill, "
         f"{t_bv_alone:.4f} ms alone ({int((g_v == 0).sum())} rays with g = 0; plain "
-        f"{t_bv_plain:.2f}, bound {b_bv:.4f} by {by_bv}); the zero fill alone "
+        f"{t_bv_plain:.2f}, bound {b_bv:.4f} by {by_bv}; grid_sampler_3d_backward's nearest "
+        f"input gradient at the segments' midpoints {t_bv_lib:.4f} ms); the zero fill alone "
         f"{t_zero:.4f} ms ({zero_bytes / 1e6:.1f} MB, bound "
         f"{zero_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); siddon_fwd at the same rays "
         f"{t_fv:.4f} ms (bound {b_fv:.4f} by {by_fv}); reconstruction step median "
@@ -2084,6 +2481,15 @@ def main(argv) -> int:
         log(f"[time] joseph_{name} {jtimes[name][0]:.4f} ms (plain {jtimes[name][1]:.2f}, bound "
             f"{b:.4f} by {by})")
     t_lib = grid_sample_ms(rows_m, dens_m, 2, 1.0, X)
+    # grid_sampler_3d_backward at the same samples: the input gradient for
+    # joseph_bwd_vol, the grid gradient for joseph_bwd_rays and joseph_fwdgrad.
+    t_lib_jbv = march_library_ms(rec["rows_v"], rec["density"], 2, rec["h"], rec["n"],
+                                 rec["g_v"])
+    t_lib_jbr = march_library_ms(rows_m, dens_m, 2, 1.0, X, g_j, input_grad=False)
+    t_lib_jfg = march_library_ms(rows_r, dens_m, 2, 1.0, X, input_grad=False)
+    log(f"[time] grid_sampler_3d_backward at the Joseph kernels' samples: input gradient "
+        f"{t_lib_jbv:.4f} ms ({rec['rows_v'].shape[1]} rays, g * scale), grid gradient "
+        f"{t_lib_jbr:.4f} ms (200^2, g * scale) and {t_lib_jfg:.4f} ms (200^2, scale)")
     lat = lateral_jrays(tri["drr"], dens_m)
     jmax_extra = joseph_max_timings(dens_m, rows_m, X, lat)
     jbr_extra, err_jbr = joseph_bwd_rays_timings(dens_m, rows_m, X, g_j, lat)
@@ -2176,7 +2582,7 @@ def main(argv) -> int:
          "launches": recon_launches["siddon_bwd_vol"],
          "max_abs_err": max(err_bv, err_bv0, err_bv_mip, e5["sum"], e5["mip"]),
          "ms": t_bv, "plain_ms": t_bv_plain, "bound_ms": b_bv, "bound_by": by_bv,
-         "library_ms": None},
+         "library_ms": t_bv_lib},
     ]
     jsrc = "diffdrr_tpu_torch/csrc/joseph.cu"
     jpal = "diffdrr_tpu/ops/pallas/joseph.py"
@@ -2203,17 +2609,19 @@ def main(argv) -> int:
                   library_ms=t_lib),
              design=fused_design("joseph.cuh", "kMaxLanes"), **jmax_extra),
         dict(jrec("joseph_fwdgrad", "fwdgrad", 732, tri["launches"]["joseph_fwdgrad"],
-                  max(tri["err_fg"], jsmall["fwdgrad_sum"], jsmall["fwdgrad_max"])),
+                  max(tri["err_fg"], jsmall["fwdgrad_sum"], jsmall["fwdgrad_max"]),
+                  library_ms=t_lib_jfg),
              design=fused_design("joseph.cuh"), ms_with_copy=t_jfg_copy),
         dict(jrec("joseph_bwd_rays", "bwd_rays", 600,
                   jm["sum_launches"]["joseph_bwd_rays"] + jm["launches"]["joseph_bwd_rays"],
-                  max(jm["err_br"], err_jbr, jsmall["bwd_rays_sum"], jsmall["bwd_rays_mip"])),
+                  max(jm["err_br"], err_jbr, jsmall["bwd_rays_sum"], jsmall["bwd_rays_mip"]),
+                  library_ms=t_lib_jbr),
              design=fused_design("joseph.cuh", "kBwdLanes")
              + " (sum); one thread per ray, strided (MIP)", ms_mip=jtimes["bwd_rays_mip"][0],
              **jbr_extra),
         jrec("joseph_bwd_vol", "bwd_vol", 903, rec["launches"]["joseph_bwd_vol"],
              max(rec["err_bv"], jm["err_bv_mip"], err_jbv0, jsmall["bwd_vol_sum"],
-                 jsmall["bwd_vol_mip"])),
+                 jsmall["bwd_vol_mip"]), library_ms=t_lib_jbv),
     ]
     # Channel kernels: launches of phase 8b's two backwards (joseph, trilinear).
     jtimes.update(ch_times)
@@ -2229,6 +2637,11 @@ def main(argv) -> int:
 
     # 9. The registration CLI at full width -----------------------------------
     registration_cli_phase(card)
+
+    # 10. The rest of pose estimation at full width ----------------------------
+    t10 = time.perf_counter()
+    pose_estimation_phase(card)
+    log(f"[lbfgs] phase 10 took {time.perf_counter() - t10:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

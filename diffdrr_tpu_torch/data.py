@@ -61,6 +61,15 @@ class Image:
         idx = (np.asarray(self.spatial_shape, np.float64) - 1.0) / 2.0
         return self.affine[:3, :3] @ idx + self.affine[:3, 3]
 
+    def get_bounds(self) -> tuple:
+        """``((xmin, xmax), (ymin, ymax), (zmin, zmax))`` in world space, from
+        the voxel-edge corners at index -0.5 and shape - 0.5 (torchio's)."""
+        first = self.affine[:3, :3] @ np.full(3, -0.5) + self.affine[:3, 3]
+        last = (self.affine[:3, :3] @ (np.asarray(self.spatial_shape) - 0.5)
+                + self.affine[:3, 3])
+        pts = np.stack([first, last])
+        return tuple((pts[:, i].min(), pts[:, i].max()) for i in range(3))
+
 
 @dataclasses.dataclass
 class Subject:

@@ -64,7 +64,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.mesh:
         raise NotImplementedError(
             "--mesh is not ported yet: it waits for the torch.distributed port of "
-            "parallel/ (ROADMAP.md, queue 1 item 11)")
+            "parallel/ (ROADMAP.md, queue 1: parallel/)")
     device = "cpu" if args.cpu else None
     vs = args.volume_size
     subject = load_example_ct(shape=(vs, vs, max(16, vs // 4)), device=device)

@@ -34,9 +34,13 @@ worker fault). As in the JAX CLI, ``--polish-iters`` acts only with
 CUDA card unless ``--cpu``. ``main(argv)`` returns the run's record: each
 run's start, final pose, final double geodesic, scores and per-step times
 (CUDA events on the card, the host clock on the CPU), and the DRR and
-target it used.
+target it used; with ``--optimizer lbfgs`` also each serial run's (and each
+stage's) ``linesearch_steps``: each step's line-search evaluations and
+whether its step met the sufficient-decrease criterion.
 
-Not ported yet (ROADMAP.md, queue 1): ``--optimizer lbfgs``, which raises.
+``--optimizer lbfgs`` (``optax.lbfgs()`` in the port's copy) takes every
+branch. As in the JAX CLI it ignores the learning rates and so the
+``--lr-decay`` and ``--polish-lr-decay`` schedules.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import csv
 import time
 import warnings
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,8 +61,8 @@ from ..drr import DRR
 from ..metrics import (DoubleGeodesicSE3, GradientNormalizedCrossCorrelation2d,
                        MultiscaleNormalizedCrossCorrelation2d)
 from ..pose import convert
-from ..registration import (LBFGS_NOT_PORTED, exponential_decay, make_registration_step,
-                            optimize_multistart, rescaled_drr, resize_target)
+from ..registration import (exponential_decay, make_registration_step, optimize_multistart,
+                            rescaled_drr, resize_target)
 
 __all__ = ["parse_args", "main"]
 
@@ -108,17 +112,25 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _lrs(lr_rot: float, lr_trans: float, n: int, decay: float) -> dict:
-    if decay < 1.0:
+def _lrs(lr_rot: float, lr_trans: float, n: int, decay: float, optimizer: str) -> dict:
+    if optimizer != "lbfgs" and decay < 1.0:
         return dict(lr_rotation=exponential_decay(lr_rot, n, decay),
                     lr_translation=exponential_decay(lr_trans, n, decay))
     return dict(lr_rotation=lr_rot, lr_translation=lr_trans)
 
 
+def _linesearch_steps(opt) -> Optional[Tuple[int, bool]]:
+    """The step just taken's line-search evaluations and whether its step
+    met the sufficient-decrease criterion (LBFGS; else None). A line search
+    that fails without such a step returns its last step all the same."""
+    state = getattr(opt, "state", None)
+    if not hasattr(state, "num_linesearch_steps"):
+        return None
+    return state.num_linesearch_steps, bool(state.decrease_error == 0)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
-    if args.optimizer == "lbfgs":
-        raise NotImplementedError(LBFGS_NOT_PORTED)
     if args.polish_iters > 0 and not args.multiscale:
         warnings.warn(f"--polish-iters {args.polish_iters} acts only with --multiscale "
                       f"(as in the JAX CLI); no polish stage runs", stacklevel=2)
@@ -174,29 +186,32 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                            GradientNormalizedCrossCorrelation2d(), args.polish_lr_rotation,
                            args.polish_lr_translation, args.polish_lr_decay, "polish"))
         runners = [(make_registration_step(d_s, t_s, "euler_angles", "ZXY", metric=m_s,
-                                           **_lrs(lr_r, lr_t, n_s, decay), **opt_kw),
+                                           **_lrs(lr_r, lr_t, n_s, decay, args.optimizer),
+                                           **opt_kw),
                     n_s, label)
                    for d_s, t_s, n_s, m_s, lr_r, lr_t, decay, label in stages]
 
         def one_run(rot0, trans0, echo=False):
             rot_c, trans_c = rot0, trans0
-            scores, step_ms = [], []
+            scores, step_ms, ls_steps = [], [], []
             for (init_fn, step_fn), n_s, label in runners:
                 params, opt = init_fn(rot_c, trans_c)
-                clock, stage = StepClock(dev), []
+                clock, stage, ls = StepClock(dev), [], []
                 for _ in range(n_s):
                     begin = clock.start()
                     params, opt, score = step_fn(params, opt)
                     clock.stop(begin)
                     stage.append(score)
+                    ls.append(_linesearch_steps(opt))
                 stage = torch.stack(stage).tolist() if stage else []
                 scores.append(stage)
                 step_ms.append(clock.ms())
+                ls_steps.append(ls)
                 rot_c, trans_c = params["rotation"].detach(), params["translation"].detach()
                 if echo and stage:
                     print(f"    scale {label}: {geodesic_mm(rot_c, trans_c)[2][0]:8.3f} mm, "
                           f"score {stage[0]:.4f} -> {stage[-1]:.4f}", flush=True)
-            return rot_c, trans_c, scores, step_ms
+            return rot_c, trans_c, scores, step_ms, ls_steps
 
         # A warm-up run, as the JAX CLI's (there it compiles every scale).
         one_run(rot_true + 1e-3, trans_true + 1e-2)
@@ -207,7 +222,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             rot0 = rot_true + offset((1, 3), 0.06)
             trans0 = trans_true + offset((1, 3), 12.0)
             t0 = time.perf_counter()
-            rot_f, trans_f, scores, step_ms = one_run(rot0, trans0, echo=True)
+            rot_f, trans_f, scores, step_ms, ls_steps = one_run(rot0, trans0, echo=True)
             elapsed = time.perf_counter() - t0
             start_mm = geodesic_mm(rot0, trans0)[2][0]
             final_mm = geodesic_mm(rot_f, trans_f)[2][0]
@@ -215,7 +230,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                             iters_total / elapsed])
             runs.append(dict(rotation0=rot0, translation0=trans0, rotation=rot_f,
                              translation=trans_f, start_mm=start_mm, final_mm=final_mm,
-                             scores=scores, step_ms=step_ms, seconds=elapsed))
+                             scores=scores, step_ms=step_ms, seconds=elapsed,
+                             linesearch_steps=ls_steps))
             print(f"run {run:3d}: {'converged' if final_mm < CONVERGED_MM else 'FAILED '}"
                   f" final {final_mm:8.3f} mm, {iters_total / elapsed:6.1f} it/s", flush=True)
         with open(outdir / "multiscale_summary.csv", "w", newline="") as f:
@@ -263,12 +279,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rot0 = rot_true + offset((1, 3), 0.06)
         trans0 = trans_true + offset((1, 3), 12.0)
         params, opt = init_fn(rot0, trans0)
-        rows, converged_at, clock = [], None, StepClock(dev)
+        rows, converged_at, clock, ls_steps = [], None, StepClock(dev), []
         t0 = time.perf_counter()
         for it in range(args.n_iters):
             begin = clock.start()
             params, opt, score = step_fn(params, opt)
             clock.stop(begin)
+            ls_steps.append(_linesearch_steps(opt))
             rot_geo, xyz_geo, double_geo = geodesic_mm(params["rotation"], params["translation"])
             rows.append([it, float(score), rot_geo[0], xyz_geo[0], double_geo[0],
                          time.perf_counter() - t0])
@@ -287,7 +304,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          rotation=params["rotation"].detach(),
                          translation=params["translation"].detach(),
                          start_mm=geodesic_mm(rot0, trans0)[2][0], final_mm=final[4],
-                         scores=[r[1] for r in rows], step_ms=clock.ms(), seconds=final[5]))
+                         scores=[r[1] for r in rows], step_ms=clock.ms(), seconds=final[5],
+                         linesearch_steps=ls_steps))
         print(f"run {run:3d}: {'converged' if converged_at is not None else 'max-iters'}"
               f" after {final[0] + 1:4d} iters, final {final[4]:8.3f} mm,"
               f" {iters_per_s:6.1f} it/s", flush=True)

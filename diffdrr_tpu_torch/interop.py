@@ -12,6 +12,12 @@ volume affine after centring), ``reorient`` (4, 4) float32, ``mask``
 (optional labelmap), ``orientation``, and the detector config ``sdd``,
 ``height``, ``width``, ``delx``, ``dely``, ``x0``, ``y0``,
 ``reverse_x_axis``, plus ``voxel_shift``.
+
+``pose_regressor_state_from_flax`` turns the variables of the JAX
+package's flax ``PoseRegressor`` (NumPy arrays in flax's nested dicts) into
+the ``state_dict`` of this package's ``PoseRegressor``: flax's HWIO
+convolution kernels to OIHW, its (in, out) dense kernels to (out, in), its
+group norm scales to weights.
 """
 
 from __future__ import annotations
@@ -19,12 +25,14 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from ._device import DeviceLike
 from .data import Image, Subject
 from .drr import DRR
 
-__all__ = ["export_state", "subject_from_state", "drr_from_state"]
+__all__ = ["export_state", "subject_from_state", "drr_from_state",
+           "pose_regressor_state_from_flax"]
 
 
 def export_state(drr: Any) -> Dict[str, Any]:
@@ -72,3 +80,27 @@ def drr_from_state(state: Dict[str, Any], device: DeviceLike = None, **kwargs) -
                width=state["width"], dely=state["dely"], x0=state["x0"], y0=state["y0"],
                reverse_x_axis=state["reverse_x_axis"], voxel_shift=state["voxel_shift"],
                device=subject.device, **kwargs)
+
+
+def pose_regressor_state_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of ``registration.PoseRegressor`` from flax variables.
+
+    ``params`` is ``{"params": {"_ConvBackbone_0": {"Conv_j": ...,
+    "GroupNorm_j": ...}, "Dense_0": ..., "Dense_1": ...}}`` (or its inner
+    dict), as ``PoseRegressor.init`` makes it, leaves as NumPy arrays; the
+    same mapping carries a gradient tree of that shape.
+    """
+    params = params.get("params", params)
+    state = {}
+    for name, layer in params["_ConvBackbone_0"].items():
+        kind, j = name.split("_")
+        if kind == "Conv":
+            state[f"backbone.convs.{j}.weight"] = np.asarray(layer["kernel"]).transpose(3, 2, 0, 1)
+        else:
+            state[f"backbone.norms.{j}.weight"] = np.asarray(layer["scale"])
+        state[f"backbone.{'convs' if kind == 'Conv' else 'norms'}.{j}.bias"] = np.asarray(
+            layer["bias"])
+    for name, head in (("Dense_0", "rotation_head"), ("Dense_1", "translation_head")):
+        state[f"{head}.weight"] = np.asarray(params[name]["kernel"]).T
+        state[f"{head}.bias"] = np.asarray(params[name]["bias"])
+    return {k: torch.tensor(np.ascontiguousarray(v, dtype=np.float32)) for k, v in state.items()}

@@ -54,7 +54,7 @@ def make_reconstruction_step(
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh for reconstruction is not ported yet: it waits for the "
-            "torch.distributed port of parallel/ (ROADMAP.md, queue 1 item 11)")
+            "torch.distributed port of parallel/ (ROADMAP.md, queue 1: parallel/)")
     render_kwargs.setdefault("fused_pose_bwd", False)
     device = drr.device
 

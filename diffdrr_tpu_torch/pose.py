@@ -12,10 +12,14 @@ reference DiffDRR's):
     ``R(c0, a0) @ R(c1, a1) @ R(c2, a2)``;
   * the SE(3) log is laid out ``[nu (translation), omega (rotation)]``.
 
-Not ported yet (see ROADMAP.md, queue 1 item 2): building a rotation from
-``rotation_9d`` (its ``special_procrustes`` custom derivative),
-``rotation_10d`` and ``quaternion_adjugate`` (the Jacobi eigensolver). Those
-raise ``NotImplementedError``; exporting a pose *to* them works.
+Two conversions carry their own backward, as ``torch.autograd.Function``s,
+the transposes of the JAX package's custom JVPs: ``special_procrustes``
+(``rotation_9d``), whose backward solves a Lyapunov system instead of
+differentiating the SVD (that divides by differences of singular values,
+NaN at every rotation matrix), and ``_smallest_eigvec4`` (``rotation_10d``),
+whose forward is an 8-sweep cyclic Jacobi eigensolver (the JAX package's,
+so both packages give the same eigenvector) and whose backward is the
+simple-eigenvector perturbation formula.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ __all__ = [
     "RigidTransform",
     "convert",
     "make_matrix",
+    "random_rigid_transform",
     "PARAMETERIZATIONS",
     "axis_angle_to_matrix",
     "matrix_to_axis_angle",
@@ -73,11 +78,6 @@ PARAMETERIZATIONS = [
     "rotation_10d",
     "se3_log_map",
 ]
-
-_NOT_PORTED = (
-    "{} is not ported to diffdrr_tpu_torch yet (it needs a custom autograd "
-    "rule); see ROADMAP.md, queue 1 item 2")
-
 
 # -----------------------------------------------------------------------------
 # Small numerics helpers
@@ -342,8 +342,47 @@ def matrix_to_rotation_6d(matrix: torch.Tensor) -> torch.Tensor:
     return matrix[..., :2, :].reshape(matrix.shape[:-2] + (6,))
 
 
+class _SpecialProcrustes(torch.autograd.Function):
+    """Project (..., 3, 3) matrices onto SO(3): ``U diag(1, 1, det(U V^T)) V^T``.
+
+    The backward is the transpose of the JAX package's custom JVP, which
+    solves ``Omega S + S Omega = A - A^T`` (``S = sym(R^T m)``, ``A = R^T dm``)
+    in the eigenbasis of ``S``, dividing only by sums of its eigenvalues
+    (floored at 1e-8): given ``G = dL/dR``, ``Bq = (Q^T R^T G Q) / denom``,
+    ``B = Q Bq Q^T`` and ``dL/dm = R (B - B^T)``.
+    """
+
+    @staticmethod
+    def forward(ctx, m):
+        u, _, vt = torch.linalg.svd(m, full_matrices=False)
+        det = torch.linalg.det(u @ vt)[..., None, None]
+        vt = torch.cat([vt[..., :2, :], det * vt[..., -1:, :]], dim=-2)
+        R = u @ vt
+        ctx.save_for_backward(R, m)
+        return R
+
+    @staticmethod
+    def backward(ctx, G):
+        R, m = ctx.saved_tensors
+        S = R.transpose(-1, -2) @ m
+        S = (S + S.transpose(-1, -2)) / 2
+        lam, Q = torch.linalg.eigh(S)
+        denom = lam[..., :, None] + lam[..., None, :]
+        denom = torch.where(torch.abs(denom) < 1e-8, torch.full_like(denom, 1e-8), denom)
+        Oq_bar = Q.transpose(-1, -2) @ (R.transpose(-1, -2) @ G) @ Q
+        B_bar = Q @ (Oq_bar / denom) @ Q.transpose(-1, -2)
+        return R @ (B_bar - B_bar.transpose(-1, -2))
+
+
+def special_procrustes(m: torch.Tensor) -> torch.Tensor:
+    """Nearest rotation to each (..., 3, 3) matrix, with a backward finite at
+    rotations (see :class:`_SpecialProcrustes`)."""
+    return _SpecialProcrustes.apply(m)
+
+
 def rotation_9d_to_matrix(rotation: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(_NOT_PORTED.format("rotation_9d (special_procrustes)"))
+    """9-vector -> SO(3) by symmetric orthogonalization (Levinson et al.)."""
+    return special_procrustes(rotation.reshape(rotation.shape[:-1] + (3, 3)))
 
 
 def matrix_to_rotation_9d(matrix: torch.Tensor) -> torch.Tensor:
@@ -351,10 +390,79 @@ def matrix_to_rotation_9d(matrix: torch.Tensor) -> torch.Tensor:
 
 
 _TRIU_I, _TRIU_J = [0, 0, 0, 0, 1, 1, 1, 2, 2, 3], [0, 1, 2, 3, 1, 2, 3, 2, 3, 3]
+# Entry (i, j) of the symmetric 4x4 is element _SYM4[i][j] of the 10-vector.
+_SYM4 = [0, 1, 2, 3, 1, 4, 5, 6, 2, 5, 7, 8, 3, 6, 8, 9]
+
+
+def _10vec_to_4x4symmetric(vec: torch.Tensor) -> torch.Tensor:
+    """10-vector (the upper triangle, row by row) -> symmetric 4x4."""
+    return vec[..., _SYM4].reshape(vec.shape[:-1] + (4, 4))
+
+
+_JACOBI_PAIRS = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+
+
+def _jacobi_eigh4(A: torch.Tensor, sweeps: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cyclic Jacobi eigendecomposition of batched symmetric 4x4 matrices.
+
+    The JAX package's solver, rotation for rotation: ``sweeps`` sweeps over
+    ``_JACOBI_PAIRS``, each rotation by ``0.5 * atan2(2 a_pq, a_qq - a_pp)``
+    followed by a symmetrisation, then a stable ascending sort. Returns
+    ``(eigenvalues ascending, eigenvectors as columns)``.
+    """
+    eye = torch.eye(4, dtype=A.dtype, device=A.device)
+    V = eye.expand(A.shape)
+    for _ in range(sweeps):
+        for p, q in _JACOBI_PAIRS:
+            theta = 0.5 * torch.atan2(2.0 * A[..., p, q], A[..., q, q] - A[..., p, p])
+            c = torch.cos(theta)[..., None, None]
+            s = torch.sin(theta)[..., None, None]
+            ep, eq = eye[p], eye[q]
+            Ppq = ep[:, None] * ep[None, :] + eq[:, None] * eq[None, :]
+            Rot = (eye - Ppq + c * Ppq + s * (ep[:, None] * eq[None, :])
+                   - s * (eq[:, None] * ep[None, :]))
+            A = Rot.transpose(-1, -2) @ A @ Rot
+            A = (A + A.transpose(-1, -2)) * 0.5
+            V = V @ Rot
+    lam = torch.diagonal(A, dim1=-2, dim2=-1)
+    order = torch.argsort(lam, dim=-1, stable=True)
+    lam = torch.gather(lam, -1, order)
+    V = torch.gather(V, -1, order[..., None, :].expand(V.shape))
+    return lam, V
+
+
+class _SmallestEigvec4(torch.autograd.Function):
+    """Unit eigenvector of the smallest eigenvalue of symmetric 4x4 ``A``.
+
+    The backward is the transpose of the JAX package's custom JVP
+    ``dv0 = sum_{j>0} (v_j^T sym(dA) v0) / (lam_0 - lam_j) v_j``: given
+    ``g``, ``c = V^T g`` with ``c_0 = 0``, ``w = V (c / gap)`` (the gap
+    floored at +-1e-6) and ``dL/dA = sym(w v0^T)``.
+    """
+
+    @staticmethod
+    def forward(ctx, A):
+        lam, V = _jacobi_eigh4(A)
+        ctx.save_for_backward(lam, V)
+        return V[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        lam, V = ctx.saved_tensors
+        gap = lam[..., 0:1] - lam
+        floor = torch.where(gap < 0, torch.full_like(gap, -1e-6), torch.full_like(gap, 1e-6))
+        gap = torch.where(torch.abs(gap) < 1e-6, floor, gap)
+        c = torch.einsum("...ij,...i->...j", V, g)
+        c = torch.cat([torch.zeros_like(c[..., :1]), c[..., 1:]], dim=-1)
+        w = torch.einsum("...ij,...j->...i", V, c / gap)
+        outer = w[..., :, None] * V[..., None, :, 0]
+        return (outer + outer.transpose(-1, -2)) * 0.5
 
 
 def rotation_10d_to_quaternion(rotation: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(_NOT_PORTED.format("rotation_10d (Jacobi eigensolver)"))
+    """Eigenvector of the smallest eigenvalue of the symmetric 4x4 the
+    10-vector fills (Peretroukhin et al.), by the Jacobi solver."""
+    return _SmallestEigvec4.apply(_10vec_to_4x4symmetric(rotation))
 
 
 def quaternion_to_rotation_10d(q: torch.Tensor) -> torch.Tensor:
@@ -363,7 +471,14 @@ def quaternion_to_rotation_10d(q: torch.Tensor) -> torch.Tensor:
 
 
 def quaternion_adjugate_to_quaternion(rotation: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(_NOT_PORTED.format("quaternion_adjugate"))
+    """The row of the quaternion adjugate whose column norm is largest,
+    divided by that norm (https://arxiv.org/abs/2205.09116)."""
+    A = _10vec_to_4x4symmetric(rotation)
+    row_norms = torch.linalg.vector_norm(A, dim=-2)  # each column's norm
+    norms = torch.amax(row_norms, dim=-1, keepdim=True)
+    best = torch.argmax(row_norms, dim=-1)
+    rows = torch.gather(A, -2, best[..., None, None].expand(A.shape[:-2] + (1, 4)))[..., 0, :]
+    return rows / norms
 
 
 def quaternion_to_quaternion_adjugate(q: torch.Tensor) -> torch.Tensor:
@@ -652,3 +767,13 @@ def convert(*args, parameterization: str, convention: Optional[str] = None,
 
     camera_center = torch.einsum("bij,bj->bi", rotmat, translation)
     return RigidTransform(make_matrix(rotmat, camera_center))
+
+
+def random_rigid_transform(generator: torch.Generator, batch_size: int = 1,
+                           translation_scale: float = 100.0) -> RigidTransform:
+    """A random SE(3) sample on ``generator``'s device: a normalised
+    Gaussian quaternion and a Gaussian translation of ``translation_scale``."""
+    device = generator.device
+    q = _safe_normalize(torch.randn(batch_size, 4, generator=generator, device=device))
+    t = translation_scale * torch.randn(batch_size, 3, generator=generator, device=device)
+    return RigidTransform(make_matrix(quaternion_to_matrix(q), t))

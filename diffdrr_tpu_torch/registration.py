@@ -1,15 +1,23 @@
-"""2D/3D registration by differentiable rendering.
+"""2D/3D registration by differentiable rendering, and the CNN pose regressor.
 
-Counterpart of the iterative half of ``diffdrr_tpu/registration.py``:
-``Registration``, the split-learning-rate optimizers, and the step/loop
-builders. Pose parameters are two leaf tensors, rotation and translation,
-each in its own ``torch.optim`` parameter group with its own learning rate:
+Counterpart of ``diffdrr_tpu/registration.py``: ``Registration``, the
+optimizers, the step/loop builders and ``PoseRegressor``. Pose parameters
+are two tensors, rotation and translation:
 
   * ``"adam"`` is ``torch.optim.Adam``, whose update
     ``lr * m_hat / (sqrt(v_hat) + eps)`` is the same as optax's ``adam``;
   * ``"sgd"`` is ``torch.optim.SGD`` with ``momentum``/``dampening``, whose
     first step sets the buffer to the gradient (no dampening), the rule the
-    JAX package reimplements.
+    JAX package reimplements;
+  * ``"lbfgs"`` is ``optax.lbfgs()`` in the port's own copy
+    (``diffdrr_tpu_torch.lbfgs``): one parameter group, the learning rates
+    ignored (the zoom line search sets the step), each step one
+    value-and-gradient per line-search evaluation, taken on fresh leaf
+    tensors; the next step reuses the line search's last value and
+    gradient, as ``optax.value_and_grad_from_state`` does.
+
+Adam and SGD put each leaf in its own ``torch.optim`` parameter group with
+its own learning rate.
 
 A learning rate is a number or a schedule, a callable of the update count
 (``exponential_decay``): as optax applies one, the first update uses
@@ -19,33 +27,50 @@ The loss is ``-mean(metric(drr(pose), target))`` when maximizing, as in the
 JAX package. ``optimize`` is a Python loop over the step;
 ``optimize_until`` the same loop until the pose is within ``tol_mm`` of the
 truth (one read back a step); ``optimize_multistart`` N restarts as one
-batched run (the loss the sum of their scores); ``optimize_multiscale``
+batched run (the loss the sum of their scores; with LBFGS N independent
+runs, each with its own state and line search); ``optimize_multiscale``
 coarse-to-fine over ``rescaled_drr`` twins, which read the source DRR's
 density, so every scale shares one bricked copy.
 
-Not ported yet (ROADMAP.md, queue 1): LBFGS, which needs optax's
-two-loop recursion and zoom line search (``torch.optim.LBFGS`` is another
-algorithm), and ``PoseRegressor``.
+``PoseRegressor`` is the JAX package's flax CNN as an ``nn.Module``: a
+strided convolutional backbone (``_BACKBONE_PRESETS``) and two linear heads
+decoded by ``convert``. Its layers compute what flax's do: convolutions
+padded as flax's ``SAME`` pads them (by the parity of each side), group
+norms of 8 groups with eps 1e-6. ``interop.pose_regressor_state_from_flax``
+carries a flax model's weights across.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from .drr import DRR
+from .lbfgs import LBFGS, value_and_grad_from_state
 from .metrics import DoubleGeodesicSE3, MultiscaleNormalizedCrossCorrelation2d
 from .pose import RigidTransform, convert
 
 __all__ = ["Registration", "make_registration_step", "optimize", "make_optimizer",
            "exponential_decay", "optimize_until", "make_multistart_step",
-           "optimize_multistart", "rescaled_drr", "resize_target", "optimize_multiscale"]
+           "optimize_multistart", "rescaled_drr", "resize_target", "optimize_multiscale",
+           "LBFGSOptimizer", "PoseRegressor", "N_ANGULAR_COMPONENTS"]
 
 LearningRate = Union[float, Callable[[int], float]]
-LBFGS_NOT_PORTED = ("LBFGS registration is not ported yet: it needs optax.lbfgs's two-loop "
-                    "recursion and zoom line search (ROADMAP.md, queue 1: LBFGS)")
+
+N_ANGULAR_COMPONENTS = {
+    "axis_angle": 3,
+    "euler_angles": 3,
+    "se3_log_map": 3,
+    "quaternion": 4,
+    "rotation_6d": 6,
+    "rotation_9d": 9,
+    "rotation_10d": 10,
+    "quaternion_adjugate": 10,
+}
 
 
 class Registration:
@@ -90,13 +115,23 @@ def _group(param: torch.Tensor, lr: LearningRate) -> dict:
     return {"params": [param], "lr": lr}
 
 
+class LBFGSOptimizer:
+    """``optax.lbfgs()`` over the pose leaves as one parameter group: the
+    transform (``tx``) and its state (``state``), which each step replaces."""
+
+    def __init__(self, params: Dict[str, torch.Tensor]):
+        self.tx = LBFGS()
+        self.state = self.tx.init({k: v.detach() for k, v in params.items()})
+
+
 def make_optimizer(params: Dict[str, torch.Tensor], optimizer: str, lr_rotation: LearningRate,
                    lr_translation: LearningRate, momentum: float = 0.0,
-                   dampening: float = 0.0) -> torch.optim.Optimizer:
+                   dampening: float = 0.0):
     """Split-LR optimizer over the ``rotation`` and ``translation`` leaves.
 
     A callable learning rate is a schedule: its group starts at ``lr(0)``
     and each step moves it on after the update (``_step_optimizer``).
+    ``"lbfgs"`` gives an :class:`LBFGSOptimizer` and ignores the rates.
     """
     groups = [_group(params["rotation"], lr_rotation),
               _group(params["translation"], lr_translation)]
@@ -106,7 +141,7 @@ def make_optimizer(params: Dict[str, torch.Tensor], optimizer: str, lr_rotation:
         return torch.optim.SGD(groups, lr=groups[0]["lr"], momentum=momentum,
                                dampening=dampening)
     if optimizer == "lbfgs":
-        raise NotImplementedError(LBFGS_NOT_PORTED)
+        return LBFGSOptimizer(params)
     raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
@@ -140,6 +175,9 @@ def make_registration_step(
     ``step_fn(params, opt) -> (params, opt, score)`` renders, scores,
     back-propagates to the pose and takes one optimizer step in place.
     ``score`` is the metric at the pose before the step, a 0-d tensor.
+    With ``optimizer="lbfgs"`` the step is functional: it returns new
+    parameter tensors, and ``opt.state`` holds the L-BFGS state
+    (``num_linesearch_steps``: the last step's line-search evaluations).
     """
     if metric is None:
         metric = MultiscaleNormalizedCrossCorrelation2d([None, 13], [0.5, 0.5])
@@ -170,6 +208,24 @@ def make_registration_step(
         score = -loss.detach() if maximize else loss.detach()
         return params, opt, score
 
+    def value_and_grad(p):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        loss = loss_of(leaves)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def lbfgs_step(params, opt):
+        # The JAX package's raw_step: value and gradient from the state (the
+        # line search's last ones, afresh at the first step), then the step.
+        params = {k: v.detach() for k, v in params.items()}
+        loss, grads = value_and_grad_from_state(value_and_grad, params, opt.state)
+        updates, opt.state = opt.tx.update(grads, opt.state, params, value=loss,
+                                           value_and_grad_fn=value_and_grad)
+        params = {k: params[k] + updates[k] for k in params}
+        return params, opt, -loss if maximize else loss
+
+    if optimizer == "lbfgs":
+        step_fn = lbfgs_step
     step_fn.loss = loss_of
     step_fn.metric = metric
     return init_fn, step_fn
@@ -246,10 +302,13 @@ def make_multistart_step(drr: DRR, target_img: torch.Tensor, parameterization: s
     restart's trajectory is the same whatever the other starts). It is not
     bit for bit a single-pose run's: on the card a batch of one rounds the
     rays' lengths and the rotation products otherwise in the last bit.
+    ``optimizer="lbfgs"`` cannot share one batched update (its line search
+    would couple the restarts through one step size), so each restart is a
+    single-pose registration with its own state and line search
+    (``opt`` a list of N :class:`LBFGSOptimizer`), stepped in turn: N
+    independent runs, as the JAX package's ``lax.map`` runs them.
     ``step_fn.scores(params)`` scores poses without a gradient.
     """
-    if optimizer == "lbfgs":
-        raise NotImplementedError(LBFGS_NOT_PORTED)
     if metric is None:
         metric = MultiscaleNormalizedCrossCorrelation2d([None, 13], [0.5, 0.5])
     init_fn, _ = make_registration_step(drr, target_img, parameterization, convention,
@@ -270,6 +329,26 @@ def make_multistart_step(drr: DRR, target_img: torch.Tensor, parameterization: s
         _step_optimizer(opt)
         return params, opt, per.detach()
 
+    if optimizer == "lbfgs":
+        _, step_one = make_registration_step(drr, target_img, parameterization, convention,
+                                             metric=metric, optimizer="lbfgs",
+                                             maximize=maximize, **render_kwargs)
+        init_batched = init_fn
+
+        def init_fn(rotations, translations):
+            params, _ = init_batched(rotations, translations)
+            params = {k: v.detach() for k, v in params.items()}
+            n = params["rotation"].shape[0]
+            return params, [LBFGSOptimizer({k: v[i:i + 1] for k, v in params.items()})
+                            for i in range(n)]
+
+        def step_fn(params, opts):
+            runs = [step_one({k: v[i:i + 1] for k, v in params.items()}, opt)
+                    for i, opt in enumerate(opts)]
+            params = {k: torch.cat([p[k] for p, _, _ in runs]) for k in params}
+            # Each run's score is its raw metric (negated loss when maximizing).
+            return params, opts, torch.stack([s for _, _, s in runs])
+
     def scores(params):
         with torch.no_grad():
             return scores_of(params)
@@ -288,7 +367,7 @@ def optimize_multistart(drr: DRR, target_img: torch.Tensor, rotations: torch.Ten
     values, ``final_scores`` (N,) at the returned poses and ``trace``
     (n_iters, N) each step's scores before its update. Pick the winner with
     ``argmax`` (``maximize=True``) or ``argmin``. ``optimizer="lbfgs"``
-    raises ``NotImplementedError``.
+    runs the N restarts independently (``make_multistart_step``).
     """
     init_fn, step_fn = make_multistart_step(drr, target_img, parameterization, convention,
                                             **kwargs)
@@ -355,3 +434,86 @@ def optimize_multiscale(drr: DRR, target_img: torch.Tensor, rotation: torch.Tens
                                                 n_iters=n_iters_per_scale, **kwargs)
         traces.append(trace)
     return rotation, translation, traces
+
+
+# -----------------------------------------------------------------------------
+# CNN pose regressor
+# -----------------------------------------------------------------------------
+
+_BACKBONE_PRESETS = {
+    "default": (32, 64, 128, 256),
+    "small": (16, 32, 64),
+    "large": (64, 128, 256, 512),
+}
+
+
+def _same_padding(n: int, stride: int, kernel: int = 3) -> Tuple[int, int]:
+    """(before, after) padding of flax's ``SAME`` along a side of ``n``: with
+    stride 2 and a 3-wide kernel (0, 1) for even ``n`` and (1, 1) for odd."""
+    total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
+class _ConvBackbone(nn.Module):
+    """Strided CNN feature extractor: per width a stride-2 and a stride-1
+    3x3 convolution, each followed by a group norm and a ReLU, then the
+    global average over H and W. (B, 1, H, W) -> (B, widths[-1])."""
+
+    def __init__(self, widths: Sequence[int] = _BACKBONE_PRESETS["default"]):
+        super().__init__()
+        convs, norms, c_in = [], [], 1
+        for w in widths:
+            convs += [nn.Conv2d(c_in, w, 3, stride=2), nn.Conv2d(w, w, 3)]
+            norms += [nn.GroupNorm(8, w, eps=1e-6), nn.GroupNorm(8, w, eps=1e-6)]
+            c_in = w
+        self.convs = nn.ModuleList(convs)
+        self.norms = nn.ModuleList(norms)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, norm in zip(self.convs, self.norms):
+            stride = conv.stride[0]
+            top, bottom = _same_padding(x.shape[-2], stride)
+            left, right = _same_padding(x.shape[-1], stride)
+            x = F.relu(norm(conv(F.pad(x, (left, right, top, bottom)))))
+        return x.mean(dim=(-2, -1))
+
+
+class PoseRegressor(nn.Module):
+    """CNN that regresses a camera pose from an X-ray image.
+
+    Backbone features feed two linear heads, the rotation
+    (``N_ANGULAR_COMPONENTS[parameterization]`` outputs) and the translation
+    (3), decoded by :func:`convert` into a ``RigidTransform``, end to end
+    differentiable for every parameterization. ``model_name`` picks a
+    backbone preset (an unknown name is ``"default"``, as in the JAX
+    package); ``height`` is kept for the interface and unused (the pooling
+    is global). ``generator`` draws the initial weights as flax does:
+    kernels from a normal truncated at two standard deviations, of variance
+    1 / fan_in, and zero biases.
+    """
+
+    def __init__(self, parameterization: str, convention: Optional[str] = None,
+                 model_name: str = "default", height: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        del height
+        self.parameterization = parameterization
+        self.convention = convention
+        widths = _BACKBONE_PRESETS.get(model_name, _BACKBONE_PRESETS["default"])
+        self.backbone = _ConvBackbone(widths)
+        self.rotation_head = nn.Linear(widths[-1], N_ANGULAR_COMPONENTS[parameterization])
+        self.translation_head = nn.Linear(widths[-1], 3)
+        with torch.no_grad():
+            for layer in self.modules():
+                if isinstance(layer, (nn.Conv2d, nn.Linear)):
+                    fan_in = layer.weight[0].numel()
+                    # flax's lecun_normal: the truncated normal rescaled to unit variance.
+                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                    nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std,
+                                          generator=generator)
+                    nn.init.zeros_(layer.bias)
+
+    def forward(self, x: torch.Tensor) -> RigidTransform:
+        features = self.backbone(x)
+        return convert(self.rotation_head(features), self.translation_head(features),
+                       parameterization=self.parameterization, convention=self.convention)

@@ -277,7 +277,7 @@ def test_cli_flags_and_defaults_match_jax_cli():
     assert (args.n_views, args.n_iters, args.height, args.volume_size, args.lr,
             args.renderer, args.ckpt_every, args.cpu, args.mesh) == (
         8, 100, 64, 96, 5e-2, "trilinear", 25, False, False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1: parallel/"):
         cli.main(["--cpu", "--mesh"])
     joseph = cli.main(CLI_ARGS + ["--n-iters", "3", "--renderer", "joseph"])
     assert joseph["losses"][-1] < joseph["losses"][0]

@@ -154,9 +154,15 @@ def test_multistart_matches_jax_cli(both):
     assert np.asarray(record["trace"]).shape == (4, 3)
 
 
-def test_lbfgs_raises_and_a_dropped_polish_warns(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1: LBFGS"):
-        cli.main(SMALL + ["--optimizer", "lbfgs", "--outdir", str(tmp_path)])
+def test_lbfgs_raises_and_a_dropped_polish_warns(tmp_path, tmp_path_factory):
+    """``--optimizer lbfgs``, once unported, runs: a 2-step run records its
+    scores and each step's line-search evaluations. A polish stage without
+    ``--multiscale`` warns that it is dropped."""
+    lbfgs = cli.main(SMALL + ["--optimizer", "lbfgs", "--n-runs", "1", "--n-iters", "2",
+                              "--outdir", str(tmp_path_factory.mktemp("lbfgs"))])
+    (run,) = lbfgs["runs"]
+    assert len(run["scores"]) == len(run["linesearch_steps"]) == 2
+    assert all(n >= 1 for n, _ in run["linesearch_steps"]) and run["scores"][1] >= run["scores"][0]
     with pytest.warns(UserWarning, match="only with --multiscale"):
         record = cli.main(SMALL + ["--polish-iters", "3", "--n-runs", "1", "--n-iters", "2",
                                    "--outdir", str(tmp_path)])

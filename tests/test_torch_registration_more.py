@@ -176,13 +176,27 @@ def test_multistart_is_independent_runs(scene):
 
 
 def test_lbfgs_raises_and_names_the_roadmap_item(scene):
+    """LBFGS, once unported, runs through both entry points: two steps of
+    ``make_registration_step`` make the same poses as ``optimize``, and
+    ``optimize_multistart``'s restarts are those single-pose runs."""
     _, td, _, ttarget = scene
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1: LBFGS"):
-        TR.optimize_multistart(td, ttarget, torch.tensor(ROTS), torch.tensor(TRANSS),
-                               "euler_angles", "ZXY", n_iters=1, optimizer="lbfgs")
-    init_fn, _ = TR.make_registration_step(td, ttarget, "euler_angles", "ZXY", optimizer="lbfgs")
-    with pytest.raises(NotImplementedError, match="queue 1: LBFGS"):
-        init_fn(ROT0, TRANS0)
+    init_fn, step_fn = TR.make_registration_step(td, ttarget, "euler_angles", "ZXY",
+                                                 optimizer="lbfgs")
+    params, opt = init_fn(ROT0, TRANS0)
+    scores = []
+    for _ in range(2):
+        params, opt, score = step_fn(params, opt)
+        scores.append(score.item())
+    assert opt.state.count == 2 and opt.state.num_linesearch_steps >= 1
+    r, t, trace = TR.optimize(td, ttarget, torch.tensor(ROT0), torch.tensor(TRANS0),
+                              "euler_angles", "ZXY", n_iters=2, optimizer="lbfgs")
+    assert torch.equal(r, params["rotation"]) and torch.equal(t, params["translation"])
+    assert trace == scores and scores[1] > scores[0]
+    rots, transs, final, ms_trace = TR.optimize_multistart(
+        td, ttarget, torch.tensor(ROTS[:2]), torch.tensor(TRANSS[:2]), "euler_angles", "ZXY",
+        n_iters=2, optimizer="lbfgs")
+    assert torch.equal(rots[0], r[0]) and torch.equal(transs[0], t[0])
+    assert ms_trace[:, 0].tolist() == trace and final.shape == (2,)
 
 
 def test_rescaled_drr_preserves_fov_and_options():
