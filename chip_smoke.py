@@ -182,6 +182,33 @@ Phases (any failure raises and the exit code is non-zero):
  10e. the pinhole camera of the main view: its projection matrix
      reprojects the CT's 8 corners onto perspective_projection within
      1e-2 px.
+ 11. several ranks (parallel/, profiling.py):
+ 11a. make_mesh() with nothing wired: a world of one on NCCL;
+     make_sharded_render of 2 poses of the main cell, Siddon and
+     trilinear, equal to DRR.__call__ bit for bit with one forward and one
+     bricked copy each; the reconstruction CLI of phase 7d with --mesh,
+     its launches as 7d's and its losses within 1e-6 relative of 7d's;
+ 11b. two ranks on the one card (NCCL refuses two ranks on one device, so
+     gloo, on CUDA tensors), each a process of
+     diffdrr_tpu_torch.experiments.parallel_check: the collectives gloo
+     takes on CUDA tensors; renders split (1, 2) and (2, 1) equal to the
+     unsharded card render bit for bit, the pose gradients of both within
+     1e-5 x max; slab_sharded_siddon and slab_sharded_joseph on the kernels
+     (use_pallas=True), 2 slabs of 256 planes along axis 0 at the lateral
+     pose, against the unsharded kernel render (values 1e-4 x max; each
+     ray's gradients 1e-3 x max, the slab's density gradient 3e-4 x max:
+     float32 segment lengths round otherwise in slab-local coordinates; but
+     for at most 2 rays and 8 voxels that round across a kink, within
+     5e-2 and 0.15 x max), one
+     forward, one fused pose kernel, one scatter and one bricked copy a
+     call; the sharded Siddon reconstruction step on phase 4c's 8 views,
+     (2, 1), 5 steps: the density equal on both ranks after every step, the
+     losses within 1e-5 relative of phase 4c's, siddon_fwd, siddon_bwd_vol
+     and brick_copy once a step and rank, CUDA-event ms a step and the
+     collectives' ms alone (gloo through the host: no measure of NCCL);
+ 11c. profiling.trace around one sharded step names siddon_fwd's,
+     siddon_bwd_vol's and brick_copy's kernels; render_cost of the main
+     DRR gives siddon_fwd's bound of phase 6a exactly.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -225,19 +252,8 @@ sys.path.insert(0, str(ROOT))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 # A bound's operations are the float32 arithmetic the kernel does on the
-# data (add, subtract, multiply, divide, abs, floor and rint; comparisons,
-# min/max and selects are not counted), counted by hand from its header.
-# csrc/siddon.cuh, per non-empty (ray, slab) step: slab_segments 59 (the
-# slab's two alphas 6, two crossings 20, lengths and midpoints 9, the
-# segments' voxels 24); then 2 per slab and 4 per non-empty segment
-# (trace_fwd: the voxel's position, len * V and the sums), 4 per segment
-# (trace_fwd_max), 54 per slab (trace_fwdgrad: three positions 6, slab_rows
-# 46, w * seg 2), 52 per slab and 9 products by g per ray (trace_bwd_rays),
-# or 5 per segment (trace_bwd_vol: the position 2, len * w * g 2, the atomic
-# add). slab_range costs 10 per ray; a MIP backward skips it and visits only
-# the argmax slab and segment.
-SLAB_OPS = 59
-SLAB_RANGE_OPS = 10
+# data, counted by hand from its header (diffdrr_tpu_torch/profiling.py has
+# the counts, and the data's work: siddon_work, joseph_work).
 
 N_REG_STEPS = 60
 BENCH_ROT = [[0.01, 3.141592653589793 / 2 + 0.02, -0.01]]
@@ -322,40 +338,6 @@ def median_host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def slab_work(rows, density, axis, arg=None):
-    """(non-empty ray-slab steps, non-empty segments, distinct voxels read).
-
-    What the data needs, not what a kernel does: empty slabs and zero-length
-    segments are not counted, and a voxel read by many rays counts once.
-    With a MIP argmax ``arg``, only each ray's argmax slab and segment.
-    """
-    import torch
-
-    from diffdrr_tpu_torch.ops.kernels import siddon as K
-    from diffdrr_tpu_torch.ops.kernels.prep import march_perm
-
-    r = K._rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
-    X, Y, Z = vol_p.shape
-    seen = torch.zeros((X, Y, Z), dtype=torch.bool, device=density.device)
-    steps = segments = 0
-    for s in range(X):
-        sl = K._slab(r, s)
-        if arg is None:
-            steps += int(torch.count_nonzero(sl["ahi_raw"] >= sl["alo"]))
-        else:
-            steps += int(torch.count_nonzero((arg >= 0) & (arg // 4 == s)))
-        for j, ((iy, iz), length) in enumerate(zip(sl["sel"], sl["lens"])):
-            fy, fz = sl["y0"] + iy, sl["z0"] + iz
-            nonempty = length > 0
-            if arg is not None:
-                nonempty = nonempty & (arg == s * 4 + j)
-            segments += int(torch.count_nonzero(nonempty))
-            ok = nonempty & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
-            seen[s, fy[ok].long(), fz[ok].long()] = True
-    return steps, segments, int(torch.count_nonzero(seen))
-
-
 def roofline(n_bytes, n_ops):
     """(bound_ms, bound_by): the larger of bytes and operations over peak."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
@@ -374,7 +356,9 @@ def bound(rows, density, axis, *, ray_bytes, slab_ops=0, segment_ops=0, ray_ops=
     """(bound_ms, bound_by) of a Siddon kernel on this run's rays: ``slab_ops``
     per non-empty slab step, ``segment_ops`` per non-empty segment, and
     ``ray_ops`` (plus the slab range's, outside MIP) per ray."""
-    steps, segments, voxels = slab_work(rows, density, axis, arg)
+    from diffdrr_tpu_torch.profiling import SLAB_OPS, SLAB_RANGE_OPS, siddon_work
+
+    steps, segments, voxels = siddon_work(rows, density, axis, arg)
     ray_ops += SLAB_RANGE_OPS if arg is None else 0
     n_ops = steps * (SLAB_OPS + slab_ops) + segments * segment_ops + ray_ops * rows.shape[1]
     return roofline(io_bytes(rows, density, ray_bytes, voxels, writes_volume), n_ops)
@@ -388,63 +372,15 @@ FWD_MAX_BOUND = dict(ray_bytes=36 + 8, segment_ops=4)
 BWD_RAYS_BOUND = dict(ray_bytes=36 + 4 + 36, slab_ops=52, ray_ops=9)
 BWD_VOL_BOUND = dict(ray_bytes=36 + 4, segment_ops=5, writes_volume=True)
 
-# csrc/joseph.cuh, per in-slab (ray, step) sample, by the rule above:
-# step_at 21 (k, alpha and the transverse position 7, its floors and
-# offsets 4, four tent weights 10); then 19 (trace_fwd: four neighbour
-# positions 8, bilinear 9, the weighted sum 2), 18 (trace_fwd_max), 58
-# (trace_fwdgrad: positions 8, step_terms 42, eight sums), 57 and 7
-# products by g per ray (trace_bwd_rays), or 22 (trace_bwd_vol: wy * g 2,
-# then per neighbour its position 2, the product 2 and the atomic add). A
-# fractional stride adds 18 to each: k's floor and fraction 2, and per
-# neighbour a second plane's lerp (or weight and scatter) 4. step_range
-# costs 9 per ray; a MIP backward skips it and visits only the argmax step.
-J_STEP_OPS = 21
-J_BLEND_OPS = 18
-J_RANGE_OPS = 9
-
-
-def march_work(rows, density, axis, h, n_steps, arg=None):
-    """(in-slab samples, distinct voxels read, distinct label voxels read)
-    of one Joseph march.
-
-    What the data needs: samples outside a ray's [amin, amax] are not
-    counted, and a voxel read by many samples counts once. With a MIP argmax
-    ``arg``, only each ray's argmax step. The label voxels are those a
-    channel kernel reads (``label_at``: the nearest voxel of each sample).
-    """
-    import torch
-
-    from diffdrr_tpu_torch.ops.kernels import joseph as J
-    from diffdrr_tpu_torch.ops.kernels.prep import march_perm
-
-    X, Y, Z = density.permute(march_perm(axis)).shape
-    seen = torch.zeros((X, Y, Z), dtype=torch.bool, device=density.device)
-    seen_lab = torch.zeros_like(seen)
-    samples = 0
-    for st in J.march_steps(rows, h, X, n_steps):
-        ok = st["inslab"] if arg is None else st["inslab"] & (arg == st["p"])
-        samples += int(torch.count_nonzero(ok))
-        for _, _, fy, fz in J.corners(st):
-            v = ok & (fy >= 0) & (fy < Y) & (fz >= 0) & (fz < Z)
-            for k, _ in st["planes"]:
-                if 0 <= k < X:
-                    seen[k, fy[v].long(), fz[v].long()] = True
-        (k, _), *pair = st["planes"]
-        k = pair[0][0] if pair and pair[0][1] > 0.5 else k
-        iy, iz = torch.round(st["y"]), torch.round(st["z"])
-        v = ok & (iy >= 0) & (iy < Y) & (iz >= 0) & (iz < Z)
-        if 0 <= k < X:
-            seen_lab[k, iy[v].long(), iz[v].long()] = True
-    return samples, int(torch.count_nonzero(seen)), int(torch.count_nonzero(seen_lab))
-
 
 def march_bound(rows, density, axis, h, n_steps, *, ray_bytes, sample_ops, ray_ops=0,
                 writes_volume=False, arg=None, labels=False):
     """(bound_ms, bound_by) of a Joseph kernel, as ``bound`` is for Siddon's;
     ``labels``: it also reads 4 B per distinct label voxel."""
     from diffdrr_tpu_torch.ops.kernels.joseph import is_blend
+    from diffdrr_tpu_torch.profiling import J_BLEND_OPS, J_RANGE_OPS, J_STEP_OPS, joseph_work
 
-    samples, voxels, label_voxels = march_work(rows, density, axis, h, n_steps, arg)
+    samples, voxels, label_voxels = joseph_work(rows, density, axis, h, n_steps, arg)
     ray_ops += J_RANGE_OPS if arg is None else 0
     per_sample = J_STEP_OPS + sample_ops + (J_BLEND_OPS if is_blend(h) else 0)
     n_ops = samples * per_sample + ray_ops * rows.shape[1]
@@ -914,7 +850,8 @@ def trilinear_reconstruction(profile):
         f"at step {N_RECON_STEPS} with no step run; joseph_fwd vs plain {err_fv:.3e}, "
         f"joseph_bwd_vol vs plain {err_bv:.3e}")
     return dict(launches=launches, rows_v=rows_v, g_v=g_v, g_res=g_res, dens_shape=dens.shape,
-                h=h, n=n, density=drr.density, err_fv=err_fv, err_bv=err_bv, t_step=t_step)
+                h=h, n=n, density=drr.density, err_fv=err_fv, err_bv=err_bv, t_step=t_step,
+                losses=losses)
 
 
 def fractional_strides(drr_t, drr_j, rot0, trans, kw):
@@ -996,11 +933,15 @@ def joseph_cube(T, cube, rot0, trans, kw):
     t_k = median_ms(lambda: J.joseph_fwd(rows_k, drr_k.density, 2, h, X), 10)
     t_k_copy = median_ms(lambda: J.joseph_fwd(rows_k, drr_k.density, 2, h, X), 10,
                          before=brick.clear_cache)
+    # F.grid_sample at the same samples (#7's library yardstick), 200^2 and 1000^2.
+    t_lib = grid_sample_ms(rows, drr.density, 2, h, X)
+    t_lib_k = grid_sample_ms(rows_k, drr_k.density, 2, h, X)
     log(f"[cube] joseph 200^2: max abs err {err:.3e}; joseph_fwd {t:.4f} ms (plain "
-        f"{t_plain:.2f}, bound {b:.4f} by {by}); 1000^2: max abs err {err_k:.3e}; joseph_fwd "
-        f"{t_k:.4f} ms with the bricked copy cached, {t_k_copy:.4f} ms making it anew")
+        f"{t_plain:.2f}, bound {b:.4f} by {by}; F.grid_sample at its samples {t_lib:.4f}); "
+        f"1000^2: max abs err {err_k:.3e}; joseph_fwd {t_k:.4f} ms with the bricked copy "
+        f"cached, {t_k_copy:.4f} ms making it anew (F.grid_sample {t_lib_k:.4f})")
     return dict(launches=launches, err=max(err, err_k), t=t, t_plain=t_plain, b=b, by=by,
-                t_k=t_k)
+                t_k=t_k, t_lib=t_lib, t_lib_k=t_lib_k)
 
 
 def march_grid(rows, density, axis, h, n):
@@ -1413,6 +1354,9 @@ def channel_timings(ch):
             extra[name]["ms_with_copy"] = median_ms(kernel, 20, before=brick.clear_cache)
         if name == "bwd_vol_ch":
             extra[name]["library_ms"] = march_library_ms(rows, dens, axis, h, n, g, labels=lab)
+        if name == "bwd_rays_ch":  # the grid gradient, each sample's label's g * scale
+            extra[name]["library_ms"] = march_library_ms(rows, dens, axis, h, n, g,
+                                                         input_grad=False, labels=lab)
         log(f"[time] joseph_{name} {times[name][0]:.4f} ms one call, "
             + ", ".join(f"{k} {v:.4f}" for k, v in extra[name].items())
             + f" (plain {times[name][1]:.2f}, bound {bnd:.4f} by {by}) at 200^2 rays, "
@@ -1436,26 +1380,22 @@ REG_LR = dict(lr_rotation=1e-5, lr_translation=1e-1)
 
 
 def all_launches():
-    from diffdrr_tpu_torch.ops.kernels import brick
-    from diffdrr_tpu_torch.ops.kernels import siddon as K
+    from diffdrr_tpu_torch.ops.kernels import launch_counts
 
-    return dict(joseph_launches(), **{fn.__name__: fn.launches for fn in K.KERNELS},
-                brick_copy=brick.brick_density.launches)
+    return launch_counts()
 
 
 def reset_all_launches():
-    from diffdrr_tpu_torch.ops.kernels import brick
-    from diffdrr_tpu_torch.ops.kernels import joseph as J
-    from diffdrr_tpu_torch.ops.kernels import siddon as K
+    from diffdrr_tpu_torch.ops.kernels import reset_launch_counts
 
-    J.reset_launch_counts()
-    K.reset_launch_counts()
-    brick.brick_density.launches = 0
+    reset_launch_counts()
 
 
 def no_other_launches(phase, launches, want):
     """``want`` exactly, and 0 for every other kernel."""
-    expect_launches(phase, launches, {k: want.get(k, 0) for k in launches})
+    from diffdrr_tpu_torch.ops import kernels
+
+    kernels.no_other_launches(phase, launches, want)
 
 
 def mi_dense(x1, x2, sigma=0.1, num_bins=256, epsilon=1e-10):
@@ -2011,6 +1951,134 @@ def pose_estimation_phase(card: str) -> dict:
     return out
 
 
+# Phase 11: parallel/ and profiling.py: parallel_check.py's two poses of
+# the main cell, the 8 recon views of phase 4c, and the ranks of 11b: two
+# on the one card, joined by gloo (NCCL refuses two ranks on one device).
+PAR_RANKS = 2
+
+
+def parallel_phase(T, subject, rot0, trans, kw, cli_losses, recon_losses, fwd_bound) -> dict:
+    """Phase 11: 11a a world of one on NCCL in this process; 11b two ranks on
+    the card (experiments/parallel_check.py); 11c the profiler."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from diffdrr_tpu_torch.experiments import reconstruction as recon_cli
+    from diffdrr_tpu_torch.experiments.parallel_check import POSE_ROT, POSE_TRANS, RECON_STEPS
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.parallel import make_mesh, make_sharded_render
+    from diffdrr_tpu_torch.profiling import render_cost
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    # 11a. make_mesh() with nothing wired: a world of one, NCCL on the card.
+    mesh = make_mesh()
+    if (dist.get_backend(), dist.get_world_size(), tuple(mesh.shape)) != ("nccl", 1, (1, 1)):
+        raise AssertionError(f"make_mesh(): {dist.get_backend()}, {dist.get_world_size()} "
+                             f"ranks, shape {tuple(mesh.shape)}")
+    rot2, trans2 = torch.tensor(POSE_ROT, device=dev), torch.tensor(POSE_TRANS, device=dev)
+    for renderer, fwd in (("siddon", "siddon_fwd"), ("trilinear", "joseph_fwd")):
+        drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer=renderer)
+        render = make_sharded_render(drr, mesh, "euler_angles", "ZXY")
+        brick.clear_cache()
+        reset_all_launches()
+        got = render(rot2, trans2)
+        torch.cuda.synchronize()
+        no_other_launches(f"world of one, {renderer}", all_launches(), {fwd: 1, "brick_copy": 1})
+        ref = drr(rot2, trans2, **kw)
+        if got.shape != (2, 1, 200, 200) or not torch.equal(got, ref):
+            raise AssertionError(f"world of one, {renderer}: the sharded render is not "
+                                 f"DRR.__call__'s bit for bit")
+    argv = ["--volume-size", str(CLI_VOLUME_SIZE), "--height", str(CLI_HEIGHT),
+            "--n-views", str(N_VIEWS), "--n-iters", str(N_RECON_STEPS), "--mesh"]
+    brick.clear_cache()
+    reset_all_launches()
+    res = recon_cli.main(argv)
+    torch.cuda.synchronize()
+    no_other_launches("reconstruction CLI --mesh", all_launches(),
+                      {"joseph_fwd": N_RECON_STEPS + 1, "joseph_bwd_vol": N_RECON_STEPS,
+                       "brick_copy": N_RECON_STEPS + 1})
+    rel = float(np.max(np.abs(np.array(res["losses"]) / np.array(cli_losses) - 1)))
+    if not rel <= 1e-6:
+        raise AssertionError(f"--mesh losses {res['losses']} vs {cli_losses}: {rel:.3e}")
+    t_cli = statistics.median(res["step_ms"][2:])
+    log(f"[parallel] 11a world of one ({dist.get_backend()}): sharded renders of 2 poses "
+        f"(siddon, trilinear) equal DRR.__call__ bit for bit, one forward each; recon CLI "
+        f"--mesh launches as without it, losses {res['losses'][0]:.5g} -> "
+        f"{res['losses'][-1]:.5g}, {rel:.2e} relative off the CLI's, step median "
+        f"{t_cli:.3f} ms")
+    del res
+
+    # 11c. render_cost counts siddon_fwd's bytes and operations as bound() does.
+    drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0)
+    rc = render_cost(drr, axis=2, pose=T.convert(rot0, trans, **kw))
+    if roofline(rc.bytes, rc.flops) != fwd_bound:
+        raise AssertionError(f"render_cost {rc} gives {roofline(rc.bytes, rc.flops)}, "
+                             f"chip_smoke's bound {fwd_bound}")
+    log(f"[parallel] 11c render_cost of the main DRR: {rc}; its roofline is siddon_fwd's "
+        f"bound {fwd_bound[0]:.4f} ms by {fwd_bound[1]}")
+    dist.destroy_process_group()
+    del drr, mesh
+
+    # 11b. Two ranks on the card, joined by gloo on CUDA tensors.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "diffdrr_tpu_torch.experiments.parallel_check",
+             "--rank", str(r), "--world", str(PAR_RANKS), "--rendezvous", f"file://{tmp}/rdv",
+             "--out", f"{tmp}/rank%d.json"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(PAR_RANKS)]
+        try:
+            ends = [p.communicate(timeout=400) + (p.returncode,) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        failed = [f"rank {r} exited {rc}:\n{out[-2000:]}\n{err[-4000:]}"
+                  for r, (out, err, rc) in enumerate(ends) if rc != 0]
+        if failed:
+            raise AssertionError("parallel_check failed: " + "\n".join(failed))
+        recs = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+    for r, rec in enumerate(recs):
+        if rec["backend"] != "gloo":
+            raise AssertionError(f"rank {r} ran {rec['backend']}")
+        losses = rec["recon"]["losses"]
+        rel = float(np.max(np.abs(np.array(losses) / np.array(recon_losses[:len(losses)]) - 1)))
+        if not rel <= 1e-5:
+            raise AssertionError(f"rank {r}: sharded recon losses {losses} vs one device "
+                                 f"{recon_losses[:len(losses)]}: {rel:.3e}")
+        rec["recon"]["rel_to_one_device"] = rel
+        kernels = rec["trace"]["kernels"] if r == 0 else []
+        if r == 0 and not all(any(k in n for n in kernels) for k in (
+                "siddon_fwd_kernel", "siddon_bwd_vol_kernel", "brick_copy_kernel")):
+            raise AssertionError(f"the trace of a sharded step names {kernels}")
+    if recs[0]["recon"]["hashes"] != recs[1]["recon"]["hashes"]:
+        raise AssertionError("the ranks' densities differ after a sharded recon step")
+    for r, rec in enumerate(recs):
+        log(f"[parallel] 11b rank {r}/{PAR_RANKS} ({rec['backend']} on {rec['device']}, "
+            f"{rec['seconds']:.1f} s): collectives on CUDA tensors {rec['collectives']}")
+        log(f"[parallel] 11b rank {r} renders (vs the unsharded card render): " + "; ".join(
+            f"{k} {v}" for k, v in rec["renders"].items()))
+        log(f"[parallel] 11b rank {r} slabs (2 x 256 planes along axis 0, lateral pose): "
+            + "; ".join(f"{k} {v}" for k, v in rec["slabs"].items()))
+        log(f"[parallel] 11b rank {r} recon (2, 1), {RECON_STEPS} steps: losses "
+            f"{rec['recon']['losses']} ({rec['recon']['rel_to_one_device']:.2e} relative off "
+            f"one device), launches a step {rec['recon']['launches']}, step ms "
+            f"{[round(x, 3) for x in rec['recon']['step_ms']]} (median "
+            f"{rec['recon']['step_ms_median']:.3f}); collectives alone (gloo through the "
+            f"host on one card: no measure of NCCL across cards) {rec['collectives_ms']}")
+    log(f"[parallel] 11b densities equal bit for bit on both ranks after each step; rank 0's "
+        f"trace {recs[0]['trace']['files']} names {recs[0]['trace']['kernels']}")
+    log(f"[parallel] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return {"ranks": recs}
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -2274,6 +2342,7 @@ def main(argv) -> int:
     recon_launches["brick_copy"] = brick.brick_density.launches
     recon_ms = [s.elapsed_time(e) for s, e in recon_ms]
     losses = torch.stack(losses).tolist()
+    siddon_recon_losses = losses
     log(f"[recon] launches {recon_launches}, slab escapes {drr.siddon_escapes}")
     # The true density's copy for the measured images, then one a step:
     # Adam writes the density in place.
@@ -2443,7 +2512,6 @@ def main(argv) -> int:
     err_sid_ch = channels_siddon(T, subject, rot0, trans, kw)
     t_sub, t_full = subsample_full_width(T, subject, rot0, trans, kw, ch["drr"])
     ch_times, ch_extra = channel_timings(ch)
-    del subject
     rec = trilinear_reconstruction(args.profile)
 
     # 7g. Timings of the Joseph kernels at their paths' shapes
@@ -2602,8 +2670,8 @@ def main(argv) -> int:
          "plain_ms": t_jfv_plain, "bound_ms": b_jfv, "bound_by": by_jfv, "library_ms": t_lib_v},
         {"name": "joseph_fwd[512^3]", "route": "cuda", "source": jsrc,
          "replaces": f"{jpal}:487", "launches": jc["launches"], "max_abs_err": jc["err"],
-         "ms": jc["t"], "plain_ms": jc["t_plain"], "bound_ms": jc["b"], "bound_by": jc["by"],
-         "library_ms": None},
+         "ms": jc["t"], "ms_1000": jc["t_k"], "plain_ms": jc["t_plain"], "bound_ms": jc["b"],
+         "bound_by": jc["by"], "library_ms": jc["t_lib"], "library_ms_1000": jc["t_lib_k"]},
         dict(jrec("joseph_fwd_max", "fwd_max", 376, jm["launches"]["joseph_fwd_max"],
                   max(jm["err_max"], jsmall["fwd_max"], jmax_extra.pop("err_lateral")),
                   library_ms=t_lib),
@@ -2642,6 +2710,11 @@ def main(argv) -> int:
     t10 = time.perf_counter()
     pose_estimation_phase(card)
     log(f"[lbfgs] phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    # 11. Several ranks: parallel/ and the profiler ----------------------------
+    parallel_phase(T, subject, rot0, trans, kw, rec["losses"], siddon_recon_losses,
+                   (b_fwd, by_fwd))
+    del subject
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,8 +15,9 @@ indexed checkpoints of a state of tensors, numbers and optimizer
     tensor in ``like``; optimizer state is restored by the optimizer's own
     ``load_state_dict``, which moves it to its parameters' device.
 
-Not ported yet (ROADMAP.md): orbax's restore onto another device mesh,
-which waits for ``parallel/``.
+orbax restores a sharded array onto a device mesh; with one process per
+device the ranks of a mesh hold replicated state, so one rank restores and
+broadcasts it (the reconstruction CLI's ``--mesh`` does so from rank 0).
 """
 
 from __future__ import annotations

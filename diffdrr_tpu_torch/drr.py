@@ -82,6 +82,7 @@ from torch.utils.checkpoint import checkpoint
 from ._device import DeviceLike, pin_f32, resolve_device
 from .data import Subject
 from .detector import Detector
+from .ops._raygeom import alpha_minmax
 from .ops.joseph import joseph_raycast
 from .ops.kernels import brick
 from .ops.kernels.joseph import as_labels, joseph_march_raycast
@@ -279,10 +280,16 @@ class DRR:
         (``(B, n_channels, N)`` with ``mask_to_channels``)."""
         return self._render(density, source, target, mask_to_channels, None, kwargs)
 
-    def _render(self, density, source, target, mask_to_channels, sample, kwargs):
+    def _render(self, density, source, target, mask_to_channels, sample, kwargs, share=None):
         """``render``; with ``sample`` (indices into the full frame ``target``)
         only those rays are rendered. They are gathered after the transforms,
-        so each is bit for bit the full render's ray."""
+        so each is bit for bit the full render's ray. With ``share``, a pair
+        ``((b0, b1), (lo, hi))`` of ranges of that ray set's poses and rays,
+        only rays ``lo:hi`` of poses ``b0:b1`` are rendered, and every choice
+        the render makes from its rays (the march axis, the slab guard, the
+        oracles' axis and sampling interval) comes from the whole set: the
+        rays are the whole render's, bit for bit on the kernels (so
+        ``parallel`` splits a render over several devices)."""
         opts = {**self.renderer_kwargs, **kwargs}
         unknown = set(opts) - _OPTIONS[self.renderer_name]
         if unknown:
@@ -295,9 +302,15 @@ class DRR:
         target = self.affine_inverse(target)
 
         H, W = self.detector.height, self.detector.width
-        frame = target if target.shape[1] == H * W else None
+        frame = (source, target) if target.shape[1] == H * W else None
         if sample is not None:
             target, weights = target[:, sample], weights[..., sample]
+        whole = (source, target)
+        if share is not None:
+            (b0, b1), (lo, hi) = share
+            if source.shape[0] > 1:
+                source = source[b0:b1]
+            target, weights = target[b0:b1, lo:hi], weights[b0:b1, :, lo:hi]
         # Channels take the kernels for joseph and trilinear with a labelmap;
         # Siddon channels, and channels without a labelmap, take the oracle.
         channels = mask_to_channels and self.mask is not None
@@ -312,7 +325,7 @@ class DRR:
                 return img
         if channels:
             opts.update(mask=self.mask, n_channels=self.n_channels)
-        return self._render_oracle(density, source, target, weights, opts)
+        return self._render_oracle(density, source, target, weights, opts, whole, share)
 
     def _render_slab(self, density, source, target, weights, opts, frame):
         """Siddon's slab kernels, or None for the oracle."""
@@ -326,7 +339,7 @@ class DRR:
         slab_guard = opts.get("slab_guard", True)
         ratios = None
         if axis is None or slab_guard:
-            ratios = self.worst_ratios(source, frame).tolist()
+            ratios = self.worst_ratios(*frame).tolist()
         if axis is None:
             axis = int(np.argmin(ratios))
         if slab_guard and not ratios[axis] <= 1.0 + 1e-6:
@@ -359,7 +372,7 @@ class DRR:
                 f"already saturated there; pass allow_oversample=True to honor n_points "
                 f"literally (reference semantics, proportionally slower)", stacklevel=5)
         if axis is None:
-            axis = int(np.argmin(self.worst_ratios(source, frame).tolist()))
+            axis = int(np.argmin(self.worst_ratios(*frame).tolist()))
         common = dict(axis=axis, voxel_shift=self.voxel_shift, eps=opts.get("eps", 1e-8),
                       reduce=reducefn, fused=opts.get("fused_pose_bwd", True))
         if channels:
@@ -372,24 +385,40 @@ class DRR:
                                     step=self.joseph_steps[axis] if step is None else step,
                                     **common)
 
-    def _render_oracle(self, density, source, target, weights, opts):
+    def _render_oracle(self, density, source, target, weights, opts, whole=None, share=None):
+        """The oracle over ``target``, in ``patch_size`` chunks when that is
+        set; with ``share``, ``target`` is that share of the ray set
+        ``whole`` (its source and target), whose chunks and choices (the
+        Joseph axis, the trilinear interval) are taken."""
         renderer = _ORACLES[self.renderer_name]
+        w_source, w_target = (source, target) if whole is None else whole
         if self.renderer_name == "joseph":
             axis, step = opts.get("axis"), opts.get("step")
             if axis is None:  # from the whole ray set, before any chunking
-                axis = int(torch.argmax(torch.abs(torch.mean(target - source, dim=(0, 1)))))
+                axis = int(torch.argmax(torch.abs(torch.mean(w_target - w_source, dim=(0, 1)))))
             renderer = partial(renderer, axis=axis,
                                step=self.joseph_steps[axis] if step is None else step)
         opts = {k: v for k, v in opts.items() if k not in _KERNEL_ONLY}
-        if self.patch_size is None:
-            return renderer(density, source, target, weights,
-                            voxel_shift=self.voxel_shift, **opts)
-        N = target.shape[1]
-        size = -(-N // self.n_patches)
-        parts = [renderer(density, source, target[:, i:i + size], weights[..., i:i + size],
-                          voxel_shift=self.voxel_shift, **opts)
-                 for i in range(0, N, size)]
-        return torch.cat(parts, dim=-1)
+        # The trilinear oracle samples over its rays' earliest entry and latest
+        # exit: those of the whole chunk, when it renders a share of it.
+        interval = (share is not None and self.renderer_name == "trilinear"
+                    and (opts.get("alphamin") is None or opts.get("alphamax") is None))
+        N = w_target.shape[1]
+        lo, hi = (0, N) if share is None else share[1]
+        size = N if self.patch_size is None else -(-N // self.n_patches)
+        parts = []
+        for i in range(0, N, size):
+            a, b = max(i, lo), min(i + size, hi)  # this chunk's rays in the share
+            if a >= b:
+                continue
+            if interval:
+                amin, amax = alpha_minmax(w_source, w_target[:, i:i + size], tuple(density.shape),
+                                          self.voxel_shift, opts.get("eps", 1e-8))
+                opts.update(alphamin=torch.amin(amin), alphamax=torch.amax(amax))
+            parts.append(renderer(density, source, target[:, a - lo:b - lo],
+                                  weights[..., a - lo:b - lo], voxel_shift=self.voxel_shift,
+                                  **opts))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
     def reshape_transform(self, img: torch.Tensor, batch_size: int) -> torch.Tensor:
         if self.reshape:

@@ -1,1 +1,27 @@
 """Hand-written CUDA kernels (``csrc/``), their wrappers and plain versions."""
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count by kernel name (``brick_copy`` for the
+    bricked copy); a wrapper counts only where it launches its kernel."""
+    from . import brick, joseph, siddon
+
+    return dict({fn.__name__: fn.launches for fn in siddon.KERNELS + joseph.KERNELS},
+                brick_copy=brick.brick_density.launches)
+
+
+def reset_launch_counts() -> None:
+    from . import brick, joseph, siddon
+
+    siddon.reset_launch_counts()
+    joseph.reset_launch_counts()
+    brick.brick_density.launches = 0
+
+
+def no_other_launches(phase: str, launches: dict, want: dict) -> None:
+    """Raise unless ``launches`` is ``want`` exactly and 0 for every other
+    kernel."""
+    bad = {k: (launches.get(k, 0), want.get(k, 0)) for k in {**launches, **want}
+           if launches.get(k, 0) != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{phase}: launches (got, want) {bad}")

@@ -24,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 from diffdrr_tpu import DRR as JDRR, convert as jconvert, load_example_ct as jload
 from diffdrr_tpu.ops.joseph import joseph_raycast as jjoseph
@@ -277,8 +278,15 @@ def test_cli_flags_and_defaults_match_jax_cli():
     assert (args.n_views, args.n_iters, args.height, args.volume_size, args.lr,
             args.renderer, args.ckpt_every, args.cpu, args.mesh) == (
         8, 100, 64, 96, 5e-2, "trilinear", 25, False, False)
-    with pytest.raises(NotImplementedError, match="queue 1: parallel/"):
-        cli.main(["--cpu", "--mesh"])
+    # --mesh in a plain process: a world of one, whose step is the
+    # one-device step bit for bit (several ranks: tests/test_torch_multihost.py).
+    assert cli._mesh_shape(8) == (1, 1)  # the JAX CLI's rule: data 2 needs an even world
+    try:
+        meshed = cli.main(CLI_ARGS + ["--n-iters", "3", "--mesh"])
+    finally:
+        dist.destroy_process_group()
+    plain = cli.main(CLI_ARGS + ["--n-iters", "3"])
+    assert meshed["losses"] == plain["losses"] and meshed["rmse"] == plain["rmse"]
     joseph = cli.main(CLI_ARGS + ["--n-iters", "3", "--renderer", "joseph"])
     assert joseph["losses"][-1] < joseph["losses"][0]
 

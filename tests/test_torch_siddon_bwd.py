@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from diffdrr_tpu import DRR as JDRR, convert as jconvert, load_example_ct as jload
 from diffdrr_tpu.ops.pallas.siddon import siddon_pallas_raycast
@@ -38,7 +39,7 @@ from diffdrr_tpu.parallel import make_mesh, make_reconstruction_step as jmake_re
 
 from diffdrr_tpu_torch import interop
 from diffdrr_tpu_torch.ops.kernels import siddon as K
-from diffdrr_tpu_torch.parallel import make_reconstruction_step
+from diffdrr_tpu_torch.parallel import make_mesh as tmake_mesh, make_reconstruction_step
 
 KW = dict(parameterization="euler_angles", convention="ZXY")
 
@@ -306,6 +307,7 @@ def recon():
         t["loss"].append(loss.item())
     t["density"] = tdens.detach()
     t["escapes"] = td.siddon_escapes - before
+    t["drr"], t["measured"] = td, measured
     return j, t
 
 
@@ -339,8 +341,24 @@ def test_reconstruction_density_matches_jax(recon):
                                atol=1e-3 * RECON_LR, rtol=0)
 
 
-def test_reconstruction_mesh_is_not_ported():
-    td = interop.drr_from_state(interop.export_state(
-        JDRR(jload(shape=(16, 16, 8)), sdd=1020.0, height=8, delx=3.0)), device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        make_reconstruction_step(td, mesh=object())
+def test_reconstruction_mesh_is_not_ported(recon):
+    """The mesh step on a mesh of one rank (``make_mesh`` wires that world in
+    a plain process) is the one-device step, bit for bit, and so matches the
+    JAX package's step on its one-device mesh. Several ranks:
+    ``tests/test_torch_parallel.py``."""
+    j, t = recon
+    assert not dist.is_initialized()
+    try:
+        init_fn, step_fn = make_reconstruction_step(t["drr"], tmake_mesh((1, 1), devices="cpu"),
+                                                    lr=RECON_LR)
+        dens, opt = init_fn(torch.zeros(t["drr"].density.shape))
+        losses = []
+        for _ in range(RECON_STEPS):
+            dens, opt, loss = step_fn(dens, opt, torch.tensor(RECON_ROT),
+                                      torch.tensor(RECON_TRANS), torch.tensor(t["measured"]))
+            losses.append(loss.item())
+    finally:
+        dist.destroy_process_group()
+    assert losses == t["loss"]
+    torch.testing.assert_close(dens.detach(), t["density"], rtol=0, atol=0)
+    np.testing.assert_allclose(losses, j["loss"], rtol=1e-3)
