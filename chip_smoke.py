@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive diffdrr_tpu_torch on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py                    # all phases, one card, ~3-4 minutes
+    python3 chip_smoke.py                    # all phases, one card, ~5-7 minutes
     python3 chip_smoke.py --profile OUT.txt  # also profile registration and
                                              # reconstruction steps: the
                                              # device's busy share (in a
@@ -209,6 +209,37 @@ Phases (any failure raises and the exit code is non-zero):
  11c. profiling.trace around one sharded step names siddon_fwd's,
      siddon_bwd_vol's and brick_copy's kernels; render_cost of the main
      DRR gives siddon_fwd's bound of phase 6a exactly.
+
+ 12. visualization and scene export (host C++ meshers and QEM, the HTML
+     scene, the animation frames, the tutorials), counts zeroed before each
+     sub-phase, host milliseconds of each step logged:
+ 12a. the port's native libraries (diffdrr_tpu_torch/native, g++) built at
+     once, each required (a failed build fails the run with g++'s message);
+     the 512x512x133 CT loaded through the native HU transfer
+     (hu_to_density counted) and a .nii.gz of a cut of it read back through
+     the native gunzip;
+ 12b. drr_to_mesh with surface_nets and with marching_cubes on the full CT
+     (threshold 300 HU): extract_largest, QEM decimation 0.25 (marching
+     cubes), fill_holes(100), clean; surface_nets, taubin_smooth,
+     marching_cubes and qem_decimate each called natively once; faces > 0,
+     their indices in range, every vertex inside the volume's world
+     bounding box; at 128x128x64 the native and NumPy meshers agree as
+     tests/test_viz.py requires (vertex counts, vertices to the voxel,
+     marching cubes' vertex sets to 1e-4, as nearest-vertex distances);
+ 12c. labelmap_to_mesh for each of the CT's labels 1-6, natively;
+ 12d. visualize_scene_html with the main cell's DRR (200^2, sdd 1020, 2 mm
+     pixels, the bench pose): exactly one siddon_fwd and one brick_copy,
+     the textured image equal to a direct drr(pose) bit for bit (and its
+     8-bit texture to that render's), the file written and self-contained;
+ 12e. the 60 poses of a 60-step trilinear registration of the main cell:
+     viz.animation_frames launches exactly joseph_fwd 60 and brick_copy 1,
+     each frame equal to a direct render at its row's pose bit for bit;
+     the rows through a CSV and experiments/gif.py's reader give the same
+     poses;
+ 12f. the port's nine tutorials (diffdrr_tpu_torch/tutorials) at their
+     default sizes on the card, each a subprocess with a timeout of its
+     own (07_timing alone, after the others), each exiting 0 and printing
+     "all checks passed".
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -2079,6 +2110,328 @@ def parallel_phase(T, subject, rot0, trans, kw, cli_losses, recon_losses, fwd_bo
     return {"ranks": recs}
 
 
+CUT_SHAPE = (128, 128, 64)
+N_LABELS = 6
+TUTORIAL_TIMEOUT = 300
+
+
+class HostTimer:
+    """Host milliseconds of named module functions while installed (each
+    call's time added to its name), restored on exit."""
+
+    def __init__(self, *targets):
+        self.targets = targets  # (module, function name)
+        self.ms = {}
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.targets]
+        for mod, name, fn in self.saved:
+            def timed(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.ms[_name] = self.ms.get(_name, 0.0) + (time.perf_counter() - t0) * 1e3
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def expect_native(phase, want):
+    """``want`` native calls exactly (a native call that fell back to NumPy
+    counts none), 0 for every other entry point."""
+    from diffdrr_tpu_torch.native import build
+
+    got = build.call_counts()
+    bad = {k: (got.get(k, 0), want.get(k, 0)) for k in {**got, **want}
+           if got.get(k, 0) != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{phase}: native calls (got, want) {bad}; build errors "
+                             f"{build.build_errors}")
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_mesh(name, mesh, bounds):
+    """Faces, their indices in range, every vertex inside ``bounds``."""
+    import numpy as np
+
+    F, V = mesh.faces, mesh.vertices
+    if not (mesh.n_faces > 0 and F.min() >= 0 and F.max() < mesh.n_vertices
+            and np.isfinite(V).all()):
+        span = f"{F.min()}..{F.max()}" if len(F) else "none"
+        raise AssertionError(f"{name}: {mesh.n_faces} faces over {mesh.n_vertices} vertices, "
+                             f"indices {span}")
+    lo = np.array([b[0] for b in bounds]) - 1e-3
+    hi = np.array([b[1] for b in bounds]) + 1e-3
+    if not ((V >= lo).all() and (V <= hi).all()):
+        raise AssertionError(f"{name}: vertices {V.min(0)}..{V.max(0)} leave the volume's "
+                             f"bounds {lo}..{hi}")
+
+
+def run_tutorials(names, timeout):
+    """Start the named tutorials together, each a subprocess on the card
+    (its output to a file), and wait for each within ``timeout`` s of the
+    start. Returns {name: (seconds to its end, stdout)}."""
+    import tempfile
+
+    tdir = ROOT / "diffdrr_tpu_torch" / "tutorials"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tutorials_") as tmp:
+        t0 = time.perf_counter()
+        procs, ends = {}, {}
+        for n in names:
+            out, err = open(Path(tmp, f"{n}.out"), "w"), open(Path(tmp, f"{n}.err"), "w")
+            with out, err:
+                procs[n] = subprocess.Popen([sys.executable, str(tdir / f"{n}.py")], cwd=ROOT,
+                                            stdout=out, stderr=err, text=True)
+        try:
+            while len(ends) < len(procs) and time.perf_counter() - t0 < timeout:
+                for n, proc in procs.items():
+                    if n not in ends and proc.poll() is not None:
+                        ends[n] = time.perf_counter() - t0
+                time.sleep(0.05)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        failed, done = [], {}
+        for n, proc in procs.items():
+            out = Path(tmp, f"{n}.out").read_text()
+            err = Path(tmp, f"{n}.err").read_text()
+            if n not in ends:
+                failed.append(f"{n}: no end within {timeout} s")
+            elif proc.returncode != 0 or "all checks passed" not in out:
+                failed.append(f"{n} exited {proc.returncode}:\n{out[-2000:]}\n{err[-3000:]}")
+            else:
+                done[n] = (ends[n], out)
+    if failed:
+        raise AssertionError("tutorials failed:\n" + "\n".join(failed))
+    return done
+
+
+def viz_phase(T, card: str, shape=(512, 512, 133), cut=CUT_SHAPE, height=200, device=None,
+              tutorials=True) -> dict:
+    """Phase 12: the native meshers, QEM and HU transfer, drr_to_mesh,
+    labelmap_to_mesh, the HTML scene, the animation frames and the tutorials."""
+    import base64
+    import csv
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from diffdrr_tpu_torch import meshops, nifti, scene_html, viz
+    from diffdrr_tpu_torch.data import Image
+    from diffdrr_tpu_torch.experiments import gif
+    from diffdrr_tpu_torch.native import build as nbuild
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.registration import make_registration_step
+
+    t_phase = time.perf_counter()
+    ms = {}
+    kw = dict(parameterization="euler_angles", convention="ZXY")
+
+    # 12a. Build the native libraries; load the CT through the HU transfer.
+    t0 = time.perf_counter()
+    libs = nbuild.build_all()
+    ms["build"] = (time.perf_counter() - t0) * 1e3
+    missing = [n for n, lib in libs.items() if lib is None]
+    if missing:
+        raise AssertionError(f"native libraries failed to build: {missing}: "
+                             f"{nbuild.build_errors}")
+    log(f"[viz] 12a g++ built {', '.join(libs)} in {ms['build']:.1f} ms "
+        f"({ {k: round(v, 2) for k, v in nbuild.build_seconds.items()} or 'cached'} s each)")
+    nbuild.reset_call_counts()
+    t0 = time.perf_counter()
+    subject = T.load_example_ct(shape=shape, device=device)
+    ms["load_ct"] = (time.perf_counter() - t0) * 1e3
+    if nbuild.call_counts()["hu_to_density"] < 1:
+        raise AssertionError(f"load_example_ct did not run the native HU transfer: "
+                             f"{nbuild.call_counts()}, {nbuild.build_errors}")
+    small = T.load_example_ct(shape=cut, device="cpu")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viz_") as tmp:
+        path = Path(tmp) / "cut.nii.gz"
+        nifti.save(path, small.volume.data, small.volume.affine)
+        nbuild.reset_call_counts()
+        t0 = time.perf_counter()
+        back = Image.load(path)
+        ms["read_nii_gz"] = (time.perf_counter() - t0) * 1e3
+    expect_native("12a .nii.gz read", {"gunzip": 1})
+    if not np.array_equal(back.data, small.volume.data):
+        raise AssertionError("the .nii.gz read back differs from the volume written")
+    log(f"[viz] 12a {shape} CT loaded in {ms['load_ct']:.1f} ms (native HU transfer); a "
+        f"{cut} .nii.gz read back bit for bit through the native gunzip in "
+        f"{ms['read_nii_gz']:.1f} ms")
+
+    # 12b. drr_to_mesh on the full CT, both methods, the whole pipeline.
+    bounds = subject.volume.get_bounds()
+    meshes = {}
+    for method, want in (("surface_nets", {"surface_nets": 1, "taubin_smooth": 1}),
+                         ("marching_cubes", {"marching_cubes": 1, "qem_decimate": 1})):
+        nbuild.reset_call_counts()
+        # (the last clean's time is the total less these; decimate's and
+        # extract_largest's include their own cleans)
+        with HostTimer((viz, method), (meshops, "extract_largest"), (meshops, "decimate"),
+                       (meshops, "fill_holes")) as timer:
+            t0 = time.perf_counter()
+            mesh = viz.drr_to_mesh(subject, method=method, threshold=300.0)
+            total = (time.perf_counter() - t0) * 1e3
+        expect_native(f"12b drr_to_mesh {method}", want)
+        check_mesh(f"drr_to_mesh {method}", mesh, bounds)
+        meshes[method] = mesh
+        ms[f"drr_to_mesh_{method}"] = total
+        ms.update({f"{method}.{k}": v for k, v in timer.ms.items()})
+        log(f"[viz] 12b drr_to_mesh {method}: {mesh.n_vertices} vertices, {mesh.n_faces} "
+            f"faces in {total:.1f} ms (host ms {({k: round(v, 1) for k, v in timer.ms.items()})})")
+    vol = small.volume.data
+    a, b = viz._surface_nets_numpy(vol, 300.0), viz.surface_nets(vol, 300.0, smooth_iters=0)
+    if not (a.n_vertices == b.n_vertices > 0 and np.allclose(
+            np.sort(a.vertices.round(0), axis=0), np.sort(b.vertices.round(0), axis=0),
+            atol=1.0)):
+        raise AssertionError(f"surface_nets native vs NumPy at {cut}: {b.n_vertices} vs "
+                             f"{a.n_vertices} vertices")
+    a, b = viz._marching_cubes_numpy(vol, 300.0), viz.marching_cubes(vol, 300.0)
+    # The vertex sets to 1e-4 (tests/test_viz.py rounds to 4 decimals, which
+    # a 1-ulp difference can straddle at these coordinates): every vertex
+    # of each within 1e-4 of one of the other's.
+    near = max(cKDTree(a.vertices).query(b.vertices)[0].max(),
+               cKDTree(b.vertices).query(a.vertices)[0].max()) if b.n_vertices else np.inf
+    if not (a.n_vertices == b.n_vertices > 0 and a.n_faces == b.n_faces and near <= 1e-4):
+        raise AssertionError(f"marching_cubes native vs NumPy at {cut}: {b.n_vertices}/"
+                             f"{b.n_faces} vs {a.n_vertices}/{a.n_faces}, vertices {near} apart")
+    log(f"[viz] 12b at {cut}: native and NumPy surface_nets ({b.n_vertices} vertices) and "
+        f"marching_cubes ({b.n_faces} faces, vertex sets {near:.2e} apart) agree")
+
+    # 12c. labelmap_to_mesh for each label.
+    nbuild.reset_call_counts()
+    t0 = time.perf_counter()
+    faces = {}
+    for label in range(1, N_LABELS + 1):
+        mesh = viz.labelmap_to_mesh(subject, label)
+        check_mesh(f"labelmap_to_mesh {label}", mesh, subject.mask.get_bounds())
+        faces[label] = mesh.n_faces
+    ms["labelmap_to_mesh_6"] = (time.perf_counter() - t0) * 1e3
+    expect_native("12c labelmap_to_mesh", {"surface_nets": N_LABELS, "taubin_smooth": N_LABELS})
+    log(f"[viz] 12c labelmap_to_mesh faces {faces} in {ms['labelmap_to_mesh_6']:.1f} ms")
+
+    # 12d. The HTML scene of the main cell's DRR.
+    drr = T.DRR(subject, sdd=1020.0, height=height, delx=2.0, device=device)
+    dev = drr.device
+    pose = T.convert(torch.tensor(BENCH_ROT, device=dev), torch.tensor(BENCH_TRANS, device=dev),
+                     **kw)
+    textured = []
+    quad = scene_html._image_quad_payload
+
+    def capture(corners, image, *a, **k):
+        textured.append(image)
+        return quad(corners, image, *a, **k)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as tmp:
+        brick.clear_cache()
+        reset_all_launches()
+        scene_html._image_quad_payload = capture
+        try:
+            t0 = time.perf_counter()
+            out = scene_html.visualize_scene_html(drr, pose, Path(tmp) / "scene.html",
+                                                  threshold=300.0)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms["scene_html"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            scene_html._image_quad_payload = quad
+        launches = all_launches()
+        text = out.read_text()
+    no_other_launches("12d visualize_scene_html", launches, {"siddon_fwd": 1, "brick_copy": 1}
+                      if dev.type == "cuda" else {})
+    with torch.no_grad():
+        direct = drr(pose)[0, 0].cpu().numpy()
+    if len(textured) != 1 or not np.array_equal(textured[0], direct):
+        raise AssertionError("12d: the scene's texture is not drr(pose) bit for bit")
+    scene = json.loads(re.search(r"const SCENE = (\{.*?\});\n", text, re.S).group(1))
+    kinds = [it["type"] for it in scene["items"]]
+    tex = np.frombuffer(base64.b64decode(scene["items"][2]["texture"]), np.uint8)
+    lum = ((direct - direct.min()) / (direct.max() - direct.min()) * 255).astype(np.uint8)
+    if kinds != ["mesh", "mesh", "texquad", "lines"] or not np.array_equal(
+            tex.reshape(height, height, 4)[..., 0], lum):
+        raise AssertionError(f"12d: scene items {kinds}, or its texture is not the render's")
+    if "http" in text.replace("http-equiv", ""):
+        raise AssertionError("12d: the scene file references an outside resource")
+    log(f"[viz] 12d visualize_scene_html: launches {nonzero(launches)}; texture equal to "
+        f"drr(pose) bit for bit; {len(text.encode())} bytes written in "
+        f"{ms['scene_html']:.1f} ms")
+
+    # 12e. Animation frames of a 60-step trilinear registration's poses.
+    drr_t = T.DRR(subject, sdd=1020.0, height=height, delx=2.0, renderer="trilinear",
+                  device=device)
+    rot0 = torch.tensor(BENCH_ROT, device=dev)
+    trans = torch.tensor(BENCH_TRANS, device=dev)
+    with torch.no_grad():
+        target = drr_t(rot0, trans, **kw)
+    init_fn, step_fn = make_registration_step(drr_t, target, "euler_angles", "ZXY",
+                                              lr_rotation=1e-3, lr_translation=1e-1)
+    params, opt = init_fn(rot0, trans + 5.0)
+    rows = []
+    for _ in range(N_REG_STEPS):
+        r = params["rotation"].detach()[0].tolist()
+        t = params["translation"].detach()[0].tolist()
+        rows.append(dict(zip(gif.POSE_COLUMNS, r + t)))
+        params, opt, _ = step_fn(params, opt)
+    brick.clear_cache()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    frames = viz.animation_frames(rows, drr_t)
+    ms["frames_60"] = (time.perf_counter() - t0) * 1e3
+    launches = all_launches()
+    no_other_launches("12e animation frames", launches,
+                      {"joseph_fwd": N_REG_STEPS, "brick_copy": 1} if dev.type == "cuda" else {})
+    with torch.no_grad():
+        for k, row in enumerate(rows):
+            r = torch.tensor([[row[c] for c in gif.POSE_COLUMNS[:3]]], device=dev)
+            t = torch.tensor([[row[c] for c in gif.POSE_COLUMNS[3:]]], device=dev)
+            if not np.array_equal(frames[k], drr_t(r, t, **kw)[0, 0].cpu().numpy()):
+                raise AssertionError(f"12e: frame {k} differs from a direct render at its pose")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = Path(tmp) / "trace.csv"
+        with open(path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=["iter", *gif.POSE_COLUMNS])
+            w.writeheader()
+            w.writerows(dict(row, iter=k) for k, row in enumerate(rows))
+        read = gif.read_trace(path)
+    if [[float(r[c]) for c in gif.POSE_COLUMNS] for r in read] != [
+            [row[c] for c in gif.POSE_COLUMNS] for row in rows]:
+        raise AssertionError("12e: gif.read_trace does not give the trace's poses")
+    moved = float(np.abs(np.array([rows[-1][c] for c in gif.POSE_COLUMNS[3:]])
+                         - np.array([rows[0][c] for c in gif.POSE_COLUMNS[3:]])).max())
+    log(f"[viz] 12e animation_frames over {N_REG_STEPS} registration poses (translation moved "
+        f"{moved:.3f} mm): launches {nonzero(launches)}, {ms['frames_60']:.1f} ms host; each frame "
+        f"equal to a direct render; gif.read_trace gives the same poses")
+
+    # 12f. The tutorials on the card.
+    if tutorials:
+        names = sorted(p.stem for p in (ROOT / "diffdrr_tpu_torch" / "tutorials").glob("*.py"))
+        if len(names) != 9:
+            raise AssertionError(f"expected 9 tutorials, found {names}")
+        t0 = time.perf_counter()
+        done = run_tutorials([n for n in names if n != "07_timing"], TUTORIAL_TIMEOUT)
+        done.update(run_tutorials(["07_timing"], TUTORIAL_TIMEOUT))
+        ms["tutorials"] = (time.perf_counter() - t0) * 1e3
+        log(f"[viz] 12f tutorials passed on the card in {ms['tutorials'] / 1e3:.1f} s: "
+            + ", ".join(f"{n} {s:.1f} s" for n, (s, _) in sorted(done.items())))
+        for line in done["07_timing"][1].splitlines():
+            if "ms/render" in line or line.startswith("timing on"):
+                log(f"[viz] 12f 07_timing: {line}")
+    log(f"[viz] host ms on {card}: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    log(f"[viz] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": ms}
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -2715,6 +3068,9 @@ def main(argv) -> int:
     parallel_phase(T, subject, rot0, trans, kw, rec["losses"], siddon_recon_losses,
                    (b_fwd, by_fwd))
     del subject
+
+    # 12. Visualization and scene export; the tutorials ------------------------
+    viz_phase(T, card)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

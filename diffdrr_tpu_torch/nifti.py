@@ -5,7 +5,9 @@ port imports nothing of the JAX package. ``load`` reads single-file
 ``.nii`` and ``.nii.gz`` volumes with their affine (sform, else qform, else
 the pixdim diagonal); ``save`` writes one back (sform only). The orientation
 helpers (axis codes, orientation transforms) reconcile a labelmap stored in
-another orientation than its CT. Gzip goes through Python's ``gzip``.
+another orientation than its CT. Gzip inflates through the native loader
+(``native/nifti_loader.cpp``, zlib) first, as in the JAX package, else
+through Python's ``gzip``.
 """
 
 from __future__ import annotations
@@ -45,8 +47,30 @@ _DTYPE_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 def _read_bytes(path: Union[str, Path]) -> bytes:
     raw = Path(path).read_bytes()
     if raw[:2] == b"\x1f\x8b":
-        raw = gzip.decompress(raw)
+        native = _gunzip_native(raw)
+        raw = native if native is not None else gzip.decompress(raw)
     return raw
+
+
+def _gunzip_native(raw: bytes):
+    """zlib inflate through the native loader (native/nifti_loader.cpp), or
+    None when the library does not build or the stream is bad."""
+    import ctypes
+
+    from .native import build
+
+    lib = build.load_library("nifti_loader")
+    if lib is None:
+        return None
+    build.count("gunzip")
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = lib.gunzip(ctypes.cast(ctypes.c_char_p(raw), ctypes.POINTER(ctypes.c_uint8)),
+                   ctypes.c_int64(len(raw)), ctypes.byref(out))
+    if n < 0:
+        return None
+    data = ctypes.string_at(out, n)
+    lib.nl_free(out)
+    return data
 
 
 def _quaternion_to_rotation(b: float, c: float, d: float) -> np.ndarray:

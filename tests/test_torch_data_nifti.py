@@ -124,6 +124,7 @@ def ct_files(tmp_path):
 
 def test_read_reorients_the_labelmap_as_jax(ct_files, monkeypatch):
     monkeypatch.setattr(jdata, "_hu_to_density_native", lambda *a, **k: None)
+    monkeypatch.setattr(tdata, "_hu_to_density_native", lambda *a, **k: None)
     vol_path, lab_path, labels = ct_files
     js = jdata.read(vol_path, lab_path, labels=[2, 3, 5])
     ts = tdata.read(str(vol_path), lab_path, labels=[2, 3, 5])
@@ -141,6 +142,7 @@ def test_read_reorients_the_labelmap_as_jax(ct_files, monkeypatch):
 
 def test_resample_subject_matches_jax(ct_files, monkeypatch):
     monkeypatch.setattr(jdata, "_hu_to_density_native", lambda *a, **k: None)
+    monkeypatch.setattr(tdata, "_hu_to_density_native", lambda *a, **k: None)
     vol_path, lab_path, _ = ct_files
     js = jdata.read(vol_path, lab_path, resample_target=1.7)
     ts = tdata.read(vol_path, lab_path, resample_target=1.7)
@@ -181,6 +183,7 @@ def test_read_applies_a_pretransform_as_jax(ct_files, monkeypatch):
     from diffdrr_tpu_torch.pose import convert
 
     monkeypatch.setattr(jdata, "_hu_to_density_native", lambda *a, **k: None)
+    monkeypatch.setattr(tdata, "_hu_to_density_native", lambda *a, **k: None)
     vol_path, _, _ = ct_files
     rot = np.array([[0.1, -0.2, 0.3]], np.float32)
     trans = np.array([[5.0, -3.0, 12.0]], np.float32)
