@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive diffdrr_tpu_torch on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py                    # all phases, one card, ~5-7 minutes
+    python3 chip_smoke.py                    # all phases, one card, ~6-8 minutes
     python3 chip_smoke.py --profile OUT.txt  # also profile registration and
                                              # reconstruction steps: the
                                              # device's busy share (in a
@@ -239,7 +239,43 @@ Phases (any failure raises and the exit code is non-zero):
  12f. the port's nine tutorials (diffdrr_tpu_torch/tutorials) at their
      default sizes on the card, each a subprocess with a timeout of its
      own (07_timing alone, after the others), each exiting 0 and printing
-     "all checks passed".
+     "all checks passed";
+ 13. bf16 density storage (storage="bf16": the kernels' bf16 instantiations
+     on a bf16 bricked copy), counts zeroed before each path and read after:
+ 13a. every bf16 instantiation on phase 3's volume at march axes 0, 1 and 2
+     (Joseph at h = 1 and 1.37; sum, MIP, both two-pass backwards and
+     channels) equal, bit for bit, to the float32 kernel on the density
+     rounded to bf16 (values, argmaxes, pose rows), and to its plain version
+     within phase 3's tolerances; brick_copy_bf16 equal to
+     .to(torch.bfloat16) bit for bit, ties, subnormals, infinities and NaNs
+     included;
+ 13b. phase 4's registration (60 Siddon Adam steps at the main cell) with
+     storage="bf16": exactly siddon_fwd_bf16 1, siddon_fwdgrad_bf16 60 and
+     brick_copy_bf16 1; its target, its first step's image and pose
+     gradient, its 60 scores and its final pose equal to the same run's on
+     the float32 DRR of the rounded CT bit for bit; the final pose error
+     logged beside phase 4's (not gated: the float32 patch NCC turns the
+     rounding into another trajectory);
+ 13c. 5 trilinear reconstruction steps (phase 4c's views) from half the CT
+     with storage="bf16": exactly joseph_fwd_bf16 6, joseph_bwd_vol 5 and
+     brick_copy_bf16 6, the loss falling; the first loss equal to the
+     float32 run on the rounded densities bit for bit, its float32 density
+     gradient within 1e-4 * max (float atomics);
+ 13e. the other bf16 paths through DRR, each alone from an empty copy
+     cache, with exact counts: the Siddon and the Joseph MIP and their
+     backwards, the two-pass pose backwards (sum and MIP), the joseph
+     channel render and backward, 5 trilinear registration steps;
+ 13d. at the main path's shapes (the main cell, Joseph's fused kernel in
+     sum and max, both modes of each two-pass backward, the forwards at
+     320,000 rays, the 512^3 cube's forwards at 200^2 and 1000^2) each bf16
+     instantiation equal, bit for bit, to the float32 one on the density
+     rounded to bf16, and to its plain version within phase 3's tolerances
+     (not at 1000^2), the CT's bf16 copy to its plain version bit for bit;
+     the JSON line's max_abs_err of each *_bf16 entry is the larger of
+     these and 13a's; CUDA-event medians of each float32 and bf16
+     instantiation side by side in one call (f32, bf16, bf16, f32), each
+     with its bound (2-byte voxels for bf16) and the bf16 plain version's
+     time, and the copies of the CT and their bytes.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -255,8 +291,11 @@ backwards'; the channel entries, the MIP forwards' and the two-pass ray
 backwards' also give ``ms_back_to_back``, the forwards ``ms_with_copy``,
 joseph_fwd_max and joseph_bwd_rays their lateral pose's ``ms_lateral`` and
 ``ms_lateral_back_to_back``, the two-pass ray backwards ``ms_mip``.
-``library_ms`` is one PyTorch call over the same samples: F.grid_sample
-for the Joseph forwards; torch.ops.aten.grid_sampler_3d_backward's input
+The bf16 instantiations have entries of their own (``<kernel>_bf16``, with
+phase 13's launches, ``ms_f32``/``bound_ms_f32`` beside them from the same
+call, ``library_ms`` null: no one PyTorch call reads a bf16 copy and
+computes in float32). ``library_ms`` is one PyTorch call over the same
+samples: F.grid_sample for the Joseph forwards; torch.ops.aten.grid_sampler_3d_backward's input
 gradient (grad_output g * scale) for joseph_bwd_vol and joseph_bwd_vol_ch
 (g the channel cotangent at each sample's label), its grid gradient for
 joseph_bwd_rays and joseph_fwdgrad, and its nearest-mode input gradient at
@@ -269,6 +308,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -375,24 +415,28 @@ def roofline(n_bytes, n_ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def io_bytes(rows, density, ray_bytes, voxels, writes_volume):
-    """Each ray's ``ray_bytes`` (rows, cotangent, argmax, outputs) plus 4 B
-    per distinct voxel read, or, for a density gradient, 4 B per voxel of
-    the whole volume written once (its zero fill is part of the call)."""
-    return ray_bytes * rows.shape[1] + 4 * (density.numel() if writes_volume else voxels)
+def io_bytes(rows, density, ray_bytes, voxels, writes_volume, voxel_bytes=4):
+    """Each ray's ``ray_bytes`` (rows, cotangent, argmax, outputs) plus
+    ``voxel_bytes`` (4, or 2 for a bf16 copy) per distinct voxel read, or,
+    for a density gradient, 4 B per voxel of the whole float32 volume written
+    once (its zero fill is part of the call)."""
+    return ray_bytes * rows.shape[1] + (4 * density.numel() if writes_volume
+                                        else voxel_bytes * voxels)
 
 
 def bound(rows, density, axis, *, ray_bytes, slab_ops=0, segment_ops=0, ray_ops=0,
-          writes_volume=False, arg=None):
+          writes_volume=False, arg=None, voxel_bytes=4):
     """(bound_ms, bound_by) of a Siddon kernel on this run's rays: ``slab_ops``
     per non-empty slab step, ``segment_ops`` per non-empty segment, and
-    ``ray_ops`` (plus the slab range's, outside MIP) per ray."""
+    ``ray_ops`` (plus the slab range's, outside MIP) per ray; ``voxel_bytes``
+    2 for a bf16 instantiation."""
     from diffdrr_tpu_torch.profiling import SLAB_OPS, SLAB_RANGE_OPS, siddon_work
 
     steps, segments, voxels = siddon_work(rows, density, axis, arg)
     ray_ops += SLAB_RANGE_OPS if arg is None else 0
     n_ops = steps * (SLAB_OPS + slab_ops) + segments * segment_ops + ray_ops * rows.shape[1]
-    return roofline(io_bytes(rows, density, ray_bytes, voxels, writes_volume), n_ops)
+    return roofline(io_bytes(rows, density, ray_bytes, voxels, writes_volume, voxel_bytes),
+                    n_ops)
 
 
 # ray_bytes of each kernel: 36 B of rows in, 4 B of g, 4 B of argmax, and
@@ -405,7 +449,7 @@ BWD_VOL_BOUND = dict(ray_bytes=36 + 4, segment_ops=5, writes_volume=True)
 
 
 def march_bound(rows, density, axis, h, n_steps, *, ray_bytes, sample_ops, ray_ops=0,
-                writes_volume=False, arg=None, labels=False):
+                writes_volume=False, arg=None, labels=False, voxel_bytes=4):
     """(bound_ms, bound_by) of a Joseph kernel, as ``bound`` is for Siddon's;
     ``labels``: it also reads 4 B per distinct label voxel."""
     from diffdrr_tpu_torch.ops.kernels.joseph import is_blend
@@ -415,7 +459,7 @@ def march_bound(rows, density, axis, h, n_steps, *, ray_bytes, sample_ops, ray_o
     ray_ops += J_RANGE_OPS if arg is None else 0
     per_sample = J_STEP_OPS + sample_ops + (J_BLEND_OPS if is_blend(h) else 0)
     n_ops = samples * per_sample + ray_ops * rows.shape[1]
-    n_bytes = io_bytes(rows, density, ray_bytes, voxels, writes_volume)
+    n_bytes = io_bytes(rows, density, ray_bytes, voxels, writes_volume, voxel_bytes)
     return roofline(n_bytes + (4 * label_voxels if labels else 0), n_ops)
 
 
@@ -500,22 +544,22 @@ def check_fused(name, got, ref):
     return max(errs)
 
 
-def check_repeat(name, first, again):
-    """A second launch gives the same bits (the fused kernels' lanes combine
-    in a fixed order)."""
+def check_equal(name, got, ref, bits=False):
+    """``got`` equals ``ref`` (tensors, or tuples of tensors and Nones) in
+    value, or with ``bits`` in their 32-bit patterns (a zero's sign and a
+    NaN's payload count too); returns the max abs error, 0."""
     import torch
 
-    if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
-        raise AssertionError(f"{name}: a repeated launch differs")
-
-
-def check_equal(name, got, ref):
-    """``got`` equals ``ref`` to the last bit; returns the max abs error, 0."""
-    import torch
-
-    if not torch.equal(got, ref):
-        raise AssertionError(f"{name}: not equal, max abs diff "
-                             f"{float(torch.max(torch.abs(got - ref))):.3e}")
+    for k, (a, b) in enumerate(zip(got, ref) if isinstance(got, tuple) else [(got, ref)]):
+        if a is None and b is None:
+            continue
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: output {k} shape {tuple(a.shape)} != {tuple(b.shape)}")
+        same = (torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+                if bits else torch.equal(a, b))
+        if not same:
+            raise AssertionError(f"{name}: output {k} not equal, max abs diff "
+                                 f"{float(torch.max(torch.abs(a - b))):.3e}")
     return 0.0
 
 
@@ -582,7 +626,8 @@ def check_joseph(label, rows, dens, axis, h, n, g):
         if reduce == "max" and not (torch.equal(arg, ref_arg) and torch.equal(arg, mip[1])):
             raise AssertionError(f"joseph_fwdgrad[max] {label}: argmax differs")
         again, arg_again = J.joseph_fwdgrad(rows, dens, axis, h, n, reduce)
-        check_repeat(f"joseph_fwdgrad[{reduce}] {label}", got, again)
+        # A second launch gives the same bits (the lanes combine in a fixed order).
+        check_equal(f"joseph_fwdgrad[{reduce}] {label}, a repeated launch", got, again, bits=True)
         if reduce == "max" and not torch.equal(arg, arg_again):
             raise AssertionError(f"joseph_fwdgrad[max] {label}: a repeated launch differs")
         e[f"fwdgrad_{reduce}"] = check_rows(f"joseph_fwdgrad[{reduce}] {label}", got, ref, 7)
@@ -2432,6 +2477,545 @@ def viz_phase(T, card: str, shape=(512, 512, 133), cut=CUT_SHAPE, height=200, de
     return {"ms": ms}
 
 
+# -----------------------------------------------------------------------------
+# 13. bf16 density storage
+# -----------------------------------------------------------------------------
+
+# Phase 13c's reconstruction steps (trilinear, from half the CT).
+BF16_RECON_STEPS = 5
+# Phase 13e's trilinear registration steps (joseph_fwdgrad_bf16).
+BF16_TRI_STEPS = 5
+
+
+def bf16_small(small, rot_g, trans_g, rng):
+    """Phase 13a: every bf16 instantiation at every march axis (Joseph at
+    h = 1 and 1.37) on phase 3's random volume, bit for bit against the
+    float32 kernel on the density rounded to bf16 (values, argmaxes, rows),
+    and against its plain version (phase 3's tolerances); the bf16 copy
+    against torch's rounding bit for bit, special values included. Returns
+    each kernel's largest error against its plain version."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels import siddon as K
+
+    dens = small.density
+    rnd = dens.to(torch.bfloat16).float()
+    e = {}
+
+    def normal(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=dens.device)
+
+    def both(kernel, plain, rows, args, label, against_plain):
+        """``kernel(rows, dens, *args, "bf16")``: bit for bit the float32
+        kernel on the rounded density, ``against_plain`` its plain version."""
+        name = f"{kernel.__name__}_bf16{label}"
+        got = kernel(rows, dens, *args, "bf16")
+        check_equal(f"{name} vs the float32 kernel on the rounded density", got,
+                    kernel(rows, rnd, *args, None), bits=True)
+        err = against_plain(f"{name} vs plain", got, plain(rows, dens, *args, "bf16"))
+        e[kernel.__name__] = max(e.get(kernel.__name__, 0.0), err)
+        return got
+
+    def close(name, got, ref):
+        return check_close(name, got, ref, 1e-4)
+
+    def fused(name, got, ref):  # (rows, argmax or None): the rows, the value row 7
+        return check_rows(name, got[0], ref[0], 7)
+
+    for axis in (0, 1, 2):
+        rows, _ = rays_of(small, rot_g, trans_g, axis)
+        g = normal(rows.shape[1])
+        lab = f" axis {axis}"
+        both(K.siddon_fwd, K.siddon_fwd_plain, rows, (axis,), lab, close)
+        both(K.siddon_fwdgrad, K.siddon_fwdgrad_plain, rows, (axis,), lab, check_fused)
+        mip = both(K.siddon_fwd_max, K.siddon_fwd_max_plain, rows, (axis,), lab, check_max)
+        for a in (None, mip[1]):
+            both(K.siddon_bwd_rays, K.siddon_bwd_rays_plain, rows, (axis, g, a), lab, check_rows)
+        labels = torch.tensor(rng.integers(-1, 4, tuple(dens.shape)), dtype=torch.int32,
+                              device=dens.device)
+        for h in (1.0, 1.37):
+            n = int(-(-dens.shape[axis] // h))
+            jr = jrays_of(small, rot_g, trans_g, axis, h)
+            jg, gc = normal(jr.shape[1]), normal(3, jr.shape[1])
+            lab = f" axis {axis} h {h}"
+            march = (axis, h, n)
+            both(J.joseph_fwd, J.joseph_fwd_plain, jr, march, lab, close)
+            mip = both(J.joseph_fwd_max, J.joseph_fwd_max_plain, jr, march, lab, check_max)
+            for reduce in ("sum", "max"):
+                both(J.joseph_fwdgrad, J.joseph_fwdgrad_plain, jr, (*march, reduce), lab, fused)
+            for a in (None, mip[1]):
+                both(J.joseph_bwd_rays, J.joseph_bwd_rays_plain, jr, (*march, jg, a), lab,
+                     check_rows)
+            both(J.joseph_fwd_ch, J.joseph_fwd_ch_plain, jr, (labels, *march, 3), lab, close)
+            both(J.joseph_bwd_rays_ch, J.joseph_bwd_rays_ch_plain, jr, (labels, *march, gc), lab,
+                 check_rows)
+    # The copy: torch's rounding on the card, ties, subnormals, overflow to
+    # inf, infinities and NaNs included, bit for bit.
+    special = dens.clone()
+    # ties to even both ways, a subnormal tie, the least subnormal, a value
+    # that rounds past the largest bf16, +inf, -inf (0xff800000), a NaN and
+    # a negative NaN (0xffc00001)
+    special.view(-1).view(torch.int32)[:9] = torch.tensor(
+        [0x3f808000, 0x3f818000, 0x00008000, 0x00000001, 0x7f7fffff, 0x7f800000, -8388608,
+         0x7fc00000, -4194303], dtype=torch.int32, device=dens.device)
+    for d in (dens, special):
+        got = brick.brick_density(d, "bf16")
+        if not torch.equal(got.data.view(torch.int16),
+                           brick.brick_density_plain(d, "bf16").data.view(torch.int16)):
+            raise AssertionError("brick_copy_bf16 differs from torch's rounding")
+    if not torch.isnan(got.data).any() or not torch.isinf(got.data).any():
+        raise AssertionError("the special values did not reach the bf16 copy")
+    e["brick_copy"] = 0.0
+    torch.cuda.synchronize()
+    log("[bf16] 13a every bf16 instantiation on phase 3's volume, axes 0-2 (Joseph h = 1, "
+        "1.37), equal to the float32 kernel on the rounded density bit for bit; vs plain: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+        + "; brick_copy_bf16 equal to .to(torch.bfloat16) bit for bit (NaN, inf, ties)")
+    return e
+
+
+def bf16_launches(phase, want):
+    """Read every counter after a phase-13 path: ``want`` exactly, 0 else."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import launch_counts, no_other_launches
+
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    log(f"[bf16] {phase} launches {got}")
+    no_other_launches(phase, got, want)
+    return got
+
+
+def bf16_registration(T, subject, rot0, trans, kw, main_err):
+    """Phase 13b: phase 4's registration (60 Siddon Adam steps at the main
+    cell) on a DRR with storage="bf16", and the same 60 steps on the float32
+    DRR of the CT rounded to bf16: the target, every score and the final
+    pose bit for bit, the first step's image and pose gradient too. The
+    pose error is logged beside phase 4's, not gated: the rounding is
+    another CT, and the float32 patch NCC turns an image's last bits into
+    another trajectory (ROADMAP §3, the patch NCC's float32 statistics)."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick, reset_launch_counts
+    from diffdrr_tpu_torch.registration import make_registration_step
+
+    lr = dict(lr_rotation=1e-3, lr_translation=1e-1)
+
+    def run(drr, count=False):
+        if count:
+            brick.clear_cache()  # the DRRs share the subject's density tensor
+            reset_launch_counts()
+        target = drr(rot0, trans, **kw)
+        init_fn, step_fn = make_registration_step(drr, target, "euler_angles", "ZXY", **lr)
+        params, opt = init_fn(rot0, trans + 5.0)
+        scores = []
+        for i in range(N_REG_STEPS):
+            params, opt, score = step_fn(params, opt)
+            scores.append(score)
+            if i == 0:
+                first = (params["rotation"].grad.clone(), params["translation"].grad.clone())
+        launches = (bf16_launches("13b bf16 registration", {
+            "siddon_fwd_bf16": 1, "siddon_fwdgrad_bf16": N_REG_STEPS, "brick_copy_bf16": 1})
+            if count else None)
+        final = (params["rotation"].detach(), params["translation"].detach())
+        return target, torch.stack(scores), first, final, launches
+
+    drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, storage="bf16")
+    target, scores, first, final, launches = run(drr, count=True)
+    if drr.siddon_escapes:
+        raise AssertionError(f"bf16 registration: {drr.siddon_escapes} slab escapes")
+    # The float32 path on the rounded CT.
+    ref = T.DRR(subject, sdd=1020.0, height=200, delx=2.0)
+    ref.set_density(drr.density.to(torch.bfloat16).float())
+    r_target, r_scores, r_first, r_final, _ = run(ref)
+    check_equal("13b target render", target, r_target, bits=True)
+    check_equal("13b first step's pose gradient", first, r_first, bits=True)
+    check_equal("13b scores of the 60 steps", scores, r_scores, bits=True)
+    check_equal("13b final pose", final, r_final, bits=True)
+    with torch.no_grad():
+        check_equal("13b first step's image", drr(rot0, trans + 5.0, **kw),
+                    ref(rot0, trans + 5.0, **kw), bits=True)
+        ref.set_density(drr.density)
+        moved = target - ref(rot0, trans, **kw)
+    scores = scores.tolist()
+    if not all(math.isfinite(x) for x in scores):
+        raise AssertionError(f"bf16 registration scores not finite: {scores}")
+    t_err = (final[1] - trans)[0].tolist()
+    r_err = (final[0] - rot0).abs().max().item()
+    log(f"[bf16] 13b registration {N_REG_STEPS} steps with storage='bf16': NCC "
+        f"{scores[0]:.5f} -> {scores[-1]:.5f} (max {max(scores):.5f}); translation error "
+        f"from (5, 5, 5) to ({t_err[0]:.3f}, {t_err[1]:.3f}, {t_err[2]:.3f}) mm, max rotation "
+        f"error {r_err:.2e} rad (phase 4, float32 storage: ({main_err[0][0]:.3f}, "
+        f"{main_err[0][1]:.3f}, {main_err[0][2]:.3f}) mm, {main_err[1]:.2e} rad); every step "
+        f"equal to the float32 run on the rounded CT bit for bit (target, first image and "
+        f"pose gradient, {N_REG_STEPS} scores, final pose); the target moved by "
+        f"{moved.abs().max().item() / target.abs().max().item():.3e} of its max by the "
+        f"rounding; bf16 copy {drr.density.numel() * 2 / 1e6:.1f} MB of voxels (float32 "
+        f"{drr.density.numel() * 4 / 1e6:.1f} MB)")
+    return dict(drr=drr, launches=launches)
+
+
+def bf16_reconstruction(T, subject, kw):
+    """Phase 13c: trilinear reconstruction steps (phase 4c's 8 views) with
+    storage="bf16", from half the CT; the first step's loss and float32
+    density gradient against the float32 run on the rounded densities."""
+    import numpy as np
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick, reset_launch_counts
+    from diffdrr_tpu_torch.parallel import make_reconstruction_step
+
+    brick.clear_cache()  # the DRRs share the subject's density tensor, bricked in 13b
+    reset_launch_counts()
+    drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="trilinear", storage="bf16")
+    thetas = np.linspace(0, np.pi, N_VIEWS, endpoint=False)
+    rot_v = torch.tensor(np.stack([thetas, np.full(N_VIEWS, np.pi / 2), np.zeros(N_VIEWS)], 1),
+                         dtype=torch.float32, device=drr.device)
+    trans_v = torch.tensor(BENCH_TRANS * N_VIEWS, device=drr.device)
+    measured = drr(rot_v, trans_v, **kw)
+    init_fn, step_fn = make_reconstruction_step(drr, lr=RECON_LR)
+    dens, opt = init_fn(0.5 * drr.density)
+    losses = []
+    for i in range(BF16_RECON_STEPS):
+        dens, opt, loss = step_fn(dens, opt, rot_v, trans_v, measured)
+        losses.append(loss)
+        if i == 0:
+            first = (loss.clone(), dens.grad.clone())
+    launches = bf16_launches("13c bf16 reconstruction", {
+        "joseph_fwd_bf16": BF16_RECON_STEPS + 1, "joseph_bwd_vol": BF16_RECON_STEPS,
+        "brick_copy_bf16": BF16_RECON_STEPS + 1})
+    losses = torch.stack(losses).tolist()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"bf16 reconstruction loss did not fall: {losses}")
+    rounded = (lambda d: d.detach().to(torch.bfloat16).float())
+    ref = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="trilinear")
+    ref.set_density(rounded(drr.density))
+    check_equal("13c measured views", measured, ref(rot_v, trans_v, **kw), bits=True)
+    r_init, r_step = make_reconstruction_step(ref, lr=RECON_LR)
+    r_dens, r_opt = r_init(rounded(0.5 * drr.density))
+    r_dens, r_opt, r_loss = r_step(r_dens, r_opt, rot_v, trans_v, measured)
+    check_equal("13c first loss", first[0], r_loss, bits=True)
+    # joseph_bwd_vol adds with float atomics in no fixed order: the
+    # gradient's last bits vary run to run, so to phase 3's 1e-4 * max.
+    err = check_close("13c first density gradient", first[1], r_dens.grad, 1e-4)
+    log(f"[bf16] 13c trilinear reconstruction, {N_VIEWS} views x 200^2, {BF16_RECON_STEPS} "
+        f"Adam steps (lr {RECON_LR}) from half the CT with storage='bf16': loss "
+        f"{losses[0]:.5g} -> {losses[-1]:.5g}; first loss equal to the float32 run on the "
+        f"rounded densities bit for bit, its density gradient (float32) within {err:.3e} "
+        f"(max {first[1].abs().max().item():.3e}; float atomics)")
+    return dict(drr=drr, launches=launches, rot_v=rot_v, trans_v=trans_v)
+
+
+def bf16_paths(T, subject, rot0, trans, kw):
+    """Phase 13e: the other paths through DRR with storage="bf16", each
+    counted alone from an empty copy cache: the MIP render and its backward
+    to a new density and the pose (Siddon; Joseph, fused), the Joseph MIP's
+    two-pass pose backward, the two-pass sum pose backward (both), the joseph
+    channel render and its backward, and trilinear registration steps."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick, reset_launch_counts
+    from diffdrr_tpu_torch.registration import make_registration_step
+
+    def backward(drr, new_density=False, **opts):
+        r, t = rot0.clone().requires_grad_(True), trans.clone().requires_grad_(True)
+        d = drr.density.clone().requires_grad_(True) if new_density else drr.density
+        img = drr.render(d, *drr.detector(T.convert(r, t, **kw)), **opts)
+        torch.sum(img ** 2).backward()
+        pg = torch.cat([r.grad, t.grad], -1)
+        if not (torch.isfinite(img).all() and torch.isfinite(pg).all() and pg.abs().max() > 0):
+            raise AssertionError(f"bf16 {opts}: render or pose gradient not finite or zero")
+
+    def counted(name, want, run):
+        brick.clear_cache()
+        reset_launch_counts()
+        run()
+        out[name] = bf16_launches(f"13e {name}", want)
+
+    out = {}
+    sid = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, storage="bf16")
+    counted("siddon MIP", {"siddon_fwd_max_bf16": 1, "siddon_bwd_rays_bf16": 1,
+                           "siddon_bwd_vol": 1, "brick_copy_bf16": 1},
+            lambda: backward(sid, True, reducefn="max"))
+    counted("siddon two-pass sum", {"siddon_fwd_bf16": 1, "siddon_bwd_rays_bf16": 1,
+                                    "brick_copy_bf16": 1},
+            lambda: backward(sid, fused_pose_bwd=False))
+    del sid
+    jos = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="joseph", storage="bf16")
+    counted("joseph MIP", {"joseph_fwdgrad_bf16": 1, "joseph_bwd_vol": 1, "brick_copy_bf16": 1},
+            lambda: backward(jos, True, reducefn="max"))
+    counted("joseph MIP two-pass", {"joseph_fwd_max_bf16": 1, "joseph_bwd_rays_bf16": 1,
+                                    "brick_copy_bf16": 1},
+            lambda: backward(jos, reducefn="max", fused_pose_bwd=False))
+    counted("joseph two-pass sum", {"joseph_fwd_bf16": 1, "joseph_bwd_rays_bf16": 1,
+                                    "brick_copy_bf16": 1},
+            lambda: backward(jos, fused_pose_bwd=False))
+
+    def channels():
+        img = jos(rot0, trans, mask_to_channels=True, **kw)
+        if img.shape[:2] != (1, jos.n_channels) or not torch.isfinite(img).all():
+            raise AssertionError(f"bf16 channel render {tuple(img.shape)}")
+        backward(jos, True, mask_to_channels=True)
+
+    # The render bricks the CT and its labelmap (float32, its int32 bits),
+    # the backward its new density.
+    counted("joseph channels", {"joseph_fwd_ch_bf16": 2, "joseph_bwd_rays_ch_bf16": 1,
+                                "joseph_bwd_vol_ch": 1, "brick_copy_bf16": 2, "brick_copy": 1},
+            channels)
+    del jos
+    tri = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="trilinear",
+                storage="bf16")
+
+    def registration():
+        target = tri(rot0, trans, **kw)
+        init_fn, step_fn = make_registration_step(tri, target, "euler_angles", "ZXY",
+                                                  lr_rotation=1e-3, lr_translation=1e-1)
+        params, opt = init_fn(rot0, trans + 5.0)
+        for _ in range(BF16_TRI_STEPS):
+            params, opt, _ = step_fn(params, opt)
+
+    counted("trilinear registration", {"joseph_fwd_bf16": 1,
+                                       "joseph_fwdgrad_bf16": BF16_TRI_STEPS,
+                                       "brick_copy_bf16": 1}, registration)
+    return out
+
+
+def side_by_side(name, kernel, plain, check, rows, dens, rnd, args, bnd, b_args, bkw,
+                 with_plain=True):
+    """A wrapper's bf16 instantiation at one of the main path's shapes:
+    ``kernel(rows, dens, *args, "bf16")`` bit for bit the float32
+    instantiation on ``rnd`` (the density rounded to bf16), and held by
+    ``check`` (phase 3's tolerances) against its bf16 plain version, whose
+    one call is timed; the float32 and bf16 instantiations timed in turns
+    (f32, bf16, bf16, f32; CUDA-event medians of 10 calls each, the copies
+    cached); each one's bound (4- or 2-byte voxels), ``bnd(rows, dens,
+    *b_args, voxel_bytes=.., **bkw)``. ``err`` is the error against the
+    plain version (None without it)."""
+    got = kernel(rows, dens, *args, "bf16")
+    check_equal(f"{name} bf16 vs the float32 kernel on the rounded density", got,
+                kernel(rows, rnd, *args, None), bits=True)
+    t = [median_ms(lambda: kernel(rows, dens, *args, s), 10)
+         for s in (None, "bf16", "bf16", None)]
+    out = {}
+
+    def run_plain():
+        out["ref"] = plain(rows, dens, *args, "bf16")
+
+    plain_ms = median_ms(run_plain, 1, 0) if with_plain else None
+    return dict(ms_f32=[t[0], t[3]], ms=statistics.median(t[1:3]), ms_bf16=t[1:3],
+                plain_ms=plain_ms,
+                err=check(f"{name} bf16 vs plain", got, out["ref"]) if with_plain else None,
+                bound_f32=bnd(rows, dens, *b_args, voxel_bytes=4, **bkw),
+                bound=bnd(rows, dens, *b_args, voxel_bytes=2, **bkw))
+
+
+def bf16_timings(T, reg, rec, rng, cube):
+    """Phase 13d: each kernel that reads the density, its bf16 instantiation
+    held against the float32 one on the rounded CT and against its plain
+    version, and both timed side by side (``side_by_side``), at the main
+    cell (200^2, axis 2, h = 1) and the forwards at the recon cells' 320,000
+    rays; the copies of the CT (the bf16 one bit for bit its plain
+    version's); the 512^3 cube's (phase 5's subject) siddon_fwd and
+    joseph_fwd at 200^2 and 1000^2."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick
+    from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels import siddon as K
+
+    drr = reg["drr"]
+    dev, dens, labels, C = drr.device, drr.density, drr.mask, drr.n_channels
+    rnd = dens.to(torch.bfloat16).float()
+    X = dens.shape[2]
+    rot0 = torch.tensor(BENCH_ROT, device=dev)
+    trans = torch.tensor(BENCH_TRANS, device=dev)
+    rows_m, _ = rays_of(drr, rot0, trans, axis=2)
+    rows_v, _ = rays_of(drr, rec["rot_v"], rec["trans_v"], axis=2)
+    jrows_m = jrays_of(drr, rot0, trans, 2, 1.0)
+    jrows_v = jrays_of(drr, rec["rot_v"], rec["trans_v"], 2, 1.0)
+    g = torch.tensor(rng.normal(size=rows_m.shape[1]), dtype=torch.float32, device=dev)
+    gc = torch.tensor(rng.normal(size=(C, rows_m.shape[1])), dtype=torch.float32, device=dev)
+    s_arg = K.siddon_fwd_max(rows_m, dens, 2, "bf16")[1]
+    j_arg = J.joseph_fwd_max(jrows_m, dens, 2, 1.0, X, "bf16")[1]
+    chb = channel_bounds(C)
+    sid, jos = (bound, (2,)), (march_bound, (2, 1.0, X))
+
+    def close(name, got, ref):
+        return check_close(name, got, ref, 1e-4)
+
+    def fused(name, got, ref):  # (rows, argmax or None): the rows, the value row 7
+        return check_rows(name, got[0], ref[0], 7)
+
+    cases = {  # name: (kernel, plain version, check against it, rows, its arguments
+               #        after the density, bound function and its arguments, bound keywords)
+        "siddon_fwd": (K.siddon_fwd, K.siddon_fwd_plain, close, rows_m, (2,), *sid, FWD_BOUND),
+        "siddon_fwd[320k]": (K.siddon_fwd, K.siddon_fwd_plain, close, rows_v, (2,), *sid,
+                             FWD_BOUND),
+        "siddon_fwdgrad": (K.siddon_fwdgrad, K.siddon_fwdgrad_plain, check_fused, rows_m, (2,),
+                           *sid, FWDGRAD_BOUND),
+        "siddon_fwd_max": (K.siddon_fwd_max, K.siddon_fwd_max_plain, check_max, rows_m, (2,),
+                           *sid, FWD_MAX_BOUND),
+        "siddon_bwd_rays": (K.siddon_bwd_rays, K.siddon_bwd_rays_plain, check_rows, rows_m,
+                            (2, g, None), *sid, BWD_RAYS_BOUND),
+        "siddon_bwd_rays[mip]": (K.siddon_bwd_rays, K.siddon_bwd_rays_plain, check_rows, rows_m,
+                                 (2, g, s_arg), *sid,
+                                 dict(BWD_RAYS_BOUND, ray_bytes=36 + 4 + 4 + 36, arg=s_arg)),
+        "joseph_fwd": (J.joseph_fwd, J.joseph_fwd_plain, close, jrows_m, (2, 1.0, X), *jos,
+                       J_FWD_BOUND),
+        "joseph_fwd[320k]": (J.joseph_fwd, J.joseph_fwd_plain, close, jrows_v, (2, 1.0, X),
+                             *jos, J_FWD_BOUND),
+        "joseph_fwd_max": (J.joseph_fwd_max, J.joseph_fwd_max_plain, check_max, jrows_m,
+                           (2, 1.0, X), *jos, J_FWD_MAX_BOUND),
+        "joseph_fwdgrad": (J.joseph_fwdgrad, J.joseph_fwdgrad_plain, fused, jrows_m,
+                           (2, 1.0, X, "sum"), *jos, J_FWDGRAD_BOUND),
+        "joseph_fwdgrad[max]": (J.joseph_fwdgrad, J.joseph_fwdgrad_plain, fused, jrows_m,
+                                (2, 1.0, X, "max"), *jos, J_FWDGRAD_BOUND),
+        "joseph_bwd_rays": (J.joseph_bwd_rays, J.joseph_bwd_rays_plain, check_rows, jrows_m,
+                            (2, 1.0, X, g, None), *jos, J_BWD_RAYS_BOUND),
+        "joseph_bwd_rays[mip]": (J.joseph_bwd_rays, J.joseph_bwd_rays_plain, check_rows, jrows_m,
+                                 (2, 1.0, X, g, j_arg), *jos,
+                                 dict(J_BWD_RAYS_BOUND, ray_bytes=36 + 4 + 4 + 28, arg=j_arg)),
+        "joseph_fwd_ch": (J.joseph_fwd_ch, J.joseph_fwd_ch_plain, close, jrows_m,
+                          (labels, 2, 1.0, X, C), *jos, chb["fwd_ch"]),
+        "joseph_bwd_rays_ch": (J.joseph_bwd_rays_ch, J.joseph_bwd_rays_ch_plain, check_rows,
+                               jrows_m, (labels, 2, 1.0, X, gc), *jos, chb["bwd_rays_ch"]),
+    }
+    times = {name: side_by_side(name, kernel, plain, check, rows, dens, rnd, args, bnd, b_args,
+                                bkw)
+             for name, (kernel, plain, check, rows, args, bnd, b_args, bkw) in cases.items()}
+    brick.forget(rnd)
+    del rnd
+    # The copies of the CT: the density read once, the padded copy written once.
+    n_pad = brick.brick_density(dens).data.numel()
+    t = [median_ms(lambda: brick.brick_density(dens, s), 10) for s in (None, "bf16", "bf16", None)]
+    copies = {}
+
+    def plain_copy():
+        copies["plain"] = brick.brick_density_plain(dens, "bf16")
+
+    times["brick_copy"] = dict(
+        ms_f32=[t[0], t[3]], ms=statistics.median(t[1:3]), ms_bf16=t[1:3],
+        plain_ms=median_ms(plain_copy, 5, 1),
+        err=check_equal("brick_copy_bf16 of the CT vs plain",
+                        brick.brick_density(dens, "bf16").data.view(torch.int16),
+                        copies["plain"].data.view(torch.int16)),
+        bound_f32=roofline(4 * (dens.numel() + n_pad), 0),
+        bound=roofline(4 * dens.numel() + 2 * n_pad, 0))
+    del copies
+    for renderer, kernel, plain in (("siddon", K.siddon_fwd, K.siddon_fwd_plain),
+                                    ("joseph", J.joseph_fwd, J.joseph_fwd_plain)):
+        for height, delx in ((200, 2.0), (1000, 0.4)):
+            drr_c = T.DRR(cube, sdd=1020.0, height=height, delx=delx, renderer=renderer)
+            d = drr_c.density
+            if renderer == "siddon":
+                rows, _ = rays_of(drr_c, rot0, trans, axis=2)
+                args, bnd, bkw = (2,), bound, FWD_BOUND
+            else:
+                rows = jrays_of(drr_c, rot0, trans, 2, 1.0)
+                args, bnd, bkw = (2, 1.0, d.shape[2]), march_bound, J_FWD_BOUND
+            r_c = d.to(torch.bfloat16).float()
+            times[f"{renderer}_fwd[512^3 {height}]"] = side_by_side(
+                f"{renderer}_fwd 512^3 @{height}^2", kernel, plain, close, rows, d, r_c, args,
+                bnd, args, bkw, with_plain=height == 200)
+            del drr_c, d, r_c
+            brick.clear_cache()
+    for name, t in times.items():
+        log(f"[bf16] 13d {name}: bf16 {t['ms_bf16'][0]:.4f}, {t['ms_bf16'][1]:.4f} ms (bound "
+            f"{t['bound'][0]:.4f} by {t['bound'][1]}), float32 {t['ms_f32'][0]:.4f}, "
+            f"{t['ms_f32'][1]:.4f} ms (bound {t['bound_f32'][0]:.4f} by {t['bound_f32'][1]}); "
+            f"bf16 plain {t['plain_ms'] if t['plain_ms'] is None else round(t['plain_ms'], 2)}"
+            f" ms; bf16 vs plain max abs err "
+            f"{'not run' if t['err'] is None else format(t['err'], '.3e')}")
+    log(f"[bf16] 13d every bf16 instantiation at these shapes equal to the float32 one on the "
+        f"rounded density bit for bit; copies of the {tuple(dens.shape)} CT: float32 "
+        f"{4 * n_pad / 1e6:.1f} MB, bf16 {2 * n_pad / 1e6:.1f} MB (each read of the density "
+        f"{4 * dens.numel() / 1e6:.1f} MB)")
+    return times
+
+
+def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_err):
+    """Phase 13: bf16 density storage. Returns the bf16 instantiations'
+    records for the kernels' JSON line."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    took = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    errs = timed("13a", bf16_small, small, rot_g, trans_g, rng)
+    reg = timed("13b", bf16_registration, T, subject, rot0, trans, kw, main_err)
+    rec = timed("13c", bf16_reconstruction, T, subject, kw)
+    paths = timed("13e", bf16_paths, T, subject, rot0, trans, kw)
+    times = timed("13d", bf16_timings, T, reg, rec, rng, cube)
+    log(f"[bf16] phase 13 took {time.perf_counter() - t_phase:.1f} s {took}")
+
+    def launches(*keys):
+        return sum(counts.get(k, 0) for counts in [reg["launches"], rec["launches"],
+                                                    *paths.values()] for k in keys)
+
+    spal, jpal = "diffdrr_tpu/ops/pallas/siddon.py", "diffdrr_tpu/ops/pallas/joseph.py"
+    rows = [
+        # record name, timing key, kernel (error key), source, replaces
+        ("siddon_fwd_bf16", "siddon_fwd", "siddon_fwd", "siddon", f"{spal}:189"),
+        ("siddon_fwd_bf16[320k]", "siddon_fwd[320k]", "siddon_fwd", "siddon", f"{spal}:189"),
+        ("siddon_fwd_bf16[512^3]", "siddon_fwd[512^3 200]", "siddon_fwd", "siddon",
+         f"{spal}:573"),
+        ("siddon_fwdgrad_bf16", "siddon_fwdgrad", "siddon_fwdgrad", "siddon", f"{spal}:396"),
+        ("siddon_fwd_max_bf16", "siddon_fwd_max", "siddon_fwd_max", "siddon", f"{spal}:189"),
+        ("siddon_bwd_rays_bf16", "siddon_bwd_rays", "siddon_bwd_rays", "siddon", f"{spal}:248"),
+        ("brick_copy_bf16", "brick_copy", "brick_copy", "brick",
+         "none: layout glue; the bf16 copy every bf16 instantiation reads"),
+        ("joseph_fwd_bf16", "joseph_fwd", "joseph_fwd", "joseph", f"{jpal}:376"),
+        ("joseph_fwd_bf16[320k]", "joseph_fwd[320k]", "joseph_fwd", "joseph", f"{jpal}:376"),
+        ("joseph_fwd_bf16[512^3]", "joseph_fwd[512^3 200]", "joseph_fwd", "joseph",
+         f"{jpal}:487"),
+        ("joseph_fwd_max_bf16", "joseph_fwd_max", "joseph_fwd_max", "joseph", f"{jpal}:376"),
+        ("joseph_fwdgrad_bf16", "joseph_fwdgrad", "joseph_fwdgrad", "joseph", f"{jpal}:732"),
+        ("joseph_bwd_rays_bf16", "joseph_bwd_rays", "joseph_bwd_rays", "joseph", f"{jpal}:600"),
+        ("joseph_fwd_ch_bf16", "joseph_fwd_ch", "joseph_fwd_ch", "joseph", f"{jpal}:376"),
+        ("joseph_bwd_rays_ch_bf16", "joseph_bwd_rays_ch", "joseph_bwd_rays_ch", "joseph",
+         f"{jpal}:600"),
+    ]
+    records = []
+    for name, key, kernel, src, replaces in rows:
+        t = times[key]
+        # The error off the plain version at the main path's shapes (13d:
+        # the timed key, its MIP or max mode) and on phase 3's volume (13a).
+        err = max([errs[kernel]] + [times[k]["err"] for k in (key, f"{key}[mip]", f"{key}[max]")
+                                    if k in times and times[k]["err"] is not None])
+        rec_ = {"name": name, "route": "cuda", "source": f"diffdrr_tpu_torch/csrc/{src}.cu",
+                "replaces": replaces, "launches": launches(f"{kernel}_bf16"),
+                "max_abs_err": err, "max_abs_err_13a": errs[kernel], "ms": t["ms"],
+                "ms_bf16": t["ms_bf16"],
+                "ms_f32": t["ms_f32"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "bound_ms_f32": t["bound_f32"][0],
+                "library_ms": None}
+        if key.endswith("[512^3 200]"):
+            t_k = times[key.replace("200]", "1000]")]
+            rec_.update(ms_1000=t_k["ms"], ms_1000_f32=t_k["ms_f32"],
+                        bound_ms_1000=t_k["bound"][0])
+        if key in ("siddon_bwd_rays", "joseph_bwd_rays"):
+            t_m = times[f"{key}[mip]"]
+            rec_.update(ms_mip=t_m["ms"], ms_mip_f32=t_m["ms_f32"], bound_ms_mip=t_m["bound"][0])
+        if key == "joseph_fwdgrad":
+            t_m = times[f"{key}[max]"]
+            rec_.update(ms_max=t_m["ms"], ms_max_f32=t_m["ms_f32"], bound_ms_max=t_m["bound"][0])
+        records.append(rec_)
+    missing = [r["name"] for r in records if r["launches"] < 1]
+    if missing:
+        raise AssertionError(f"phase 13's paths launched no {missing}")
+    return records
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -2494,8 +3078,8 @@ def main(argv) -> int:
         fused = K.siddon_fwdgrad(rows_a, small.density, axis)
         e2 = max(e2, check_fused(f"siddon_fwdgrad axis {axis} 128x128x64", fused,
                                  K.siddon_fwdgrad_plain(rows_a, small.density, axis)))
-        check_repeat(f"siddon_fwdgrad axis {axis}", fused,
-                     K.siddon_fwdgrad(rows_a, small.density, axis))
+        check_equal(f"siddon_fwdgrad axis {axis}, a repeated launch", fused,
+                    K.siddon_fwdgrad(rows_a, small.density, axis), bits=True)
     dens_s = small.density
     g_s = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device=dev)
     mip_s = K.siddon_fwd_max(rows, dens_s, ax)
@@ -2857,7 +3441,7 @@ def main(argv) -> int:
     err_frac = fractional_strides(tri["drr"], jm["drr"], rot0, trans, kw)
     err_jbv0 = joseph_axis0_scatter(jm["drr"], rot0, trans, rng)
     jc = joseph_cube(T, cube, rot0, trans, kw)
-    del drr_c, drr_k, img_c, img_k, rows_c, rows_k, cube
+    del drr_c, drr_k, img_c, img_k, rows_c, rows_k  # the cube stays for phase 13
 
     # 8. Per-structure channels and p_subsample --------------------------------
     ch_small = channels_small(small, rot_g, trans_g, rng)
@@ -3067,10 +3651,14 @@ def main(argv) -> int:
     # 11. Several ranks: parallel/ and the profiler ----------------------------
     parallel_phase(T, subject, rot0, trans, kw, rec["losses"], siddon_recon_losses,
                    (b_fwd, by_fwd))
-    del subject
 
     # 12. Visualization and scene export; the tutorials ------------------------
     viz_phase(T, card)
+
+    # 13. bf16 density storage ------------------------------------------------
+    kernels += bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw,
+                          (t_err, r_err))
+    del subject, cube
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,13 +19,24 @@
 // every march axis. A brick of 64 floats is two 128-byte lines: the voxels
 // a warp's rays read at one slab (neighbouring detector pixels, ~1-1.5
 // voxels apart) fall in a few lines instead of one line per ray.
+//
+// The copy's element is float32, or bf16 under storage="bf16" (the JAX
+// package's bf16 density storage): the volume is a template on its element
+// type T, float or bf16 (the 16 bits of a bfloat16), and load() widens a
+// bf16 to float32 exactly. A kernel's arithmetic after the load is the
+// same for both types, so a bf16 copy gives, bit for bit, what the float32
+// copy of the density rounded to bf16 gives. The rounding happens once, in
+// the copy (to_bf16 below, which brick.cu applies: round to nearest, ties
+// to even).
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
 #if defined(__CUDACC__)
+#include <cuda_bf16.h>
 #define BRICK_HD __host__ __device__ __forceinline__
 #else
 #define BRICK_HD inline
@@ -47,6 +58,9 @@
 
 namespace brick {
 
+// A bfloat16 as its 16 bits: the high half of the float32 it stands for.
+using bf16 = uint16_t;
+
 constexpr int kL0 = BRICK_L0, kL1 = BRICK_L1, kL2 = BRICK_L2;
 constexpr int kVoxels = 1 << (kL0 + kL1 + kL2);  // elements of one brick
 
@@ -57,15 +71,16 @@ struct Axis {
   static constexpr int elem = D == 0 ? 1 << (kL1 + kL2) : D == 1 ? 1 << kL2 : 1;
 };
 
-// The copy as march axis A sees it. The brick strides are 32-bit (the
-// wrapper checks that they fit), so each product is one 32 x 32 -> 64-bit
-// multiply; the last density axis's is kVoxels whatever the extents.
-template <int A>
+// The copy as march axis A sees it, its elements of type T (float or
+// bf16). The brick strides are 32-bit (the wrapper checks that they fit),
+// so each product is one 32 x 32 -> 64-bit multiply; the last density
+// axis's is kVoxels whatever the extents.
+template <int A, class T = float>
 struct Volume {
   static constexpr int kS = A;                // density axis of s
   static constexpr int kY = A == 0 ? 1 : 0;   // of y
   static constexpr int kZ = A == 2 ? 1 : 2;   // of z
-  const float* data;
+  const T* data;
   int bs_s, bs_y, bs_z;  // brick strides of the (s, y, z) axes
   int X, Y, Z;           // the density's extents along them (not the padded ones)
 };
@@ -78,18 +93,18 @@ BRICK_HD int64_t offset(int i, int brick_stride) {
   return (int64_t)(i >> Axis<D>::shift) * bs + (i & mask) * Axis<D>::elem;
 }
 
-template <int A>
-BRICK_HD int64_t offset(const Volume<A>& v, int s, int y, int z) {
-  return offset<Volume<A>::kS>(s, v.bs_s) + offset<Volume<A>::kY>(y, v.bs_y) +
-         offset<Volume<A>::kZ>(z, v.bs_z);
+template <int A, class T>
+BRICK_HD int64_t offset(const Volume<A, T>& v, int s, int y, int z) {
+  return offset<Volume<A, T>::kS>(s, v.bs_s) + offset<Volume<A, T>::kY>(y, v.bs_y) +
+         offset<Volume<A, T>::kZ>(z, v.bs_z);
 }
 
 // The volume of a C entry point's arguments: the (s, y, z) axes' brick
 // strides, then their extents.
-template <int A>
-BRICK_HD Volume<A> make_volume(const float* data, int bs_s, int bs_y, int bs_z, int X, int Y,
-                               int Z) {
-  Volume<A> v;
+template <int A, class T>
+BRICK_HD Volume<A, T> make_volume(const T* data, int bs_s, int bs_y, int bs_z, int X, int Y,
+                                  int Z) {
+  Volume<A, T> v;
   v.data = data;
   v.bs_s = bs_s;
   v.bs_y = bs_y;
@@ -118,6 +133,43 @@ BRICK_HD float load(const float* p) {
   return __ldg(p);
 #else
   return *p;
+#endif
+}
+
+// float32 of a bf16's bits: the bits shifted into the high half, exact.
+BRICK_HD float from_bf16(uint32_t bits) {
+#if defined(__CUDA_ARCH__)
+  return __uint_as_float(bits << 16);
+#else
+  uint32_t u = bits << 16;
+  float x;
+  memcpy(&x, &u, sizeof x);
+  return x;
+#endif
+}
+
+// One read of a bf16 copy, widened to float32 exactly.
+BRICK_HD float load(const bf16* p) {
+#if defined(__CUDA_ARCH__)
+  return from_bf16(__ldg(reinterpret_cast<const unsigned short*>(p)));
+#else
+  return from_bf16(*p);
+#endif
+}
+
+// x rounded to the nearest bf16, ties to even: __float2bfloat16_rn on the
+// device, which is what torch.Tensor.to(torch.bfloat16) runs on a CUDA
+// tensor (a NaN becomes the canonical NaN 0x7fff, a finite value past the
+// largest bf16 an infinity, a subnormal keeps its rounded bits); the same
+// rounding by integer arithmetic on the host.
+BRICK_HD bf16 to_bf16(float x) {
+#if defined(__CUDA_ARCH__)
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+#else
+  uint32_t u;
+  memcpy(&u, &x, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fff;  // NaN
+  return (bf16)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
 #endif
 }
 

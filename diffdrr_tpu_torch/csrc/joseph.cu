@@ -173,6 +173,19 @@
 // sums in global memory cost nothing measurable (L1 hits). What bounds it
 // now: its march, the march without loads taking 0.087 of the 0.116 ms
 // (PERF.md).
+//
+// bf16 storage (the JAX package's storage="bf16"): every kernel that reads
+// the density has a second instantiation on a bf16 bricked copy (T =
+// brick::bf16, the C entry points *_bf16), one template argument and one
+// load overload (brick.cuh): each voxel is widened to float32 as it is
+// loaded, and the float32 kernel's arithmetic follows, so the result is the
+// float32 kernel's on the density rounded to bf16, bit for bit. The MIP
+// backward reads the bf16 bricked copy that the MIP forward made
+// (joseph_bwd_rays_mip_bf16), not the strided density. The labelmap's copy
+// keeps its int32 bits; the scatters read no density and have one
+// instantiation. As in siddon.cu, ptxas widens each bf16 right after its
+// load, so joseph_fwd's kFwdSteps steps of loads in flight wait in turn
+// (PERF.md, bf16 storage).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -190,9 +203,9 @@ static_assert(kThreads == joseph::kFusedThreads,
 
 // One thread per ray, reading the bricked copy with kFwdSteps steps' loads
 // in flight (the note at the top of this file says why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                   joseph::March m, float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
@@ -202,9 +215,9 @@ joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<
 // G = kMaxLanes lanes a ray on the bricked copy, each lane the first
 // maximum of its steps, then the lanes' tree (fwd_max_lanes; the note at the
 // top of this file says why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+joseph_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                       joseph::March m, float* __restrict__ out, int* __restrict__ arg) {
   joseph::fwd_max_lanes<joseph::kMaxLanes, joseph::kMaxSteps>(
       rows, n_rays, vol, m, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
@@ -214,9 +227,9 @@ joseph_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
 // whose summands the ray's rows take in step order (lanes.cuh; the note at
 // the top of this file says why); A: the march axis. arg == nullptr: sum
 // mode; else MIP, the argmax step written to arg[r].
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+joseph_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                       joseph::March m, float* __restrict__ out, int* __restrict__ arg) {
   joseph::fwdgrad_lanes<joseph::kFusedLanes, joseph::kFusedSteps>(
       rows, n_rays, vol, m, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
@@ -226,19 +239,21 @@ joseph_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
 // bricked copy, in passes of G steps whose summands the ray's rows take in
 // step order, then one product by g (fwdgrad_lanes; the note at the top of
 // this file says why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-joseph_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+joseph_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                        joseph::March m, const float* __restrict__ g, float* __restrict__ out) {
   joseph::fwdgrad_lanes<joseph::kBwdLanes, joseph::kBwdSteps, joseph::kRows>(
       rows, n_rays, vol, m, out, nullptr, (int64_t)blockIdx.x * kThreads + threadIdx.x, g);
 }
 
-// MIP: one thread per ray on the strided density, gated to the step arg[r]
-// (one step of work: lanes would idle; the note at the top of this file
-// says why not the copy).
+// MIP: one thread per ray on the strided density (Vol = joseph::Volume), or
+// on the bf16 bricked copy (a brick::Volume), gated to the step arg[r] (one
+// step of work: lanes would idle; the note at the top of this file says why
+// not the float32 copy).
+template <class Vol>
 __global__ void __launch_bounds__(kThreads)
-joseph_bwd_rays_mip_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Volume vol,
+joseph_bwd_rays_mip_kernel(const float* __restrict__ rows, int64_t n_rays, Vol vol,
                            joseph::March m, const float* __restrict__ g,
                            const int* __restrict__ arg, float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -325,9 +340,9 @@ joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Ma
 // [channel][ray]; the channels in tiles of `tile` (all C in one unless the
 // block's sums overflow its shared memory: joseph_fwd_ch below). A: the
 // march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                      joseph::BrickLabels<A> lab, joseph::March m, int n_channels, int tile,
                      float* __restrict__ out) {
   constexpr int kRays = kThreads / joseph::kFwdChLanes;  // a block's rays
@@ -341,9 +356,9 @@ joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volu
 // the labelmap, in passes of G steps whose summands the ray's rows take in
 // step order (bwd_rays_ch_lanes; the note at the top of this file says
 // why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-joseph_bwd_rays_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+joseph_bwd_rays_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                           joseph::BrickLabels<A> lab, joseph::March m, int n_channels,
                           const float* __restrict__ g, float* __restrict__ out) {
   joseph::bwd_rays_ch_lanes<joseph::kChannelLanes, joseph::kChannelSteps>(
@@ -411,6 +426,135 @@ unsigned int n_blocks(int64_t n_threads) {
   return (unsigned int)((n_threads + kThreads - 1) / kThreads);
 }
 
+// The entry points on a bricked copy of element type T, for march axis
+// `axis` (-1 for an axis outside 0..2): launch(A, the copy's volume) launches
+// the kernel and returns a CUDA error code.
+template <class T, class Launch>
+int on_copy(const T* vol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+            Launch launch) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    int rc = launch(a, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z));
+    return rc != 0 ? rc : (int)cudaGetLastError();
+  });
+}
+
+template <class T>
+int fwd(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+        int bs_z, int X, int Y, int Z, float h, int n_steps, int blend, float* out,
+        void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      joseph_fwd_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v, make_march(h, n_steps, blend), out);
+    }
+    return 0;
+  });
+}
+
+template <class T>
+int fwd_max(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+            int bs_z, int X, int Y, int Z, float h, int n_steps, int blend, float* out, int* arg,
+            void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      joseph_fwd_max_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays * joseph::kMaxLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v, make_march(h, n_steps, blend), out, arg);
+    }
+    return 0;
+  });
+}
+
+template <class T>
+int fwdgrad(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+            int bs_z, int X, int Y, int Z, float h, int n_steps, int blend, float* out, int* arg,
+            void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      joseph_fwdgrad_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays * joseph::kFusedLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v, make_march(h, n_steps, blend), out, arg);
+    }
+    return 0;
+  });
+}
+
+template <class T>
+int bwd_rays(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+             int bs_z, int X, int Y, int Z, float h, int n_steps, int blend, const float* g,
+             float* out, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      joseph_bwd_rays_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays * joseph::kBwdLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v, make_march(h, n_steps, blend), g, out);
+    }
+    return 0;
+  });
+}
+
+template <class Vol>
+int bwd_rays_mip(const float* rows, int64_t n_rays, Vol vol, float h, int n_steps, int blend,
+                 const float* g, const int* arg, float* out, void* stream) {
+  if (n_rays > 0) {
+    joseph_bwd_rays_mip_kernel<Vol><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, vol, make_march(h, n_steps, blend), g, arg, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// joseph_fwd_ch's block holds C float sums for each of its kThreads /
+// kFwdChLanes rays in shared memory: all C channels in one march while
+// they fit the block's opt-in limit (227 KB on the H100: C <= 3632), else
+// tiles of as many as fit, one march a tile. Any C >= 1 runs.
+template <class T>
+int fwd_ch(const float* rows, int64_t n_rays, const T* vol, const float* labels, int axis,
+           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h, int n_steps, int blend,
+           int n_channels, float* out, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    constexpr int A = decltype(a)::value;
+    constexpr int kRays = kThreads / joseph::kFwdChLanes;
+    if (n_rays <= 0 || n_channels <= 0) return 0;
+    int dev, limit;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    int tile = (int)std::min<int64_t>(n_channels, limit / (kRays * (int)sizeof(float)));
+    size_t bytes = (size_t)tile * kRays * sizeof(float);
+    if (bytes > 48 * 1024) {  // above the default, the kernel must opt in
+      err = cudaFuncSetAttribute(joseph_fwd_ch_kernel<A, T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    joseph_fwd_ch_kernel<A, T>
+        <<<n_blocks(n_rays * joseph::kFwdChLanes), kThreads, bytes, (cudaStream_t)stream>>>(
+            rows, n_rays, v,
+            joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
+            make_march(h, n_steps, blend), n_channels, tile, out);
+    return 0;
+  });
+}
+
+template <class T>
+int bwd_rays_ch(const float* rows, int64_t n_rays, const T* vol, const float* labels, int axis,
+                int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h, int n_steps,
+                int blend, int n_channels, const float* g, float* out, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    constexpr int A = decltype(a)::value;
+    if (n_rays > 0) {
+      joseph_bwd_rays_ch_kernel<A, T>
+          <<<n_blocks(n_rays * joseph::kChannelLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v,
+              joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
+              make_march(h, n_steps, blend), n_channels, g, out);
+    }
+    return 0;
+  });
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). rows: (9, n_rays) float32; vol: the
@@ -429,77 +573,83 @@ unsigned int n_blocks(int64_t n_threads) {
 // mode) read the density's bricked copy (brick.cuh) instead: vol is the
 // copy, axis the march axis, then the brick strides and the density's
 // extents of the march-permuted (s, y, z) axes. They return -1 for an axis
-// outside 0..2.
+// outside 0..2. The *_bf16 entry points take the same arguments with a
+// bf16 bricked copy as vol; joseph_bwd_rays_mip_bf16 takes joseph_bwd_rays'
+// copy arguments (the bf16 copy) in place of the strided density's.
 extern "C" int joseph_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                           int n_steps, int blend, float* out, void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      joseph_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-          rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
-          make_march(h, n_steps, blend), out);
-    }
-    return (int)cudaGetLastError();
-  });
+  return fwd(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, out, stream);
+}
+
+extern "C" int joseph_fwd_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                               int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                               float h, int n_steps, int blend, float* out, void* stream) {
+  return fwd(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, out, stream);
 }
 
 extern "C" int joseph_fwd_max(const float* rows, int64_t n_rays, const float* vol, int axis,
                               int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                               int n_steps, int blend, float* out, int* arg, void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      joseph_fwd_max_kernel<A>
-          <<<n_blocks(n_rays * joseph::kMaxLanes), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
-              make_march(h, n_steps, blend), out, arg);
-    }
-    return (int)cudaGetLastError();
-  });
+  return fwd_max(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, out, arg,
+                 stream);
+}
+
+extern "C" int joseph_fwd_max_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                                   int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                                   float h, int n_steps, int blend, float* out, int* arg,
+                                   void* stream) {
+  return fwd_max(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, out, arg,
+                 stream);
 }
 
 extern "C" int joseph_fwdgrad(const float* rows, int64_t n_rays, const float* vol, int axis,
                               int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                               int n_steps, int blend, float* out, int* arg, void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      joseph_fwdgrad_kernel<A>
-          <<<n_blocks(n_rays * joseph::kFusedLanes), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
-              make_march(h, n_steps, blend), out, arg);
-    }
-    return (int)cudaGetLastError();
-  });
+  return fwdgrad(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, out, arg,
+                 stream);
+}
+
+extern "C" int joseph_fwdgrad_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                                   int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                                   float h, int n_steps, int blend, float* out, int* arg,
+                                   void* stream) {
+  return fwdgrad(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, out, arg,
+                 stream);
 }
 
 extern "C" int joseph_bwd_rays(const float* rows, int64_t n_rays, const float* vol, int axis,
                                int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
                                int n_steps, int blend, const float* g, float* out,
                                void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      joseph_bwd_rays_kernel<A>
-          <<<n_blocks(n_rays * joseph::kBwdLanes), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
-              make_march(h, n_steps, blend), g, out);
-    }
-    return (int)cudaGetLastError();
-  });
+  return bwd_rays(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, g, out,
+                  stream);
+}
+
+extern "C" int joseph_bwd_rays_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                                    int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                                    float h, int n_steps, int blend, const float* g, float* out,
+                                    void* stream) {
+  return bwd_rays(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend, g, out,
+                  stream);
 }
 
 extern "C" int joseph_bwd_rays_mip(const float* rows, int64_t n_rays, const float* vol,
                                    int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
                                    float h, int n_steps, int blend, const float* g,
                                    const int* arg, float* out, void* stream) {
-  if (n_rays > 0) {
-    joseph_bwd_rays_mip_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), make_march(h, n_steps, blend), g,
-        arg, out);
-  }
-  return (int)cudaGetLastError();
+  return bwd_rays_mip(rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), h, n_steps, blend, g,
+                      arg, out, stream);
+}
+
+extern "C" int joseph_bwd_rays_mip_bf16(const float* rows, int64_t n_rays,
+                                        const brick::bf16* vol, int axis, int bs_s, int bs_y,
+                                        int bs_z, int X, int Y, int Z, float h, int n_steps,
+                                        int blend, const float* g, const int* arg, float* out,
+                                        void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto, auto v) {
+    return bwd_rays_mip(rows, n_rays, v, h, n_steps, blend, g, arg, out, stream);
+  });
 }
 
 extern "C" int joseph_bwd_vol(const float* rows, int64_t n_rays, const float* g, const int* arg,
@@ -524,59 +674,41 @@ extern "C" int joseph_bwd_vol(const float* rows, int64_t n_rays, const float* g,
 // in the same permuted order and the density's extents; n_channels: C;
 // out: (C, n_rays) for joseph_fwd_ch (every entry written), (7, n_rays) for
 // joseph_bwd_rays_ch; g: (C, n_rays) float32. joseph_fwd_ch and
-// joseph_bwd_rays_ch read the bricked copies of the density (vol) and of
-// the labelmap (labels, its int32 bits), which share the arguments that
-// follow them, those of joseph_fwdgrad (and return -1 for an axis outside
-// 0..2).
-//
-// joseph_fwd_ch's block holds C float sums for each of its kThreads /
-// kFwdChLanes rays in shared memory: all C channels in one march while
-// they fit the block's opt-in limit (227 KB on the H100: C <= 3632), else
-// tiles of as many as fit, one march a tile. Any C >= 1 runs.
+// joseph_bwd_rays_ch read the bricked copies of the density (vol; bf16 in
+// the *_bf16 entry points) and of the labelmap (labels, its int32 bits),
+// which share the arguments that follow them, those of joseph_fwdgrad (and
+// return -1 for an axis outside 0..2).
 extern "C" int joseph_fwd_ch(const float* rows, int64_t n_rays, const float* vol,
                              const float* labels, int axis, int bs_s, int bs_y, int bs_z, int X,
                              int Y, int Z, float h, int n_steps, int blend, int n_channels,
                              float* out, void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    constexpr int kRays = kThreads / joseph::kFwdChLanes;
-    if (n_rays <= 0 || n_channels <= 0) return (int)cudaGetLastError();
-    int dev, limit;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    int tile = (int)std::min<int64_t>(n_channels, limit / (kRays * (int)sizeof(float)));
-    size_t bytes = (size_t)tile * kRays * sizeof(float);
-    if (bytes > 48 * 1024) {  // above the default, the kernel must opt in
-      err = cudaFuncSetAttribute(joseph_fwd_ch_kernel<A>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-    }
-    joseph_fwd_ch_kernel<A>
-        <<<n_blocks(n_rays * joseph::kFwdChLanes), kThreads, bytes, (cudaStream_t)stream>>>(
-            rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
-            joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
-            make_march(h, n_steps, blend), n_channels, tile, out);
-    return (int)cudaGetLastError();
-  });
+  return fwd_ch(rows, n_rays, vol, labels, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend,
+                n_channels, out, stream);
+}
+
+extern "C" int joseph_fwd_ch_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                                  const float* labels, int axis, int bs_s, int bs_y, int bs_z,
+                                  int X, int Y, int Z, float h, int n_steps, int blend,
+                                  int n_channels, float* out, void* stream) {
+  return fwd_ch(rows, n_rays, vol, labels, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps, blend,
+                n_channels, out, stream);
 }
 
 extern "C" int joseph_bwd_rays_ch(const float* rows, int64_t n_rays, const float* vol,
                                   const float* labels, int axis, int bs_s, int bs_y, int bs_z,
                                   int X, int Y, int Z, float h, int n_steps, int blend,
                                   int n_channels, const float* g, float* out, void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      joseph_bwd_rays_ch_kernel<A>
-          <<<n_blocks(n_rays * joseph::kChannelLanes), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z),
-              joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
-              make_march(h, n_steps, blend), n_channels, g, out);
-    }
-    return (int)cudaGetLastError();
-  });
+  return bwd_rays_ch(rows, n_rays, vol, labels, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps,
+                     blend, n_channels, g, out, stream);
+}
+
+extern "C" int joseph_bwd_rays_ch_bf16(const float* rows, int64_t n_rays,
+                                       const brick::bf16* vol, const float* labels, int axis,
+                                       int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h,
+                                       int n_steps, int blend, int n_channels, const float* g,
+                                       float* out, void* stream) {
+  return bwd_rays_ch(rows, n_rays, vol, labels, axis, bs_s, bs_y, bs_z, X, Y, Z, h, n_steps,
+                     blend, n_channels, g, out, stream);
 }
 
 extern "C" int joseph_bwd_vol_ch(const float* rows, int64_t n_rays, const float* g,

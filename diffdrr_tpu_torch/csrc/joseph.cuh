@@ -182,8 +182,8 @@ JOSEPH_HD float voxel(const Volume& v, int k, float fy, float fz) {
 }
 
 // The same voxel of the bricked copy (brick.cuh), by the same bounds test.
-template <int A>
-JOSEPH_HD float voxel(const brick::Volume<A>& v, int k, float fy, float fz) {
+template <int A, class T>
+JOSEPH_HD float voxel(const brick::Volume<A, T>& v, int k, float fy, float fz) {
   if (!(k >= 0 && k < v.X && fy >= 0.f && fy < (float)v.Y && fz >= 0.f && fz < (float)v.Z))
     return 0.f;
   return brick::load(v.data + brick::offset(v, k, (int)fy, (int)fz));

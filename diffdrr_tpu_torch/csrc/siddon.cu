@@ -132,6 +132,22 @@
 // once. The order in which the atomics land changes from run to run, so
 // the gradient is nondeterministic in its last bits: compare it with a
 // tolerance, never bit for bit.
+//
+// bf16 storage (the JAX package's storage="bf16"): every kernel that reads
+// the bricked copy has a second instantiation on a bf16 copy (T =
+// brick::bf16, the C entry points *_bf16), which widens each voxel to
+// float32 as it loads it and then does the float32 kernel's arithmetic, so
+// it gives the float32 kernel's result on the density rounded to bf16, bit
+// for bit. The MIP backward reads the bf16 bricked copy that the MIP
+// forward made (siddon_bwd_rays_mip_bf16), not the strided density, so the
+// rounded values need no second copy. The scatter reads no density and has
+// one instantiation. What the bf16 instantiations cost: ptxas places each
+// widening (an integer multiply by 2^16) right after its 16-bit load, so a
+// thread waits on each load in turn where the float32 build keeps
+// siddon_fwd's kFwdSlabs slabs of loads in flight (cuobjdump -sass of the
+// build); the one-thread-per-ray forward loses most, the lanes kernels
+// (one slab a lane in flight) little (PERF.md, bf16 storage). Keeping the
+// loaded bits raw until the sums is later work.
 #include <cuda_runtime.h>
 
 #include "siddon.cuh"
@@ -147,9 +163,9 @@ static_assert(kThreads == siddon::kFusedThreads,
 
 // One thread per ray, reading the bricked copy with kFwdSlabs slabs' loads
 // in flight (the note at the top of this file says why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                   float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
@@ -160,9 +176,9 @@ siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<
 // G = kFusedLanes lanes a ray on the bricked copy, in passes of G slabs
 // whose summands the ray's rows take in slab order (lanes.cuh; the note at
 // the top of this file says why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                       float* __restrict__ out) {
   siddon::fwdgrad_lanes<siddon::kFusedLanes, siddon::kFusedSlabs>(
       rows, n_rays, vol, out, (int64_t)blockIdx.x * kThreads + threadIdx.x);
@@ -171,9 +187,9 @@ siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
 // G = kMaxLanes lanes a ray on the bricked copy, each lane the first
 // maximum of its slabs, then the lanes' tree (fwd_max_lanes; the note at the
 // top of this file says why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-siddon_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+siddon_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                       float* __restrict__ out, int* __restrict__ arg) {
   siddon::fwd_max_lanes<siddon::kMaxLanes, siddon::kMaxSlabs>(
       rows, n_rays, vol, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
@@ -183,19 +199,21 @@ siddon_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
 // bricked copy, in passes of G slabs whose summands the ray's rows take in
 // slab order, then one product by g (fwdgrad_lanes; the note at the top of
 // this file says why); A: the march axis.
-template <int A>
+template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
-siddon_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A> vol,
+siddon_bwd_rays_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                        const float* __restrict__ g, float* __restrict__ out) {
   siddon::fwdgrad_lanes<siddon::kBwdLanes, siddon::kBwdSlabs, siddon::kRows>(
       rows, n_rays, vol, out, (int64_t)blockIdx.x * kThreads + threadIdx.x, g);
 }
 
-// MIP: one thread per ray on the strided density, gated to the slab and
-// segment arg[r] (one slab of work: lanes would idle; the note at the top
-// of this file says why not the copy).
+// MIP: one thread per ray on the strided density (Vol = siddon::Volume), or
+// on the bf16 bricked copy (a brick::Volume), gated to the slab and segment
+// arg[r] (one slab of work: lanes would idle; the note at the top of this
+// file says why not the float32 copy).
+template <class Vol>
 __global__ void __launch_bounds__(kThreads)
-siddon_bwd_rays_mip_kernel(const float* __restrict__ rows, int64_t n_rays, siddon::Volume vol,
+siddon_bwd_rays_mip_kernel(const float* __restrict__ rows, int64_t n_rays, Vol vol,
                            const float* __restrict__ g, const int* __restrict__ arg,
                            float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -285,6 +303,76 @@ unsigned int n_blocks(int64_t n_threads) {
   return (unsigned int)((n_threads + kThreads - 1) / kThreads);
 }
 
+// The entry points on a bricked copy of element type T, for march axis
+// `axis` (-1 for an axis outside 0..2): launch(A, the copy's volume, the
+// launch's blocks) launches the kernel.
+template <class T, class Launch>
+int on_copy(const T* vol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+            Launch launch) {
+  return brick::with_axis(axis, [&](auto a) {
+    constexpr int A = decltype(a)::value;
+    launch(a, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z));
+    return (int)cudaGetLastError();
+  });
+}
+
+template <class T>
+int fwd(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+        int bs_z, int X, int Y, int Z, float* out, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      siddon_fwd_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(rows, n_rays, v, out);
+    }
+  });
+}
+
+template <class T>
+int fwdgrad(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+            int bs_z, int X, int Y, int Z, float* out, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      siddon_fwdgrad_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays * siddon::kFusedLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v, out);
+    }
+  });
+}
+
+template <class T>
+int fwd_max(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+            int bs_z, int X, int Y, int Z, float* out, int* arg, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      siddon_fwd_max_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays * siddon::kMaxLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v, out, arg);
+    }
+  });
+}
+
+template <class T>
+int bwd_rays(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int bs_y,
+             int bs_z, int X, int Y, int Z, const float* g, float* out, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
+    if (n_rays > 0) {
+      siddon_bwd_rays_kernel<decltype(a)::value, T>
+          <<<n_blocks(n_rays * siddon::kBwdLanes), kThreads, 0, (cudaStream_t)stream>>>(
+              rows, n_rays, v, g, out);
+    }
+  });
+}
+
+template <class Vol>
+int bwd_rays_mip(const float* rows, int64_t n_rays, Vol vol, const float* g, const int* arg,
+                 float* out, void* stream) {
+  if (n_rays > 0) {
+    siddon_bwd_rays_mip_kernel<Vol><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+        rows, n_rays, vol, g, arg, out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). rows: (9, n_rays) float32; vol: the
@@ -299,70 +387,71 @@ unsigned int n_blocks(int64_t n_threads) {
 // zero-filled float32 volume with the density's extents and its own strides
 // (gs, gy, gz) in the same permuted order. Each launches on `stream`, does
 // not synchronise, and returns cudaGetLastError(); those that read the copy
-// return -1 for an axis outside 0..2.
+// return -1 for an axis outside 0..2. The *_bf16 entry points take the
+// same arguments with a bf16 bricked copy as vol; siddon_bwd_rays_mip_bf16
+// takes siddon_bwd_rays' copy arguments (the bf16 copy) in place of the
+// strided density's.
 extern "C" int siddon_fwd(const float* rows, int64_t n_rays, const float* vol, int axis,
                           int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
                           void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      siddon_fwd_kernel<A><<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-          rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out);
-    }
-    return (int)cudaGetLastError();
-  });
+  return fwd(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
+}
+
+extern "C" int siddon_fwd_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                               int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                               float* out, void* stream) {
+  return fwd(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
 }
 
 extern "C" int siddon_fwdgrad(const float* rows, int64_t n_rays, const float* vol, int axis,
                               int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
                               void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      siddon_fwdgrad_kernel<A>
-          <<<n_blocks(n_rays * siddon::kFusedLanes), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out);
-    }
-    return (int)cudaGetLastError();
-  });
+  return fwdgrad(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
+}
+
+extern "C" int siddon_fwdgrad_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                                   int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                                   float* out, void* stream) {
+  return fwdgrad(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, out, stream);
 }
 
 extern "C" int siddon_fwd_max(const float* rows, int64_t n_rays, const float* vol, int axis,
                               int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float* out,
                               int* arg, void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      siddon_fwd_max_kernel<A>
-          <<<n_blocks(n_rays * siddon::kMaxLanes), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), out, arg);
-    }
-    return (int)cudaGetLastError();
-  });
+  return fwd_max(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, out, arg, stream);
+}
+
+extern "C" int siddon_fwd_max_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                                   int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                                   float* out, int* arg, void* stream) {
+  return fwd_max(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, out, arg, stream);
 }
 
 extern "C" int siddon_bwd_rays(const float* rows, int64_t n_rays, const float* vol, int axis,
                                int bs_s, int bs_y, int bs_z, int X, int Y, int Z, const float* g,
                                float* out, void* stream) {
-  return brick::with_axis(axis, [&](auto a) {
-    constexpr int A = decltype(a)::value;
-    if (n_rays > 0) {
-      siddon_bwd_rays_kernel<A>
-          <<<n_blocks(n_rays * siddon::kBwdLanes), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, brick::make_volume<A>(vol, bs_s, bs_y, bs_z, X, Y, Z), g, out);
-    }
-    return (int)cudaGetLastError();
-  });
+  return bwd_rays(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, g, out, stream);
+}
+
+extern "C" int siddon_bwd_rays_bf16(const float* rows, int64_t n_rays, const brick::bf16* vol,
+                                    int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                                    const float* g, float* out, void* stream) {
+  return bwd_rays(rows, n_rays, vol, axis, bs_s, bs_y, bs_z, X, Y, Z, g, out, stream);
 }
 
 extern "C" int siddon_bwd_rays_mip(const float* rows, int64_t n_rays, const float* vol,
                                    int64_t ss, int64_t sy, int64_t sz, int X, int Y, int Z,
                                    const float* g, const int* arg, float* out, void* stream) {
-  if (n_rays > 0) {
-    siddon_bwd_rays_mip_kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-        rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), g, arg, out);
-  }
-  return (int)cudaGetLastError();
+  return bwd_rays_mip(rows, n_rays, make_volume(vol, ss, sy, sz, X, Y, Z), g, arg, out, stream);
+}
+
+extern "C" int siddon_bwd_rays_mip_bf16(const float* rows, int64_t n_rays,
+                                        const brick::bf16* vol, int axis, int bs_s, int bs_y,
+                                        int bs_z, int X, int Y, int Z, const float* g,
+                                        const int* arg, float* out, void* stream) {
+  return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto, auto v) {
+    bwd_rays_mip(rows, n_rays, v, g, arg, out, stream);
+  });
 }
 
 extern "C" int siddon_bwd_vol(const float* rows, int64_t n_rays, const float* g,

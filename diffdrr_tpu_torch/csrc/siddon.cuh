@@ -98,8 +98,8 @@ SIDDON_HD float voxel(const Volume& v, int s, float fy, float fz) {
 }
 
 // The same voxel of the bricked copy (brick.cuh), by the same bounds test.
-template <int A>
-SIDDON_HD float voxel(const brick::Volume<A>& v, int s, float fy, float fz) {
+template <int A, class T>
+SIDDON_HD float voxel(const brick::Volume<A, T>& v, int s, float fy, float fz) {
   if (!(fy >= 0.f && fy < (float)v.Y && fz >= 0.f && fz < (float)v.Z)) return 0.f;
   return brick::load(v.data + brick::offset(v, s, (int)fy, (int)fz));
 }

@@ -53,8 +53,28 @@ do not take (``reducefn="max"``, ``mode``, ``align_corners``,
 ``alphamin``/``alphamax``). The Joseph oracle chooses its axis, when none
 is pinned, from the mean ray direction of the whole ray set, as the JAX
 package's does. None of the JAX package's TPU planning (tile windows, the
-footprint guard, bf16 storage, sparse-render strategies) exists here: the
-volume is stored once, in float32.
+footprint guard, sparse-render strategies) exists here.
+
+``storage`` and ``precision`` are the JAX package's renderer options.
+``storage="bf16"`` keeps the kernels' bricked copy of the density in bf16
+(each voxel rounded to the nearest bf16, ties to even) instead of float32:
+every kernel render then equals, bit for bit, the float32 render of the
+density rounded to bf16, and its density gradient stays float32 (straight
+through the rounding). It halves the copy's memory and the gathers'
+density bytes; on the H100 its forwards are nonetheless slower than the
+float32 ones (PERF.md), so what it saves is device memory. As in the JAX
+package it applies to the kernel path only: the oracles
+(``force_xla``, Siddon's slab-guard escapes, Siddon channels, a callable
+``reducefn``, ray sets that are not the full frame) read the float32
+density. The default storage is float32 whatever ``precision`` says, where
+the JAX package defaults to bf16: on its chip's default matmul policy bf16
+storage gives the same bits, here it moves the image by ~9e-4 of its
+maximum. ``precision`` is ``"f32"`` (the default) or ``"highest"``, the
+same function here: the kernels do scalar float32 arithmetic and
+``pin_f32`` keeps TF32 off. The attribute ``pallas_precision`` exists only
+for parity with the JAX package (``rescaled_drr`` and the sharded renders
+carry it) and selects nothing. ``precision="bf16"`` (which rounds the TPU
+matrix unit's inputs) raises.
 
 Constructor options of the reference: ``persistent`` and
 ``compile_renderer`` are accepted and do nothing, as in the JAX package.
@@ -63,8 +83,9 @@ Constructor options of the reference: ``persistent`` and
 instead of keeping the forward's saved tensors, so a kernel forward
 launches twice a step; the rerun finds the density's bricked copy in the
 cache and makes none. ``cache_volume=False`` drops the rendered density's
-bricked copy from the cache before each render, so every render makes its
-copy anew (the counterpart of the JAX package's prepped-volume cache).
+bricked copy (of either storage) from the cache before each render, so every
+render makes its copy anew (the counterpart of the JAX package's
+prepped-volume cache).
 ``set_density`` swaps the stored density; the copy cache, keyed on the
 tensor, then bricks the new one at its first render.
 """
@@ -85,6 +106,7 @@ from .detector import Detector
 from .ops._raygeom import alpha_minmax
 from .ops.joseph import joseph_raycast
 from .ops.kernels import brick
+from .ops.kernels._launch import check_precision, check_storage
 from .ops.kernels.joseph import as_labels, joseph_march_raycast
 from .ops.kernels.raymarch import raymarch_raycast
 from .ops.kernels.siddon import siddon_slab_raycast
@@ -139,6 +161,12 @@ class DRR:
         del persistent, compile_renderer
         if renderer not in _OPTIONS:
             raise ValueError(f"renderer must be one of {sorted(_OPTIONS)}, not {renderer!r}")
+        # The JAX package's names: the arithmetic's precision and the
+        # density copy's element type.
+        self.pallas_precision = renderer_kwargs.pop("precision", "f32")
+        self.pallas_storage = renderer_kwargs.pop("storage", None)
+        check_precision(self.pallas_precision)
+        check_storage(self.pallas_storage)
         unknown = set(renderer_kwargs) - _OPTIONS[renderer]
         if unknown:
             raise TypeError(f"unexpected renderer option(s) {sorted(unknown)}")
@@ -205,6 +233,16 @@ class DRR:
         self.density = torch.as_tensor(density, dtype=torch.float32,
                                        device=self.device).contiguous()
 
+    @property
+    def cone_tan(self) -> float:
+        """tan of the widest angle any detector ray makes with the principal
+        ray (pose-independent). Above 1 no pose can pass Siddon's slab
+        guard: the geometry itself is too wide."""
+        d = self.detector
+        half_w = d.width / 2 * d.delx + abs(d._x0)
+        half_h = d.height / 2 * d.dely + abs(d._y0)
+        return float(np.hypot(half_w, half_h) / d.sdd)
+
     def pallas_ray_compatibility(self, pose: RigidTransform) -> Tuple[int, float]:
         """``(best_axis, worst_ratio)`` of a pose for the slab march (host helper).
 
@@ -214,12 +252,32 @@ class DRR:
         inexact for them (the slab guard sends such poses to the oracle).
         Judged over the full detector frame, whatever ``p_subsample``.
         """
+        diagnosis = self.diagnose_pose(pose)
+        best = diagnosis["best_axis"]
+        return best, diagnosis["worst_ratio"][best]
+
+    def diagnose_pose(self, pose: RigidTransform) -> dict:
+        """How the kernel dispatch treats a pose (host helper).
+
+        ``worst_ratio``: per march axis, the worst ray's transverse/axial
+        slope in voxel space (``worst_ratios``, from the four corner rays,
+        which bound every ray of the frame; the JAX package takes the max
+        over all rays); ``best_axis`` the axis where it is least;
+        ``slab_valid`` whether it is at most 1 there, so that Siddon's slab
+        guard keeps the pose on the kernels; ``cone_tan`` the geometry's
+        pose-independent cone bound. Judged on the full detector frame,
+        whatever ``p_subsample``, as the kernels are. The JAX package's
+        ``footprint_fits``, ``pallas_ok`` and ``fp_guard_active`` describe
+        its TPU tile windows, which have no counterpart here: they are
+        absent.
+        """
         source, _ = self.detector(pose, None)
         target = self.detector.full_plane_target(pose, None)
         ratios = self.worst_ratios(self.affine_inverse(source),
                                    self.affine_inverse(target)).tolist()
         best = int(np.argmin(ratios))
-        return best, float(ratios[best])
+        return {"best_axis": best, "worst_ratio": [float(r) for r in ratios],
+                "slab_valid": ratios[best] <= 1.0 + 1e-6, "cone_tan": self.cone_tan}
 
     # ----------------------------------------------------------------- forward
     def __call__(self, *args, **kwargs):
@@ -347,7 +405,8 @@ class DRR:
             return None
         return siddon_slab_raycast(density, source, target, weights, axis=axis,
                                    voxel_shift=self.voxel_shift, eps=opts.get("eps", 1e-8),
-                                   reduce=reducefn, fused=opts.get("fused_pose_bwd", True))
+                                   reduce=reducefn, fused=opts.get("fused_pose_bwd", True),
+                                   storage=self.pallas_storage)
 
     def _render_march(self, density, source, target, weights, opts, frame, channels):
         """The Joseph kernels (joseph, trilinear), or None for the oracle."""
@@ -374,7 +433,8 @@ class DRR:
         if axis is None:
             axis = int(np.argmin(self.worst_ratios(*frame).tolist()))
         common = dict(axis=axis, voxel_shift=self.voxel_shift, eps=opts.get("eps", 1e-8),
-                      reduce=reducefn, fused=opts.get("fused_pose_bwd", True))
+                      reduce=reducefn, fused=opts.get("fused_pose_bwd", True),
+                      storage=self.pallas_storage)
         if channels:
             common.update(mask=self.mask, n_channels=self.n_channels)
         if trilinear:

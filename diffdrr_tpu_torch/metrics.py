@@ -37,7 +37,19 @@ __all__ = [
     "mutual_information",
     "sobel",
     "gaussian_blur",
+    "to_patches",
 ]
+
+
+def to_patches(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """Sliding patches as channels: (B, C, H, W) -> (B, C * nH * nW, p, p),
+    stride 1, the patches of each channel in row-major order (the JAX
+    package's layout). A gather (``F.unfold``), so every value is exact."""
+    B, C, H, W = x.shape
+    p = patch_size
+    nH, nW = H - p + 1, W - p + 1
+    patches = F.unfold(x, p).reshape(B, C, p, p, nH, nW)
+    return patches.permute(0, 1, 4, 5, 2, 3).reshape(B, C * nH * nW, p, p)
 
 
 def _normalize_local(x: torch.Tensor, eps: float) -> torch.Tensor:

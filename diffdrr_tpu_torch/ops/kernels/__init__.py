@@ -3,11 +3,15 @@
 
 def launch_counts() -> dict:
     """Every wrapper's launch count by kernel name (``brick_copy`` for the
-    bricked copy); a wrapper counts only where it launches its kernel."""
+    bricked copy; ``<name>_bf16`` for a bf16 instantiation); a wrapper
+    counts only where it launches its kernel."""
     from . import brick, joseph, siddon
 
-    return dict({fn.__name__: fn.launches for fn in siddon.KERNELS + joseph.KERNELS},
-                brick_copy=brick.brick_density.launches)
+    counts = {fn.__name__: fn.launches for fn in siddon.KERNELS + joseph.KERNELS}
+    counts.update({f"{fn.__name__}_bf16": fn.launches_bf16
+                   for fn in siddon.BF16_KERNELS + joseph.BF16_KERNELS})
+    return dict(counts, brick_copy=brick.brick_density.launches,
+                brick_copy_bf16=brick.brick_density.launches_bf16)
 
 
 def reset_launch_counts() -> None:
@@ -15,7 +19,7 @@ def reset_launch_counts() -> None:
 
     siddon.reset_launch_counts()
     joseph.reset_launch_counts()
-    brick.brick_density.launches = 0
+    brick.brick_density.launches = brick.brick_density.launches_bf16 = 0
 
 
 def no_other_launches(phase: str, launches: dict, want: dict) -> None:

@@ -37,16 +37,27 @@ An int32 labelmap is copied the same way, as the bits of its labels (a
 float32 view), which ``joseph_fwd_ch`` and ``joseph_bwd_rays_ch`` read back
 as int32: the copy keeps every label exactly and shares the density copy's
 brick strides. A channel render and its pose backward make each copy once.
+
+``storage="bf16"`` (the JAX package's bf16 density storage) makes the copy
+in bf16, each voxel rounded to the nearest bf16, ties to even: by
+``brick_copy_bf16`` on a CUDA tensor (``brick_density.launches_bf16``
+counts it), by ``.to(torch.bfloat16)`` before the pad, reshape and permute
+on the CPU. It halves the copy's bytes and every gather's; the kernels'
+bf16 instantiations read it. The storage is part of the cache's key, so a
+bf16 copy and a float32 copy of one density never stand in for each
+other, and each is kept; a DRR holds the copy of its own storage only.
+A labelmap's copy is float32 (its int32 bits) whatever the storage.
 """
 
 from __future__ import annotations
 
 import weakref
+from functools import partial
 from typing import List, NamedTuple, Tuple
 
 import torch
 
-from ._launch import call, runs_plain
+from ._launch import call, check_storage, count_launch, runs_plain
 from .prep import march_perm
 
 __all__ = ["BRICK", "BrickedDensity", "brick_density", "brick_density_plain", "bricked",
@@ -62,64 +73,81 @@ _MAX_ENTRIES = 4
 
 
 class BrickedDensity(NamedTuple):
-    """``data``: the copy, ``(n0, n1, n2, b0, b1, b2)`` contiguous float32
-    (brick indices, then the voxel's place in its brick); ``shape``: the
-    density's extents."""
+    """``data``: the copy, ``(n0, n1, n2, b0, b1, b2)`` contiguous float32,
+    or bfloat16 under bf16 storage (brick indices, then the voxel's place in
+    its brick); ``shape``: the density's extents."""
 
     data: torch.Tensor
     shape: Tuple[int, int, int]
 
+    @property
+    def storage(self):
+        """The copy's element type: None (float32) or ``"bf16"``."""
+        return "bf16" if self.data.dtype == torch.bfloat16 else None
+
+    def entry(self, name: str) -> str:
+        """The C entry point of kernel ``name`` that reads this copy: its
+        bf16 instantiation ``<name>_bf16`` for a bf16 copy."""
+        return name if self.storage is None else f"{name}_bf16"
+
     def args(self, axis: int) -> list:
         """The C entry points' volume arguments: the march axis, then each
-        march-permuted axis's brick stride, then its extent."""
+        march-permuted axis's brick stride, then its extent (the same for
+        either element type: the strides count elements)."""
         perm = march_perm(axis)
         return [axis] + [self.data.stride(p) for p in perm] + [self.shape[p] for p in perm]
 
 
-def _as_float(density: torch.Tensor) -> torch.Tensor:
+def _as_float(density: torch.Tensor, storage=None) -> torch.Tensor:
     """The float32 ``(X, Y, Z)`` volume to copy: a labelmap's int32 bits
-    seen as float32."""
-    if density.dtype == torch.int32:
+    seen as float32 (float32 storage only)."""
+    check_storage(storage)
+    if density.dtype == torch.int32 and storage is None:
         density = density.view(torch.float32)
     if density.dtype != torch.float32 or density.dim() != 3:
-        raise ValueError(f"the density must be float32 (or an int32 labelmap) (X, Y, Z), got "
-                         f"{density.dtype} {tuple(density.shape)}")
+        raise ValueError(f"the density must be float32 (or, in float32 storage, an int32 "
+                         f"labelmap) (X, Y, Z), got {density.dtype} {tuple(density.shape)}")
     return density
 
 
 @torch.no_grad()
-def brick_density_plain(density: torch.Tensor) -> BrickedDensity:
-    """Plain version of :func:`brick_density`: the density zero-padded to
-    whole bricks, split into them by a reshape and a permute, and made
-    contiguous."""
-    density = _as_float(density)
+def brick_density_plain(density: torch.Tensor, storage=None) -> BrickedDensity:
+    """Plain version of :func:`brick_density`: the density (rounded to bf16
+    under bf16 storage) zero-padded to whole bricks, split into them by a
+    reshape and a permute, and made contiguous."""
+    density = _as_float(density, storage).detach()
+    if storage == "bf16":
+        density = density.to(torch.bfloat16)
     ext = tuple(density.shape)
     pad = [-e % b for e, b in zip(ext, BRICK)]
-    padded = torch.nn.functional.pad(density.detach(), (0, pad[2], 0, pad[1], 0, pad[0]))
+    padded = torch.nn.functional.pad(density, (0, pad[2], 0, pad[1], 0, pad[0]))
     split = [m for e, p, b in zip(ext, pad, BRICK) for m in ((e + p) // b, b)]
     data = padded.reshape(split).permute(0, 2, 4, 1, 3, 5).contiguous()
     return BrickedDensity(data, ext)
 
 
-def brick_density(density: torch.Tensor) -> BrickedDensity:
+def brick_density(density: torch.Tensor, storage=None) -> BrickedDensity:
     """The bricked copy of a float32 ``(X, Y, Z)`` density (or an int32
-    labelmap) of any strides: the kernel ``brick_copy`` on a CUDA tensor,
-    the plain version on the CPU."""
+    labelmap) of any strides, in float32 or (``storage="bf16"``) bf16: the
+    kernel ``brick_copy`` (``brick_copy_bf16``) on a CUDA tensor, the plain
+    version on the CPU."""
+    density = _as_float(density, storage)
     if runs_plain("brick_copy", density):
-        return brick_density_plain(density)
-    density = _as_float(density)
+        return brick_density_plain(density, storage)
     ext = tuple(density.shape)
     data = torch.empty((*(-(-e // b) for e, b in zip(ext, BRICK)), *BRICK),
-                       dtype=torch.float32, device=density.device)
+                       dtype=torch.float32 if storage is None else torch.bfloat16,
+                       device=density.device)
     if data.stride(0) >= 2 ** 31:  # the kernels' brick strides are 32-bit
         raise ValueError(f"a density of {ext} has too large a brick row for the bricked copy")
-    call("brick", "brick_copy", density.device, density.data_ptr(), *density.stride(), *ext,
-         data.data_ptr())
-    brick_density.launches += 1
-    return BrickedDensity(data, ext)
+    copy = BrickedDensity(data, ext)
+    call("brick", copy.entry("brick_copy"), density.device, density.data_ptr(),
+         *density.stride(), *ext, data.data_ptr())
+    count_launch(brick_density, storage)
+    return copy
 
 
-brick_density.launches = 0
+brick_density.launches = brick_density.launches_bf16 = 0
 
 
 class _Entry(NamedTuple):
@@ -146,19 +174,24 @@ def _drop(ref) -> None:
     _entries[:] = [e for e in _entries if e.ref is not ref]
 
 
-def bricked(density: torch.Tensor) -> BrickedDensity:
-    """The bricked copy of ``density``, made anew only when the density is
-    another tensor or was written since (see the module's docstring)."""
+def bricked(density: torch.Tensor, storage=None) -> BrickedDensity:
+    """The bricked copy of ``density`` in ``storage``, made anew only when
+    the density is another tensor or was written since, or no copy of that
+    storage is kept (see the module's docstring)."""
+    # A float32 copy keeps brick_density's one-argument call.
+    make = brick_density if storage is None else partial(brick_density, storage=storage)
     key = _key(density)
     if key is None:
-        return brick_density(density)
+        return make(density)
     for i, e in enumerate(_entries):
-        if e.key == key and e.ref() is not None:
+        if e.key == key and e.value.storage == storage and e.ref() is not None:
             _entries.append(_entries.pop(i))  # most recently used last
             return e.value
-    value = brick_density(density)
-    # A copy of the same memory at another version is stale: replace it.
-    _entries[:] = [e for e in _entries if e.key[0] != key[0] and e.ref() is not None]
+    value = make(density)
+    # A copy of the same memory at another version (or shape, or strides) is
+    # stale, and one of the same storage is replaced: drop them.
+    _entries[:] = [e for e in _entries if e.ref() is not None
+                   and (e.key[0] != key[0] or (e.key == key and e.value.storage != storage))]
     _entries.append(_Entry(weakref.ref(density, _drop), key, value))
     del _entries[:-_MAX_ENTRIES]
     return value

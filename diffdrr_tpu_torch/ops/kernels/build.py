@@ -48,7 +48,8 @@ _MARCH = [_F32, _INT, _INT]
 # the labelmap and its strides (its extents are the volume's)
 _LAB = [_VOID, _I64, _I64, _I64]
 # C signatures of each library's entry points (argtypes, the stream last;
-# all return int).
+# all return int). Each entry point that reads the bricked copy has a twin
+# *_bf16 on a bf16 copy, with the same arguments (_BF16 below).
 _SIGNATURES = {
     "siddon": {
         "siddon_fwd": _BVOL + [_VOID] * 2,
@@ -77,6 +78,20 @@ _SIGNATURES = {
         "brick_copy": [_VOID, _I64, _I64, _I64] + [_INT] * 3 + [_VOID] * 2,
     },
 }
+# The bf16 instantiations: every entry point that reads the bricked copy,
+# and the copy itself. The MIP pose backwards read the bf16 bricked copy (the
+# sum mode's arguments, then g, arg and out), where their float32 versions
+# read the strided density.
+_BF16 = {
+    "siddon": ("siddon_fwd", "siddon_fwdgrad", "siddon_fwd_max", "siddon_bwd_rays"),
+    "joseph": ("joseph_fwd", "joseph_fwd_max", "joseph_fwdgrad", "joseph_bwd_rays",
+               "joseph_fwd_ch", "joseph_bwd_rays_ch"),
+    "brick": ("brick_copy",),
+}
+for _lib, _names in _BF16.items():
+    _SIGNATURES[_lib].update({f"{n}_bf16": _SIGNATURES[_lib][n] for n in _names})
+_SIGNATURES["siddon"]["siddon_bwd_rays_mip_bf16"] = _BVOL + [_VOID] * 4
+_SIGNATURES["joseph"]["joseph_bwd_rays_mip_bf16"] = _BVOL + _MARCH + [_VOID] * 4
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

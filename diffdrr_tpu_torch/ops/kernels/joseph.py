@@ -42,6 +42,13 @@ the plain PyTorch version beside it, which repeats the kernel's arithmetic
 one step at a time for all rays. Any other device raises; so does a build or
 launch failure. There is no fallback from the kernel to the plain version.
 
+The six that read the density take ``storage``: under ``"bf16"`` they
+launch the kernel's bf16 instantiation on the bf16 bricked copy (counted in
+``launches_bf16``; the MIP backward too reads that copy), and the plain
+versions read the density rounded to bf16 (``_launch.stored``): the float32
+function of the rounded density, bit for bit. The scatters read no density
+and have no storage; the labelmap's copy keeps its int32 bits.
+
 ``h`` is a Python float; the kernels take its float32 rounding and march
 fractionally when ``|h - round(h)| > 1e-9``, the TPU's blend test.
 
@@ -59,8 +66,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ._launch import (call, check, check_cotangent, check_rows, ptr, runs_plain,
-                      strides_extents)
+from ._launch import (call, check, check_cotangent, check_rows, count_launch, ptr,
+                      runs_plain, stored, strides_extents)
 from .brick import bricked
 from .prep import NROWS, ROW_NAMES, march_perm, prep_rays
 
@@ -193,9 +200,10 @@ def _terms(r, s, win):
 
 @torch.no_grad()
 def joseph_fwd_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-                     n_steps: int) -> torch.Tensor:
-    """Plain version of :func:`joseph_fwd`."""
-    vol_p = density.permute(march_perm(axis))
+                     n_steps: int, storage=None) -> torch.Tensor:
+    """Plain version of :func:`joseph_fwd` (and of every wrapper's ``storage``:
+    the density rounded to bf16 under ``"bf16"``)."""
+    vol_p = stored(density, storage).permute(march_perm(axis))
     acc = torch.zeros_like(rows[0])
     for s in march_steps(rows, h, vol_p.shape[0], n_steps):
         acc = acc + _bilinear(s, _window(vol_p, s)) * s["scale"]
@@ -204,9 +212,9 @@ def joseph_fwd_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, h: fl
 
 @torch.no_grad()
 def joseph_fwd_max_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-                         n_steps: int):
+                         n_steps: int, storage=None):
     """Plain version of :func:`joseph_fwd_max`: (value, int32 argmax step)."""
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     best = torch.zeros_like(rows[0])
     arg = torch.full(best.shape, -1, dtype=torch.int32, device=best.device)
     for s in march_steps(rows, h, vol_p.shape[0], n_steps):
@@ -219,10 +227,10 @@ def joseph_fwd_max_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, h
 
 @torch.no_grad()
 def joseph_fwdgrad_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-                         n_steps: int, reduce: str = "sum"):
+                         n_steps: int, reduce: str = "sum", storage=None):
     """Plain version of :func:`joseph_fwdgrad`: ((8, R), argmax or None)."""
     r = _rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     acc = [torch.zeros_like(r["a"]) for _ in range(FUSED_ROWS)]
     arg = torch.full(acc[0].shape, -1, dtype=torch.int32, device=acc[0].device)
     for s in march_steps(rows, h, vol_p.shape[0], n_steps, derivs=True):
@@ -239,10 +247,11 @@ def joseph_fwdgrad_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, h
 
 @torch.no_grad()
 def joseph_bwd_rays_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-                          n_steps: int, g: torch.Tensor, arg=None) -> torch.Tensor:
+                          n_steps: int, g: torch.Tensor, arg=None,
+                          storage=None) -> torch.Tensor:
     """Plain version of :func:`joseph_bwd_rays`: (7, R)."""
     r = _rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     acc = [torch.zeros_like(r["a"]) for _ in range(GRAD_ROWS)]
     for s in march_steps(rows, h, vol_p.shape[0], n_steps, derivs=True):
         terms, _ = _terms(r, s, _window(vol_p, s))
@@ -311,9 +320,10 @@ def _channel_cotangent(g: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def joseph_fwd_ch_plain(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor,
-                        axis: int, h: float, n_steps: int, n_channels: int) -> torch.Tensor:
+                        axis: int, h: float, n_steps: int, n_channels: int,
+                        storage=None) -> torch.Tensor:
     """Plain version of :func:`joseph_fwd_ch`: ``(C, R)``."""
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     lab_p = labels.permute(march_perm(axis))
     acc = rows.new_zeros((n_channels, rows.shape[1]))
     chans = torch.arange(n_channels, device=rows.device)[:, None]
@@ -327,11 +337,11 @@ def joseph_fwd_ch_plain(rows: torch.Tensor, density: torch.Tensor, labels: torch
 
 @torch.no_grad()
 def joseph_bwd_rays_ch_plain(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor,
-                             axis: int, h: float, n_steps: int,
-                             g: torch.Tensor) -> torch.Tensor:
+                             axis: int, h: float, n_steps: int, g: torch.Tensor,
+                             storage=None) -> torch.Tensor:
     """Plain version of :func:`joseph_bwd_rays_ch`: ``(7, R)``."""
     r = _rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     lab_p = labels.permute(march_perm(axis))
     acc = [torch.zeros_like(r["a"]) for _ in range(GRAD_ROWS)]
     for s in march_steps(rows, h, vol_p.shape[0], n_steps, derivs=True):
@@ -370,92 +380,95 @@ def _march(h: float, n_steps: int) -> list:
 
 
 def joseph_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-               n_steps: int) -> torch.Tensor:
+               n_steps: int, storage=None) -> torch.Tensor:
     """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``.
     The kernel reads the density's bricked copy (``brick.bricked``: made
-    once for an unchanged density)."""
-    check("joseph", rows, density, axis)
+    once for an unchanged density), bf16 under ``storage="bf16"``."""
+    check("joseph", rows, density, axis, storage)
     _check_march(h, n_steps)
     if runs_plain("joseph_fwd", rows):
-        return joseph_fwd_plain(rows, density, axis, h, n_steps)
-    vol = bricked(density)
+        return joseph_fwd_plain(rows, density, axis, h, n_steps, storage)
+    vol = bricked(density, storage)
     rows = rows.contiguous()
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
-    call("joseph", "joseph_fwd", rows.device, rows.data_ptr(), rows.shape[1],
+    call("joseph", vol.entry("joseph_fwd"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), out.data_ptr())
-    joseph_fwd.launches += 1
+    count_launch(joseph_fwd, storage)
     return out
 
 
 def joseph_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-                   n_steps: int):
+                   n_steps: int, storage=None):
     """MIP ``(value (R,), argmax (R,) int32)``: the largest sample * sc over
     each ray's steps and its step (-1: none beat 0). The kernel reads the
     density's bricked copy, as ``joseph_fwd`` does, with several lanes a
     ray."""
-    check("joseph", rows, density, axis)
+    check("joseph", rows, density, axis, storage)
     _check_march(h, n_steps)
     if runs_plain("joseph_fwd_max", rows):
-        return joseph_fwd_max_plain(rows, density, axis, h, n_steps)
-    vol = bricked(density)
+        return joseph_fwd_max_plain(rows, density, axis, h, n_steps, storage)
+    vol = bricked(density, storage)
     rows = rows.contiguous()
     val = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     arg = torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
-    call("joseph", "joseph_fwd_max", rows.device, rows.data_ptr(), rows.shape[1],
+    call("joseph", vol.entry("joseph_fwd_max"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), val.data_ptr(),
          arg.data_ptr())
-    joseph_fwd_max.launches += 1
+    count_launch(joseph_fwd_max, storage)
     return val, arg
 
 
 def joseph_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-                   n_steps: int, reduce: str = "sum"):
+                   n_steps: int, reduce: str = "sum", storage=None):
     """``((8, R), arg)``: the 7 gradient rows and the value; in max mode the
     argmax step's rows and the MIP value, and ``arg`` the argmax (else None).
     The kernel reads the density's bricked copy, as ``joseph_fwd`` does, with
     several lanes a ray; its rows are the same on every run."""
-    check("joseph", rows, density, axis)
+    check("joseph", rows, density, axis, storage)
     _check_march(h, n_steps)
     if reduce not in ("sum", "max"):
         raise ValueError(f"reduce must be 'sum' or 'max', not {reduce!r}")
     if runs_plain("joseph_fwdgrad", rows):
-        return joseph_fwdgrad_plain(rows, density, axis, h, n_steps, reduce)
-    vol = bricked(density)
+        return joseph_fwdgrad_plain(rows, density, axis, h, n_steps, reduce, storage)
+    vol = bricked(density, storage)
     rows = rows.contiguous()
     out = torch.empty((FUSED_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
     arg = (torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
            if reduce == "max" else None)
-    call("joseph", "joseph_fwdgrad", rows.device, rows.data_ptr(), rows.shape[1],
+    call("joseph", vol.entry("joseph_fwdgrad"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), out.data_ptr(), ptr(arg))
-    joseph_fwdgrad.launches += 1
+    count_launch(joseph_fwdgrad, storage)
     return out, arg
 
 
 def joseph_bwd_rays(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
-                    n_steps: int, g: torch.Tensor, arg=None) -> torch.Tensor:
+                    n_steps: int, g: torch.Tensor, arg=None, storage=None) -> torch.Tensor:
     """``(7, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given.
     In sum mode the kernel reads the density's bricked copy, which the
     forward of the same density has made (so the two-pass backward makes
     none), with several lanes a ray: its rows are ``joseph_fwdgrad``'s rows
     0-6 times g bit for bit. In MIP (one step a ray) it runs one thread per
-    ray on the density itself."""
-    check("joseph", rows, density, axis)
+    ray on the density itself, or under bf16 storage on the bf16 bricked
+    copy that the MIP forward made (the rounded values, with no second
+    copy)."""
+    check("joseph", rows, density, axis, storage)
     _check_march(h, n_steps)
     g = check_cotangent(rows, g, arg)
     if runs_plain("joseph_bwd_rays", rows):
-        return joseph_bwd_rays_plain(rows, density, axis, h, n_steps, g, arg)
+        return joseph_bwd_rays_plain(rows, density, axis, h, n_steps, g, arg, storage)
     rows = rows.contiguous()
     out = torch.empty((GRAD_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    if arg is None:
-        vol = bricked(density)
-        call("joseph", "joseph_bwd_rays", rows.device, rows.data_ptr(), rows.shape[1],
-             vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), g.data_ptr(),
-             out.data_ptr())
+    if arg is None or storage is not None:
+        vol = bricked(density, storage)
+        mip = [] if arg is None else [arg.data_ptr()]
+        call("joseph", vol.entry("joseph_bwd_rays" + ("_mip" if mip else "")), rows.device,
+             rows.data_ptr(), rows.shape[1], vol.data.data_ptr(), *vol.args(axis),
+             *_march(h, n_steps), g.data_ptr(), *mip, out.data_ptr())
     else:
         call("joseph", "joseph_bwd_rays_mip", rows.device, rows.data_ptr(), rows.shape[1],
              density.data_ptr(), *strides_extents(density, axis), *_march(h, n_steps),
              g.data_ptr(), arg.data_ptr(), out.data_ptr())
-    joseph_bwd_rays.launches += 1
+    count_launch(joseph_bwd_rays, storage)
     return out
 
 
@@ -509,49 +522,50 @@ def _check_channel_cotangent(rows: torch.Tensor, g: torch.Tensor) -> torch.Tenso
 
 
 def joseph_fwd_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor, axis: int,
-                  h: float, n_steps: int, n_channels: int) -> torch.Tensor:
+                  h: float, n_steps: int, n_channels: int, storage=None) -> torch.Tensor:
     """Per-channel line integrals ``(C, R)``: each sample * sc added to the
     channel of its nearest-voxel label. The kernel reads the bricked copies
-    of the density and of the labelmap (``brick.bricked``), the copies that
-    ``joseph_bwd_rays_ch`` reads, so a render and its pose backward make
-    each once."""
-    check("joseph", rows, density, axis)
+    of the density (bf16 under ``storage="bf16"``) and of the labelmap
+    (``brick.bricked``), the copies that ``joseph_bwd_rays_ch`` reads, so a
+    render and its pose backward make each once."""
+    check("joseph", rows, density, axis, storage)
     _check_march(h, n_steps)
     _check_labels(labels, density.shape, rows.device)
     if n_channels < 1:
         raise ValueError(f"n_channels must be >= 1, not {n_channels}")
     if runs_plain("joseph_fwd_ch", rows):
-        return joseph_fwd_ch_plain(rows, density, labels, axis, h, n_steps, n_channels)
-    vol, lab = bricked(density), bricked(labels)
+        return joseph_fwd_ch_plain(rows, density, labels, axis, h, n_steps, n_channels, storage)
+    vol, lab = bricked(density, storage), bricked(labels)
     rows = rows.contiguous()
     out = torch.empty((n_channels, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    call("joseph", "joseph_fwd_ch", rows.device, rows.data_ptr(), rows.shape[1],
+    call("joseph", vol.entry("joseph_fwd_ch"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), lab.data.data_ptr(), *vol.args(axis), *_march(h, n_steps),
          int(n_channels), out.data_ptr())
-    joseph_fwd_ch.launches += 1
+    count_launch(joseph_fwd_ch, storage)
     return out
 
 
 def joseph_bwd_rays_ch(rows: torch.Tensor, density: torch.Tensor, labels: torch.Tensor,
-                       axis: int, h: float, n_steps: int, g: torch.Tensor) -> torch.Tensor:
+                       axis: int, h: float, n_steps: int, g: torch.Tensor,
+                       storage=None) -> torch.Tensor:
     """``(7, R)``: d(sum of g * image)/d(row) for a ``(C, R)`` cotangent ``g``.
     The kernel reads the bricked copies of the density and of the labelmap
     (``brick.bricked``: each made once while it is unchanged) with several
     lanes a ray, as ``joseph_fwdgrad`` does; its rows are the same on every
     run."""
-    check("joseph", rows, density, axis)
+    check("joseph", rows, density, axis, storage)
     _check_march(h, n_steps)
     _check_labels(labels, density.shape, rows.device)
     g = _check_channel_cotangent(rows, g)
     if runs_plain("joseph_bwd_rays_ch", rows):
-        return joseph_bwd_rays_ch_plain(rows, density, labels, axis, h, n_steps, g)
-    vol, lab = bricked(density), bricked(labels)
+        return joseph_bwd_rays_ch_plain(rows, density, labels, axis, h, n_steps, g, storage)
+    vol, lab = bricked(density, storage), bricked(labels)
     rows = rows.contiguous()
     out = torch.empty((GRAD_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    call("joseph", "joseph_bwd_rays_ch", rows.device, rows.data_ptr(), rows.shape[1],
+    call("joseph", vol.entry("joseph_bwd_rays_ch"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), lab.data.data_ptr(), *vol.args(axis), *_march(h, n_steps),
          g.shape[0], g.data_ptr(), out.data_ptr())
-    joseph_bwd_rays_ch.launches += 1
+    count_launch(joseph_bwd_rays_ch, storage)
     return out
 
 
@@ -579,11 +593,16 @@ def joseph_bwd_vol_ch(rows: torch.Tensor, g: torch.Tensor, labels: torch.Tensor,
 
 KERNELS = (joseph_fwd, joseph_fwd_max, joseph_fwdgrad, joseph_bwd_rays, joseph_bwd_vol,
            joseph_fwd_ch, joseph_bwd_rays_ch, joseph_bwd_vol_ch)
+# The wrappers with a bf16 instantiation (those that read the density).
+BF16_KERNELS = (joseph_fwd, joseph_fwd_max, joseph_fwdgrad, joseph_bwd_rays, joseph_fwd_ch,
+                joseph_bwd_rays_ch)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in BF16_KERNELS:
+        fn.launches_bf16 = 0
 
 
 reset_launch_counts()
@@ -605,24 +624,26 @@ class JosephMarch(torch.autograd.Function):
     ``joseph_bwd_vol``, each only when asked for. In sum mode
     ``joseph_bwd_rays`` reads the bricked copy that ``joseph_fwd`` made, and
     the fused and the two-pass pose gradients agree to the last bit.
+    ``storage`` is the density copy's element type; the density's gradient
+    stays float32 (straight through the rounding).
     """
 
     @staticmethod
-    def forward(ctx, density, rows, axis, h, n_steps, reduce="sum", fused=True):
+    def forward(ctx, density, rows, axis, h, n_steps, reduce="sum", fused=True, storage=None):
         if reduce not in ("sum", "max"):
             raise ValueError(f"reduce must be 'sum' or 'max', not {reduce!r}")
         ray_grad = ctx.needs_input_grad[1]
         ctx.march = (axis, h, n_steps)
-        ctx.shape = tuple(density.shape)
+        ctx.shape, ctx.storage = tuple(density.shape), storage
         ctx.fused = fused and ray_grad
         arg = grad_rows = None
         if ctx.fused:
-            allrows, arg = joseph_fwdgrad(rows, density, axis, h, n_steps, reduce)
+            allrows, arg = joseph_fwdgrad(rows, density, axis, h, n_steps, reduce, storage)
             out, grad_rows = allrows[GRAD_ROWS], allrows[:GRAD_ROWS]
         elif reduce == "max":
-            out, arg = joseph_fwd_max(rows, density, axis, h, n_steps)
+            out, arg = joseph_fwd_max(rows, density, axis, h, n_steps, storage)
         else:
-            out = joseph_fwd(rows, density, axis, h, n_steps)
+            out = joseph_fwd(rows, density, axis, h, n_steps, storage)
         # joseph_bwd_rays re-reads the density; the other backwards need only rows.
         ctx.save_for_backward(rows, density if ray_grad and not ctx.fused else None,
                               arg, grad_rows)
@@ -635,11 +656,11 @@ class JosephMarch(torch.autograd.Function):
         d_density = d_rows = None
         if ctx.needs_input_grad[1]:
             d7 = (grad_rows * g if ctx.fused
-                  else joseph_bwd_rays(rows, density, axis, h, n_steps, g, arg))
+                  else joseph_bwd_rays(rows, density, axis, h, n_steps, g, arg, ctx.storage))
             d_rows = torch.cat([d7, d7.new_zeros((NROWS - GRAD_ROWS, d7.shape[1]))])
         if ctx.needs_input_grad[0]:
             d_density = joseph_bwd_vol(rows, g, ctx.shape, axis, h, n_steps, arg)
-        return d_density, d_rows, None, None, None, None, None
+        return d_density, d_rows, None, None, None, None, None, None
 
 
 class JosephMarchChannels(torch.autograd.Function):
@@ -654,10 +675,10 @@ class JosephMarchChannels(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, density, rows, labels, axis, h, n_steps, n_channels):
+    def forward(ctx, density, rows, labels, axis, h, n_steps, n_channels, storage=None):
         ctx.march = (axis, h, n_steps)
-        ctx.shape = tuple(density.shape)
-        out = joseph_fwd_ch(rows, density, labels, axis, h, n_steps, n_channels)
+        ctx.shape, ctx.storage = tuple(density.shape), storage
+        out = joseph_fwd_ch(rows, density, labels, axis, h, n_steps, n_channels, storage)
         ctx.save_for_backward(rows, labels, density if ctx.needs_input_grad[1] else None)
         return out
 
@@ -667,11 +688,11 @@ class JosephMarchChannels(torch.autograd.Function):
         axis, h, n_steps = ctx.march
         d_density = d_rows = None
         if ctx.needs_input_grad[1]:
-            d7 = joseph_bwd_rays_ch(rows, density, labels, axis, h, n_steps, g)
+            d7 = joseph_bwd_rays_ch(rows, density, labels, axis, h, n_steps, g, ctx.storage)
             d_rows = torch.cat([d7, d7.new_zeros((NROWS - GRAD_ROWS, d7.shape[1]))])
         if ctx.needs_input_grad[0]:
             d_density = joseph_bwd_vol_ch(rows, g, labels, ctx.shape, axis, h, n_steps)
-        return d_density, d_rows, None, None, None, None, None
+        return d_density, d_rows, None, None, None, None, None, None
 
 
 def joseph_march_raycast(density: torch.Tensor, source: torch.Tensor, target: torch.Tensor,
@@ -679,7 +700,7 @@ def joseph_march_raycast(density: torch.Tensor, source: torch.Tensor, target: to
                          n_steps: Optional[int] = None, voxel_shift: float = 0.5,
                          eps: float = 1e-8, reduce: str = "sum", fused: bool = True,
                          mask: Optional[torch.Tensor] = None,
-                         n_channels: Optional[int] = None) -> torch.Tensor:
+                         n_channels: Optional[int] = None, storage=None) -> torch.Tensor:
     """Joseph ``(B, 1, N)`` by plane march along ``axis`` (voxel space).
 
     ``step`` is the stride ``h`` in planes (fractional: the trilinear march)
@@ -688,6 +709,8 @@ def joseph_march_raycast(density: torch.Tensor, source: torch.Tensor, target: to
     gradient from the two-pass ``joseph_bwd_rays``. With a labelmap
     ``mask`` (of the density's shape) the render is ``(B, n_channels, N)``
     per-structure channels, a sum whatever ``reduce`` and ``fused`` say.
+    ``storage="bf16"`` reads the density rounded to bf16 (the kernels' bf16
+    instantiations on a bf16 bricked copy); its gradient stays float32.
     """
     B, N, _ = target.shape
     h = float(step)
@@ -699,7 +722,7 @@ def joseph_march_raycast(density: torch.Tensor, source: torch.Tensor, target: to
         if n_channels is None:
             raise ValueError("n_channels must be provided when rendering with a mask")
         out = JosephMarchChannels.apply(density, rows, as_labels(mask), axis, h, int(n_steps),
-                                        int(n_channels))
+                                        int(n_channels), storage)
         return out.reshape(-1, B, N).permute(1, 0, 2)
-    return JosephMarch.apply(density, rows, axis, h, int(n_steps), reduce,
-                             fused).reshape(B, 1, N)
+    return JosephMarch.apply(density, rows, axis, h, int(n_steps), reduce, fused,
+                             storage).reshape(B, 1, N)

@@ -38,10 +38,12 @@ def raymarch_raycast(density: torch.Tensor, source: torch.Tensor, target: torch.
                      allow_oversample: bool = False, voxel_shift: float = 0.5,
                      eps: float = 1e-8, reduce: str = "sum", fused: bool = True,
                      mask: Optional[torch.Tensor] = None,
-                     n_channels: Optional[int] = None) -> torch.Tensor:
+                     n_channels: Optional[int] = None, storage=None) -> torch.Tensor:
     """Trilinear ``(B, 1, N)`` by the plane-aligned march along ``axis``;
-    ``(B, n_channels, N)`` with a labelmap ``mask``."""
+    ``(B, n_channels, N)`` with a labelmap ``mask``; ``storage`` as
+    ``joseph_march_raycast`` takes it (the JAX package's option)."""
     h, n_steps = raymarch_steps(density.shape[axis], n_points, allow_oversample)
     return joseph_march_raycast(density, source, target, weights, axis=axis, step=h,
                                 n_steps=n_steps, voxel_shift=voxel_shift, eps=eps,
-                                reduce=reduce, fused=fused, mask=mask, n_channels=n_channels)
+                                reduce=reduce, fused=fused, mask=mask, n_channels=n_channels,
+                                storage=storage)

@@ -24,6 +24,13 @@ the plain PyTorch version beside it, which repeats the kernel's arithmetic
 slab by slab for all rays at once. Any other device raises; so does a build
 or launch failure. There is no fallback from the kernel to the plain version.
 
+The four that read the density take ``storage``: under ``"bf16"`` they
+launch the kernel's bf16 instantiation on the bf16 bricked copy (counted in
+``launches_bf16``; the MIP backward too reads that copy), and the plain
+versions read the density rounded to bf16 (``_launch.stored``): the float32
+function of the rounded density, bit for bit. ``siddon_bwd_vol`` reads no
+density and has no storage.
+
 ``SiddonSlab`` is the autograd boundary, in sum or max mode. It computes
 each gradient only when autograd asks for it: a pose-only backward never
 launches ``siddon_bwd_vol``, a density-only one never ``siddon_fwdgrad``.
@@ -33,8 +40,8 @@ from __future__ import annotations
 
 import torch
 
-from ._launch import (call, check, check_cotangent, check_rows, ptr, runs_plain,
-                      strides_extents)
+from ._launch import (call, check, check_cotangent, check_rows, count_launch, ptr,
+                      runs_plain, stored, strides_extents)
 from .brick import bricked
 from .prep import NROWS, ROW_NAMES, march_perm, prep_rays
 
@@ -107,10 +114,12 @@ def _rows_dict(rows):
 
 
 @torch.no_grad()
-def siddon_fwd_plain(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
-    """Plain version of :func:`siddon_fwd`."""
+def siddon_fwd_plain(rows: torch.Tensor, density: torch.Tensor, axis: int,
+                      storage=None) -> torch.Tensor:
+    """Plain version of :func:`siddon_fwd` (and of every wrapper's ``storage``:
+    the density rounded to bf16 under ``"bf16"``)."""
     r = _rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     acc = torch.zeros_like(r["a"])
     for s in range(vol_p.shape[0]):
         sl = _slab(r, s)
@@ -174,10 +183,11 @@ def _gate(V, arg, s):
 
 
 @torch.no_grad()
-def siddon_fwdgrad_plain(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
+def siddon_fwdgrad_plain(rows: torch.Tensor, density: torch.Tensor, axis: int,
+                          storage=None) -> torch.Tensor:
     """Plain version of :func:`siddon_fwdgrad`: (10, R) rows, then the value."""
     r = _rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     acc = [torch.zeros_like(r["a"]) for _ in range(FUSED_ROWS)]
     for s in range(vol_p.shape[0]):
         sl = _slab(r, s)
@@ -187,10 +197,10 @@ def siddon_fwdgrad_plain(rows: torch.Tensor, density: torch.Tensor, axis: int) -
 
 
 @torch.no_grad()
-def siddon_fwd_max_plain(rows: torch.Tensor, density: torch.Tensor, axis: int):
+def siddon_fwd_max_plain(rows: torch.Tensor, density: torch.Tensor, axis: int, storage=None):
     """Plain version of :func:`siddon_fwd_max`: (value, int32 argmax)."""
     r = _rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     best = torch.zeros_like(r["a"])
     arg = torch.full(best.shape, -1, dtype=torch.int32, device=best.device)
     for s in range(vol_p.shape[0]):
@@ -205,10 +215,10 @@ def siddon_fwd_max_plain(rows: torch.Tensor, density: torch.Tensor, axis: int):
 
 @torch.no_grad()
 def siddon_bwd_rays_plain(rows: torch.Tensor, density: torch.Tensor, axis: int,
-                          g: torch.Tensor, arg=None) -> torch.Tensor:
+                          g: torch.Tensor, arg=None, storage=None) -> torch.Tensor:
     """Plain version of :func:`siddon_bwd_rays`: (9, R)."""
     r = _rows_dict(rows)
-    vol_p = density.permute(march_perm(axis))
+    vol_p = stored(density, storage).permute(march_perm(axis))
     acc = [torch.zeros_like(r["a"]) for _ in range(NROWS)]
     for s in range(vol_p.shape[0]):
         sl = _slab(r, s)
@@ -247,78 +257,83 @@ def siddon_bwd_vol_plain(rows: torch.Tensor, g: torch.Tensor, shape, axis: int,
 # -----------------------------------------------------------------------------
 
 
-def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
+def siddon_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int,
+               storage=None) -> torch.Tensor:
     """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``.
     The kernel reads the density's bricked copy (``brick.bricked``: made
-    once for an unchanged density)."""
-    check("siddon", rows, density, axis)
+    once for an unchanged density), bf16 under ``storage="bf16"``."""
+    check("siddon", rows, density, axis, storage)
     if runs_plain("siddon_fwd", rows):
-        return siddon_fwd_plain(rows, density, axis)
-    vol = bricked(density)
+        return siddon_fwd_plain(rows, density, axis, storage)
+    vol = bricked(density, storage)
     rows = rows.contiguous()
     out = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
-    call("siddon", "siddon_fwd", rows.device, rows.data_ptr(), rows.shape[1],
+    call("siddon", vol.entry("siddon_fwd"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), *vol.args(axis), out.data_ptr())
-    siddon_fwd.launches += 1
+    count_launch(siddon_fwd, storage)
     return out
 
 
-def siddon_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int) -> torch.Tensor:
+def siddon_fwdgrad(rows: torch.Tensor, density: torch.Tensor, axis: int,
+                   storage=None) -> torch.Tensor:
     """``(10, R)``: d(value)/d(row) for the 9 rows, then the value. The
     kernel reads the density's bricked copy, as ``siddon_fwd`` does, with
     several lanes a ray; its rows are the same on every run."""
-    check("siddon", rows, density, axis)
+    check("siddon", rows, density, axis, storage)
     if runs_plain("siddon_fwdgrad", rows):
-        return siddon_fwdgrad_plain(rows, density, axis)
-    vol = bricked(density)
+        return siddon_fwdgrad_plain(rows, density, axis, storage)
+    vol = bricked(density, storage)
     rows = rows.contiguous()
     out = torch.empty((FUSED_ROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    call("siddon", "siddon_fwdgrad", rows.device, rows.data_ptr(), rows.shape[1],
+    call("siddon", vol.entry("siddon_fwdgrad"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), *vol.args(axis), out.data_ptr())
-    siddon_fwdgrad.launches += 1
+    count_launch(siddon_fwdgrad, storage)
     return out
 
 
-def siddon_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int):
+def siddon_fwd_max(rows: torch.Tensor, density: torch.Tensor, axis: int, storage=None):
     """MIP ``(value (R,), argmax (R,) int32)``: the largest len * w * V over
     each ray's segments and its code slab * 4 + segment (-1: none beat 0).
     The kernel reads the density's bricked copy, as ``siddon_fwd`` does."""
-    check("siddon", rows, density, axis)
+    check("siddon", rows, density, axis, storage)
     if runs_plain("siddon_fwd_max", rows):
-        return siddon_fwd_max_plain(rows, density, axis)
-    vol = bricked(density)
+        return siddon_fwd_max_plain(rows, density, axis, storage)
+    vol = bricked(density, storage)
     rows = rows.contiguous()
     val = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
     arg = torch.empty(rows.shape[1], dtype=torch.int32, device=rows.device)
-    call("siddon", "siddon_fwd_max", rows.device, rows.data_ptr(), rows.shape[1],
+    call("siddon", vol.entry("siddon_fwd_max"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), *vol.args(axis), val.data_ptr(), arg.data_ptr())
-    siddon_fwd_max.launches += 1
+    count_launch(siddon_fwd_max, storage)
     return val, arg
 
 
 def siddon_bwd_rays(rows: torch.Tensor, density: torch.Tensor, axis: int,
-                    g: torch.Tensor, arg=None) -> torch.Tensor:
+                    g: torch.Tensor, arg=None, storage=None) -> torch.Tensor:
     """``(9, R)``: g * d(value)/d(row); MIP when the argmax ``arg`` is given.
     In sum mode the kernel reads the density's bricked copy, which the
     forward of the same density has made (so the two-pass backward makes
     none), with several lanes a ray: its rows are ``siddon_fwdgrad``'s times
     g bit for bit. In MIP (one slab a ray) it runs one thread per ray on
-    the density itself."""
-    check("siddon", rows, density, axis)
+    the density itself, or under bf16 storage on the bf16 bricked copy that
+    ``siddon_fwd_max`` made (the rounded values, with no second copy)."""
+    check("siddon", rows, density, axis, storage)
     g = check_cotangent(rows, g, arg)
     if runs_plain("siddon_bwd_rays", rows):
-        return siddon_bwd_rays_plain(rows, density, axis, g, arg)
+        return siddon_bwd_rays_plain(rows, density, axis, g, arg, storage)
     rows = rows.contiguous()
     out = torch.empty((NROWS, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    if arg is None:
-        vol = bricked(density)
-        call("siddon", "siddon_bwd_rays", rows.device, rows.data_ptr(), rows.shape[1],
-             vol.data.data_ptr(), *vol.args(axis), g.data_ptr(), out.data_ptr())
+    if arg is None or storage is not None:
+        vol = bricked(density, storage)
+        mip = [] if arg is None else [arg.data_ptr()]
+        call("siddon", vol.entry("siddon_bwd_rays" + ("_mip" if mip else "")), rows.device,
+             rows.data_ptr(), rows.shape[1], vol.data.data_ptr(), *vol.args(axis), g.data_ptr(),
+             *mip, out.data_ptr())
     else:
         call("siddon", "siddon_bwd_rays_mip", rows.device, rows.data_ptr(), rows.shape[1],
              density.data_ptr(), *strides_extents(density, axis), g.data_ptr(), arg.data_ptr(),
              out.data_ptr())
-    siddon_bwd_rays.launches += 1
+    count_launch(siddon_bwd_rays, storage)
     return out
 
 
@@ -342,11 +357,15 @@ def siddon_bwd_vol(rows: torch.Tensor, g: torch.Tensor, shape, axis: int,
 
 
 KERNELS = (siddon_fwd, siddon_fwdgrad, siddon_fwd_max, siddon_bwd_rays, siddon_bwd_vol)
+# The wrappers with a bf16 instantiation (those that read the density).
+BF16_KERNELS = KERNELS[:4]
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in BF16_KERNELS:
+        fn.launches_bf16 = 0
 
 
 reset_launch_counts()
@@ -364,24 +383,26 @@ class SiddonSlab(torch.autograd.Function):
     ``fused`` (their backward is then ``rows * g``), else ``siddon_fwd``; in
     max mode ``siddon_fwd_max``, whose argmax gates the backward. Backward:
     the rays' cotangent from the fused rows or ``siddon_bwd_rays``, the
-    density's from ``siddon_bwd_vol``, each only when asked for.
+    density's from ``siddon_bwd_vol``, each only when asked for. ``storage``
+    is the density copy's element type; the density's gradient stays float32
+    (straight through the rounding).
     """
 
     @staticmethod
-    def forward(ctx, density, rows, axis, reduce="sum", fused=True):
+    def forward(ctx, density, rows, axis, reduce="sum", fused=True, storage=None):
         if reduce not in ("sum", "max"):
             raise ValueError(f"reduce must be 'sum' or 'max', not {reduce!r}")
         ray_grad = ctx.needs_input_grad[1]
-        ctx.axis, ctx.shape = axis, tuple(density.shape)
+        ctx.axis, ctx.shape, ctx.storage = axis, tuple(density.shape), storage
         ctx.fused = reduce == "sum" and fused and ray_grad
         arg = grad_rows = None
         if reduce == "max":
-            out, arg = siddon_fwd_max(rows, density, axis)
+            out, arg = siddon_fwd_max(rows, density, axis, storage)
         elif ctx.fused:
-            allrows = siddon_fwdgrad(rows, density, axis)
+            allrows = siddon_fwdgrad(rows, density, axis, storage)
             out, grad_rows = allrows[NROWS], allrows[:NROWS]
         else:
-            out = siddon_fwd(rows, density, axis)
+            out = siddon_fwd(rows, density, axis, storage)
         # siddon_bwd_rays re-reads the density; the other backwards need only rows.
         ctx.save_for_backward(rows, density if ray_grad and not ctx.fused else None,
                               arg, grad_rows)
@@ -393,24 +414,27 @@ class SiddonSlab(torch.autograd.Function):
         d_density = d_rows = None
         if ctx.needs_input_grad[1]:
             d_rows = (grad_rows * g if ctx.fused
-                      else siddon_bwd_rays(rows, density, ctx.axis, g, arg))
+                      else siddon_bwd_rays(rows, density, ctx.axis, g, arg, ctx.storage))
         if ctx.needs_input_grad[0]:
             d_density = siddon_bwd_vol(rows, g, ctx.shape, ctx.axis, arg)
-        return d_density, d_rows, None, None, None
+        return d_density, d_rows, None, None, None, None
 
 
 def siddon_slab_raycast(density: torch.Tensor, source: torch.Tensor,
                         target: torch.Tensor, weights: torch.Tensor, *, axis: int,
                         voxel_shift: float = 0.5, eps: float = 1e-8,
-                        reduce: str = "sum", fused: bool = True) -> torch.Tensor:
+                        reduce: str = "sum", fused: bool = True,
+                        storage=None) -> torch.Tensor:
     """Exact Siddon ``(B, 1, N)`` by slab march along ``axis`` (voxel space).
 
     ``reduce="max"`` renders the MIP. ``fused=False`` takes the pose
     gradient from the two-pass ``siddon_bwd_rays`` instead of the fused
-    forward. Exact for rays whose transverse slopes along ``axis`` are at
+    forward. ``storage="bf16"`` reads the density rounded to bf16 (the
+    kernels' bf16 instantiations on a bf16 bricked copy); its gradient stays
+    float32. Exact for rays whose transverse slopes along ``axis`` are at
     most 1; ``DRR.render`` checks that and sends other poses to the sort
     oracle.
     """
     B, N, _ = target.shape
     rows = prep_rays(source, target, weights, axis, density.shape, voxel_shift, eps)
-    return SiddonSlab.apply(density, rows, axis, reduce, fused).reshape(B, 1, N)
+    return SiddonSlab.apply(density, rows, axis, reduce, fused, storage).reshape(B, 1, N)

@@ -50,6 +50,7 @@ import torch.distributed as dist
 from .._device import DeviceLike, resolve_device
 from ..drr import DRR
 from ..ops._raygeom import alpha_minmax, reduce_img
+from ..ops.kernels._launch import check_precision, check_storage
 from ..pose import convert
 from .collectives import copy_to_mesh, gather_from_mesh, group_size, reduce_from_mesh
 from .multihost import _backend_for
@@ -272,15 +273,23 @@ def _shifted(source, target, dim: int, offset: int):
     return source - shift, target - shift
 
 
-def _no_tile_plan(image_shape, pallas_kwargs, target) -> None:
-    """The TPU's tile plan has no counterpart: ``image_shape`` is checked
-    against the rays, and any ``pallas_kwargs`` key raises."""
-    if pallas_kwargs:
-        raise TypeError(f"pallas_kwargs {sorted(pallas_kwargs)} plan the TPU's tiles, which the "
+def _no_tile_plan(image_shape, pallas_kwargs, target):
+    """The kernels' ``storage`` from ``pallas_kwargs``, whose ``storage`` and
+    ``precision`` the kernels take as ``DRR`` does (``"f32"`` or
+    ``"highest"``, one function here). The TPU's tile plan has no
+    counterpart: ``image_shape`` is checked against the rays, and any other
+    ``pallas_kwargs`` key raises."""
+    kw = dict(pallas_kwargs or {})
+    storage, precision = kw.pop("storage", None), kw.pop("precision", "f32")
+    if kw:
+        raise TypeError(f"pallas_kwargs {sorted(kw)} plan the TPU's tiles, which the "
                         f"CUDA kernels do not have")
+    check_precision(precision)
+    check_storage(storage)
     if image_shape is not None and prod(image_shape) != target.shape[1]:
         raise ValueError(f"image_shape {tuple(image_shape)} does not hold the "
                          f"{target.shape[1]} rays")
+    return storage
 
 
 def slab_sharded_raycast(
@@ -365,20 +374,22 @@ def slab_sharded_joseph(
     ``joseph_bwd_vol`` on the card, their plain versions on the CPU); the
     default renders on the oracle (``ops/joseph.py``). ``image_shape`` and
     ``pallas_kwargs`` carried the TPU's tile plan, which has no counterpart
-    here: ``image_shape`` must hold the rays, and any ``pallas_kwargs`` key
-    raises.
+    here: ``image_shape`` must hold the rays, and a ``pallas_kwargs`` key
+    other than ``storage`` and ``precision`` raises. ``storage="bf16"``
+    gives each slab a bf16 bricked copy on the kernels (the oracle reads
+    the float32 density, as in ``DRR``).
     """
     group, idx, S, slab = _slab(volume, mesh, axis, march_axis, "march axis")
     if S % step != 0:
         raise ValueError(f"slab size {S} must be a multiple of step {step}")
-    _no_tile_plan(image_shape, pallas_kwargs, target)
+    storage = _no_tile_plan(image_shape, pallas_kwargs, target)
     source, target, weights = _replicated(volume, source, target, weights, group)
     src_l, tgt_l = _shifted(source, target, march_axis, idx * S)
     if use_pallas:
         from ..ops.kernels.joseph import joseph_march_raycast
 
         img = joseph_march_raycast(slab, src_l, tgt_l, weights, axis=march_axis, step=step,
-                                   voxel_shift=voxel_shift, eps=eps)
+                                   voxel_shift=voxel_shift, eps=eps, storage=storage)
     else:
         from ..ops.joseph import joseph_raycast
 
@@ -414,17 +425,17 @@ def slab_sharded_siddon(
     versions on the CPU); that march is exact only when ``slab_axis`` is
     the rays' major axis, which the caller picks. The default renders on the
     sort-based oracle (``ops/siddon.py``). ``image_shape`` and
-    ``pallas_kwargs``: as :func:`slab_sharded_joseph`.
+    ``pallas_kwargs`` (its ``storage`` too): as :func:`slab_sharded_joseph`.
     """
     group, idx, S, slab = _slab(volume, mesh, axis, slab_axis, "slab axis")
-    _no_tile_plan(image_shape, pallas_kwargs, target)
+    storage = _no_tile_plan(image_shape, pallas_kwargs, target)
     source, target, weights = _replicated(volume, source, target, weights, group)
     src_l, tgt_l = _shifted(source, target, slab_axis, idx * S)
     if use_pallas:
         from ..ops.kernels.siddon import siddon_slab_raycast
 
         img = siddon_slab_raycast(slab, src_l, tgt_l, weights, axis=slab_axis,
-                                  voxel_shift=voxel_shift, eps=eps)
+                                  voxel_shift=voxel_shift, eps=eps, storage=storage)
     else:
         from ..ops.siddon import siddon_raycast
 

@@ -650,6 +650,11 @@ class RigidTransform:
     def to(self, *args, **kwargs) -> "RigidTransform":
         return RigidTransform(self.matrix.to(*args, **kwargs), self.eps)
 
+    def astype(self, dtype) -> "RigidTransform":
+        """The transform with its matrices cast to ``dtype`` (the JAX
+        package's name for ``to(dtype)``)."""
+        return RigidTransform(self.matrix.to(dtype), self.eps)
+
     def inverse(self) -> "RigidTransform":
         """Closed-form inverse for orthonormal rotations, solve otherwise.
 

@@ -89,6 +89,12 @@ JOSEPH_FWD_SAMPLE_OPS = 19
 FWD_RAY_BYTES = 36 + 4
 
 
+def voxel_bytes(storage=None) -> int:
+    """Bytes a voxel of the kernels' density copy takes: 4 (float32), 2 under
+    ``storage="bf16"``."""
+    return 2 if storage == "bf16" else 4
+
+
 def siddon_work(rows, density, axis, arg=None):
     """(non-empty ray-slab steps, non-empty segments, distinct voxels read)
     of the Siddon slab march of ``rows (9, R)`` through ``density``.
@@ -184,7 +190,8 @@ def render_cost(drr, axis: Optional[int] = None, pose=None) -> RenderCost:
     ``pose`` (a ``RigidTransform``) the work is counted on its rays as
     ``chip_smoke.py``'s bounds count it: non-empty slabs and segments, or
     in-slab samples, and each distinct voxel read once. Without one, the
-    most any pose could need: every step of every ray, every voxel.
+    most any pose could need: every step of every ray, every voxel. A voxel
+    is 4 bytes, 2 under the DRR's ``storage="bf16"``.
     """
     from .ops.kernels.prep import prep_rays
     from .ops.kernels.raymarch import raymarch_steps
@@ -229,7 +236,8 @@ def render_cost(drr, axis: Optional[int] = None, pose=None) -> RenderCost:
         per_sample = J_STEP_OPS + JOSEPH_FWD_SAMPLE_OPS + (J_BLEND_OPS if is_blend(h) else 0)
         flops = samples * per_sample + J_RANGE_OPS * R
     return RenderCost(renderer=name, axis=axis, n_steps=n_steps, rays=R,
-                      bytes=float(FWD_RAY_BYTES * R + 4 * voxels), flops=float(flops),
+                      bytes=float(FWD_RAY_BYTES * R + voxel_bytes(drr.pallas_storage) * voxels),
+                      flops=float(flops),
                       exact=pose is not None)
 
 

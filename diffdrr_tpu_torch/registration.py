@@ -387,9 +387,9 @@ def rescaled_drr(drr: DRR, scale: float) -> DRR:
     The pixel pitch comes from the realised pixel count
     (``h * dely == h_s * dely_s`` exactly, ``delx`` scaling the width), so
     rounding ``h * scale`` never changes the field of view. The twin keeps
-    the renderer, its options and the constructor's options, and reads the
-    source DRR's density and labelmap tensors: every scale renders from
-    one bricked copy.
+    the renderer, its options and the constructor's options (``precision``
+    and ``storage`` too), and reads the source DRR's density and labelmap
+    tensors: every scale renders from one bricked copy.
     """
     det = drr.detector
     h_s = max(8, int(round(det.height * scale)))
@@ -399,7 +399,9 @@ def rescaled_drr(drr: DRR, scale: float) -> DRR:
                x0=det._x0, y0=det._y0, renderer=drr.renderer_name,
                voxel_shift=drr.voxel_shift, reverse_x_axis=det.reverse_x_axis,
                patch_size=drr.patch_size, checkpoint_gradients=drr.checkpoint_gradients,
-               cache_volume=drr.cache_volume, device=drr.device, **drr.renderer_kwargs)
+               cache_volume=drr.cache_volume, device=drr.device,
+               precision=drr.pallas_precision, storage=drr.pallas_storage,
+               **drr.renderer_kwargs)
     twin.density, twin.mask, twin.n_channels = drr.density, drr.mask, drr.n_channels
     return twin
 

@@ -998,7 +998,10 @@ _BRICK_TWIN_SRC = r"""
 #include <vector>
 #include "joseph.cuh"
 #include "siddon.cuh"
-#define BRICK_ARGS const float* bvol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z
+// The copy's arguments, its elements of type E (float, or brick::bf16 in
+// the *_bf16 entry points at the end).
+#define COPY_ARGS(E) const E* bvol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z
+#define COPY bvol, axis, bs_s, bs_y, bs_z, X, Y, Z
 // f(std::integral_constant<int, A>()) for march axis A = axis.
 template <class F>
 static void with_axis(int axis, F f) {
@@ -1009,27 +1012,34 @@ static void with_axis(int axis, F f) {
   }
 }
 // trace_fwd on the bricked copy with `unroll` slabs (steps) in flight; 0
-// takes the kernels' own count (kFwdSlabs, kFwdSteps).
-template <class F>
+// takes the kernels' own count (kFwdSlabs, kFwdSteps). A bf16 copy (T not
+// float) takes the kernels' own count only.
+template <class T, class F>
 static void each_unroll(int unroll, F f) {
-  switch (unroll) {
-    case 1: f(std::integral_constant<int, 1>()); break;
-    case 2: f(std::integral_constant<int, 2>()); break;
-    case 4: f(std::integral_constant<int, 4>()); break;
-    default: f(std::integral_constant<int, 0>()); break;
+  if constexpr (!std::is_same<T, float>::value) {
+    f(std::integral_constant<int, 0>());
+  } else {
+    switch (unroll) {
+      case 1: f(std::integral_constant<int, 1>()); break;
+      case 2: f(std::integral_constant<int, 2>()); break;
+      case 4: f(std::integral_constant<int, 4>()); break;
+      default: f(std::integral_constant<int, 0>()); break;
+    }
   }
 }
-extern "C" void bt_siddon(int unroll, const float* rows, int64_t R, BRICK_ARGS, float* out) {
+template <class T>
+static void bt_siddon_t(int unroll, const float* rows, int64_t R, COPY_ARGS(T), float* out) {
   with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    each_unroll(unroll, [&](auto u) {
+    each_unroll<T>(unroll, [&](auto u) {
       constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kFwdSlabs;
       for (int64_t r = 0; r < R; ++r)
         out[r] = siddon::trace_fwd<U>(siddon::load_ray(rows, R, r), v);
     });
   });
 }
-extern "C" void bt_joseph(int unroll, const float* rows, int64_t R, BRICK_ARGS, float h, int n,
+template <class T>
+static void bt_joseph_t(int unroll, const float* rows, int64_t R, COPY_ARGS(T), float h, int n,
                           int blend, float* out) {
   joseph::March m;
   m.h = h;
@@ -1037,7 +1047,7 @@ extern "C" void bt_joseph(int unroll, const float* rows, int64_t R, BRICK_ARGS, 
   m.blend = blend != 0;
   with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    each_unroll(unroll, [&](auto u) {
+    each_unroll<T>(unroll, [&](auto u) {
       constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdSteps;
       for (int64_t r = 0; r < R; ++r)
         out[r] = joseph::trace_fwd<U>(joseph::load_ray(rows, R, r), v, m);
@@ -1047,11 +1057,16 @@ extern "C" void bt_joseph(int unroll, const float* rows, int64_t R, BRICK_ARGS, 
 // f(G, U) of a variant of the MIP and channel forwards' lanes: G lanes a
 // ray and U slabs (steps) in flight a lane, 0 taking the kernel's own
 // (kMaxLanes and kMaxSlabs or kMaxSteps, kFwdChLanes and kFwdChSteps);
-// _FWD_VARIANTS in the tests lists them in this order.
+// _FWD_VARIANTS in the tests lists them in this order. A bf16 copy (T not
+// float) takes the kernel's own only.
 template <int N>
 using IC = std::integral_constant<int, N>;
-template <class F>
+template <class T, class F>
 static void with_lanes(int variant, F f) {
+  if constexpr (!std::is_same<T, float>::value) {
+    f(IC<0>(), IC<0>());
+    return;
+  }
   switch (variant) {
     case 0: f(IC<1>(), IC<1>()); break;
     case 1: f(IC<1>(), IC<2>()); break;
@@ -1090,12 +1105,13 @@ static bool lanes_max(int lo, int hi, MaxU max_u, float* val, int* arg) {
 // siddon_fwd_max on the bricked copy as its lanes run it (max_slabs in
 // lanes_max). Returns the number of rays whose lanes still differ after the
 // tree.
-extern "C" int bt_siddon_max(int variant, const float* rows, int64_t R, BRICK_ARGS, float* out,
+template <class T>
+static int bt_siddon_max_t(int variant, const float* rows, int64_t R, COPY_ARGS(T), float* out,
                              int* arg) {
   int bad = 0;
   with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    with_lanes(variant, [&](auto g, auto u) {
+    with_lanes<T>(variant, [&](auto g, auto u) {
       constexpr int G = decltype(g)::value ? decltype(g)::value : siddon::kMaxLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kMaxSlabs;
       for (int64_t r = 0; r < R; ++r) {
@@ -1113,7 +1129,8 @@ extern "C" int bt_siddon_max(int variant, const float* rows, int64_t R, BRICK_AR
 // joseph_fwd_max on the bricked copy as its lanes run it (max_steps in
 // lanes_max). Returns the number of rays whose lanes still differ after the
 // tree.
-extern "C" int bt_joseph_max(int variant, const float* rows, int64_t R, BRICK_ARGS, float h,
+template <class T>
+static int bt_joseph_max_t(int variant, const float* rows, int64_t R, COPY_ARGS(T), float h,
                              int n, int blend, float* out, int* arg) {
   joseph::March m;
   m.h = h;
@@ -1122,7 +1139,7 @@ extern "C" int bt_joseph_max(int variant, const float* rows, int64_t R, BRICK_AR
   int bad = 0;
   with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    with_lanes(variant, [&](auto g, auto u) {
+    with_lanes<T>(variant, [&](auto g, auto u) {
       constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kMaxLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kMaxSteps;
       for (int64_t r = 0; r < R; ++r) {
@@ -1145,7 +1162,8 @@ extern "C" int bt_joseph_max(int variant, const float* rows, int64_t R, BRICK_AR
 // in blocks of kBlock whose sums share one [channel][ray] array, the
 // channels in tiles of `tile` (0: all C in one), each tile's sums copied
 // to the ray's column of out (C, R).
-extern "C" void bt_joseph_ch(int variant, int tile, const float* rows, int64_t R, BRICK_ARGS,
+template <class T>
+static void bt_joseph_ch_t(int variant, int tile, const float* rows, int64_t R, COPY_ARGS(T),
                              const float* blab, float h, int n, int blend, int C, float* out) {
   constexpr int kBlock = 3;
   joseph::March m;
@@ -1158,7 +1176,7 @@ extern "C" void bt_joseph_ch(int variant, int tile, const float* rows, int64_t R
     constexpr int A = decltype(a)::value;
     auto v = brick::make_volume<A>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
     joseph::BrickLabels<A> l{brick::make_volume<A>(blab, bs_s, bs_y, bs_z, X, Y, Z)};
-    with_lanes(variant, [&](auto g, auto u) {
+    with_lanes<T>(variant, [&](auto g, auto u) {
       constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kFwdChLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdChSteps;
       for (int64_t r = 0; r < R; ++r) {
@@ -1184,6 +1202,34 @@ extern "C" void bt_joseph_ch(int variant, int tile, const float* rows, int64_t R
     });
   });
 }
+// The C entry points: each function above on a float32 copy (every
+// variant) and, as *_bf16, on a bf16 copy (the kernels' own variant).
+#define ENTRIES(S, E)                                                                         \
+  extern "C" void bt_siddon##S(int unroll, const float* rows, int64_t R, COPY_ARGS(E),       \
+                               float* out) {                                                  \
+    bt_siddon_t(unroll, rows, R, COPY, out);                                                  \
+  }                                                                                           \
+  extern "C" void bt_joseph##S(int unroll, const float* rows, int64_t R, COPY_ARGS(E),       \
+                               float h, int n, int blend, float* out) {                       \
+    bt_joseph_t(unroll, rows, R, COPY, h, n, blend, out);                                     \
+  }                                                                                           \
+  extern "C" int bt_siddon_max##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),   \
+                                  float* out, int* arg) {                                     \
+    return bt_siddon_max_t(variant, rows, R, COPY, out, arg);                                 \
+  }                                                                                           \
+  extern "C" int bt_joseph_max##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),   \
+                                  float h, int n, int blend, float* out, int* arg) {          \
+    return bt_joseph_max_t(variant, rows, R, COPY, h, n, blend, out, arg);                    \
+  }                                                                                           \
+  extern "C" void bt_joseph_ch##S(int variant, int tile, const float* rows, int64_t R,       \
+                                  COPY_ARGS(E), const float* blab, float h, int n, int blend, \
+                                  int C, float* out) {                                        \
+    bt_joseph_ch_t(variant, tile, rows, R, COPY, blab, h, n, blend, C, out);                  \
+  }
+ENTRIES(, float)
+#ifdef BF16_ENTRIES  // the kernels' own brick shape's build only
+ENTRIES(_bf16, brick::bf16)
+#endif
 """
 
 _UNROLLS = (0, 1, 2, 4)  # 0: the kernels' own count
@@ -1197,14 +1243,17 @@ _FWD_VARIANTS = ((1, 1), (1, 2), (1, 4), (2, None), (8, None), (32, None),
 @pytest.fixture(scope="module")
 def btwin(tmp_path_factory):
     """The twin of the bricked trace_fwd for a brick shape: brick.cuh's
-    compile-time shape set with -D, one build per shape."""
+    compile-time shape set with -D, one build per shape; the bf16 copy's
+    entry points in the kernels' own shape's build only."""
     built = {}
 
     def get(shape):
         if shape not in built:
             logs = [b.bit_length() - 1 for b in shape]
+            own = shape == brick.BRICK
             so = _build_twin(tmp_path_factory, "btwin", _BRICK_TWIN_SRC,
-                             [f"BRICK_L{d}={logs[d]}" for d in range(3)])
+                             [f"BRICK_L{d}={logs[d]}" for d in range(3)]
+                             + (["BF16_ENTRIES"] if own else []))
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             bvol = [ptr] + [i32] * 7
             so.bt_siddon.argtypes = [i32, ptr, i64] + bvol + [ptr]
@@ -1214,9 +1263,12 @@ def btwin(tmp_path_factory):
                                                                   ptr, ptr]
             so.bt_joseph_ch.argtypes = [i32, i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32,
                                                                       i32, i32, ptr]
-            for fn in (so.bt_siddon, so.bt_joseph, so.bt_joseph_ch):
-                fn.restype = None
-            so.bt_siddon_max.restype = so.bt_joseph_max.restype = i32
+            names = ("bt_siddon", "bt_joseph", "bt_siddon_max", "bt_joseph_max", "bt_joseph_ch")
+            for fn in names if own else ():  # the bf16 copy's entry points: the same arguments
+                getattr(so, f"{fn}_bf16").argtypes = getattr(so, fn).argtypes
+            for fn in names:
+                for suffix in ("", "_bf16") if own else ("",):
+                    getattr(so, fn + suffix).restype = i32 if fn.endswith("_max") else None
             built[shape] = so
         return built[shape]
 
@@ -1929,14 +1981,22 @@ _FUSED_TWIN_SRC = r"""
 #include <type_traits>
 #include "joseph.cuh"
 #include "siddon.cuh"
-#define BRICK_ARGS const float* bvol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z
+// The copy's arguments, its elements of type E (float, or brick::bf16 in
+// the *_bf16 entry points at the end).
+#define COPY_ARGS(E) const E* bvol, int axis, int bs_s, int bs_y, int bs_z, int X, int Y, int Z
+#define COPY bvol, axis, bs_s, bs_y, bs_z, X, Y, Z
 template <int N>
 using IC = std::integral_constant<int, N>;
 // f(G, U) of the variant: G lanes a ray and U slabs (steps) in flight, 0
 // taking the kernel's own (kFusedLanes, kFusedSlabs or kFusedSteps;
-// kBwdLanes, kBwdSlabs or kBwdSteps).
-template <class F>
+// kBwdLanes, kBwdSlabs or kBwdSteps). A bf16 copy (T not float) takes the
+// kernel's own only.
+template <class T, class F>
 static void with_variant(int variant, F f) {
+  if constexpr (!std::is_same<T, float>::value) {
+    f(IC<0>(), IC<0>());
+    return;
+  }
   switch (variant) {
     case 0: f(IC<1>(), IC<0>()); break;
     case 1: f(IC<2>(), IC<0>()); break;
@@ -1988,10 +2048,11 @@ static bool lanes_march(int lo, int hi, bool mip, Terms terms, float out[N], int
   *arg = best_p[0];
   return differ;
 }
-extern "C" void ft_siddon(int variant, const float* rows, int64_t R, BRICK_ARGS, float* out) {
+template <class T>
+static void ft_siddon_t(int variant, const float* rows, int64_t R, COPY_ARGS(T), float* out) {
   brick::with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    with_variant(variant, [&](auto g, auto u) {
+    with_variant<T>(variant, [&](auto g, auto u) {
       constexpr int G = decltype(g)::value ? decltype(g)::value : siddon::kFusedLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kFusedSlabs;
       constexpr int N = siddon::kFusedRows;
@@ -2013,11 +2074,12 @@ extern "C" void ft_siddon(int variant, const float* rows, int64_t R, BRICK_ARGS,
 // and U of the variant, 0 taking kBwdLanes, kBwdSlabs), the fused march's 9
 // gradient rows in passes (fused_terms, lanes_march), each times g[r] once
 // summed.
-extern "C" void ft_siddon_bwd_rays(int variant, const float* rows, int64_t R, BRICK_ARGS,
+template <class T>
+static void ft_siddon_bwd_rays_t(int variant, const float* rows, int64_t R, COPY_ARGS(T),
                                    const float* g, float* out) {
   brick::with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    with_variant(variant, [&](auto lanes_g, auto u) {
+    with_variant<T>(variant, [&](auto lanes_g, auto u) {
       constexpr int G = decltype(lanes_g)::value ? decltype(lanes_g)::value : siddon::kBwdLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kBwdSlabs;
       constexpr int N = siddon::kRows;
@@ -2041,7 +2103,8 @@ extern "C" void ft_siddon_bwd_rays(int variant, const float* rows, int64_t R, BR
 // and U of the variant, 0 taking kBwdLanes, kBwdSteps), the fused march's 7
 // gradient rows in passes (fused_terms, lanes_march), each times g[r] once
 // summed.
-extern "C" void ft_joseph_bwd_rays(int variant, const float* rows, int64_t R, BRICK_ARGS,
+template <class T>
+static void ft_joseph_bwd_rays_t(int variant, const float* rows, int64_t R, COPY_ARGS(T),
                                    float h, int n, int blend, const float* g, float* out) {
   joseph::March m;
   m.h = h;
@@ -2049,7 +2112,7 @@ extern "C" void ft_joseph_bwd_rays(int variant, const float* rows, int64_t R, BR
   m.blend = blend != 0;
   brick::with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    with_variant(variant, [&](auto lanes_g, auto u) {
+    with_variant<T>(variant, [&](auto lanes_g, auto u) {
       constexpr int G = decltype(lanes_g)::value ? decltype(lanes_g)::value : joseph::kBwdLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kBwdSteps;
       constexpr int N = joseph::kRows;
@@ -2072,7 +2135,8 @@ extern "C" void ft_joseph_bwd_rays(int variant, const float* rows, int64_t R, BR
 // joseph_bwd_rays_ch's lanes (channel_terms, G and U of the variant, 0
 // taking kChannelLanes, kChannelSteps) on the bricked copies of the density
 // and the labelmap (blab, sharing the density copy's arguments): out (7, R).
-extern "C" void ft_joseph_ch(int variant, const float* rows, int64_t R, BRICK_ARGS,
+template <class T>
+static void ft_joseph_ch_t(int variant, const float* rows, int64_t R, COPY_ARGS(T),
                              const float* blab, float h, int n, int blend, int C, const float* g,
                              float* out) {
   joseph::March m;
@@ -2083,7 +2147,7 @@ extern "C" void ft_joseph_ch(int variant, const float* rows, int64_t R, BRICK_AR
     constexpr int A = decltype(a)::value;
     auto v = brick::make_volume<A>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
     joseph::BrickLabels<A> l{brick::make_volume<A>(blab, bs_s, bs_y, bs_z, X, Y, Z)};
-    with_variant(variant, [&](auto lanes_g, auto u) {
+    with_variant<T>(variant, [&](auto lanes_g, auto u) {
       constexpr int G = decltype(lanes_g)::value ? decltype(lanes_g)::value
                                                  : joseph::kChannelLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kChannelSteps;
@@ -2103,7 +2167,8 @@ extern "C" void ft_joseph_ch(int variant, const float* rows, int64_t R, BRICK_AR
   });
 }
 // Returns the number of rays whose lanes' maxima differ after the tree.
-extern "C" int ft_joseph(int variant, int mip, const float* rows, int64_t R, BRICK_ARGS, float h,
+template <class T>
+static int ft_joseph_t(int variant, int mip, const float* rows, int64_t R, COPY_ARGS(T), float h,
                          int n, int blend, float* out, int* arg) {
   joseph::March m;
   m.h = h;
@@ -2112,7 +2177,7 @@ extern "C" int ft_joseph(int variant, int mip, const float* rows, int64_t R, BRI
   int bad = 0;
   brick::with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    with_variant(variant, [&](auto g, auto u) {
+    with_variant<T>(variant, [&](auto g, auto u) {
       constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kFusedLanes;
       constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFusedSteps;
       constexpr int N = joseph::kFusedRows;
@@ -2132,6 +2197,79 @@ extern "C" int ft_joseph(int variant, int mip, const float* rows, int64_t R, BRI
     return 0;
   });
   return bad;
+}
+// The MIP pose backwards on a bricked copy (trace_bwd_rays gated to the
+// argmax, as siddon_bwd_rays_mip_bf16 and joseph_bwd_rays_mip_bf16 run it).
+template <class T>
+static void ft_siddon_bwd_rays_mip_t(const float* rows, int64_t R, COPY_ARGS(T), const float* g,
+                                     const int* arg, float* out) {
+  brick::with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    float acc[siddon::kRows];
+    for (int64_t r = 0; r < R; ++r) {
+      siddon::trace_bwd_rays(siddon::load_ray(rows, R, r), v, g[r], arg[r], true, acc);
+      for (int k = 0; k < siddon::kRows; ++k) out[k * R + r] = acc[k];
+    }
+    return 0;
+  });
+}
+template <class T>
+static void ft_joseph_bwd_rays_mip_t(const float* rows, int64_t R, COPY_ARGS(T), float h, int n,
+                                     int blend, const float* g, const int* arg, float* out) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n;
+  m.blend = blend != 0;
+  brick::with_axis(axis, [&](auto a) {
+    auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
+    float acc[joseph::kRows];
+    for (int64_t r = 0; r < R; ++r) {
+      joseph::trace_bwd_rays(joseph::load_ray(rows, R, r), v, m, g[r], arg[r], true, acc);
+      for (int i = 0; i < joseph::kRows; ++i) out[i * R + r] = acc[i];
+    }
+    return 0;
+  });
+}
+// The C entry points: each function above on a float32 copy (every
+// variant) and, as *_bf16, on a bf16 copy (the kernels' own variant).
+#define ENTRIES(S, E)                                                                          \
+  extern "C" void ft_siddon##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),       \
+                               float* out) {                                                   \
+    ft_siddon_t(variant, rows, R, COPY, out);                                                  \
+  }                                                                                            \
+  extern "C" void ft_siddon_bwd_rays##S(int variant, const float* rows, int64_t R,            \
+                                        COPY_ARGS(E), const float* g, float* out) {            \
+    ft_siddon_bwd_rays_t(variant, rows, R, COPY, g, out);                                      \
+  }                                                                                            \
+  extern "C" void ft_joseph_bwd_rays##S(int variant, const float* rows, int64_t R,            \
+                                        COPY_ARGS(E), float h, int n, int blend,               \
+                                        const float* g, float* out) {                          \
+    ft_joseph_bwd_rays_t(variant, rows, R, COPY, h, n, blend, g, out);                         \
+  }                                                                                            \
+  extern "C" void ft_joseph_ch##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),    \
+                                  const float* blab, float h, int n, int blend, int C,         \
+                                  const float* g, float* out) {                                \
+    ft_joseph_ch_t(variant, rows, R, COPY, blab, h, n, blend, C, g, out);                      \
+  }                                                                                            \
+  extern "C" int ft_joseph##S(int variant, int mip, const float* rows, int64_t R,             \
+                              COPY_ARGS(E), float h, int n, int blend, float* out, int* arg) { \
+    return ft_joseph_t(variant, mip, rows, R, COPY, h, n, blend, out, arg);                    \
+  }                                                                                            \
+  extern "C" void ft_siddon_bwd_rays_mip##S(const float* rows, int64_t R, COPY_ARGS(E),       \
+                                            const float* g, const int* arg, float* out) {      \
+    ft_siddon_bwd_rays_mip_t(rows, R, COPY, g, arg, out);                                      \
+  }                                                                                            \
+  extern "C" void ft_joseph_bwd_rays_mip##S(const float* rows, int64_t R, COPY_ARGS(E),       \
+                                            float h, int n, int blend, const float* g,         \
+                                            const int* arg, float* out) {                      \
+    ft_joseph_bwd_rays_mip_t(rows, R, COPY, h, n, blend, g, arg, out);                         \
+  }
+ENTRIES(, float)
+ENTRIES(_bf16, brick::bf16)
+// brick::to_bf16 (the bf16 copy's rounding) on the host: out[i] = the bits
+// of x[i] rounded to the nearest bf16, ties to even.
+extern "C" void ft_to_bf16(const float* x, int64_t n, brick::bf16* out) {
+  for (int64_t i = 0; i < n; ++i) out[i] = brick::to_bf16(x[i]);
 }
 """
 
@@ -2156,9 +2294,18 @@ def ftwin(tmp_path_factory):
     so.ft_siddon_bwd_rays.argtypes = [i32, ptr, i64] + bvol + [ptr, ptr]
     so.ft_joseph_bwd_rays.argtypes = [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr,
                                                                 ptr]
-    for fn in (so.ft_siddon, so.ft_joseph_ch, so.ft_siddon_bwd_rays, so.ft_joseph_bwd_rays):
-        fn.restype = None
-    so.ft_joseph.restype = i32
+    so.ft_siddon_bwd_rays_mip.argtypes = [ptr, i64] + bvol + [ptr, ptr, ptr]
+    so.ft_joseph_bwd_rays_mip.argtypes = [ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr,
+                                                             ptr, ptr]
+    names = ("ft_siddon", "ft_joseph", "ft_joseph_ch", "ft_siddon_bwd_rays",
+             "ft_joseph_bwd_rays", "ft_siddon_bwd_rays_mip", "ft_joseph_bwd_rays_mip")
+    for fn in names:  # the bf16 copy's entry points: the same arguments
+        getattr(so, f"{fn}_bf16").argtypes = getattr(so, fn).argtypes
+    for fn in names:
+        for f in (getattr(so, fn), getattr(so, f"{fn}_bf16")):
+            f.restype = i32 if fn == "ft_joseph" else None
+    so.ft_to_bf16.argtypes = [ptr, i64, ptr]
+    so.ft_to_bf16.restype = None
     return so
 
 
@@ -2608,3 +2755,240 @@ def test_twin_joseph_channel_lanes_equal_serial(jtwin, ftwin, axis, h, n_channel
     for variant in _LANES + _UNROLLED:
         got = _channel_lanes(ftwin, variant, rows, vol, lab, axis, h, n, g)
         assert torch.equal(_bits(got), _bits(serial)), _FUSED_VARIANTS[variant]
+
+
+# -----------------------------------------------------------------------------
+# bf16 storage: the kernels' bf16 instantiations and the copy's rounding
+# -----------------------------------------------------------------------------
+
+
+def _rounded(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _copies(vol):
+    """(the bf16 bricked copy of ``vol``, the float32 bricked copy of ``vol``
+    rounded to bf16): a bf16 instantiation on the first must give the float32
+    one's bits on the second."""
+    bf, f32 = brick_density(vol, "bf16"), brick_density(_rounded(vol))
+    assert bf.storage == "bf16" and f32.storage is None
+    return bf, f32
+
+
+def _on_copy(so, fn, copy, axis, head=(), tail=()):
+    """``so.fn`` (``fn_bf16`` on a bf16 copy)(*head, the copy, *tail)."""
+    return getattr(so, copy.entry(fn))(*head, copy.data.data_ptr(), *copy.args(axis), *tail)
+
+
+def _out(*shape, dtype=torch.float32):
+    return torch.full(shape, -7, dtype=dtype)
+
+
+def test_twin_to_bf16_matches_torch(ftwin):
+    """brick::to_bf16 on the host (round to nearest, ties to even) against
+    torch.Tensor.to(torch.bfloat16): ties both ways, values just off a tie,
+    subnormals (and their ties), the largest bf16 and the first value that
+    rounds past it to inf, +-inf, zeros, and every 32-bit pattern of a
+    random sample; bit for bit, a NaN to a NaN (torch's own NaN bits differ
+    between its CPU conversion, 0xffff, and its CUDA one, 0x7fff, which
+    brick_copy_bf16 gives on the card)."""
+    special = np.array([0x00000000, 0x80000000, 0x3f808000, 0x3f818000, 0x3f808001,
+                        0x3f807fff, 0xbf808000, 0xbf818000, 0x00008000, 0x00018000,
+                        0x00000001, 0x80000001, 0x007fffff, 0x00800000, 0x7f7f7fff,
+                        0x7f7f8000, 0x7f7fffff, 0xff7f8000, 0x7f800000, 0xff800000,
+                        0x7fc00000, 0xffc00000, 0x7f800001, 0x7fbfffff], np.uint32)
+    rng = np.random.default_rng(5)
+    bits = np.concatenate([special, rng.integers(0, 2 ** 32, 20000, dtype=np.uint32)])
+    x = torch.tensor(bits.view(np.float32))
+    got = torch.empty(x.numel(), dtype=torch.int16)
+    ftwin.ft_to_bf16(x.data_ptr(), x.numel(), got.data_ptr())
+    ref = x.to(torch.bfloat16)
+    nan = torch.isnan(x)
+    assert nan.sum() > 20
+    assert torch.isnan(got.view(torch.bfloat16)[nan]).all()
+    assert torch.equal(got[~nan], ref.view(torch.int16)[~nan])
+    assert got[2].item() == 0x3f80 and got[3].item() == 0x3f82  # ties to even
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_bf16_instantiations_equal_f32_on_rounded(twin, btwin, ftwin, axis):
+    """Every Siddon kernel that reads the density, its bf16 instantiation on
+    the bf16 bricked copy against the float32 one on the float32 copy of the
+    density rounded to bf16, at the kernels' own lanes: siddon_fwd,
+    siddon_fwd_max (values and argmaxes), siddon_fwdgrad and the two-pass
+    backward's sum mode, bit for bit, on every ray (off-grid, long, short,
+    missing, partial entry slabs, the NaN ray); and the MIP backward on the
+    bf16 copy against the strided serial trace_bwd_rays on the rounded
+    density. The density spans values that bf16 rounds."""
+    rng = np.random.default_rng(300 + axis)
+    vol = torch.tensor(rng.uniform(0.1, 1.0, _BRICK_DIMS), dtype=torch.float32)
+    assert not torch.equal(_rounded(vol), vol)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis).contiguous()
+    R = rows.shape[1]
+    g = torch.tensor(rng.normal(size=R), dtype=torch.float32)
+    so = btwin(brick.BRICK)
+    own = len(_FWD_VARIANTS) - 1
+    res = {}
+    for copy in _copies(vol):
+        fwd, val, arg = _out(R), _out(R), _out(R, dtype=torch.int32)
+        _on_copy(so, "bt_siddon", copy, axis, (0, rows.data_ptr(), R), (fwd.data_ptr(),))
+        assert _on_copy(so, "bt_siddon_max", copy, axis, (own, rows.data_ptr(), R),
+                        (val.data_ptr(), arg.data_ptr())) == 0
+        fused, bwd, mip = _out(10, R), _out(9, R), _out(9, R)
+        _on_copy(ftwin, "ft_siddon", copy, axis, (_OWN, rows.data_ptr(), R), (fused.data_ptr(),))
+        _on_copy(ftwin, "ft_siddon_bwd_rays", copy, axis, (_OWN, rows.data_ptr(), R),
+                 (g.data_ptr(), bwd.data_ptr()))
+        _on_copy(ftwin, "ft_siddon_bwd_rays_mip", copy, axis, (rows.data_ptr(), R),
+                 (g.data_ptr(), arg.data_ptr(), mip.data_ptr()))
+        res[copy.storage] = (fwd, val, arg, fused, bwd, mip)
+    for name, a, b in zip(("fwd", "max", "argmax", "fwdgrad", "bwd_rays", "bwd_rays_mip"),
+                          res["bf16"], res[None]):
+        assert torch.equal(_bits(a), _bits(b)), name
+    fwd, val, arg, fused, bwd, mip = res["bf16"]
+    assert (fwd[:-1] > 0).sum() > 80 and (arg >= 0).sum() > 80
+    strided = _run_twin_bwd_rays(twin, rows, _rounded(vol), axis, g, arg)
+    assert torch.equal(_bits(mip), _bits(strided)) and torch.count_nonzero(mip) > 80
+
+
+@pytest.mark.parametrize("h", [1.0, 1.37], ids=["h1", "h1.37"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_bf16_instantiations_equal_f32_on_rounded(jtwin, btwin, ftwin, axis, h):
+    """Every Joseph kernel that reads the density, as the Siddon test above:
+    joseph_fwd, joseph_fwd_max, joseph_fwdgrad (sum and max), the two-pass
+    backward's sum mode, joseph_fwd_ch and joseph_bwd_rays_ch (the
+    labelmap's copy its int32 bits in both) at the kernels' own lanes, bit
+    for bit, and the MIP backward on the bf16 copy against the strided
+    serial trace_bwd_rays on the rounded density; integer and fractional h."""
+    rng = np.random.default_rng(310 + axis)
+    vol = torch.tensor(rng.uniform(0.1, 1.0, _BRICK_DIMS), dtype=torch.float32)
+    C = 3
+    lab = torch.tensor(rng.integers(-1, C + 1, _BRICK_DIMS), dtype=torch.int32)
+    rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h).contiguous()
+    R = rows.shape[1]
+    n = int(-(-_BRICK_DIMS[axis] // h))
+    march = (h, n, int(J.is_blend(h)))
+    g = torch.tensor(rng.normal(size=R), dtype=torch.float32)
+    gc = torch.tensor(rng.normal(size=(C, R)), dtype=torch.float32)
+    blab = brick_density(lab)
+    so = btwin(brick.BRICK)
+    own = len(_FWD_VARIANTS) - 1
+    res = {}
+    for copy in _copies(vol):
+        fwd, val, arg = _out(R), _out(R), _out(R, dtype=torch.int32)
+        _on_copy(so, "bt_joseph", copy, axis, (0, rows.data_ptr(), R), (*march, fwd.data_ptr()))
+        assert _on_copy(so, "bt_joseph_max", copy, axis, (own, rows.data_ptr(), R),
+                        (*march, val.data_ptr(), arg.data_ptr())) == 0
+        ch = _out(C, R)
+        _on_copy(so, "bt_joseph_ch", copy, axis, (own, 0, rows.data_ptr(), R),
+                 (blab.data.data_ptr(), *march, C, ch.data_ptr()))
+        out = [fwd, val, arg, ch]
+        for mip in (0, 1):
+            fused, farg = _out(8, R), _out(R, dtype=torch.int32)
+            assert _on_copy(ftwin, "ft_joseph", copy, axis, (_OWN, mip, rows.data_ptr(), R),
+                            (*march, fused.data_ptr(), farg.data_ptr())) == 0
+            out += [fused] + ([farg] if mip else [])
+        bwd, bwd_mip, bwd_ch = _out(7, R), _out(7, R), _out(7, R)
+        _on_copy(ftwin, "ft_joseph_bwd_rays", copy, axis, (_OWN, rows.data_ptr(), R),
+                 (*march, g.data_ptr(), bwd.data_ptr()))
+        _on_copy(ftwin, "ft_joseph_bwd_rays_mip", copy, axis, (rows.data_ptr(), R),
+                 (*march, g.data_ptr(), arg.data_ptr(), bwd_mip.data_ptr()))
+        _on_copy(ftwin, "ft_joseph_ch", copy, axis, (_OWN, rows.data_ptr(), R),
+                 (blab.data.data_ptr(), *march, C, gc.data_ptr(), bwd_ch.data_ptr()))
+        res[copy.storage] = out + [bwd, bwd_mip, bwd_ch]
+    names = ("fwd", "max", "argmax", "fwd_ch", "fwdgrad", "fwdgrad_max", "fwdgrad_argmax",
+             "bwd_rays", "bwd_rays_mip", "bwd_rays_ch")
+    for name, a, b in zip(names, res["bf16"], res[None]):
+        assert torch.equal(_bits(a), _bits(b)), name
+    fwd, _, arg = res["bf16"][:3]
+    assert (fwd[:-1] > 0).sum() > 80 and (arg >= 0).sum() > 80
+    strided = _JosephTwin(jtwin, rows, _rounded(vol), axis, h, n).bwd_rays(g, arg)
+    assert torch.equal(_bits(res["bf16"][8]), _bits(strided))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(21, 23, 13), (130, 67, 133)])
+def test_cuda_brick_copy_bf16_matches_torch(dims):
+    """brick_copy_bf16 on the card against its plain version on the card
+    (torch's CUDA rounding), bit for bit, NaN bits too, on a density with
+    ties, subnormals, values that round past the largest bf16, infinities
+    and NaNs; its float32 path unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    vol = rng.normal(size=dims).astype(np.float32)
+    flat = vol.reshape(-1).view(np.uint32)
+    flat[:8] = [0x3f808000, 0x3f818000, 0x00008000, 0x00000001, 0x7f7fffff, 0xff800000,
+                0x7fc00000, 0xffc00001]
+    d = torch.tensor(vol, device="cuda").permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    clear_cache()
+    got = brick_density(d, "bf16")
+    ref = brick_density_plain(d, "bf16")
+    assert got.data.dtype == torch.bfloat16 and got.data.shape == ref.data.shape
+    assert torch.equal(got.data.view(torch.int16), ref.data.view(torch.int16))
+    assert brick_density.launches_bf16 >= 1
+    assert torch.equal(brick_density(d).data.view(torch.int32),
+                       brick_density_plain(d).data.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cuda_bf16_kernels_equal_f32_on_rounded(axis):
+    """Every bf16 instantiation on the card against the float32 kernel on the
+    density rounded to bf16, bit for bit (values, argmaxes, rows), and
+    against its plain version on the finite rays (values 1e-4 of their
+    largest, the float32 tests' tolerance); Joseph at integer and fractional
+    h; every ray of ``_fwd_rays``, the NaN ray too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(320 + axis)
+    dims = (70, 66, 40)
+    vol = torch.tensor(rng.uniform(0.0, 1.0, dims), dtype=torch.float32, device="cuda")
+    rounded = _rounded(vol)
+    rows = _fwd_rays(rng, dims, axis).cuda()
+    g = torch.tensor(rng.normal(size=rows.shape[1]), dtype=torch.float32, device="cuda")
+    clear_cache()
+    got_max = K.siddon_fwd_max(rows, vol, axis, "bf16")
+    cases = [
+        (K.siddon_fwd(rows, vol, axis, "bf16"), K.siddon_fwd(rows, rounded, axis)),
+        (K.siddon_fwdgrad(rows, vol, axis, "bf16"), K.siddon_fwdgrad(rows, rounded, axis)),
+        (got_max, K.siddon_fwd_max(rows, rounded, axis)),
+        (K.siddon_bwd_rays(rows, vol, axis, g, None, "bf16"),
+         K.siddon_bwd_rays(rows, rounded, axis, g)),
+        (K.siddon_bwd_rays(rows, vol, axis, g, got_max[1], "bf16"),
+         K.siddon_bwd_rays(rows, rounded, axis, g, got_max[1])),
+    ]
+    lab = torch.tensor(rng.integers(-1, 4, dims), dtype=torch.int32, device="cuda")
+    for h in (1.0, 1.37):
+        jr = _fwd_rays(rng, dims, axis, quadrature="joseph", h=h).cuda()
+        n = int(-(-dims[axis] // h))
+        jg = torch.tensor(rng.normal(size=jr.shape[1]), dtype=torch.float32, device="cuda")
+        gc = torch.tensor(rng.normal(size=(3, jr.shape[1])), dtype=torch.float32, device="cuda")
+        jmax = J.joseph_fwd_max(jr, vol, axis, h, n, "bf16")
+        cases += [
+            (J.joseph_fwd(jr, vol, axis, h, n, "bf16"), J.joseph_fwd(jr, rounded, axis, h, n)),
+            (jmax, J.joseph_fwd_max(jr, rounded, axis, h, n)),
+            (J.joseph_fwdgrad(jr, vol, axis, h, n, "sum", "bf16")[0],
+             J.joseph_fwdgrad(jr, rounded, axis, h, n)[0]),
+            (J.joseph_fwdgrad(jr, vol, axis, h, n, "max", "bf16"),
+             J.joseph_fwdgrad(jr, rounded, axis, h, n, "max")),
+            (J.joseph_bwd_rays(jr, vol, axis, h, n, jg, None, "bf16"),
+             J.joseph_bwd_rays(jr, rounded, axis, h, n, jg)),
+            (J.joseph_bwd_rays(jr, vol, axis, h, n, jg, jmax[1], "bf16"),
+             J.joseph_bwd_rays(jr, rounded, axis, h, n, jg, jmax[1])),
+            (J.joseph_fwd_ch(jr, vol, lab, axis, h, n, 3, "bf16"),
+             J.joseph_fwd_ch(jr, rounded, lab, axis, h, n, 3)),
+            (J.joseph_bwd_rays_ch(jr, vol, lab, axis, h, n, gc, "bf16"),
+             J.joseph_bwd_rays_ch(jr, rounded, lab, axis, h, n, gc)),
+        ]
+        plain = J.joseph_fwd_plain(jr[:, :-1], vol, axis, h, n, "bf16")  # the finite rays
+        np.testing.assert_allclose(cases[-8][0][:-1].cpu(), plain.cpu(),
+                                   atol=1e-4 * plain.abs().max().item())
+    torch.cuda.synchronize()
+    for i, (got, ref) in enumerate(cases):
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(got, ref):
+            assert torch.equal(_bits(a), _bits(b)), i
+    plain = K.siddon_fwd_plain(rows[:, :-1], vol, axis, "bf16")
+    np.testing.assert_allclose(cases[0][0][:-1].cpu(), plain.cpu(),
+                               atol=1e-4 * plain.abs().max().item())
