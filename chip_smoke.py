@@ -267,7 +267,8 @@ Phases (any failure raises and the exit code is non-zero):
      channel render and backward, 5 trilinear registration steps;
  13d. at the main path's shapes (the main cell, Joseph's fused kernel in
      sum and max, both modes of each two-pass backward, the forwards at
-     320,000 rays, the 512^3 cube's forwards at 200^2 and 1000^2) each bf16
+     320,000 rays and at the lateral pose (axis 0, Joseph at h = 1.024),
+     the 512^3 cube's forwards at 200^2 and 1000^2) each bf16
      instantiation equal, bit for bit, to the float32 one on the density
      rounded to bf16, and to its plain version within phase 3's tolerances
      (not at 1000^2), the CT's bf16 copy to its plain version bit for bit;
@@ -294,7 +295,10 @@ joseph_fwd_max and joseph_bwd_rays their lateral pose's ``ms_lateral`` and
 The bf16 instantiations have entries of their own (``<kernel>_bf16``, with
 phase 13's launches, ``ms_f32``/``bound_ms_f32`` beside them from the same
 call, ``library_ms`` null: no one PyTorch call reads a bf16 copy and
-computes in float32). ``library_ms`` is one PyTorch call over the same
+computes in float32); the two bf16 forwards' at 200x200 also
+``ms_lateral``, ``ms_lateral_f32`` and ``bound_ms_lateral``, and theirs
+(at every shape) a ``design`` naming the raw 16-bit loads they keep in
+flight. ``library_ms`` is one PyTorch call over the same
 samples: F.grid_sample for the Joseph forwards; torch.ops.aten.grid_sampler_3d_backward's input
 gradient (grad_output g * scale) for joseph_bwd_vol and joseph_bwd_vol_ch
 (g the channel cotangent at each sample's label), its grid gradient for
@@ -525,6 +529,18 @@ def fused_design(header: str, constant: str = "kFusedLanes") -> str:
     text = (ROOT / "diffdrr_tpu_torch" / "csrc" / header).read_text()
     lanes = re.search(rf"constexpr int {constant} = (\d+);", text).group(1)
     return f"bricked copy, {lanes} lanes a ray"
+
+
+def raw_design(header: str, constant: str, unit: str) -> str:
+    """A bf16 forward's layout, for the record: the ``unit`` (slabs or
+    steps) of raw 16-bit loads it keeps in flight, as the header
+    ``csrc/<header>`` compiles them (``constant``)."""
+    import re
+
+    text = (ROOT / "diffdrr_tpu_torch" / "csrc" / header).read_text()
+    u = re.search(rf"constexpr int {re.escape(constant)} = (\d+);", text).group(1)
+    return (f"bf16 bricked copy, one thread a ray, {u} {unit} of raw 16-bit loads in flight, "
+            f"widened in the sums")
 
 
 def check_close(name, got, ref, rel):
@@ -2817,9 +2833,10 @@ def bf16_timings(T, reg, rec, rng, cube):
     held against the float32 one on the rounded CT and against its plain
     version, and both timed side by side (``side_by_side``), at the main
     cell (200^2, axis 2, h = 1) and the forwards at the recon cells' 320,000
-    rays; the copies of the CT (the bf16 one bit for bit its plain
-    version's); the 512^3 cube's (phase 5's subject) siddon_fwd and
-    joseph_fwd at 200^2 and 1000^2."""
+    rays and at the lateral pose (200^2, axis 0, Joseph at the trilinear
+    stride h = 1.024: two planes a sample); the copies of the CT (the bf16
+    one bit for bit its plain version's); the 512^3 cube's (phase 5's
+    subject) siddon_fwd and joseph_fwd at 200^2 and 1000^2."""
     import torch
 
     from diffdrr_tpu_torch.ops.kernels import brick
@@ -2836,6 +2853,8 @@ def bf16_timings(T, reg, rec, rng, cube):
     rows_v, _ = rays_of(drr, rec["rot_v"], rec["trans_v"], axis=2)
     jrows_m = jrays_of(drr, rot0, trans, 2, 1.0)
     jrows_v = jrays_of(drr, rec["rot_v"], rec["trans_v"], 2, 1.0)
+    rows_l, _ = rays_of(drr, torch.tensor(LATERAL_ROT, device=dev), trans, axis=0)
+    jrows_l, h_l, n_l = lateral_jrays(drr, dens)
     g = torch.tensor(rng.normal(size=rows_m.shape[1]), dtype=torch.float32, device=dev)
     gc = torch.tensor(rng.normal(size=(C, rows_m.shape[1])), dtype=torch.float32, device=dev)
     s_arg = K.siddon_fwd_max(rows_m, dens, 2, "bf16")[1]
@@ -2854,6 +2873,8 @@ def bf16_timings(T, reg, rec, rng, cube):
         "siddon_fwd": (K.siddon_fwd, K.siddon_fwd_plain, close, rows_m, (2,), *sid, FWD_BOUND),
         "siddon_fwd[320k]": (K.siddon_fwd, K.siddon_fwd_plain, close, rows_v, (2,), *sid,
                              FWD_BOUND),
+        "siddon_fwd[lateral]": (K.siddon_fwd, K.siddon_fwd_plain, close, rows_l, (0,), bound,
+                                (0,), FWD_BOUND),
         "siddon_fwdgrad": (K.siddon_fwdgrad, K.siddon_fwdgrad_plain, check_fused, rows_m, (2,),
                            *sid, FWDGRAD_BOUND),
         "siddon_fwd_max": (K.siddon_fwd_max, K.siddon_fwd_max_plain, check_max, rows_m, (2,),
@@ -2867,6 +2888,8 @@ def bf16_timings(T, reg, rec, rng, cube):
                        J_FWD_BOUND),
         "joseph_fwd[320k]": (J.joseph_fwd, J.joseph_fwd_plain, close, jrows_v, (2, 1.0, X),
                              *jos, J_FWD_BOUND),
+        "joseph_fwd[lateral]": (J.joseph_fwd, J.joseph_fwd_plain, close, jrows_l,
+                                (0, h_l, n_l), march_bound, (0, h_l, n_l), J_FWD_BOUND),
         "joseph_fwd_max": (J.joseph_fwd_max, J.joseph_fwd_max_plain, check_max, jrows_m,
                            (2, 1.0, X), *jos, J_FWD_MAX_BOUND),
         "joseph_fwdgrad": (J.joseph_fwdgrad, J.joseph_fwdgrad_plain, fused, jrows_m,
@@ -2985,12 +3008,16 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
         ("joseph_bwd_rays_ch_bf16", "joseph_bwd_rays_ch", "joseph_bwd_rays_ch", "joseph",
          f"{jpal}:600"),
     ]
+    designs = {"siddon_fwd": raw_design("siddon.cuh", "kFwdSlabs", "slabs"),
+               "joseph_fwd": raw_design("joseph.cuh", "kFwdStepsOf<brick::bf16>", "steps")}
     records = []
     for name, key, kernel, src, replaces in rows:
         t = times[key]
         # The error off the plain version at the main path's shapes (13d:
-        # the timed key, its MIP or max mode) and on phase 3's volume (13a).
-        err = max([errs[kernel]] + [times[k]["err"] for k in (key, f"{key}[mip]", f"{key}[max]")
+        # the timed key, its MIP, max mode or lateral pose) and on phase 3's
+        # volume (13a).
+        err = max([errs[kernel]] + [times[k]["err"] for k in (key, f"{key}[mip]", f"{key}[max]",
+                                                              f"{key}[lateral]")
                                     if k in times and times[k]["err"] is not None])
         rec_ = {"name": name, "route": "cuda", "source": f"diffdrr_tpu_torch/csrc/{src}.cu",
                 "replaces": replaces, "launches": launches(f"{kernel}_bf16"),
@@ -3003,6 +3030,12 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
             t_k = times[key.replace("200]", "1000]")]
             rec_.update(ms_1000=t_k["ms"], ms_1000_f32=t_k["ms_f32"],
                         bound_ms_1000=t_k["bound"][0])
+        if key in ("siddon_fwd", "joseph_fwd"):
+            t_l = times[f"{key}[lateral]"]
+            rec_.update(ms_lateral=t_l["ms"], ms_lateral_f32=t_l["ms_f32"],
+                        bound_ms_lateral=t_l["bound"][0])
+        if kernel in designs:
+            rec_["design"] = designs[kernel]
         if key in ("siddon_bwd_rays", "joseph_bwd_rays"):
             t_m = times[f"{key}[mip]"]
             rec_.update(ms_mip=t_m["ms"], ms_mip_f32=t_m["ms_f32"], bound_ms_mip=t_m["bound"][0])

@@ -22,12 +22,17 @@
 //
 // The copy's element is float32, or bf16 under storage="bf16" (the JAX
 // package's bf16 density storage): the volume is a template on its element
-// type T, float or bf16 (the 16 bits of a bfloat16), and load() widens a
-// bf16 to float32 exactly. A kernel's arithmetic after the load is the
-// same for both types, so a bf16 copy gives, bit for bit, what the float32
-// copy of the density rounded to bf16 gives. The rounding happens once, in
-// the copy (to_bf16 below, which brick.cu applies: round to nearest, ties
-// to even).
+// type T, float or bf16 (the 16 bits of a bfloat16). A read is two steps:
+// load_raw() fetches the element as it is stored, and widen() turns it into
+// float32, exactly (the identity for a float). load() is the two at once.
+// A kernel's arithmetic after the widening is the same for both types, so
+// a bf16 copy gives, bit for bit, what the float32 copy of the density
+// rounded to bf16 gives. The rounding happens once, in the copy (to_bf16
+// below, which brick.cu applies: round to nearest, ties to even). The two
+// one-thread-a-ray forwards keep their reads raw until the sums (siddon.cuh
+// and joseph.cuh, trace_fwd on a bf16 copy): a read widened where it lands
+// makes the thread wait on it there, so their batches of loads would not
+// be in flight together.
 #pragma once
 
 #include <stdint.h>
@@ -127,10 +132,19 @@ inline int with_axis(int axis, F f) {
   }
 }
 
-// One read of the read-only copy: the non-coherent load path on the device.
-BRICK_HD float load(const float* p) {
+// One read of the read-only copy, the element as it is stored: the
+// non-coherent load path on the device.
+BRICK_HD float load_raw(const float* p) {
 #if defined(__CUDA_ARCH__)
   return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+BRICK_HD bf16 load_raw(const bf16* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
 #else
   return *p;
 #endif
@@ -148,13 +162,16 @@ BRICK_HD float from_bf16(uint32_t bits) {
 #endif
 }
 
-// One read of a bf16 copy, widened to float32 exactly.
-BRICK_HD float load(const bf16* p) {
-#if defined(__CUDA_ARCH__)
-  return from_bf16(__ldg(reinterpret_cast<const unsigned short*>(p)));
-#else
-  return from_bf16(*p);
-#endif
+// A raw element as float32, exactly: the identity for a float, from_bf16
+// for a bf16 (its zero bits give +0.0).
+BRICK_HD float widen(float x) { return x; }
+
+BRICK_HD float widen(bf16 x) { return from_bf16(x); }
+
+// One read of the copy, widened to float32 where it lands.
+template <class T>
+BRICK_HD float load(const T* p) {
+  return widen(load_raw(p));
 }
 
 // x rounded to the nearest bf16, ties to even: __float2bfloat16_rn on the

@@ -51,14 +51,16 @@
 // step touched ~32 cache lines each; its loads alone took 1.12 ms of its
 // 1.07 at the CLI's 320,000 rays (fwd_timing.py's probes, PERF.md). On
 // 4x4x4 bricks (two lines each) those loads share a few lines (loads alone
-// 0.48 ms), and each thread keeps kFwdSteps = 4 steps' windows in flight
-// before adding them in step order, so the value is bit for bit the
-// strided serial one. The brick shape is a compile-time constant
-// (brick.cuh), so a voxel's address costs constant shifts and masks and
-// one multiply a brick stride. What bounds it now: the loads still, at ~2x
-// the march without them (0.20 ms of the kernel's 0.43-0.46). At 1000x1000
-// on the 512^3 CT, rays ~0.4 voxel apart, it is within ~2% of the strided
-// kernel (PERF.md).
+// 0.48 ms), and each thread reads kFwdSteps = 4 steps' windows before
+// adding them in step order, so the value is bit for bit the strided
+// serial one. (In blend mode those loads are not in flight together:
+// window's lerp multiplies each by 1 - fx as it lands, cuobjdump -sass,
+// PERF.md §6. The bf16 forward below keeps them apart.) The brick shape
+// is a compile-time constant (brick.cuh), so a voxel's address costs
+// constant shifts and masks and one multiply a brick stride. What bounds
+// it now: the loads still, at ~2x the march without them (0.20 ms of the
+// kernel's 0.43-0.46). At 1000x1000 on the 512^3 CT, rays ~0.4 voxel
+// apart, it is within ~2% of the strided kernel (PERF.md).
 //
 // joseph_fwd_max, the MIP render's kernel, is joseph_fwd's march with a
 // compare in place of the sum. One thread per ray on the strided density it
@@ -177,15 +179,26 @@
 // bf16 storage (the JAX package's storage="bf16"): every kernel that reads
 // the density has a second instantiation on a bf16 bricked copy (T =
 // brick::bf16, the C entry points *_bf16), one template argument and one
-// load overload (brick.cuh): each voxel is widened to float32 as it is
-// loaded, and the float32 kernel's arithmetic follows, so the result is the
-// float32 kernel's on the density rounded to bf16, bit for bit. The MIP
-// backward reads the bf16 bricked copy that the MIP forward made
+// load overload (brick.cuh): each voxel is widened to float32 exactly, and
+// the float32 kernel's arithmetic follows, so the result is the float32
+// kernel's on the density rounded to bf16, bit for bit. The MIP backward
+// reads the bf16 bricked copy that the MIP forward made
 // (joseph_bwd_rays_mip_bf16), not the strided density. The labelmap's copy
 // keeps its int32 bits; the scatters read no density and have one
-// instantiation. As in siddon.cu, ptxas widens each bf16 right after its
-// load, so joseph_fwd's kFwdSteps steps of loads in flight wait in turn
-// (PERF.md, bf16 storage).
+// instantiation. joseph_fwd_bf16 has a trace_fwd of its own
+// (joseph.cuh): each of kFwdStepsOf<bf16> = 2 steps loads its window raw
+// (window_raw: 4 16-bit loads, 8 in blend mode), and only then are they
+// widened and lerped across the plane pair (widen_window, window's float32
+// operations in its order) and summed, so all 8 (16) loads are in flight
+// together (cuobjdump -sass). A read widened where it lands (the first
+// bf16 build) waited on each in turn: 0.20 ms at 200^2 against 0.10 now. 2
+// steps from the probes at 1, 2, 4 and 8: even with 4 at 200^2 and 5%
+// slower at the lateral pose, but 11% faster at the recon-CLI's 320,000
+// rays and 10% on the cube at 1000^2, where more loads in flight cost more
+// than they hide (PERF.md). The float32 forward keeps window(), whose
+// lerp in blend mode reads each load as it lands: at the lateral pose
+// (h = 1.024) the bf16 forward is ~1.5-1.9x faster than it (PERF.md;
+// ROADMAP queue 2).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -209,7 +222,8 @@ joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<
                   joseph::March m, float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
-  out[r] = joseph::trace_fwd<joseph::kFwdSteps>(joseph::load_ray(rows, n_rays, r), vol, m);
+  joseph::Ray ray = joseph::load_ray(rows, n_rays, r);
+  out[r] = joseph::trace_fwd<joseph::kFwdStepsOf<T>>(ray, vol, m);
 }
 
 // G = kMaxLanes lanes a ray on the bricked copy, each lane the first

@@ -256,8 +256,14 @@ JOSEPH_HD void step_range(const Ray& r, const March& m, int* lo, int* hi) {
   *hi = (int)fminf(fmaxf(fhi, 0.f), (float)m.n_steps);
 }
 
-// The loads joseph_fwd keeps in flight: the windows of this many steps.
+// The loads joseph_fwd keeps in flight: the windows of this many steps;
+// kFwdStepsOf<T> on a copy of element T, a bf16 one's its own (joseph.cu
+// says why).
 constexpr int kFwdSteps = 4;
+template <class T>
+constexpr int kFwdStepsOf = kFwdSteps;
+template <>
+constexpr int kFwdStepsOf<brick::bf16> = 2;
 
 // sum over steps of sample * scale, from the strided density (Volume) or
 // its bricked copy (brick::Volume). U steps at a time: their windows first,
@@ -285,6 +291,78 @@ JOSEPH_HD float trace_fwd(const Ray& r, const Vol& v, const March& m) {
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (in[u]) acc += sample(st[u], win[u]);
+  }
+  return acc;
+}
+
+// The step's window on a bf16 copy as the copy stores it, where `read`:
+// raw[q][m][n] the 16 bits of window's voxel at plane k0 + q, y = fy + m,
+// z = fz + n, plane k0 + 1 only in blend mode, by voxel's bounds test
+// (each plane's part once); zero bits (+0.0 widened, as voxel's 0) outside
+// the volume and where nothing is read. All of them are loaded before any
+// is widened.
+template <int A>
+JOSEPH_HD void window_raw(const brick::Volume<A, brick::bf16>& v, const Step& s, bool blend,
+                          bool read, brick::bf16 raw[2][2][2]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    int k = s.k0 + q;
+    bool plane = read && (q == 0 || blend) && k >= 0 && k < v.X;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float fy = s.fy + (float)m;
+        float fz = s.fz + (float)n;
+        bool ok = plane && fy >= 0.f && fy < (float)v.Y && fz >= 0.f && fz < (float)v.Z;
+        raw[q][m][n] = ok ? brick::load_raw(v.data + brick::offset(v, k, (int)fy, (int)fz))
+                          : (brick::bf16)0;
+      }
+    }
+  }
+}
+
+// window's 2 x 2 from window_raw's bits: each widened, then lerped across
+// the plane pair in blend mode by window's float32 operations in its order.
+JOSEPH_HD void widen_window(const brick::bf16 raw[2][2][2], const Step& s, bool blend,
+                            float win[2][2]) {
+  for (int m = 0; m < 2; ++m) {
+    for (int n = 0; n < 2; ++n) {
+      float w0 = brick::widen(raw[0][m][n]);
+      win[m][n] = blend ? w0 * (1.f - s.fx) + brick::widen(raw[1][m][n]) * s.fx : w0;
+    }
+  }
+}
+
+// trace_fwd on a bf16 copy: U steps' windows loaded raw first (window_raw:
+// 4U loads in flight, 8U in blend mode), then each widened and lerped
+// (widen_window) and its sample added in step order. The same float32
+// operations on the same values as the float32 copy's trace_fwd, so the
+// value is its value on the density rounded to bf16, bit for bit.
+template <int U = 1, int A>
+JOSEPH_HD float trace_fwd(const Ray& r, const brick::Volume<A, brick::bf16>& v,
+                          const March& m) {
+  int lo, hi;
+  step_range(r, m, &lo, &hi);
+  float acc = 0.f;
+  for (int p0 = lo; p0 < hi; p0 += U) {
+    Step st[U];
+    bool in[U];
+    brick::bf16 raw[U][2][2][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      st[u] = step_at(r, m, v.X, p0 + u);
+      in[u] = p0 + u < hi && st[u].inslab;  // outside the slab: scale 0, the step adds 0
+      window_raw(v, st[u], m.blend, in[u], raw[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (in[u]) {
+        float win[2][2];
+        widen_window(raw[u], st[u], m.blend, win);
+        acc += sample(st[u], win);
+      }
+    }
   }
   return acc;
 }

@@ -136,18 +136,23 @@
 // bf16 storage (the JAX package's storage="bf16"): every kernel that reads
 // the bricked copy has a second instantiation on a bf16 copy (T =
 // brick::bf16, the C entry points *_bf16), which widens each voxel to
-// float32 as it loads it and then does the float32 kernel's arithmetic, so
-// it gives the float32 kernel's result on the density rounded to bf16, bit
+// float32 exactly and then does the float32 kernel's arithmetic, so it
+// gives the float32 kernel's result on the density rounded to bf16, bit
 // for bit. The MIP backward reads the bf16 bricked copy that the MIP
 // forward made (siddon_bwd_rays_mip_bf16), not the strided density, so the
 // rounded values need no second copy. The scatter reads no density and has
-// one instantiation. What the bf16 instantiations cost: ptxas places each
-// widening (an integer multiply by 2^16) right after its 16-bit load, so a
-// thread waits on each load in turn where the float32 build keeps
-// siddon_fwd's kFwdSlabs slabs of loads in flight (cuobjdump -sass of the
-// build); the one-thread-per-ray forward loses most, the lanes kernels
-// (one slab a lane in flight) little (PERF.md, bf16 storage). Keeping the
-// loaded bits raw until the sums is later work.
+// one instantiation. siddon_fwd_bf16 keeps its reads raw: trace_fwd types
+// its V[U][3] by the copy's element (read_raw), so the kFwdSlabs = 4
+// slabs' 12 16-bit loads all issue before the sums widen the first of
+// them (cuobjdump -sass: 12 in flight, as the float32 build's 12 floats).
+// A read widened where it lands (the first bf16 build, brick::load) makes
+// the thread wait on each load in turn: 0.19-0.20 ms at 200^2 against
+// 0.10-0.11 now (fwd_timing.py's probes, PERF.md). 4 slabs from the probes
+// at 1, 2, 4 and 8: 8 is 2-7% faster at 200^2 and 3-7% slower at 320,000
+// rays and on the cube at 1000^2. The raw reads leave the float32
+// instantiation's code as it was, instruction for instruction
+// (sass_check.py). The lane kernels still widen each read where it lands
+// (one slab a lane in flight: 3-15% slower than float32, PERF.md).
 #include <cuda_runtime.h>
 
 #include "siddon.cuh"

@@ -153,20 +153,53 @@ SIDDON_HD void slab_range(const Ray& r, int X, int* lo, int* hi) {
   *hi = (int)fminf(fmaxf(fhi, 0.f), (float)X);
 }
 
-// The loads siddon_fwd keeps in flight: the segments of this many slabs.
+// The loads siddon_fwd keeps in flight: the segments of this many slabs,
+// on a float32 copy and on a bf16 one alike.
 constexpr int kFwdSlabs = 4;
+
+// The voxel that voxel() reads from a bf16 copy, as the copy stores it: its
+// 16 bits, by the same bounds test; zero bits outside (+0.0 widened, as
+// voxel's 0).
+template <int A>
+SIDDON_HD brick::bf16 voxel_raw(const brick::Volume<A, brick::bf16>& v, int s, float fy,
+                                float fz) {
+  if (!(fy >= 0.f && fy < (float)v.Y && fz >= 0.f && fz < (float)v.Z)) return 0;
+  return brick::load_raw(v.data + brick::offset(v, s, (int)fy, (int)fz));
+}
+
+// trace_fwd's read of segment j of slab s (sl its segments, hi the end of
+// the ray's slabs), as the volume stores it: voxel()'s float, or on a bf16
+// copy the 16 bits (voxel_raw), left raw for the sums to widen. A slab past
+// hi or a zero-length segment (which adds 0 * V) reads nothing: 0, or zero
+// bits.
+template <class Vol>
+SIDDON_HD float read_raw(const Vol& v, int s, int hi, const Slab& sl, int j) {
+  return (s < hi && sl.len[j] > 0.f) ? voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]) : 0.f;
+}
+
+template <int A>
+SIDDON_HD brick::bf16 read_raw(const brick::Volume<A, brick::bf16>& v, int s, int hi,
+                               const Slab& sl, int j) {
+  return (s < hi && sl.len[j] > 0.f) ? voxel_raw(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j])
+                                     : (brick::bf16)0;
+}
 
 // sum over slabs of w * (len1 V1 + len2 V2 + len3 V3), from the strided
 // density (Volume) or its bricked copy (brick::Volume). U slabs at a time:
 // their segments and reads first, so up to 3U loads are in flight, then
-// their sums in slab order, so the value is bit for bit the U = 1 one.
+// their sums in slab order, so the value is bit for bit the U = 1 one. The
+// reads stay as the volume stores them (read_raw) until the sums widen
+// them, so a bf16 copy's 3U loads are in flight together too, and its sums
+// are the float32 ones on the density rounded to bf16.
 template <int U = 1, class Vol>
 SIDDON_HD float trace_fwd(const Ray& r, const Vol& v) {
+  using E = decltype(read_raw(v, 0, 0, Slab(), 0));
   int lo, hi;
   slab_range(r, v.X, &lo, &hi);
   float acc = 0.f;
   for (int s0 = lo; s0 < hi; s0 += U) {
-    float len[U][3], V[U][3];
+    float len[U][3];
+    E V[U][3];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       int s = s0 + u;
@@ -174,9 +207,7 @@ SIDDON_HD float trace_fwd(const Ray& r, const Vol& v) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         len[u][j] = sl.len[j];
-        // A zero-length segment adds 0 * V: skip its read.
-        V[u][j] = (s < hi && sl.len[j] > 0.f) ? voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j])
-                                              : 0.f;
+        V[u][j] = read_raw(v, s, hi, sl, j);
       }
     }
 #pragma unroll
@@ -184,7 +215,7 @@ SIDDON_HD float trace_fwd(const Ray& r, const Vol& v) {
       if (s0 + u >= hi) break;
       float seg = 0.f;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) seg += V[u][j] * len[u][j];
+      for (int j = 0; j < 3; ++j) seg += brick::widen(V[u][j]) * len[u][j];
       acc += r.w * seg;
     }
   }

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the two forward gathers of a checkout on one CUDA card.
 
-    python3 diffdrr_tpu_torch/experiments/fwd_timing.py [--root DIR] [--no-probes]
+    python3 diffdrr_tpu_torch/experiments/fwd_timing.py [--root DIR] [--no-probes | --bf16-only]
 
 Imports ``diffdrr_tpu_torch`` from ``DIR`` (default: the checkout that holds
 this file), so one card can time two commits in turns: unpack each into a
@@ -11,18 +11,24 @@ The timings go through the public wrappers ``siddon_fwd`` and
 has; the copy and the probes need a checkout with ``ops/kernels/brick.py``
 and are skipped in one without it.
 
-Cases, each with the march axis 2: ``siddon_fwd`` at the recon cell's rays
-(8 views of 200x200 on the 512x512x133 CT) and at one 200x200 view of the
-main pose; ``joseph_fwd`` at the recon-CLI cell's rays (8 views of 200x200,
-delx 3, on the CLI's 512x512x128 CT, trilinear h = 1) and at the main pose's
-200x200 view (h = 1); both on the 512^3 CT at 200x200 and 1000x1000. For
-each, median CUDA-event times (``scatter_timing.events_ms``):
+Cases, each with the march axis 2 but the lateral ones: ``siddon_fwd`` at
+the recon cell's rays (8 views of 200x200 on the 512x512x133 CT) and at one
+200x200 view of the main pose; ``joseph_fwd`` at the recon-CLI cell's rays
+(8 views of 200x200, delx 3, on the CLI's 512x512x128 CT, trilinear h = 1)
+and at the main pose's 200x200 view (h = 1); both at the lateral pose's
+200x200 view (march axis 0, the CT's 512 planes; Joseph at the trilinear
+stride h = 1.024, which blends two planes a sample); both on the 512^3 CT
+at 200x200 and 1000x1000. For each, median CUDA-event times
+(``scatter_timing.events_ms``):
 
   * ``kernel``: the wrapper with the density's bricked copy already made
     (in a checkout without the copy: the wrapper, which is the kernel);
   * ``with_copy``: the wrapper with the copy made anew in each call;
   * ``copy``: ``brick.brick_density`` alone (the ``brick_copy`` kernel), and
-    ``copy_plain``: its plain version (strided PyTorch copies).
+    ``copy_plain``: its plain version (strided PyTorch copies);
+  * ``f32_bf16``: in a checkout with bf16 storage, the wrapper on the float32
+    copy and on the bf16 one (``storage="bf16"``), in turns f32, bf16, bf16,
+    f32, the copies cached.
 
 Probes (built from ``fwd_probes.cu`` next to this file, on the recon
 cells, the main pose and the cube at 1000x1000, C entry points called
@@ -37,6 +43,15 @@ for Joseph at the recon-CLI's rays, ``F.grid_sample`` (trilinear, zero
 padding) over the same sample points (``chip_smoke.grid_sample_ms`` of the
 checkout that holds this file).
 
+bf16 probes (the 4x4x4 build's ``probe_*_fwd_bf16``, on the bf16 copy, at
+every case but the cube at 200x200; ``--bf16-only`` runs these and the
+cases without the float32 probes): the forward at 1, 2, 4 and 8 slabs
+(steps) in flight as the package builds it (reads kept raw until the
+sums), as the first bf16 build had it (each read widened where it lands),
+and with its raw reads made by a branch around each load or by a
+predicated load in inline PTX; and the raw loads only, where the float32
+probe has them.
+
 Prints one line per case and, last, one JSON object with every number and
 the card (``nvidia-smi`` name and power limit). Fails without a card.
 """
@@ -47,6 +62,7 @@ import argparse
 import ctypes
 import hashlib
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -57,6 +73,11 @@ BENCH_TRANS = [[0.0, 850.0, 0.0]]
 N_VIEWS = 8
 KW = dict(parameterization="euler_angles", convention="ZXY")
 PROBE_BRICKS = ((4, 4, 2), (4, 4, 4), (2, 2, 8), (2, 4, 4), (1, 4, 8), (8, 4, 1))
+# The lateral pose (chip_smoke.LATERAL_ROT): march axis 0.
+LATERAL_ROT = [[3.141592653589793 / 2 + 0.02, 0.01, -0.01]]
+# fwd_probes.cu's bf16 variants, by its numbering.
+BF16_VARIANTS = ("package", "widened", "raw_branch", "raw_predicated")
+BF16_UNROLLS = (1, 2, 4, 8)
 HERE = Path(__file__).resolve().parent
 
 
@@ -85,20 +106,25 @@ def build_sources(src, define_sets):
     return outs
 
 
-def build_probes():
-    """Build fwd_probes.cu once for each brick shape of PROBE_BRICKS
+def build_probes(shapes=PROBE_BRICKS):
+    """Build fwd_probes.cu once for each brick shape of ``shapes``
     (brick.cuh's BRICK_L0..L2 given with -D); the loaded libraries by shape."""
     outs = build_sources(HERE / "fwd_probes.cu",
                          [[f"-DBRICK_L{d}={b.bit_length() - 1}" for d, b in enumerate(shape)]
-                          for shape in PROBE_BRICKS])
+                          for shape in shapes])
     libs = {}
     v, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     head = [i32, i32, i32, v, i64, v, i64, i64, i64, v] + [i32] * 7
-    for shape, out in zip(PROBE_BRICKS, outs):
+    for shape, out in zip(shapes, outs):
         lib = ctypes.CDLL(str(out))
         lib.probe_siddon_fwd.argtypes = head + [v, v]
         lib.probe_joseph_fwd.argtypes = head + [ctypes.c_float, i32, i32, v, v]
         lib.probe_siddon_fwd.restype = lib.probe_joseph_fwd.restype = i32
+        if shape == (4, 4, 4):  # the kernels' own shape's build has the bf16 probes
+            bf = [i32, i32, i32, v, i64, v] + [i32] * 7
+            lib.probe_siddon_fwd_bf16.argtypes = bf + [v, v]
+            lib.probe_joseph_fwd_bf16.argtypes = bf + [ctypes.c_float, i32, i32, v, v]
+            lib.probe_siddon_fwd_bf16.restype = lib.probe_joseph_fwd_bf16.restype = i32
         libs[shape] = lib
     return libs
 
@@ -179,11 +205,49 @@ def probe_case(libs, family, rows, density, axis, march, events_ms, side=200):
     return res
 
 
+def bf16_probe_case(lib, family, rows, density, axis, march, events_ms):
+    """Time fwd_probes.cu's bf16 probes on ``density``'s bf16 copy (see the
+    module docstring); ms by name: ``<variant>_u<U>`` and ``loads_only_u<U>``
+    (integer h only), and ``max_abs_diff``, the largest difference of any
+    variant's output from the package's at U = 8 (0: the same sums)."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    rows = rows.contiguous()
+    n = rows.shape[1]
+    bv = brick.brick_density(density, "bf16")
+    outs = {}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(variant, kind, unroll):
+        out = outs.setdefault((variant, kind, unroll),
+                              torch.empty(n, dtype=torch.float32, device=rows.device))
+        fn = lib.probe_siddon_fwd_bf16 if family == "siddon" else lib.probe_joseph_fwd_bf16
+        rc = fn(variant, kind, unroll, rows.data_ptr(), n, bv.data.data_ptr(), *bv.args(axis),
+                *march, out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"bf16 probe {family} {variant}/{kind}/{unroll} failed: {rc}")
+
+    res = {}
+    for u in BF16_UNROLLS:
+        for k, name in enumerate(BF16_VARIANTS):
+            res[f"{name}_u{u}"] = events_ms(lambda: run(k, 0, u))
+        if family == "siddon" or not march[2]:
+            res[f"loads_only_u{u}"] = events_ms(lambda: run(0, 2, u))
+    own = outs[(0, 0, BF16_UNROLLS[-1])]
+    res["max_abs_diff"] = max(float((out - own).abs().max())
+                              for (_, kind, _), out in outs.items() if kind == 0)
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE.parents[1],
                         help="checkout whose diffdrr_tpu_torch is timed")
     parser.add_argument("--no-probes", action="store_true", help="time the cases only")
+    parser.add_argument("--bf16-only", action="store_true",
+                        help="time the cases and the bf16 probes, not the float32 probes")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
     import torch
@@ -211,7 +275,10 @@ def main(argv=None) -> int:
     label = args.root.resolve().name
     print(f"[fwd_timing] {label}: package {Path(T.__file__).parent}; {card}", flush=True)
     build.build_all()
-    libs = None if args.no_probes or brick is None else build_probes()
+    libs = (None if args.no_probes or brick is None
+            else build_probes(((4, 4, 4),) if args.bf16_only else PROBE_BRICKS))
+    # bf16 storage: the wrappers take storage= and the 4x4x4 build has the bf16 probes
+    bf16 = brick is not None and "storage" in inspect.signature(K.siddon_fwd).parameters
     grid_sample_ms = smoke_module().grid_sample_ms
     dev = torch.device("cuda")
     thetas = np.linspace(0, np.pi, N_VIEWS, endpoint=False)
@@ -221,19 +288,20 @@ def main(argv=None) -> int:
     rot0 = torch.tensor(BENCH_ROT, device=dev)
     trans0 = torch.tensor(BENCH_TRANS, device=dev)
 
-    def rows_of(drr, rot, trans, **prep):
+    def rows_of(drr, rot, trans, axis=2, **prep):
         src, tgt = drr.detector(T.convert(rot, trans, **KW))
         w = torch.linalg.vector_norm(tgt - src, dim=-1)[:, None, :]
-        return prep_rays(drr.affine_inverse(src), drr.affine_inverse(tgt), w, 2,
+        return prep_rays(drr.affine_inverse(src), drr.affine_inverse(tgt), w, axis,
                          drr.density.shape, **prep)
 
     cases = {}
 
-    def case(name, family, rows, density, march=(), probes=False, library=False, side=200):
-        def fwd():
+    def case(name, family, rows, density, march=(), probes=False, library=False, side=200,
+             axis=2, bf16_probes=True):
+        def fwd(*storage):
             if family == "siddon":
-                return K.siddon_fwd(rows, density, 2)
-            return J.joseph_fwd(rows, density, 2, *march[:2])
+                return K.siddon_fwd(rows, density, axis, *storage)
+            return J.joseph_fwd(rows, density, axis, *march[:2], *storage)
 
         c = {"rays": rows.shape[1], "kernel": events_ms(fwd)}
         if brick is not None:
@@ -241,17 +309,27 @@ def main(argv=None) -> int:
             c["copy"] = events_ms(lambda: brick.brick_density(density))
             c["copy_plain"] = events_ms(lambda: brick.brick_density_plain(density))
             brick.clear_cache()
-        if probes and libs is not None:
-            c["probes"] = probe_case(libs, family, rows, density, 2, march, events_ms, side)
+        if bf16:
+            c["f32_bf16"] = [events_ms(lambda: fwd(s)) for s in (None, "bf16", "bf16", None)]
+        if probes and libs is not None and not args.bf16_only:
+            c["probes"] = probe_case(libs, family, rows, density, axis, march, events_ms, side)
+        if bf16 and bf16_probes and libs is not None:
+            c["bf16_probes"] = bf16_probe_case(libs[(4, 4, 4)], family, rows, density, axis,
+                                               march, events_ms)
         if library:
-            c["grid_sample"] = grid_sample_ms(rows, density, 2, *march[:2], events_ms)
+            c["grid_sample"] = grid_sample_ms(rows, density, axis, *march[:2], events_ms)
+        if brick is not None:
+            brick.clear_cache()
         cases[name] = c
         extra = "".join(f", {k} {v:.4f}" for k, v in c.items()
                         if k in ("with_copy", "copy", "copy_plain", "grid_sample"))
+        if "f32_bf16" in c:
+            extra += ", f32/bf16/bf16/f32 " + " ".join(f"{v:.4f}" for v in c["f32_bf16"])
         print(f"[fwd_timing] {label} {name} ({c['rays']} rays): kernel {c['kernel']:.4f} ms"
               + extra, flush=True)
-        for k, v in c.get("probes", {}).items():
-            print(f"[fwd_timing] {label} probe {name} {k} {v:.4f} ms", flush=True)
+        for group in ("probes", "bf16_probes"):
+            for k, v in c.get(group, {}).items():
+                print(f"[fwd_timing] {label} {group[:-1]} {name} {k} {v:.4g}", flush=True)
 
     main_ct = T.load_example_ct()
     drr = T.DRR(main_ct, sdd=1020.0, height=200, delx=2.0)
@@ -260,6 +338,13 @@ def main(argv=None) -> int:
     X = drr.density.shape[2]
     case("joseph_fwd 200^2", "joseph", rows_of(drr, rot0, trans0, quadrature="joseph", h=1.0),
          drr.density, (1.0, X, 0), probes=True)
+    rot_l = torch.tensor(LATERAL_ROT, device=dev)
+    case("siddon_fwd lateral 200^2", "siddon", rows_of(drr, rot_l, trans0, 0), drr.density,
+         axis=0)
+    h_l, n_l = raymarch_steps(drr.density.shape[0], 500)  # the trilinear stride, 1.024
+    case("joseph_fwd lateral 200^2", "joseph",
+         rows_of(drr, rot_l, trans0, 0, quadrature="joseph", h=h_l),
+         drr.density, (h_l, n_l, int(J.is_blend(h_l))), axis=0)
     del drr, main_ct
     cli_ct = T.load_example_ct(shape=(512, 512, 128))  # the CLI's --volume-size 512
     drr_t = T.DRR(cli_ct, sdd=1020.0, height=200, delx=3.0, renderer="trilinear")
@@ -272,10 +357,10 @@ def main(argv=None) -> int:
     for side, delx in ((200, 2.0), (1000, 0.4)):
         drr_c = T.DRR(cube, sdd=1020.0, height=side, delx=delx)
         case(f"siddon_fwd cube {side}^2", "siddon", rows_of(drr_c, rot0, trans0), drr_c.density,
-             probes=side == 1000, side=side)
+             probes=side == 1000, side=side, bf16_probes=side == 1000)
         case(f"joseph_fwd cube {side}^2", "joseph",
              rows_of(drr_c, rot0, trans0, quadrature="joseph", h=1.0), drr_c.density,
-             (1.0, 512, 0), probes=side == 1000, side=side)
+             (1.0, 512, 0), probes=side == 1000, side=side, bf16_probes=side == 1000)
     print(json.dumps({"label": label, "card": card, "cases": cases}), flush=True)
     return 0
 

@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""Read the SASS of the forward gathers' loads, and diff a checkout's kernels.
+
+    python3 diffdrr_tpu_torch/experiments/sass_check.py [--parent DIR] [--out DIR]
+
+Builds the package's CUDA libraries (``ops/kernels/build.py``) and the
+4x4x4 build of ``fwd_probes.cu`` (as ``fwd_timing.py`` does), and disassembles
+them with ``cuobjdump -sass``. Needs nvcc and cuobjdump (the CUDA toolkit),
+not a card.
+
+For each forward gather on a bf16 copy (``siddon_fwd_kernel`` and
+``joseph_fwd_kernel`` at each march axis, and every bf16 probe variant at
+each unroll), and on a float32 copy for comparison, a straight walk over
+its instructions counts the loads of the copy's voxels (``LDG`` of 16 bits
+for bf16, of 32 for float32) and, at each instruction, how many of them are
+in flight: issued, their register not yet read or overwritten. ``peak``,
+the most in flight at once, is the batch of loads the thread waits on
+together: 3U for Siddon with U slabs in flight, 4U (8U in blend mode) for
+Joseph, when every load of a batch issues before the first of them is read;
+1 or 2 when each read is widened where it lands. ``first_use_run`` is the
+number of such loads issued before the first one is read. The walk takes
+the instructions in address order, both arms of a branch alike: a load
+read at once on one arm only (the float32 Joseph forward's lerp, taken in
+blend mode alone) counts as read.
+
+With ``--parent DIR`` (a checkout of another commit, e.g. unpacked with
+``git archive``), its ``csrc/*.cu`` are built with this checkout's nvcc
+flags and every kernel's SASS is compared with this checkout's by name,
+each instruction without its address and encoding: the kernels whose code
+differs, and those in one build only.
+
+Each forward's registers a thread come from ``cuobjdump -res-usage``.
+Prints one line per kernel and, last, one JSON object; with ``--out`` also
+writes the SASS of the forward gathers there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+# Opcodes whose first operand is read, not written.
+_NO_DEST = ("ST", "RED", "BRA", "EXIT", "RET", "CALL", "BSYNC", "BSSY", "WARPSYNC", "NOP",
+            "BAR", "BPT", "JMP", "YIELD")
+_REG = re.compile(r"(?<![A-Z_])R(\d+)(\.64|\.128)?\b")
+_FORWARDS = ("siddon_fwd_kernel", "joseph_fwd_kernel", "probe::siddon_fwd_bf16",
+             "probe::joseph_fwd_bf16")
+
+
+def _tool(name):
+    for cand in (Path("/usr/local/cuda/bin") / name, shutil.which(name)):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError(f"{name} not found: needs the CUDA toolkit")
+
+
+def disassemble(lib: Path) -> dict:
+    """{demangled kernel name: [(address, instruction text without its
+    address or encoding)]}."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    mangled, funcs, cur = [], {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            mangled.append(cur)
+            funcs[cur] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            funcs[cur].append((int(m.group(1), 16), m.group(2)))
+    names = demangle(mangled)
+    return {n: funcs[m] for n, m in zip(names, mangled)}
+
+
+def demangle(mangled):
+    try:
+        return subprocess.run([_tool("cu++filt")], input="\n".join(mangled),
+                              capture_output=True, text=True, check=True,
+                              timeout=60).stdout.splitlines()
+    except (RuntimeError, subprocess.CalledProcessError):
+        return list(mangled)
+
+
+def registers(lib: Path) -> dict:
+    """{mangled kernel name: registers a thread} (``cuobjdump -res-usage``)."""
+    text = subprocess.run([_tool("cuobjdump"), "-res-usage", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"Function (\S+):\s*REG:(\d+)", text)}
+
+
+def _regs(operand):
+    out = []
+    for m in _REG.finditer(operand):
+        k = int(m.group(1))
+        width = {".64": 2, ".128": 4}.get(m.group(2) or "", 1)
+        out += range(k, k + width)
+    return out
+
+
+def main_loop(instrs):
+    """The instructions of the widest loop (from the target of a backward
+    branch to the branch), or all of them where there is none."""
+    span = None
+    for addr, ins in instrs:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            if span is None or addr - lo > span[1] - span[0]:
+                span = (lo, addr)
+    if span is None:
+        return [ins for _, ins in instrs]
+    return [ins for addr, ins in instrs if span[0] <= addr <= span[1]]
+
+
+def loads_in_flight(instrs, bits):
+    """(loads, peak, first_use_run) of the ``bits``-wide LDGs in ``instrs``
+    (texts, in order)."""
+    pending = set()
+    loads = peak = 0
+    first_use_run = None
+    for ins in instrs:
+        ins = re.sub(r"^@!?U?P[T0-9]+\s+", "", ins)
+        parts = ins.split(None, 1)
+        op = parts[0]
+        operands = [o.strip() for o in parts[1].split(",")] if len(parts) > 1 else []
+        has_dest = operands and not op.startswith(_NO_DEST)
+        srcs = [r for o in (operands[1:] if has_dest else operands) for r in _regs(o)]
+        if pending & set(srcs):
+            if first_use_run is None:
+                first_use_run = loads
+            pending -= set(srcs)
+        dests = _regs(operands[0]) if has_dest else []
+        if has_dest and ".WIDE" in op and len(dests) == 1:
+            dests.append(dests[0] + 1)
+        pending -= set(dests)
+        is_load = op.startswith("LDG") and (".U16" in op if bits == 16 else
+                                            not re.search(r"\.(U|S)(8|16)|\.64|\.128", op))
+        if is_load and dests:
+            loads += 1
+            pending.add(dests[0])
+            peak = max(peak, len(pending))
+    return loads, peak, first_use_run
+
+
+def build_parent(parent: Path, out_dir: Path):
+    """The parent checkout's libraries, built with this checkout's nvcc flags."""
+    from diffdrr_tpu_torch.ops.kernels import build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, libs = [], {}
+    for name in build.SOURCES:
+        lib = out_dir / f"lib{name}.so"
+        src = parent / "diffdrr_tpu_torch" / "csrc" / f"{name}.cu"
+        procs.append(subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                                       str(src)]))
+        libs[name] = lib
+    for p in procs:
+        if p.wait(timeout=900) != 0:
+            raise RuntimeError(f"nvcc failed on the parent: {p.args}")
+    return libs
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, help="checkout whose kernels to diff against")
+    parser.add_argument("--out", type=Path, help="directory for the forwards' SASS")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(HERE.parents[1]))
+    from diffdrr_tpu_torch.experiments.fwd_timing import build_sources
+    from diffdrr_tpu_torch.ops.kernels import build
+
+    build.build_all()
+    libs = {name: build._lib_path(name) for name in build.SOURCES}
+    libs["fwd_probes"] = build_sources(HERE / "fwd_probes.cu",
+                                       [[f"-DBRICK_L{d}=2" for d in range(3)]])[0]
+    sass, regs = {}, {}
+    for name, lib in libs.items():
+        sass.update({(name, k): v for k, v in disassemble(lib).items()})
+        used = registers(lib)
+        regs.update(zip(demangle(list(used)), used.values()))
+    report = {"kernels": {}, "diff": None}
+    for (lib, name), instrs in sorted(sass.items()):
+        if not any(f in name for f in _FORWARDS):
+            continue
+        bits = 16 if ("unsigned short" in name or "_bf16" in name) else 32
+        loop = main_loop(instrs)
+        loads, peak, first = loads_in_flight(loop, bits)
+        report["kernels"][name] = dict(lib=lib, instructions=len(instrs), loop=len(loop),
+                                       loads=loads, peak=peak, first_use_run=first,
+                                       registers=regs.get(name))
+        print(f"[sass] {name}: {len(instrs)} instructions, {regs.get(name)} registers, loop "
+              f"{len(loop)}: {loads} LDG of {bits} bits, peak in flight {peak}, issued before "
+              f"the first read {first}", flush=True)
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            safe = re.sub(r"[^A-Za-z0-9_]+", "_", name)[:150]
+            (args.out / f"{lib}.{safe}.sass").write_text(
+                "".join(f"/*{a:04x}*/ {t}\n" for a, t in instrs))
+    if args.parent is not None:
+        parent_libs = build_parent(args.parent.resolve(), build.BUILD_ROOT / "sass-parent")
+        old = {}
+        for name, lib in parent_libs.items():
+            old.update({(name, k): v for k, v in disassemble(lib).items()})
+        ours = {k: [t for _, t in v] for k, v in sass.items() if k[0] in build.SOURCES}
+        old = {k: [t for _, t in v] for k, v in old.items()}
+        same = sorted(k[1] for k in ours.keys() & old.keys() if ours[k] == old[k])
+        differ = sorted(k[1] for k in ours.keys() & old.keys() if ours[k] != old[k])
+        report["diff"] = dict(same=len(same), differ=differ,
+                              only_here=sorted(k[1] for k in ours.keys() - old.keys()),
+                              only_parent=sorted(k[1] for k in old.keys() - ours.keys()))
+        float_differ = [n for n in differ if "unsigned short" not in n]
+        print(f"[sass] against {args.parent}: {len(same)} kernels the same instruction for "
+              f"instruction, {len(differ)} differ ({len(float_differ)} of them not bf16): "
+              f"{differ}; only here {report['diff']['only_here']}; only in the parent "
+              f"{report['diff']['only_parent']}", flush=True)
+        if args.out is not None:
+            for (lib, name), instrs in old.items():
+                if name in differ:
+                    safe = re.sub(r"[^A-Za-z0-9_]+", "_", name)[:150]
+                    (args.out / f"parent.{lib}.{safe}.sass").write_text("\n".join(instrs) + "\n")
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1012,26 +1012,23 @@ static void with_axis(int axis, F f) {
   }
 }
 // trace_fwd on the bricked copy with `unroll` slabs (steps) in flight; 0
-// takes the kernels' own count (kFwdSlabs, kFwdSteps). A bf16 copy (T not
-// float) takes the kernels' own count only.
-template <class T, class F>
+// takes the kernels' own count (kFwdSlabs; kFwdStepsOf for the copy's
+// element T).
+template <class F>
 static void each_unroll(int unroll, F f) {
-  if constexpr (!std::is_same<T, float>::value) {
-    f(std::integral_constant<int, 0>());
-  } else {
-    switch (unroll) {
-      case 1: f(std::integral_constant<int, 1>()); break;
-      case 2: f(std::integral_constant<int, 2>()); break;
-      case 4: f(std::integral_constant<int, 4>()); break;
-      default: f(std::integral_constant<int, 0>()); break;
-    }
+  switch (unroll) {
+    case 1: f(std::integral_constant<int, 1>()); break;
+    case 2: f(std::integral_constant<int, 2>()); break;
+    case 4: f(std::integral_constant<int, 4>()); break;
+    case 8: f(std::integral_constant<int, 8>()); break;
+    default: f(std::integral_constant<int, 0>()); break;
   }
 }
 template <class T>
 static void bt_siddon_t(int unroll, const float* rows, int64_t R, COPY_ARGS(T), float* out) {
   with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    each_unroll<T>(unroll, [&](auto u) {
+    each_unroll(unroll, [&](auto u) {
       constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kFwdSlabs;
       for (int64_t r = 0; r < R; ++r)
         out[r] = siddon::trace_fwd<U>(siddon::load_ray(rows, R, r), v);
@@ -1047,8 +1044,8 @@ static void bt_joseph_t(int unroll, const float* rows, int64_t R, COPY_ARGS(T), 
   m.blend = blend != 0;
   with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
-    each_unroll<T>(unroll, [&](auto u) {
-      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdSteps;
+    each_unroll(unroll, [&](auto u) {
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdStepsOf<T>;
       for (int64_t r = 0; r < R; ++r)
         out[r] = joseph::trace_fwd<U>(joseph::load_ray(rows, R, r), v, m);
     });
@@ -1203,7 +1200,8 @@ static void bt_joseph_ch_t(int variant, int tile, const float* rows, int64_t R, 
   });
 }
 // The C entry points: each function above on a float32 copy (every
-// variant) and, as *_bf16, on a bf16 copy (the kernels' own variant).
+// variant) and, as *_bf16, on a bf16 copy (the forwards at every unroll,
+// the lanes at the kernels' own variant).
 #define ENTRIES(S, E)                                                                         \
   extern "C" void bt_siddon##S(int unroll, const float* rows, int64_t R, COPY_ARGS(E),       \
                                float* out) {                                                  \
@@ -1232,7 +1230,7 @@ ENTRIES(_bf16, brick::bf16)
 #endif
 """
 
-_UNROLLS = (0, 1, 2, 4)  # 0: the kernels' own count
+_UNROLLS = (0, 1, 2, 4, 8)  # 0: the kernels' own count
 # (G, U) of each variant of the MIP and channel forwards' lanes (None: the
 # kernel's own), in the twin's order (with_lanes): one thread per ray at
 # U = 1, 2, 4, G = 2, 8, 32 lanes, the kernel's G at U = 1, 2, 4, the kernel.
@@ -2784,6 +2782,70 @@ def _out(*shape, dtype=torch.float32):
     return torch.full(shape, -7, dtype=dtype)
 
 
+# Extents that are not whole 4x4x4 bricks, so the copy's padded bricks are read.
+_SPECIAL_DIMS = (13, 10, 7)
+# -0.0, the least subnormal and a subnormal tie (both round to zero bits),
+# subnormals that bf16 keeps (one negative), a value that rounds past the
+# largest bf16 to inf, +inf, -inf and a NaN; each at two random voxels.
+_SPECIAL_BITS = (0x80000000, 0x00000001, 0x00008000, 0x00400000, 0x80123456, 0x7f7fffff,
+                 0x7f800000, 0xff800000, 0x7fc00000)
+
+
+def _axis_rays(dims, axis, **prep):
+    """Rays parallel to ``axis`` (each slab has zero-length segments, whose
+    reads are skipped): inside the volume, on the transverse voxel
+    boundaries and on its faces, and wholly outside it."""
+    ya, za = [a for a in range(3) if a != axis]
+    yz = [(0.3, 0.2), (2.5, 3.5), (dims[ya] / 2 - 0.5, 1.0), (-0.5, 2.0), (dims[ya] - 0.5, 0.0),
+          (1.0, dims[za] - 0.5), (-3.0, 2.0), (2.0, dims[za] + 4.0)]
+    pts = []
+    for s in (-20.0, dims[axis] + 20.0):
+        p = np.zeros((len(yz), 1, 3))
+        p[:, 0, axis] = s
+        p[:, 0, ya], p[:, 0, za] = zip(*yz)
+        pts.append(torch.tensor(p, dtype=torch.float32))
+    return prep_rays(pts[0], pts[1], torch.ones((len(yz), 1, 1)), axis, dims, **prep)
+
+
+def _bf16_scene(scene, rng, axis, **prep):
+    """(density, rows) of a bf16 twin case along ``axis``. "random": a
+    density of values that bf16 rounds on ``_BRICK_DIMS`` and ``_fwd_rays``
+    (their last ray of NaN rows). "special": the same on ``_SPECIAL_DIMS``
+    with ``_SPECIAL_BITS`` at random voxels and a NaN in the way of the
+    first of the rays parallel to the march axis put ahead of
+    ``_fwd_rays``."""
+    dims = _BRICK_DIMS if scene == "random" else _SPECIAL_DIMS
+    vol = torch.tensor(rng.uniform(0.1, 1.0, dims), dtype=torch.float32)
+    assert not torch.equal(_rounded(vol), vol)
+    rows = _fwd_rays(rng, dims, axis, **prep)
+    if scene == "special":
+        at = torch.tensor(rng.choice(vol.numel(), 2 * len(_SPECIAL_BITS), replace=False))
+        bits = np.array(_SPECIAL_BITS * 2, np.uint32).view(np.int32)
+        vol.view(-1).view(torch.int32)[at] = torch.tensor(bits)
+        nan_at = [0, 0, 0]
+        nan_at[axis] = dims[axis] // 2
+        vol[tuple(nan_at)] = float("nan")  # on the first ray of _axis_rays
+        rows = torch.cat([_axis_rays(dims, axis, **prep), rows], 1)
+    return vol, rows.contiguous()
+
+
+def _reached(scene):
+    """How many rays of a scene must reach the density (a positive sum, an
+    argmax, a nonzero MIP row): more than 80 of "random"'s 113 rays, more
+    than 40 finite ones of "special"'s 121, where the infinities and NaNs
+    take many."""
+    return 80 if scene == "random" else 40
+
+
+def _assert_reached(scene, fwd):
+    """The forward's values on a scene's rays hold what the scene is for:
+    many finite positive sums, and for "special" also infinities and NaNs
+    from the density."""
+    assert (torch.isfinite(fwd) & (fwd > 0)).sum() > _reached(scene)
+    if scene == "special":
+        assert torch.isinf(fwd).any() and torch.isnan(fwd).any()
+
+
 def test_twin_to_bf16_matches_torch(ftwin):
     """brick::to_bf16 on the host (round to nearest, ties to even) against
     torch.Tensor.to(torch.bfloat16): ties both ways, values just off a tie,
@@ -2810,28 +2872,34 @@ def test_twin_to_bf16_matches_torch(ftwin):
     assert got[2].item() == 0x3f80 and got[3].item() == 0x3f82  # ties to even
 
 
+@pytest.mark.parametrize("scene", ["random", "special"])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-def test_twin_siddon_bf16_instantiations_equal_f32_on_rounded(twin, btwin, ftwin, axis):
+def test_twin_siddon_bf16_instantiations_equal_f32_on_rounded(twin, btwin, ftwin, axis, scene):
     """Every Siddon kernel that reads the density, its bf16 instantiation on
     the bf16 bricked copy against the float32 one on the float32 copy of the
-    density rounded to bf16, at the kernels' own lanes: siddon_fwd,
+    density rounded to bf16, at the kernels' own lanes: siddon_fwd (its raw
+    reads at every unroll, 1 to 8 slabs in flight and the kernel's own),
     siddon_fwd_max (values and argmaxes), siddon_fwdgrad and the two-pass
     backward's sum mode, bit for bit, on every ray (off-grid, long, short,
-    missing, partial entry slabs, the NaN ray); and the MIP backward on the
-    bf16 copy against the strided serial trace_bwd_rays on the rounded
-    density. The density spans values that bf16 rounds."""
+    missing, partial entry slabs, parallel to the march axis, the NaN ray);
+    and the MIP backward on the bf16 copy against the strided serial
+    trace_bwd_rays on the rounded density (``_bf16_scene``: the density
+    spans values that bf16 rounds, and in "special" -0.0, subnormals, +-inf
+    and NaN on extents of partial bricks)."""
     rng = np.random.default_rng(300 + axis)
-    vol = torch.tensor(rng.uniform(0.1, 1.0, _BRICK_DIMS), dtype=torch.float32)
-    assert not torch.equal(_rounded(vol), vol)
-    rows = _fwd_rays(rng, _BRICK_DIMS, axis).contiguous()
+    vol, rows = _bf16_scene(scene, rng, axis)
     R = rows.shape[1]
     g = torch.tensor(rng.normal(size=R), dtype=torch.float32)
     so = btwin(brick.BRICK)
     own = len(_FWD_VARIANTS) - 1
     res = {}
     for copy in _copies(vol):
-        fwd, val, arg = _out(R), _out(R), _out(R, dtype=torch.int32)
-        _on_copy(so, "bt_siddon", copy, axis, (0, rows.data_ptr(), R), (fwd.data_ptr(),))
+        fwds = []
+        for unroll in _UNROLLS:
+            fwds.append(_out(R))
+            _on_copy(so, "bt_siddon", copy, axis, (unroll, rows.data_ptr(), R),
+                     (fwds[-1].data_ptr(),))
+        val, arg = _out(R), _out(R, dtype=torch.int32)
         assert _on_copy(so, "bt_siddon_max", copy, axis, (own, rows.data_ptr(), R),
                         (val.data_ptr(), arg.data_ptr())) == 0
         fused, bwd, mip = _out(10, R), _out(9, R), _out(9, R)
@@ -2840,32 +2908,40 @@ def test_twin_siddon_bf16_instantiations_equal_f32_on_rounded(twin, btwin, ftwin
                  (g.data_ptr(), bwd.data_ptr()))
         _on_copy(ftwin, "ft_siddon_bwd_rays_mip", copy, axis, (rows.data_ptr(), R),
                  (g.data_ptr(), arg.data_ptr(), mip.data_ptr()))
-        res[copy.storage] = (fwd, val, arg, fused, bwd, mip)
-    for name, a, b in zip(("fwd", "max", "argmax", "fwdgrad", "bwd_rays", "bwd_rays_mip"),
-                          res["bf16"], res[None]):
+        res[copy.storage] = (*fwds, val, arg, fused, bwd, mip)
+    names = [f"fwd unroll {u}" for u in _UNROLLS] + [
+        "max", "argmax", "fwdgrad", "bwd_rays", "bwd_rays_mip"]
+    for name, a, b in zip(names, res["bf16"], res[None]):
         assert torch.equal(_bits(a), _bits(b)), name
-    fwd, val, arg, fused, bwd, mip = res["bf16"]
-    assert (fwd[:-1] > 0).sum() > 80 and (arg >= 0).sum() > 80
+    for name, a in zip(names[1:len(_UNROLLS)], res["bf16"][1:len(_UNROLLS)]):
+        assert torch.equal(_bits(a), _bits(res["bf16"][0])), name
+    fwd, (val, arg, fused, bwd, mip) = res["bf16"][0], res["bf16"][len(_UNROLLS):]
+    _assert_reached(scene, fwd)
+    assert (arg >= 0).sum() > _reached(scene)
     strided = _run_twin_bwd_rays(twin, rows, _rounded(vol), axis, g, arg)
-    assert torch.equal(_bits(mip), _bits(strided)) and torch.count_nonzero(mip) > 80
+    assert torch.equal(_bits(mip), _bits(strided)) and torch.count_nonzero(mip) > _reached(scene)
 
 
+@pytest.mark.parametrize("scene", ["random", "special"])
 @pytest.mark.parametrize("h", [1.0, 1.37], ids=["h1", "h1.37"])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-def test_twin_joseph_bf16_instantiations_equal_f32_on_rounded(jtwin, btwin, ftwin, axis, h):
+def test_twin_joseph_bf16_instantiations_equal_f32_on_rounded(jtwin, btwin, ftwin, axis, h,
+                                                              scene):
     """Every Joseph kernel that reads the density, as the Siddon test above:
-    joseph_fwd, joseph_fwd_max, joseph_fwdgrad (sum and max), the two-pass
-    backward's sum mode, joseph_fwd_ch and joseph_bwd_rays_ch (the
+    joseph_fwd (its raw windows at every unroll, 1 to 8 steps in flight and
+    the kernel's own), joseph_fwd_max, joseph_fwdgrad (sum and max), the
+    two-pass backward's sum mode, joseph_fwd_ch and joseph_bwd_rays_ch (the
     labelmap's copy its int32 bits in both) at the kernels' own lanes, bit
     for bit, and the MIP backward on the bf16 copy against the strided
-    serial trace_bwd_rays on the rounded density; integer and fractional h."""
+    serial trace_bwd_rays on the rounded density; integer h and fractional
+    h (blend mode: two planes a window)."""
     rng = np.random.default_rng(310 + axis)
-    vol = torch.tensor(rng.uniform(0.1, 1.0, _BRICK_DIMS), dtype=torch.float32)
+    vol, rows = _bf16_scene(scene, rng, axis, quadrature="joseph", h=h)
+    dims = tuple(vol.shape)
     C = 3
-    lab = torch.tensor(rng.integers(-1, C + 1, _BRICK_DIMS), dtype=torch.int32)
-    rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h).contiguous()
+    lab = torch.tensor(rng.integers(-1, C + 1, dims), dtype=torch.int32)
     R = rows.shape[1]
-    n = int(-(-_BRICK_DIMS[axis] // h))
+    n = int(-(-dims[axis] // h))
     march = (h, n, int(J.is_blend(h)))
     g = torch.tensor(rng.normal(size=R), dtype=torch.float32)
     gc = torch.tensor(rng.normal(size=(C, R)), dtype=torch.float32)
@@ -2874,14 +2950,18 @@ def test_twin_joseph_bf16_instantiations_equal_f32_on_rounded(jtwin, btwin, ftwi
     own = len(_FWD_VARIANTS) - 1
     res = {}
     for copy in _copies(vol):
-        fwd, val, arg = _out(R), _out(R), _out(R, dtype=torch.int32)
-        _on_copy(so, "bt_joseph", copy, axis, (0, rows.data_ptr(), R), (*march, fwd.data_ptr()))
+        fwds = []
+        for unroll in _UNROLLS:
+            fwds.append(_out(R))
+            _on_copy(so, "bt_joseph", copy, axis, (unroll, rows.data_ptr(), R),
+                     (*march, fwds[-1].data_ptr()))
+        val, arg = _out(R), _out(R, dtype=torch.int32)
         assert _on_copy(so, "bt_joseph_max", copy, axis, (own, rows.data_ptr(), R),
                         (*march, val.data_ptr(), arg.data_ptr())) == 0
         ch = _out(C, R)
         _on_copy(so, "bt_joseph_ch", copy, axis, (own, 0, rows.data_ptr(), R),
                  (blab.data.data_ptr(), *march, C, ch.data_ptr()))
-        out = [fwd, val, arg, ch]
+        out = [*fwds, val, arg, ch]
         for mip in (0, 1):
             fused, farg = _out(8, R), _out(R, dtype=torch.int32)
             assert _on_copy(ftwin, "ft_joseph", copy, axis, (_OWN, mip, rows.data_ptr(), R),
@@ -2895,14 +2975,18 @@ def test_twin_joseph_bf16_instantiations_equal_f32_on_rounded(jtwin, btwin, ftwi
         _on_copy(ftwin, "ft_joseph_ch", copy, axis, (_OWN, rows.data_ptr(), R),
                  (blab.data.data_ptr(), *march, C, gc.data_ptr(), bwd_ch.data_ptr()))
         res[copy.storage] = out + [bwd, bwd_mip, bwd_ch]
-    names = ("fwd", "max", "argmax", "fwd_ch", "fwdgrad", "fwdgrad_max", "fwdgrad_argmax",
-             "bwd_rays", "bwd_rays_mip", "bwd_rays_ch")
+    names = [f"fwd unroll {u}" for u in _UNROLLS] + [
+        "max", "argmax", "fwd_ch", "fwdgrad", "fwdgrad_max", "fwdgrad_argmax", "bwd_rays",
+        "bwd_rays_mip", "bwd_rays_ch"]
     for name, a, b in zip(names, res["bf16"], res[None]):
         assert torch.equal(_bits(a), _bits(b)), name
-    fwd, _, arg = res["bf16"][:3]
-    assert (fwd[:-1] > 0).sum() > 80 and (arg >= 0).sum() > 80
+    for name, a in zip(names[1:len(_UNROLLS)], res["bf16"][1:len(_UNROLLS)]):
+        assert torch.equal(_bits(a), _bits(res["bf16"][0])), name
+    fwd, arg = res["bf16"][0], res["bf16"][len(_UNROLLS) + 1]
+    _assert_reached(scene, fwd)
+    assert (arg >= 0).sum() > _reached(scene)
     strided = _JosephTwin(jtwin, rows, _rounded(vol), axis, h, n).bwd_rays(g, arg)
-    assert torch.equal(_bits(res["bf16"][8]), _bits(strided))
+    assert torch.equal(_bits(res["bf16"][-2]), _bits(strided))
 
 
 @pytest.mark.gpu
