@@ -276,7 +276,21 @@ Phases (any failure raises and the exit code is non-zero):
      these and 13a's; CUDA-event medians of each float32 and bf16
      instantiation side by side in one call (f32, bf16, bf16, f32), each
      with its bound (2-byte voxels for bf16) and the bf16 plain version's
-     time, and the copies of the CT and their bytes.
+     time, and the copies of the CT and their bytes;
+ 14. the bricked copy (brick_copy, brick_copy_bf16) alone, on the main CT
+     (512x512x133, the packed path), its contiguous 128-deep crop (the
+     CLI's 512x512x128 extents), the 512^3 cube, a slab of the CT narrowed
+     along axis 0 (packed), one narrowed along axis 2 with its pointer
+     offset (general) and the CT in Fortran order (general): each path as
+     brick.packed_path says, both copies equal to the plain version on the
+     card bit for bit, one launch a copy; CUDA-event medians of each copy's
+     kernel alone in turns with the parent's kernel (experiments/
+     brick_parent.cu, its C entry point: no counter moves, no wrapper host
+     work), parent, package, package, parent, and of brick_density (a
+     call's host work included); torch.Tensor.clone() of each density (the
+     same bytes moved) and, at whole-brick extents, the one PyTorch call of
+     each copy (view, permute, then contiguous or a rounding to contiguous
+     bf16), held bit for bit against the kernel's; the byte bounds.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -295,7 +309,8 @@ joseph_fwd_max and joseph_bwd_rays their lateral pose's ``ms_lateral`` and
 The bf16 instantiations have entries of their own (``<kernel>_bf16``, with
 phase 13's launches, ``ms_f32``/``bound_ms_f32`` beside them from the same
 call, ``library_ms`` null: no one PyTorch call reads a bf16 copy and
-computes in float32); the two bf16 forwards' at 200x200 also
+computes in float32; brick_copy_bf16's and brick_copy's are phase 14's
+one call of each copy at 512x512x128); the two bf16 forwards' at 200x200 also
 ``ms_lateral``, ``ms_lateral_f32`` and ``bound_ms_lateral``, and theirs
 (at every shape) a ``design`` naming the raw 16-bit loads they keep in
 flight. ``library_ms`` is one PyTorch call over the same
@@ -3049,6 +3064,105 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
     return records
 
 
+def copy_phase(subject, cube, kernels) -> None:
+    """Phase 14 (see the module docstring): the copies held and timed; the
+    ``brick_copy`` and ``brick_copy_bf16`` records of ``kernels`` gain the
+    phase's numbers (``library_ms`` at the 128-deep crop's whole bricks)."""
+    import torch
+
+    from diffdrr_tpu_torch.experiments.fwd_timing import brick_library_calls, build_copy_probes
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    t_phase = time.perf_counter()
+    lib = build_copy_probes("brick_parent")
+    stream = torch.cuda.current_stream().cuda_stream
+    ct = torch.as_tensor(subject.density.data, dtype=torch.float32, device="cuda").contiguous()
+    wide = torch.zeros((ct.shape[0], ct.shape[1], ct.shape[2] + 8), device="cuda")
+    wide[:, :, 5:5 + ct.shape[2]] = ct
+    cases = {  # name: (density, the path it takes: True packed)
+        "main": (ct, True),
+        "128-deep": (ct[:, :, :128].contiguous(), True),
+        "cube": (torch.as_tensor(cube.density.data, dtype=torch.float32,
+                                 device="cuda").contiguous(), True),
+        "slab axis 0": (ct.narrow(0, 128, 256), True),
+        "slab axis 2": (wide.narrow(2, 5, ct.shape[2]), False),
+        "permuted": (ct.permute(2, 1, 0).contiguous().permute(2, 1, 0), False),
+    }
+    out = {}
+    for name, (d, packed) in cases.items():
+        if brick.packed_path(d) != packed:
+            raise AssertionError(f"copy of the {name} density: packed path "
+                                 f"{brick.packed_path(d)}, expected {packed}")
+        n_pad = 1
+        for e, b in zip(d.shape, brick.BRICK):
+            n_pad *= -(-e // b) * b
+        res = {"shape": list(d.shape), "packed": packed,
+               "clone_ms": median_ms(d.clone, 20)}
+        library = brick_library_calls(d)
+        for storage, bits in ((None, torch.int32), ("bf16", torch.int16)):
+            key = storage or "f32"
+            count = "launches" if storage is None else "launches_bf16"
+            before = getattr(brick.brick_density, count)
+            got = brick.brick_density(d, storage).data
+            if getattr(brick.brick_density, count) != before + 1:
+                raise AssertionError(f"a {key} copy of the {name} density: not one launch")
+            ref = brick.brick_density_plain(d, storage).data
+            check_equal(f"brick_copy {key} of the {name} density vs plain", got.view(bits),
+                        ref.view(bits))
+            del ref
+            buf = torch.empty_like(got)
+
+            def probe(which):
+                rc = lib.probe_brick_copy_parent(which, int(storage is not None), d.data_ptr(),
+                                                 *d.stride(), *d.shape, buf.data_ptr(), stream)
+                if rc != 0:
+                    raise RuntimeError(f"copy probe {which} failed: {rc}")
+
+            for which in (0, 1):  # the parent's kernel, the package's brick_copy
+                buf.fill_(-7.0)
+                probe(which)
+                check_equal(f"copy probe {which} ({key}) of the {name} density",
+                            buf.view(bits), got.view(bits))
+            t = [median_ms(lambda: probe(w), 20) for w in (0, 1, 1, 0)]
+            res[key] = {"parent_ms": [t[0], t[3]], "kernel_ms": [t[1], t[2]],
+                        "ms": median_ms(lambda: brick.brick_density(d, storage), 20),
+                        "bound": roofline(4 * d.numel() + (4 if storage is None else 2) * n_pad,
+                                          0)}
+            if library is not None:  # the one PyTorch call of this copy, held bit for bit
+                check_equal(f"the library call's {key} copy of the {name} density",
+                            library[key]().view(bits), got.view(bits))
+                res[key]["library_ms"] = median_ms(library[key], 20)
+            del got, buf
+        out[name] = res
+        log(f"[copy] 14 {name} {tuple(d.shape)} ({'packed' if packed else 'general'} path), "
+            + "; ".join(f"{key}: kernel {r['kernel_ms'][0]:.4f}, {r['kernel_ms'][1]:.4f} ms "
+                        f"(parent {r['parent_ms'][0]:.4f}, {r['parent_ms'][1]:.4f}; bound "
+                        f"{r['bound'][0]:.4f}), through brick_density {r['ms']:.4f} ms"
+                        for key, r in ((k, res[k]) for k in ("f32", "bf16")))
+            + f"; clone {res['clone_ms']:.4f} ms; library "
+            + ("none" if library is None else
+               f"{res['f32']['library_ms']:.4f}, bf16 {res['bf16']['library_ms']:.4f} ms")
+            + "; equal to plain bit for bit")
+    brick.clear_cache()
+    for rec in kernels:
+        if rec["name"] not in ("brick_copy", "brick_copy_bf16"):
+            continue
+        key = "f32" if rec["name"] == "brick_copy" else "bf16"
+        rec.update(
+            design="one block a column of bricks over axis 2 (1024 voxels a block past "
+                   "that), its run written in 16-byte stores; packed rows read as whole "
+                   "spans in 16-byte loads, other strides an element at a time",
+            phase14={name: {"ms": r[key]["ms"], "kernel_ms": r[key]["kernel_ms"],
+                            "parent_ms": r[key]["parent_ms"],
+                            "bound_ms": r[key]["bound"][0], "clone_ms": r["clone_ms"],
+                            "library_ms": r[key].get("library_ms"), "packed": r["packed"]}
+                     for name, r in out.items()})
+        deep = out["128-deep"][key]
+        rec.update(library_ms=deep["library_ms"], library_shape="512x512x128",
+                   ms_128=deep["ms"], kernel_ms_128=statistics.median(deep["kernel_ms"]))
+    log(f"[copy] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -3691,6 +3805,9 @@ def main(argv) -> int:
     # 13. bf16 density storage ------------------------------------------------
     kernels += bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw,
                           (t_err, r_err))
+
+    # 14. The bricked copy alone -----------------------------------------------
+    copy_phase(subject, cube, kernels)
     del subject, cube
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

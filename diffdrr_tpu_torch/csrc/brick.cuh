@@ -190,4 +190,181 @@ BRICK_HD bf16 to_bf16(float x) {
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// The copy's plan (brick.cu's brick_copy and brick_copy_bf16; the host twin
+// in tests/test_torch_kernel_twin.py runs the same functions).
+//
+// A column of bricks (b0, b1) is the copy's contiguous run of n2 bricks
+// along axis 2. It holds the 2^L0 x 2^L1 density rows (i0, i1) with
+// i0 >> L0 = b0 and i1 >> L1 = b1, numbered r = (e0 << L1) | e1 by their
+// place (e0, e1) in a brick. A block copies one column over a chunk of up
+// to kChunkZ voxels of axis 2 (the whole axis but for longer ones): it
+// fills a tile of shared memory, row r at tile word r * pitch, then writes
+// the chunk's bricks, one contiguous stretch of the column's run, from the
+// tile in the copy's order (copy_source). It fills the tile in one of two
+// ways. Where the density's rows are packed (s2 = 1, s1 = X2, as in a
+// contiguous density), the rows of one plane i0 in a column are one
+// contiguous span of the density, of up to 2^L1 X2 elements, starting
+// 4 (i0 s0 + (b1 << L1) X2) bytes from the data pointer: 16-byte aligned
+// whenever the pointer is and s0 is a multiple of 4, whatever X2 is. The
+// packed path reads each span whole, in 16-byte loads (span_*). Any other
+// density is read an element at a time through its strides, the block's
+// threads walking the chunk's elements (Walk) with consecutive threads
+// along axis 2 where its stride is the smallest, else along the column's
+// rows.
+// ---------------------------------------------------------------------------
+
+// The longest stretch of axis 2 a block copies: a column's tile of
+// 2^(L0 + L1) rows then fills at most 64 KiB of shared memory (16 x 1028
+// words). A multiple of 2^L2, so that every chunk but the last is whole
+// bricks.
+constexpr int kChunkZ = 1024;
+// The threads of a block (brick.cu); the walks of the general path take
+// this many elements a step.
+constexpr int kCopyThreads = 128;
+
+// A copy's geometry: the density's element strides and extents, the copy's
+// bricks along each axis, the voxels of axis 2 a block copies and the
+// blocks a column, the tile's words a row, and how the tile is filled.
+struct CopyPlan {
+  int64_t s0, s1, s2;
+  int X0, X1, X2;
+  int n0, n1, n2;
+  int chunk, chunks;
+  int pitch;
+  bool packed;      // rows read as whole spans (copy_packed)
+  bool rows_first;  // else: consecutive threads along the column's rows
+};
+
+// Whether the packed path copies a density at byte address `src` with
+// these strides and extents: its rows packed, every span 16-byte aligned,
+// and axis 2 one chunk.
+BRICK_HD bool copy_packed(uint64_t src, int64_t s0, int64_t s1, int64_t s2, int X2) {
+  return s2 == 1 && s1 == X2 && s0 % 4 == 0 && src % 16 == 0 && X2 <= kChunkZ;
+}
+
+// The tile's pitch for chunks of `chunk` voxels: `chunk` words, so that a
+// span lands whole, its rows one after another; chunk + 4 where chunk is a
+// multiple of 8, so that the 8 rows a quarter warp reads in 16-byte words
+// at one z start in 8 different bank groups (a pitch of 4 x an odd number
+// of words). Where a chunk is not a multiple of 4 the tile is read a word
+// at a time: rows `chunk` words apart then fall at most 2 to a bank.
+BRICK_HD int copy_pitch(int chunk) { return chunk % 8 == 0 ? chunk + 4 : chunk; }
+
+BRICK_HD CopyPlan make_copy_plan(uint64_t src, int64_t s0, int64_t s1, int64_t s2, int X0,
+                                 int X1, int X2) {
+  CopyPlan p;
+  p.s0 = s0;
+  p.s1 = s1;
+  p.s2 = s2;
+  p.X0 = X0;
+  p.X1 = X1;
+  p.X2 = X2;
+  p.n0 = (X0 + (1 << kL0) - 1) >> kL0;
+  p.n1 = (X1 + (1 << kL1) - 1) >> kL1;
+  p.n2 = (X2 + (1 << kL2) - 1) >> kL2;
+  p.chunk = X2 < kChunkZ ? X2 : kChunkZ;
+  p.chunks = p.chunk > 0 ? (X2 + p.chunk - 1) / p.chunk : 0;
+  p.pitch = copy_pitch(p.chunk);
+  p.packed = copy_packed(src, s0, s1, s2, X2);
+  p.rows_first = !(s2 <= s0 && s2 <= s1);
+  return p;
+}
+
+// The rows of a column: its tile's rows.
+constexpr int kColumnRows = 1 << (kL0 + kL1);
+
+// Whether row r of column (b0, b1) lies inside the density.
+BRICK_HD bool row_inside(const CopyPlan& p, int b0, int b1, int r) {
+  return (b0 << kL0) + (r >> kL1) < p.X0 && (b1 << kL1) + (r & ((1 << kL1) - 1)) < p.X1;
+}
+
+// The voxels of axis 2 in chunk c, from c x chunk on.
+BRICK_HD int chunk_length(const CopyPlan& p, int c) {
+  int rest = p.X2 - c * p.chunk;
+  return rest < p.chunk ? rest : p.chunk;
+}
+
+// Span e0 of column (b0, b1) on the packed path (one chunk): the element
+// offset of its first voxel from the data pointer, and its length in
+// elements (0 where plane (b0 << L0) + e0 lies past X0; fewer than 2^L1 rows
+// in the last column along axis 1 when X1 is not a multiple of 2^L1).
+BRICK_HD int64_t span_offset(const CopyPlan& p, int b0, int b1, int e0) {
+  return (int64_t)((b0 << kL0) + e0) * p.s0 + (int64_t)(b1 << kL1) * p.X2;
+}
+
+BRICK_HD int span_length(const CopyPlan& p, int b0, int b1, int e0) {
+  if ((b0 << kL0) + e0 >= p.X0) return 0;
+  int rows = p.X1 - (b1 << kL1);
+  return (rows < (1 << kL1) ? rows : (1 << kL1)) * p.X2;
+}
+
+// The tile word that element j of span e0 lands at (its row j / X2, by
+// comparisons: no division).
+BRICK_HD int span_target(const CopyPlan& p, int e0, int j) {
+  int row = 0;
+  for (int s = 1; s < (1 << kL1); ++s) row += j >= s * p.X2;
+  return (e0 << kL1) * p.pitch + j + (p.pitch - p.X2) * row;
+}
+
+// The general path's walk: thread t of a block's n takes elements t, t + n,
+// t + 2n, ... of a chunk's 2^(L0 + L1) x len, numbered along the fast
+// index f (of extent F: the chunk's voxels of axis 2, or the rows where
+// rows_first) and then the slow one s; a step adds n to the number.
+struct Walk {
+  int f, s, F, S, df, ds;
+};
+
+BRICK_HD Walk walk_start(const CopyPlan& p, int len, int t, int n) {
+  Walk w;
+  w.F = p.rows_first ? kColumnRows : len;
+  w.S = p.rows_first ? len : kColumnRows;
+  w.f = t % w.F;
+  w.s = t / w.F;
+  w.df = n % w.F;
+  w.ds = n / w.F;
+  return w;
+}
+
+// Whether the walk is still inside the chunk; its row and its voxel of the
+// chunk along axis 2.
+BRICK_HD bool walk_at(const CopyPlan& p, const Walk& w, int* r, int* z) {
+  *r = p.rows_first ? w.f : w.s;
+  *z = p.rows_first ? w.s : w.f;
+  return w.s < w.S;
+}
+
+BRICK_HD void walk_next(Walk& w) {
+  w.f += w.df;
+  w.s += w.ds;
+  if (w.f >= w.F) {
+    w.f -= w.F;
+    ++w.s;
+  }
+}
+
+// The element offset from the data pointer of row r of column (b0, b1) at
+// voxel z of axis 2.
+BRICK_HD int64_t element_offset(const CopyPlan& p, int b0, int b1, int r, int z) {
+  return (int64_t)((b0 << kL0) + (r >> kL1)) * p.s0 +
+         (int64_t)((b1 << kL1) + (r & ((1 << kL1) - 1))) * p.s1 + (int64_t)z * p.s2;
+}
+
+// The tile word that element o of a chunk's bricks (0 <= o < its bricks
+// x 2^(L0 + L1 + L2)) comes from, `len` the chunk's voxels of axis 2, or -1
+// for the zero padding.
+BRICK_HD int copy_source(const CopyPlan& p, int b0, int b1, int len, int o) {
+  int e = o & (kVoxels - 1);
+  int r = e >> kL2;
+  int z = ((o >> (kL0 + kL1 + kL2)) << kL2) | (e & ((1 << kL2) - 1));
+  return row_inside(p, b0, b1, r) && z < len ? r * p.pitch + z : -1;
+}
+
+// The element offset in the copy of chunk c of column (b0, b1): the
+// column's run, then c x chunk voxels of axis 2 on (whole bricks).
+BRICK_HD int64_t run_offset(const CopyPlan& p, int b0, int b1, int c) {
+  return ((((int64_t)b0 * p.n1 + b1) * p.n2) << (kL0 + kL1 + kL2)) +
+         ((int64_t)c * p.chunk << (kL0 + kL1));
+}
+
 }  // namespace brick

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the two forward gathers of a checkout on one CUDA card.
 
-    python3 diffdrr_tpu_torch/experiments/fwd_timing.py [--root DIR] [--no-probes | --bf16-only]
+    python3 diffdrr_tpu_torch/experiments/fwd_timing.py [--root DIR]
+        [--no-probes | --bf16-only | --copy-only]
 
 Imports ``diffdrr_tpu_torch`` from ``DIR`` (default: the checkout that holds
 this file), so one card can time two commits in turns: unpack each into a
@@ -52,6 +53,33 @@ and with its raw reads made by a branch around each load or by a
 predicated load in inline PTX; and the raw loads only, where the float32
 probe has them.
 
+Copy cases (the bricked copy alone, ``--copy-only`` runs these and
+nothing else): a density of uniform random values made on the card from a
+seed (a copy's time does not depend on them) at 512x512x133 (the main CT;
+the lateral pose renders the same CT), in Fortran order (permuted: the
+general path), narrowed along axis 0 to 256 planes (a slab, packed) and
+along axis 2 to 128 of its 133 (general), at 512x512x128 (the CLI's CT)
+and 512^3 (the cube). For each, in float32 and bf16, through
+``brick_probes.cu`` next to this file (C entry points called directly, so
+no launch counter moves and no wrapper host work is timed; each output
+held bit for bit against the package's): ``abba``, the parent's kernel
+(``brick_parent.cu``) and the package's ``brick_copy``
+(``brick_copy_bf16``; either path) in turns parent, package, package,
+parent; the packed path at other thread counts and loads in flight, its
+spans by ``cp.async.bulk`` one block a column and in a persistent block
+with two tiles, its reads alone and its writes alone; the general path
+(each element loaded through the strides) on every density, consecutive
+threads along axis 2 at 128 and 256 threads and 8 and 16 loads in flight,
+and along the column's rows. Beside them ``wrapper``, ``brick_density`` (a
+call's host work included), and the yardsticks ``torch.Tensor.clone()``
+(the same bytes moved) and, at whole-brick extents, the one PyTorch call of
+each copy, ``view(n0, 4, n1, 4, n2, 4).permute(0, 2, 4, 1, 3, 5)`` then
+``.contiguous()`` or ``.to(torch.bfloat16, memory_format=
+torch.contiguous_format)``, each held bit for bit against the package's
+copy; the byte bounds (the density read once, the copy written once, at
+3.35 TB/s). A checkout without ``brick.packed_path`` (one before the
+packed path) is timed through ``brick_density`` alone.
+
 Prints one line per case and, last, one JSON object with every number and
 the card (``nvidia-smi`` name and power limit). Fails without a card.
 """
@@ -78,6 +106,15 @@ LATERAL_ROT = [[3.141592653589793 / 2 + 0.02, 0.01, -0.01]]
 # fwd_probes.cu's bf16 variants, by its numbering.
 BF16_VARIANTS = ("package", "widened", "raw_branch", "raw_predicated")
 BF16_UNROLLS = (1, 2, 4, 8)
+# brick_probes.cu's variants, by its numbering.
+COPY_VARIANTS = ("parent", "packed", "packed_t256_b4", "packed_t128_b4", "packed_t64_b8",
+                 "bulk", "bulk_persistent", "reads_only", "writes_only", "package",
+                 "general_z", "general_z_t256", "general_z_b16", "general_rows")
+# The variants that need the packed path, and those whose output is the copy
+# (the others probe its halves).
+COPY_PACKED_ONLY = COPY_VARIANTS[1:9]
+COPY_OUTPUTS = tuple(v for v in COPY_VARIANTS if v not in ("reads_only", "writes_only"))
+HBM_BYTES_PER_S = 3.35e12
 HERE = Path(__file__).resolve().parent
 
 
@@ -92,7 +129,9 @@ def build_sources(src, define_sets):
     outs, procs = [], []
     for defines in define_sets:
         h = hashlib.sha256(" ".join([*build.NVCC_FLAGS, *defines]).encode() + src.read_bytes())
-        for path in sorted(build.CSRC.glob("*.cuh")):
+        # the headers, and the sources a probe may include (brick_probes.cu:
+        # brick_parent.cu, brick.cu)
+        for path in sorted(build.CSRC.glob("*.cu*")) + sorted(src.parent.glob("*.cu")):
             h.update(path.read_bytes())
         out = build.BUILD_ROOT / f"probes-{h.hexdigest()[:16]}" / f"lib{src.stem}.so"
         if not out.exists():
@@ -127,6 +166,109 @@ def build_probes(shapes=PROBE_BRICKS):
             lib.probe_siddon_fwd_bf16.restype = lib.probe_joseph_fwd_bf16.restype = i32
         libs[shape] = lib
     return libs
+
+
+def build_copy_probes(name="brick_probes"):
+    """``name``.cu next to this file (brick_probes.cu, or brick_parent.cu:
+    the parent's kernel and the package's copy alone) built and loaded, its
+    C entry points typed."""
+    lib = ctypes.CDLL(str(build_sources(HERE / f"{name}.cu", [[]])[0]))
+    v, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for fn in ("probe_brick_copy", "probe_brick_copy_parent"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [i32, i32, v, i64, i64, i64, i32, i32, i32, v, v]
+            getattr(lib, fn).restype = i32
+    return lib
+
+
+def brick_library_calls(density):
+    """The one PyTorch call of the float32 copy and of the bf16 copy of
+    ``density`` (view, permute, and contiguous or a rounding to contiguous
+    bf16), or None where its extents are not whole bricks."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    if any(e % b for e, b in zip(density.shape, brick.BRICK)):
+        return None
+    split = [m for e, b in zip(density.shape, brick.BRICK) for m in (e // b, b)]
+    return {"f32": lambda: density.view(split).permute(0, 2, 4, 1, 3, 5).contiguous(),
+            "bf16": lambda: density.view(split).permute(0, 2, 4, 1, 3, 5).to(
+                torch.bfloat16, memory_format=torch.contiguous_format)}
+
+
+def copy_densities(seed=18):
+    """The copy cases' densities by name (see the module docstring)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ct = torch.rand((512, 512, 133), generator=gen, device="cuda")
+    return {"main 512x512x133": ct,
+            "permuted": ct.permute(2, 1, 0).contiguous().permute(2, 1, 0),
+            "slab axis 0": ct.narrow(0, 128, 256),
+            "narrowed axis 2": ct.narrow(2, 0, 128),
+            "cli 512x512x128": torch.rand((512, 512, 128), generator=gen, device="cuda"),
+            "cube 512^3": torch.rand((512, 512, 512), generator=gen, device="cuda")}
+
+
+def copy_case(lib, density, events_ms):
+    """The copy cases' numbers for one density (see the module docstring);
+    ``lib``: the probes, or None (a checkout before the packed path)."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    ext = tuple(density.shape)
+    n_pad = 1
+    for e, b in zip(ext, brick.BRICK):
+        n_pad *= -(-e // b) * b
+    res = {"packed": None if lib is None else brick.packed_path(density),
+           "bound_f32": (4 * density.numel() + 4 * n_pad) / HBM_BYTES_PER_S * 1e3,
+           "bound_bf16": (4 * density.numel() + 2 * n_pad) / HBM_BYTES_PER_S * 1e3,
+           "clone": events_ms(density.clone)}
+    library = brick_library_calls(density)
+    stream = torch.cuda.current_stream().cuda_stream
+    for storage in (None, "bf16"):
+        key = storage or "f32"
+
+        def package():
+            return brick.brick_density(density, storage)
+
+        if lib is None:
+            res[key] = {"wrapper": events_ms(package)}
+            continue
+        ref = package().data
+        buf = torch.empty_like(ref)
+        bits = torch.int16 if storage else torch.int32
+        if library is not None:
+            if not torch.equal(library[key]().view(bits), ref.view(bits)):
+                raise AssertionError(f"the library call's {key} copy differs on {ext}")
+            res[f"library_{key}"] = events_ms(library[key])
+
+        def probe(k):
+            rc = lib.probe_brick_copy(k, int(storage is not None), density.data_ptr(),
+                                      *density.stride(), *ext, buf.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"copy probe {COPY_VARIANTS[k]} failed: {rc}")
+
+        package_k = COPY_VARIANTS.index("package")
+        t = {"abba": [events_ms(lambda: probe(0)), events_ms(lambda: probe(package_k)),
+                      events_ms(lambda: probe(package_k)), events_ms(lambda: probe(0))],
+             "wrapper": events_ms(package)}
+        for k, name in enumerate(COPY_VARIANTS):
+            if name in COPY_PACKED_ONLY and not res["packed"]:
+                continue
+            if name.startswith("general_") and ext[2] > 1024:
+                continue  # these probes take axis 2 in one chunk
+            buf.fill_(-7.0)
+            probe(k)
+            torch.cuda.synchronize()
+            if name in COPY_OUTPUTS and not torch.equal(buf.view(bits), ref.view(bits)):
+                raise AssertionError(f"copy probe {name} differs from brick_copy on {ext}")
+            t[name] = events_ms(lambda: probe(k))
+        res[key] = t
+    brick.clear_cache()
+    return res
 
 
 def brick_copy(density, shape):
@@ -248,6 +390,8 @@ def main(argv=None) -> int:
     parser.add_argument("--no-probes", action="store_true", help="time the cases only")
     parser.add_argument("--bf16-only", action="store_true",
                         help="time the cases and the bf16 probes, not the float32 probes")
+    parser.add_argument("--copy-only", action="store_true",
+                        help="time the copy cases alone, with their probes")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
     import torch
@@ -275,6 +419,17 @@ def main(argv=None) -> int:
     label = args.root.resolve().name
     print(f"[fwd_timing] {label}: package {Path(T.__file__).parent}; {card}", flush=True)
     build.build_all()
+    copies = {}
+    if brick is not None and not args.bf16_only:
+        copy_lib = (None if args.no_probes or not hasattr(brick, "packed_path")
+                    else build_copy_probes())
+        for name, density in copy_densities().items():
+            c = copies[name] = copy_case(copy_lib, density, events_ms)
+            print(f"[fwd_timing] {label} copy {name}: "
+                  + "; ".join(f"{k} {v}" for k, v in c.items()), flush=True)
+        if args.copy_only:
+            print(json.dumps({"label": label, "card": card, "copies": copies}), flush=True)
+            return 0
     libs = (None if args.no_probes or brick is None
             else build_probes(((4, 4, 4),) if args.bf16_only else PROBE_BRICKS))
     # bf16 storage: the wrappers take storage= and the 4x4x4 build has the bf16 probes
@@ -361,7 +516,8 @@ def main(argv=None) -> int:
         case(f"joseph_fwd cube {side}^2", "joseph",
              rows_of(drr_c, rot0, trans0, quadrature="joseph", h=1.0), drr_c.density,
              (1.0, 512, 0), probes=side == 1000, side=side, bf16_probes=side == 1000)
-    print(json.dumps({"label": label, "card": card, "cases": cases}), flush=True)
+    print(json.dumps({"label": label, "card": card, "cases": cases, "copies": copies}),
+          flush=True)
     return 0
 
 

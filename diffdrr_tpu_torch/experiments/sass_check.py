@@ -29,6 +29,13 @@ flags and every kernel's SASS is compared with this checkout's by name,
 each instruction without its address and encoding: the kernels whose code
 differs, and those in one build only.
 
+The bricked copy's kernel (``brick_copy_kernel``, its packed and general
+instantiations, and ``brick_probes.cu``'s variants, built as
+``fwd_timing.py`` builds them): their global and shared memory
+instructions by opcode and width (``LDG.E.128`` a 16-byte load,
+``STG.E.128`` a 16-byte store, ``UBLKCP`` a bulk copy) and their registers
+and local-memory (spill) bytes a thread.
+
 Each forward's registers a thread come from ``cuobjdump -res-usage``.
 Prints one line per kernel and, last, one JSON object; with ``--out`` also
 writes the SASS of the forward gathers there.
@@ -51,6 +58,9 @@ _NO_DEST = ("ST", "RED", "BRA", "EXIT", "RET", "CALL", "BSYNC", "BSSY", "WARPSYN
 _REG = re.compile(r"(?<![A-Z_])R(\d+)(\.64|\.128)?\b")
 _FORWARDS = ("siddon_fwd_kernel", "joseph_fwd_kernel", "probe::siddon_fwd_bf16",
              "probe::joseph_fwd_bf16")
+_COPIES = ("brick_copy_kernel", "probe::parent_copy", "probe::bulk_copy", "probe::reads_only",
+           "probe::writes_only")
+_MEMORY_OP = re.compile(r"^(LDG|STG|LDS|STS|UBLKCP|LDGSTS)\b(\S*)")
 
 
 def _tool(name):
@@ -89,12 +99,25 @@ def demangle(mangled):
         return list(mangled)
 
 
-def registers(lib: Path) -> dict:
-    """{mangled kernel name: registers a thread} (``cuobjdump -res-usage``)."""
+def registers(lib: Path, what: str = "REG") -> dict:
+    """{mangled kernel name: registers (``what="LOCAL"``: local-memory bytes)
+    a thread} (``cuobjdump -res-usage``)."""
     text = subprocess.run([_tool("cuobjdump"), "-res-usage", str(lib)], capture_output=True,
                           text=True, check=True, timeout=600).stdout
     return {m.group(1): int(m.group(2))
-            for m in re.finditer(r"Function (\S+):\s*REG:(\d+)", text)}
+            for m in re.finditer(rf"Function (\S+):\s*[^\n]*?\b{what}:(\d+)", text)}
+
+
+def memory_ops(instrs) -> dict:
+    """{opcode with its modifiers: count} of the global and shared memory
+    instructions in ``instrs`` ((address, text) pairs)."""
+    out = {}
+    for _, ins in instrs:
+        m = _MEMORY_OP.match(re.sub(r"^@!?U?P[T0-9]+\s+", "", ins))
+        if m:
+            op = m.group(1) + m.group(2)
+            out[op] = out.get(op, 0) + 1
+    return dict(sorted(out.items()))
 
 
 def _regs(operand):
@@ -182,12 +205,22 @@ def main(argv=None) -> int:
     libs = {name: build._lib_path(name) for name in build.SOURCES}
     libs["fwd_probes"] = build_sources(HERE / "fwd_probes.cu",
                                        [[f"-DBRICK_L{d}=2" for d in range(3)]])[0]
-    sass, regs = {}, {}
+    libs["brick_probes"] = build_sources(HERE / "brick_probes.cu", [[]])[0]
+    sass, regs, local = {}, {}, {}
     for name, lib in libs.items():
         sass.update({(name, k): v for k, v in disassemble(lib).items()})
         used = registers(lib)
         regs.update(zip(demangle(list(used)), used.values()))
-    report = {"kernels": {}, "diff": None}
+        spilt = registers(lib, "LOCAL")
+        local.update(zip(demangle(list(spilt)), spilt.values()))
+    report = {"kernels": {}, "copies": {}, "diff": None}
+    for (lib, name), instrs in sorted(sass.items()):
+        if lib in ("brick", "brick_probes") and any(c in name for c in _COPIES):
+            ops = memory_ops(instrs)
+            report["copies"][f"{lib}: {name}"] = dict(ops=ops, registers=regs.get(name),
+                                                      local_bytes=local.get(name))
+            print(f"[sass] {lib}: {name}: {regs.get(name)} registers, {local.get(name)} local "
+                  f"bytes; {ops}", flush=True)
     for (lib, name), instrs in sorted(sass.items()):
         if not any(f in name for f in _FORWARDS):
             continue

@@ -21,7 +21,10 @@ their bounds test). It is layout glue, not a port of a TPU kernel: one
 read and one write of the volume, by ``brick_copy`` (``csrc/brick.cu``) on a
 CUDA tensor and by a pad, a reshape and a permute
 (``brick_density_plain``) on the CPU. ``brick_density.launches`` counts
-the kernel's launches.
+the kernel's launches: one a copy, on either of its two paths. The packed
+path takes a density whose rows are packed (the DRR's contiguous density,
+a slab of it) and reads each plane's rows of a column of bricks as one
+span; the general path any other strides (:func:`packed_path` says which).
 
 :func:`bricked` keeps the copy of an unchanged density: registration and
 plain renders of one CT make it once, a render and its two-pass pose
@@ -61,7 +64,7 @@ from ._launch import call, check_storage, count_launch, runs_plain
 from .prep import march_perm
 
 __all__ = ["BRICK", "BrickedDensity", "brick_density", "brick_density_plain", "bricked",
-           "forget", "clear_cache"]
+           "forget", "clear_cache", "packed_path"]
 
 # Voxels of a brick along the density's axes 0, 1, 2: two 128-byte lines
 # (fwd_timing.py's probes chose it over 4x4x2, 2x2x8, 2x4x4, 1x4x8, 8x4x1).
@@ -148,6 +151,21 @@ def brick_density(density: torch.Tensor, storage=None) -> BrickedDensity:
 
 
 brick_density.launches = brick_density.launches_bf16 = 0
+
+
+def packed_path(density: torch.Tensor) -> bool:
+    """Whether ``brick_copy`` copies this CUDA density (or labelmap) on its
+    packed path: rows packed (unit stride along axis 2, axis 1's stride the
+    extent of axis 2), the data pointer and axis 0's stride 16-byte aligned,
+    axis 2 at most 1024 long (``csrc/brick.cuh``'s ``copy_packed``, asked
+    through the built library: no launch)."""
+    from .build import load
+
+    density = _as_float(density)
+    if density.device.type != "cuda":
+        raise ValueError(f"brick_copy's paths are the CUDA kernel's, not {density.device}'s")
+    return bool(load("brick").brick_copy_packed_path(density.data_ptr(), *density.stride(),
+                                                     density.shape[2]))
 
 
 class _Entry(NamedTuple):

@@ -76,6 +76,8 @@ _SIGNATURES = {
     "brick": {
         # the density, its strides and extents, the copy
         "brick_copy": [_VOID, _I64, _I64, _I64] + [_INT] * 3 + [_VOID] * 2,
+        # brick_copy's path for the density, its strides and X2 (no launch, no stream)
+        "brick_copy_packed_path": [_VOID, _I64, _I64, _I64, _INT],
     },
 }
 # The bf16 instantiations: every entry point that reads the bricked copy,

@@ -1706,6 +1706,259 @@ def test_bricked_cache_tracks_writes():
     assert not brick._entries
 
 
+# The copy's plan (csrc/brick.cuh): brick_copy as its blocks run it, one
+# chunk of a column at a time, with the header's dispatch, addressing and
+# (on the general path) each thread's walk over the chunk's elements. The
+# tile starts as a pattern no density holds here, so a word read but never
+# filled shows; the twin also checks that every element read is a voxel of
+# the density, every tile word of the chunk's rows inside it filled exactly
+# once, and what the packed path's 16-byte accesses need: each span's start
+# 16-byte aligned, its 16-byte words landing whole and aligned in the tile.
+_COPY_TWIN_SRC = r"""
+#include <string.h>
+#include <vector>
+#include "brick.cuh"
+
+static void put(float x, float* out) { memcpy(out, &x, sizeof x); }
+static void put(float x, brick::bf16* out) { *out = brick::to_bf16(x); }
+
+// Chunk c of column (b0, b1) into the tile as the kernel fills it; false
+// where a read or a tile word breaks what the kernel needs.
+static bool fill(const float* src, const brick::CopyPlan& p, int b0, int b1, int c, int len,
+                 std::vector<float>& tile) {
+  std::vector<int> hits(tile.size(), 0);
+  if (p.packed) {
+    for (int e0 = 0; e0 < (1 << brick::kL0); ++e0) {
+      int n = brick::span_length(p, b0, b1, e0);
+      const float* span = src + brick::span_offset(p, b0, b1, e0);
+      if (n > 0 && (uintptr_t)span % 16 != 0) return false;
+      for (int j = 0; j < n; ++j) {
+        // each element read is a voxel of the density
+        if ((b0 << brick::kL0) + e0 >= p.X0 || (b1 << brick::kL1) + j / p.X2 >= p.X1)
+          return false;
+        int t = brick::span_target(p, e0, j);
+        if (t < 0 || t >= (int)tile.size() || hits[t]++) return false;
+        // a 16-byte word of the span lands whole at a 16-byte word of the tile
+        if (j < (n & ~3) && t - brick::span_target(p, e0, j & ~3) != (j & 3)) return false;
+        if (j % 4 == 0 && j < (n & ~3) && t % 4 != 0) return false;
+        memcpy(&tile[t], span + j, sizeof(float));
+      }
+    }
+  } else {
+    int steps = (brick::kColumnRows * len + brick::kCopyThreads - 1) / brick::kCopyThreads;
+    for (int thread = 0; thread < brick::kCopyThreads; ++thread) {
+      brick::Walk w = brick::walk_start(p, len, thread, brick::kCopyThreads);
+      for (int k = 0; k < steps; ++k, brick::walk_next(w)) {
+        int r, z;
+        if (!brick::walk_at(p, w, &r, &z) || !brick::row_inside(p, b0, b1, r)) continue;
+        if (r < 0 || r >= brick::kColumnRows || z < 0 || z >= len) return false;
+        int t = r * p.pitch + z;
+        if (hits[t]++) return false;
+        memcpy(&tile[t], src + brick::element_offset(p, b0, b1, r, c * p.chunk + z),
+               sizeof(float));
+      }
+    }
+  }
+  for (int r = 0; r < brick::kColumnRows; ++r)
+    for (int z = 0; z < len; ++z)
+      if (brick::row_inside(p, b0, b1, r) && hits[r * p.pitch + z] != 1) return false;
+  return true;
+}
+
+// 1: the packed path, 0: the general path (always, where general != 0);
+// -1 where the plan breaks what the kernel needs.
+template <class T>
+static int copy(const float* src, int64_t s0, int64_t s1, int64_t s2, int X0, int X1, int X2,
+                T* dst, int general) {
+  brick::CopyPlan p = brick::make_copy_plan((uint64_t)(uintptr_t)src, s0, s1, s2, X0, X1, X2);
+  if (general) p.packed = false;
+  if (p.packed && p.chunks != 1) return -1;
+  const float unfilled = 12345.678f;
+  for (int b0 = 0; b0 < p.n0; ++b0)
+    for (int b1 = 0; b1 < p.n1; ++b1)
+      for (int c = 0; c < p.chunks; ++c) {
+        int len = brick::chunk_length(p, c);
+        std::vector<float> tile(brick::kColumnRows * p.pitch, unfilled);
+        if (!fill(src, p, b0, b1, c, len, tile)) return -1;
+        T* out = dst + brick::run_offset(p, b0, b1, c);
+        int n = ((len + (1 << brick::kL2) - 1) >> brick::kL2)
+                << (brick::kL0 + brick::kL1 + brick::kL2);
+        for (int o = 0; o < n; ++o) {
+          int i = brick::copy_source(p, b0, b1, len, o);
+          put(i < 0 ? 0.f : tile[i], out + o);
+        }
+      }
+  return p.packed ? 1 : 0;
+}
+
+extern "C" int ct_copy(const float* src, int64_t s0, int64_t s1, int64_t s2, int X0, int X1,
+                       int X2, float* dst, int general) {
+  return copy(src, s0, s1, s2, X0, X1, X2, dst, general);
+}
+extern "C" int ct_copy_bf16(const float* src, int64_t s0, int64_t s1, int64_t s2, int X0,
+                            int X1, int X2, brick::bf16* dst, int general) {
+  return copy(src, s0, s1, s2, X0, X1, X2, dst, general);
+}
+extern "C" int ct_packed(const float* src, int64_t s0, int64_t s1, int64_t s2, int X2) {
+  return brick::copy_packed((uint64_t)(uintptr_t)src, s0, s1, s2, X2);
+}
+extern "C" int ct_rows_first(int64_t s0, int64_t s1, int64_t s2) {
+  return brick::make_copy_plan(0, s0, s1, s2, 4, 4, 4).rows_first;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def ctwin(tmp_path_factory):
+    """The twin of brick_copy and brick_copy_bf16 (the package's brick shape)."""
+    so = _build_twin(tmp_path_factory, "ctwin", _COPY_TWIN_SRC)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for fn in (so.ct_copy, so.ct_copy_bf16):
+        fn.argtypes = [ptr, i64, i64, i64, i32, i32, i32, ptr, i32]
+        fn.restype = i32
+    so.ct_packed.argtypes = [ptr, i64, i64, i64, i32]
+    so.ct_packed.restype = i32
+    so.ct_rows_first.argtypes = [i64, i64, i64]
+    so.ct_rows_first.restype = i32
+    return so
+
+
+def _copy_layouts(t):
+    """``t`` (X0, X1, X2), float32 or int32, in the layouts brick_copy
+    meets, by name: contiguous; permuted (Fortran strides); a slab of a
+    larger density narrowed along axis 0 (the pointer s0 elements on);
+    narrowed along axis 1 (rows still packed, the pointer 4 X2 elements on,
+    the plane stride a multiple of 4) and along axis 2 (rows not packed);
+    contiguous with the pointer one element off 16 bytes."""
+    X0, X1, X2 = t.shape
+    out = {"contiguous": t.contiguous(),
+           "permuted": t.permute(2, 1, 0).contiguous().permute(2, 1, 0)}
+    big = torch.zeros((X0 + 2, X1, X2), dtype=t.dtype, device=t.device)
+    big[1:-1] = t
+    out["slab axis 0"] = big.narrow(0, 1, X0)
+    big = torch.zeros((X0, X1 + 4 + -X1 % 4, X2), dtype=t.dtype, device=t.device)
+    big[:, 4:4 + X1] = t
+    out["narrowed axis 1"] = big.narrow(1, 4, X1)
+    big = torch.zeros((X0, X1, X2 + 2), dtype=t.dtype, device=t.device)
+    big[:, :, 1:-1] = t
+    out["narrowed axis 2"] = big.narrow(2, 1, X2)
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    out["pointer off 16 bytes"] = flat[1:].view(t.shape)
+    for v in out.values():
+        assert torch.equal(v.view(torch.int32), t.view(torch.int32))
+    return out
+
+
+def _copy_packed(t) -> bool:
+    """The packed path's rule, stated here on its own (csrc/brick.cuh's
+    copy_packed)."""
+    s0, s1, s2 = t.stride()
+    return (s2 == 1 and s1 == t.shape[2] and s0 % 4 == 0 and t.data_ptr() % 16 == 0
+            and t.shape[2] <= 1024)
+
+
+def _copy_values(rng, dims, kind):
+    """A density of ``kind``: "random" (values bf16 rounds, with 0.0 and
+    -0.0), "special" (bf16's ties, subnormals, values past its largest,
+    +-inf, NaNs) or "labels" (int32 labels, many of them NaN and subnormal
+    patterns as float32)."""
+    if kind == "labels":
+        return torch.tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, dims, dtype=np.int64),
+                            dtype=torch.int32)
+    vol = torch.tensor(rng.normal(size=dims), dtype=torch.float32)
+    flat = vol.view(-1).view(torch.int32)
+    special = np.array((0x3f808000, 0x3f818000, 0x00008000, 0x00000001, 0x80123456, 0x7f7fffff,
+                        0x7f7f8000, 0x7f800000, 0xff800000, 0x7fc00000, 0xffc00001, 0x00000000,
+                        0x80000000) if kind == "special" else (0x00000000, 0x80000000),
+                       np.uint32).view(np.int32)
+    at = torch.tensor(rng.choice(vol.numel(), min(vol.numel(), 3 * len(special)), replace=False))
+    flat[at] = torch.tensor(np.resize(special, at.numel()))
+    return vol
+
+
+def _twin_copy(ctwin, t, storage=None, general=False):
+    """(the twin's copy of ``t``, its path: 1 packed, 0 general)."""
+    f = t.view(torch.float32) if t.dtype == torch.int32 else t
+    ext = tuple(f.shape)
+    data = torch.full((*(-(-e // b) for e, b in zip(ext, brick.BRICK)), *brick.BRICK), -7.0,
+                      dtype=torch.float32 if storage is None else torch.bfloat16)
+    fn = ctwin.ct_copy if storage is None else ctwin.ct_copy_bf16
+    path = fn(f.data_ptr(), *f.stride(), *ext, data.data_ptr(), int(general))
+    assert path >= 0, "the packed plan breaks the kernel's 16-byte accesses"
+    return data, path
+
+
+def _assert_copy_bits(got, ref):
+    """Bit for bit; in bf16 a NaN for a NaN (torch's CPU rounding keeps a
+    NaN's sign, the card's and brick::to_bf16 give 0x7fff)."""
+    if got.dtype == torch.bfloat16:
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(got), nan)
+        got, ref = got[~nan], ref[~nan]
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), ref.view(bits))
+
+
+@pytest.mark.parametrize("dims, kind", [
+    ((9, 12, 1), "random"), ((6, 8, 5), "random"), ((5, 12, 133), "special"),
+    ((9, 7, 133), "labels"), ((7, 6, 16), "random"), ((5, 5, 128), "special"),
+    ((2, 3, 1030), "random"), ((4, 4, 4), "labels"), ((6, 5, 9), "special")],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_twin_brick_copy_equals_plain(ctwin, dims, kind):
+    """The copy as brick_copy's blocks make it (csrc/brick.cuh's plan, built
+    with g++) equals brick_density_plain bit for bit, in float32 and, for a
+    density, in bf16 (NaN for NaN), in every layout of ``_copy_layouts``, on
+    the path the header picks and on the general path: depths 1, 5, 9, 16,
+    128, 133 and 1030 (two chunks of axis 2: general), X1 % 4 != 0 (the last
+    column's shorter spans, of lengths not a multiple of 4 where X2 is odd),
+    int32 labels that are NaN patterns as float32, bf16's ties, subnormals,
+    infinities and NaNs."""
+    t = _copy_values(np.random.default_rng(sum(dims)), dims, kind)
+    storages = (None,) if kind == "labels" else (None, "bf16")
+    paths = set()
+    for name, v in _copy_layouts(t).items():
+        for storage in storages:
+            ref = brick_density_plain(v, storage).data
+            for general in (False, True):
+                got, path = _twin_copy(ctwin, v, storage, general)
+                paths.add(path)
+                assert path == (not general and _copy_packed(v)), name
+                _assert_copy_bits(got, ref)
+    assert paths == ({0} if dims[2] > 1024 else {0, 1})
+
+
+def test_twin_brick_copy_picks_the_packed_path(ctwin):
+    """The packed path exactly where a plane's rows of a column are one
+    16-byte aligned span: a contiguous density whose plane stride is a
+    multiple of 4 (the main CT's 512 x 133) and a slab of it along axis 0;
+    along axis 1 where the pointer stays 16-byte aligned (rows still
+    packed); not a permuted density, one narrowed along axis 2, one whose
+    pointer or plane stride is off 16 bytes, nor an axis 2 past 1024. The
+    general path's threads run along axis 2 where its stride is the
+    smallest (a slab narrowed along it), else along the column's rows (a
+    permuted density)."""
+    def packed(t):
+        f = t.view(torch.float32) if t.dtype == torch.int32 else t
+        return bool(ctwin.ct_packed(f.data_ptr(), *f.stride(), f.shape[2]))
+
+    ct = torch.zeros((6, 512, 133))
+    layouts = _copy_layouts(ct)
+    for name in ("contiguous", "slab axis 0", "narrowed axis 1"):
+        assert packed(layouts[name]), name
+    for name in ("permuted", "narrowed axis 2", "pointer off 16 bytes"):
+        assert not packed(layouts[name]), name
+    big = torch.zeros((6, 520, 133))
+    assert not packed(big.narrow(1, 3, 512))  # 3 x 133 elements on: off 16 bytes
+    assert not packed(torch.zeros((6, 7, 133)))  # plane stride 931
+    assert packed(torch.zeros((3, 4, 1024))) and not packed(torch.zeros((3, 4, 1025)))
+    assert packed(torch.zeros((3, 4, 1024), dtype=torch.int32))
+    for dims in ((5, 12, 133), (9, 7, 133), (2, 3, 1030), (6, 8, 5)):
+        for name, v in _copy_layouts(torch.zeros(dims)).items():
+            assert packed(v) == _copy_packed(v), (dims, name)
+            assert ctwin.ct_rows_first(*v.stride()) == (name == "permuted"), (dims, name)
+
+
 def _gpu_fwd_scenes(axis):
     """(label, density, rows, march) on the card: a 64x64 detector plus the
     mixed rays on the warp-case volume, and a 200x200 detector on a random
@@ -1934,40 +2187,59 @@ def test_cuda_forwards_brick_once_per_version():
     clear_cache()
 
 
+def _cuda_copies(t, storage=None):
+    """brick_density of ``t`` on the card in every layout of
+    ``_copy_layouts``, each one launch of the copy's kernel: by name,
+    (the copy on the host, whether it took the packed path)."""
+    count = "launches" if storage is None else "launches_bf16"
+    out = {}
+    for name, v in _copy_layouts(t.cuda()).items():
+        clear_cache()
+        launches = getattr(brick_density, count)
+        got = brick_density(v, storage)
+        torch.cuda.synchronize()
+        assert getattr(brick_density, count) == launches + 1, name
+        assert got.shape == tuple(t.shape)
+        assert brick.packed_path(v) == _copy_packed(v), name
+        out[name] = (got.data.cpu(), brick.packed_path(v))
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dims", [(21, 23, 13), (8, 8, 4), (130, 67, 133)])
+@pytest.mark.parametrize("dims", [(21, 23, 13), (8, 8, 4), (130, 67, 133), (130, 68, 133),
+                                  (9, 7, 133), (36, 40, 128), (6, 5, 1030)])
 def test_cuda_brick_copy_matches_plain(dims):
     """On a card: brick_copy (csrc/brick.cu) equals the plain copy bit for
-    bit, contiguous and permuted, on extents that are not whole bricks."""
+    bit, on extents that are not whole bricks, in every layout of
+    ``_copy_layouts`` (contiguous, permuted, a slab, narrowed along axis 1
+    and 2, the pointer off 16 bytes), on both paths (the packed one wherever
+    ``_copy_packed`` says), one launch a copy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for vol in _densities(np.random.default_rng(3), dims):
-        # .cuda() keeps the permuted density's Fortran strides
-        vol = vol.cuda()
-        launches = brick_density.launches
-        got = brick_density(vol)
-        ref = brick_density_plain(vol)
-        torch.cuda.synchronize()
-        assert brick_density.launches == launches + 1 and got.shape == ref.shape
-        assert torch.equal(got.data, ref.data)
+    vol = _copy_values(np.random.default_rng(3), dims, "random")
+    ref = brick_density_plain(vol).data
+    copies = _cuda_copies(vol)
+    for name, (got, _) in copies.items():
+        _assert_copy_bits(got, ref)
+    assert {packed for _, packed in copies.values()} == ({False} if dims[2] > 1024
+                                                         else {False, True})
 
 
 @pytest.mark.gpu
-def test_cuda_brick_copy_keeps_label_bits():
+@pytest.mark.parametrize("dims", [(130, 67, 133), (9, 7, 133), (36, 40, 128)])
+def test_cuda_brick_copy_keeps_label_bits(dims):
     """On a card: brick_copy of an int32 labelmap (its bits seen as float32)
     equals the plain copy bit for bit, labels that are NaN or denormal
-    patterns as float32 included, contiguous and permuted."""
+    patterns as float32 included, in every layout of ``_copy_layouts``, on
+    both paths."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.default_rng(9)
-    dims = (130, 67, 133)
-    lab = torch.tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, dims, dtype=np.int64),
-                       dtype=torch.int32)
-    for t in (lab, lab.permute(2, 1, 0).contiguous().permute(2, 1, 0)):
-        got = brick_density(t.cuda())
-        ref = brick_density_plain(t)
-        torch.cuda.synchronize()
-        assert torch.equal(got.data.cpu().view(torch.int32), ref.data.view(torch.int32))
+    lab = _copy_values(np.random.default_rng(9), dims, "labels")
+    ref = brick_density_plain(lab).data
+    copies = _cuda_copies(lab)
+    for name, (got, _) in copies.items():
+        _assert_copy_bits(got, ref)
+    assert {packed for _, packed in copies.values()} == {False, True}
 
 
 # -----------------------------------------------------------------------------
@@ -2990,28 +3262,28 @@ def test_twin_joseph_bf16_instantiations_equal_f32_on_rounded(jtwin, btwin, ftwi
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dims", [(21, 23, 13), (130, 67, 133)])
+@pytest.mark.parametrize("dims", [(21, 23, 13), (130, 67, 133), (130, 68, 133), (9, 7, 133),
+                                  (36, 40, 128), (6, 5, 1030)])
 def test_cuda_brick_copy_bf16_matches_torch(dims):
     """brick_copy_bf16 on the card against its plain version on the card
     (torch's CUDA rounding), bit for bit, NaN bits too, on a density with
     ties, subnormals, values that round past the largest bf16, infinities
-    and NaNs; its float32 path unchanged."""
+    and NaNs, in every layout of ``_copy_layouts``, on both paths, one
+    launch a copy; its float32 path unchanged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.default_rng(7)
-    vol = rng.normal(size=dims).astype(np.float32)
-    flat = vol.reshape(-1).view(np.uint32)
-    flat[:8] = [0x3f808000, 0x3f818000, 0x00008000, 0x00000001, 0x7f7fffff, 0xff800000,
-                0x7fc00000, 0xffc00001]
-    d = torch.tensor(vol, device="cuda").permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    vol = _copy_values(np.random.default_rng(7), dims, "special")
+    ref = brick_density_plain(vol.cuda(), "bf16").data.cpu()
+    ref32 = brick_density_plain(vol).data
+    copies = _cuda_copies(vol, "bf16")
+    for name, (got, _) in copies.items():
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16)), name
+    assert {packed for _, packed in copies.values()} == ({False} if dims[2] > 1024
+                                                         else {False, True})
+    for name, (got, _) in _cuda_copies(vol).items():
+        _assert_copy_bits(got, ref32)
     clear_cache()
-    got = brick_density(d, "bf16")
-    ref = brick_density_plain(d, "bf16")
-    assert got.data.dtype == torch.bfloat16 and got.data.shape == ref.data.shape
-    assert torch.equal(got.data.view(torch.int16), ref.data.view(torch.int16))
-    assert brick_density.launches_bf16 >= 1
-    assert torch.equal(brick_density(d).data.view(torch.int32),
-                       brick_density_plain(d).data.view(torch.int32))
 
 
 @pytest.mark.gpu
