@@ -267,8 +267,9 @@ Phases (any failure raises and the exit code is non-zero):
      channel render and backward, 5 trilinear registration steps;
  13d. at the main path's shapes (the main cell, Joseph's fused kernel in
      sum and max, both modes of each two-pass backward, the forwards at
-     320,000 rays and at the lateral pose (axis 0, Joseph at h = 1.024),
-     the 512^3 cube's forwards at 200^2 and 1000^2) each bf16
+     320,000 rays, the forwards and both fused pose kernels at the lateral
+     pose (axis 0, 512 slabs, Joseph at h = 1.024), the 512^3 cube's
+     forwards at 200^2 and 1000^2) each bf16
      instantiation equal, bit for bit, to the float32 one on the density
      rounded to bf16, and to its plain version within phase 3's tolerances
      (not at 1000^2), the CT's bf16 copy to its plain version bit for bit;
@@ -310,10 +311,12 @@ The bf16 instantiations have entries of their own (``<kernel>_bf16``, with
 phase 13's launches, ``ms_f32``/``bound_ms_f32`` beside them from the same
 call, ``library_ms`` null: no one PyTorch call reads a bf16 copy and
 computes in float32; brick_copy_bf16's and brick_copy's are phase 14's
-one call of each copy at 512x512x128); the two bf16 forwards' at 200x200 also
-``ms_lateral``, ``ms_lateral_f32`` and ``bound_ms_lateral``, and theirs
-(at every shape) a ``design`` naming the raw 16-bit loads they keep in
-flight. ``library_ms`` is one PyTorch call over the same
+one call of each copy at 512x512x128); the two bf16 forwards' and the two
+bf16 fused pose kernels' at 200x200 also ``ms_lateral``, ``ms_lateral_f32``
+and ``bound_ms_lateral``, and theirs (the forwards' at every shape) a
+``design`` naming the raw 16-bit loads they keep in flight (the fused
+kernels': their lanes a ray and the slabs or steps a lane). ``library_ms``
+is one PyTorch call over the same
 samples: F.grid_sample for the Joseph forwards; torch.ops.aten.grid_sampler_3d_backward's input
 gradient (grad_output g * scale) for joseph_bwd_vol and joseph_bwd_vol_ch
 (g the channel cotangent at each sample's label), its grid gradient for
@@ -556,6 +559,24 @@ def raw_design(header: str, constant: str, unit: str) -> str:
     u = re.search(rf"constexpr int {re.escape(constant)} = (\d+);", text).group(1)
     return (f"bf16 bricked copy, one thread a ray, {u} {unit} of raw 16-bit loads in flight, "
             f"widened in the sums")
+
+
+def fused_raw_design(header: str, constant: str, unit: str, loads: int) -> str:
+    """A bf16 fused pose kernel's layout, for the record: its lanes a ray and
+    the ``unit`` (slabs or steps) of raw 16-bit loads a lane keeps in flight,
+    ``loads`` a unit, as the header ``csrc/<header>`` compiles them
+    (``kFusedLanes`` and ``constant<brick::bf16>``)."""
+    import re
+
+    text = (ROOT / "diffdrr_tpu_torch" / "csrc" / header).read_text()
+
+    def value(name):
+        return int(re.search(rf"constexpr int {re.escape(name)} = (\d+);", text).group(1))
+
+    g, u = value("kFusedLanes"), value(f"{constant}<brick::bf16>")
+    blend = f", {2 * loads * u} in blend mode" if loads == 4 else ""
+    return (f"bf16 bricked copy, {g} lanes a ray, {u} {unit if u > 1 else unit[:-1]} a lane "
+            f"of raw 16-bit loads in flight ({loads * u}{blend}), widened before the rows")
 
 
 def check_close(name, got, ref, rel):
@@ -2847,9 +2868,10 @@ def bf16_timings(T, reg, rec, rng, cube):
     """Phase 13d: each kernel that reads the density, its bf16 instantiation
     held against the float32 one on the rounded CT and against its plain
     version, and both timed side by side (``side_by_side``), at the main
-    cell (200^2, axis 2, h = 1) and the forwards at the recon cells' 320,000
-    rays and at the lateral pose (200^2, axis 0, Joseph at the trilinear
-    stride h = 1.024: two planes a sample); the copies of the CT (the bf16
+    cell (200^2, axis 2, h = 1), the forwards at the recon cells' 320,000
+    rays, and the forwards and the fused pose kernels at the lateral pose
+    (200^2, axis 0, 512 slabs, Joseph at the trilinear stride h = 1.024: two
+    planes a sample); the copies of the CT (the bf16
     one bit for bit its plain version's); the 512^3 cube's (phase 5's
     subject) siddon_fwd and joseph_fwd at 200^2 and 1000^2."""
     import torch
@@ -2892,6 +2914,8 @@ def bf16_timings(T, reg, rec, rng, cube):
                                 (0,), FWD_BOUND),
         "siddon_fwdgrad": (K.siddon_fwdgrad, K.siddon_fwdgrad_plain, check_fused, rows_m, (2,),
                            *sid, FWDGRAD_BOUND),
+        "siddon_fwdgrad[lateral]": (K.siddon_fwdgrad, K.siddon_fwdgrad_plain, check_fused,
+                                    rows_l, (0,), bound, (0,), FWDGRAD_BOUND),
         "siddon_fwd_max": (K.siddon_fwd_max, K.siddon_fwd_max_plain, check_max, rows_m, (2,),
                            *sid, FWD_MAX_BOUND),
         "siddon_bwd_rays": (K.siddon_bwd_rays, K.siddon_bwd_rays_plain, check_rows, rows_m,
@@ -2911,6 +2935,9 @@ def bf16_timings(T, reg, rec, rng, cube):
                            (2, 1.0, X, "sum"), *jos, J_FWDGRAD_BOUND),
         "joseph_fwdgrad[max]": (J.joseph_fwdgrad, J.joseph_fwdgrad_plain, fused, jrows_m,
                                 (2, 1.0, X, "max"), *jos, J_FWDGRAD_BOUND),
+        "joseph_fwdgrad[lateral]": (J.joseph_fwdgrad, J.joseph_fwdgrad_plain, fused, jrows_l,
+                                    (0, h_l, n_l, "sum"), march_bound, (0, h_l, n_l),
+                                    J_FWDGRAD_BOUND),
         "joseph_bwd_rays": (J.joseph_bwd_rays, J.joseph_bwd_rays_plain, check_rows, jrows_m,
                             (2, 1.0, X, g, None), *jos, J_BWD_RAYS_BOUND),
         "joseph_bwd_rays[mip]": (J.joseph_bwd_rays, J.joseph_bwd_rays_plain, check_rows, jrows_m,
@@ -3024,7 +3051,9 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
          f"{jpal}:600"),
     ]
     designs = {"siddon_fwd": raw_design("siddon.cuh", "kFwdSlabs", "slabs"),
-               "joseph_fwd": raw_design("joseph.cuh", "kFwdStepsOf<brick::bf16>", "steps")}
+               "joseph_fwd": raw_design("joseph.cuh", "kFwdStepsOf<brick::bf16>", "steps"),
+               "siddon_fwdgrad": fused_raw_design("siddon.cuh", "kFusedSlabsOf", "slabs", 3),
+               "joseph_fwdgrad": fused_raw_design("joseph.cuh", "kFusedStepsOf", "steps", 4)}
     records = []
     for name, key, kernel, src, replaces in rows:
         t = times[key]
@@ -3045,7 +3074,7 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
             t_k = times[key.replace("200]", "1000]")]
             rec_.update(ms_1000=t_k["ms"], ms_1000_f32=t_k["ms_f32"],
                         bound_ms_1000=t_k["bound"][0])
-        if key in ("siddon_fwd", "joseph_fwd"):
+        if key in ("siddon_fwd", "joseph_fwd", "siddon_fwdgrad", "joseph_fwdgrad"):
             t_l = times[f"{key}[lateral]"]
             rec_.update(ms_lateral=t_l["ms"], ms_lateral_f32=t_l["ms_f32"],
                         bound_ms_lateral=t_l["bound"][0])

@@ -29,10 +29,11 @@
 // a bf16 copy gives, bit for bit, what the float32 copy of the density
 // rounded to bf16 gives. The rounding happens once, in the copy (to_bf16
 // below, which brick.cu applies: round to nearest, ties to even). The two
-// one-thread-a-ray forwards keep their reads raw until the sums (siddon.cuh
-// and joseph.cuh, trace_fwd on a bf16 copy): a read widened where it lands
-// makes the thread wait on it there, so their batches of loads would not
-// be in flight together.
+// one-thread-a-ray forwards keep their reads raw until the sums, and the
+// fused pose kernels (with the two-pass sum backwards) until the rows
+// (siddon.cuh and joseph.cuh: trace_fwd and fused_terms on a bf16 copy): a
+// read widened where it lands makes the thread wait on it there, so their
+// batches of loads would not be in flight together.
 #pragma once
 
 #include <stdint.h>

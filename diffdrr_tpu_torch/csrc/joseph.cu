@@ -199,6 +199,25 @@
 // lerp in blend mode reads each load as it lands: at the lateral pose
 // (h = 1.024) the bf16 forward is ~1.5-1.9x faster than it (PERF.md;
 // ROADMAP queue 2).
+//
+// joseph_fwdgrad_bf16 has a fused_terms of its own (joseph.cuh), as the
+// forward has a trace_fwd: each of its U steps loads its window raw
+// (window_raw: 4 16-bit loads, 8 in blend mode), and only then are they
+// widened and lerped (widen_window) and the step's terms formed, in step
+// order, so the rows, values and argmax steps are the float32 kernel's on
+// the rounded density bit for bit. The first bf16 build widened (and in
+// blend mode lerped) each read where it landed: 1 load in flight in the
+// SASS, now 8U. G = kFusedLanes = 8 and U = kFusedStepsOf<bf16> = 2
+// from fwdgrad_timing.py --storage bf16's probes (H100, one call): at
+// the main pose (h = 1) 0.089 ms in sum mode (U = 1 the same, G = 4 and
+// 16 0.089 and 0.098, U = 4 0.114 at 102 registers and 4 blocks an SM),
+// 0.078 in max mode (U = 1 0.082), against the widened build's 0.104 and
+// 0.102; at the lateral pose 0.305 at h = 1.024 (U = 1 0.317, widened
+// 0.356) and 0.233 at h = 1 (U = 1 0.238). The march without loads takes
+// 0.068 of the 0.089 ms at the main pose, the raw loads alone 0.064.
+// joseph_bwd_rays_bf16's sum mode runs the same fused_terms through
+// fwdgrad_lanes, so it gets the raw windows with it, untuned (kBwdLanes,
+// kBwdSteps as in float32: 8 in flight; PERF.md).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -237,15 +256,16 @@ joseph_fwd_max_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Vol
       rows, n_rays, vol, m, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
-// G = kFusedLanes lanes a ray on the bricked copy, in passes of G steps
-// whose summands the ray's rows take in step order (lanes.cuh; the note at
-// the top of this file says why); A: the march axis. arg == nullptr: sum
-// mode; else MIP, the argmax step written to arg[r].
+// G = kFusedLanes lanes a ray on the bricked copy, in passes of G * U steps
+// (U = kFusedStepsOf<T>) whose summands the ray's rows take in step order
+// (lanes.cuh; the note at the top of this file says why); A: the march
+// axis. arg == nullptr: sum mode; else MIP, the argmax step written to
+// arg[r].
 template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
 joseph_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                       joseph::March m, float* __restrict__ out, int* __restrict__ arg) {
-  joseph::fwdgrad_lanes<joseph::kFusedLanes, joseph::kFusedSteps>(
+  joseph::fwdgrad_lanes<joseph::kFusedLanes, joseph::kFusedStepsOf<T>>(
       rows, n_rays, vol, m, out, arg, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 

@@ -489,10 +489,15 @@ JOSEPH_HD void trace_fwdgrad(const Ray& r, const Volume& v, const March& m, bool
 }
 
 // joseph_fwdgrad's lanes a ray (G), the steps a lane keeps in flight (U)
-// and its threads a block (joseph.cu says why these).
+// and its threads a block (joseph.cu says why these); kFusedStepsOf<T> on a
+// copy of element T, a bf16 one's its own.
 constexpr int kFusedLanes = 8;
 constexpr int kFusedSteps = 1;
 constexpr int kFusedThreads = 128;
+template <class T>
+constexpr int kFusedStepsOf = kFusedSteps;
+template <>
+constexpr int kFusedStepsOf<brick::bf16> = 2;
 
 // The fused march's summands of U steps p0, p0 + step, ...,
 // p0 + (U - 1) step: t[u][0..6] the step's 7 terms and t[u][7] its value
@@ -520,6 +525,36 @@ JOSEPH_HD void fused_terms(const Ray& r, const Vol& v, const March& m, int p0, i
 #pragma unroll
     for (int i = 0; i < kFusedRows; ++i) t[u][i] = 0.f;
     if (in[u]) t[u][kValueRow] = step_terms(r, st[u], win[u], t[u]);
+  }
+}
+
+// fused_terms on a bf16 copy: U steps' windows loaded raw first
+// (window_raw: 4U loads in flight, 8U in blend mode), then each widened and
+// lerped (widen_window) and its terms formed in step order. The same
+// float32 operations on the same values as the float32 copy's
+// fused_terms, so the terms are its terms on the density rounded to bf16,
+// bit for bit.
+template <int U, int A>
+JOSEPH_HD void fused_terms(const Ray& r, const brick::Volume<A, brick::bf16>& v, const March& m,
+                           int p0, int step, int hi, float t[U][kFusedRows]) {
+  Step st[U];
+  bool in[U];
+  brick::bf16 raw[U][2][2][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    st[u] = step_at(r, m, v.X, p0 + u * step);
+    in[u] = p0 + u * step < hi && st[u].inslab;
+    window_raw(v, st[u], m.blend, in[u], raw[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int i = 0; i < kFusedRows; ++i) t[u][i] = 0.f;
+    if (in[u]) {
+      float win[2][2];
+      widen_window(raw[u], st[u], m.blend, win);
+      t[u][kValueRow] = step_terms(r, st[u], win, t[u]);
+    }
   }
 }
 

@@ -151,8 +151,26 @@
 // at 1, 2, 4 and 8: 8 is 2-7% faster at 200^2 and 3-7% slower at 320,000
 // rays and on the cube at 1000^2. The raw reads leave the float32
 // instantiation's code as it was, instruction for instruction
-// (sass_check.py). The lane kernels still widen each read where it lands
-// (one slab a lane in flight: 3-15% slower than float32, PERF.md).
+// (sass_check.py).
+//
+// siddon_fwdgrad_bf16 keeps its reads raw too: fused_terms reads each
+// slab's three voxels as the copy stores them (segment_raw: voxel_raw on a
+// bf16 copy, with the s < hi gate and no zero-length one, since a
+// segment's value enters the crossings' terms) and widens them only once
+// every load of its U slabs has issued, then forms the rows by the float32
+// operations, so they are the float32 kernel's on the rounded density bit
+// for bit. The first bf16 build widened each read where it landed
+// (brick::load), which made the lane wait on each of its 3 loads in turn
+// (cuobjdump -sass: 1 in flight; now 3U). G = kFusedLanes = 8 and
+// U = kFusedSlabsOf<bf16> = 1 from fwdgrad_timing.py --storage bf16's
+// probes (H100, 200^2 main pose, one call): raw 0.100 ms against the
+// widened build's 0.110; U = 2 0.105 and U = 4 0.127 (63 and 76 registers
+// against 56, 8 and 6 blocks an SM against 9); G = 4 and 16 0.110 and
+// 0.106; at the lateral pose (512 slabs) 0.277, U = 2 within 1%, widened
+// 0.289. The march without loads takes 0.088 of the 0.100 ms: it bounds
+// the kernel, as in float32. siddon_bwd_rays_bf16's sum mode runs the same
+// fused_terms through fwdgrad_lanes, so it gets the raw reads with it,
+// untuned (kBwdLanes, kBwdSlabs as in float32; PERF.md).
 #include <cuda_runtime.h>
 
 #include "siddon.cuh"
@@ -178,14 +196,14 @@ siddon_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<
   out[r] = siddon::trace_fwd<siddon::kFwdSlabs>(ray, vol);
 }
 
-// G = kFusedLanes lanes a ray on the bricked copy, in passes of G slabs
-// whose summands the ray's rows take in slab order (lanes.cuh; the note at
-// the top of this file says why); A: the march axis.
+// G = kFusedLanes lanes a ray on the bricked copy, in passes of G * U slabs
+// (U = kFusedSlabsOf<T>) whose summands the ray's rows take in slab order
+// (lanes.cuh; the note at the top of this file says why); A: the march axis.
 template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
 siddon_fwdgrad_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                       float* __restrict__ out) {
-  siddon::fwdgrad_lanes<siddon::kFusedLanes, siddon::kFusedSlabs>(
+  siddon::fwdgrad_lanes<siddon::kFusedLanes, siddon::kFusedSlabsOf<T>>(
       rows, n_rays, vol, out, (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 

@@ -390,28 +390,53 @@ SIDDON_HD void trace_fwdgrad(const Ray& r, const Volume& v, float acc[kFusedRows
 }
 
 // siddon_fwdgrad's lanes a ray (G), the slabs a lane keeps in flight (U)
-// and its threads a block (siddon.cu says why these).
+// and its threads a block (siddon.cu says why these); kFusedSlabsOf<T> on a
+// copy of element T, a bf16 one's its own (the probes chose the same).
 constexpr int kFusedLanes = 8;
 constexpr int kFusedSlabs = 1;
 constexpr int kFusedThreads = 128;
+template <class T>
+constexpr int kFusedSlabsOf = kFusedSlabs;
+template <>
+constexpr int kFusedSlabsOf<brick::bf16> = 1;
+
+// fused_terms' read of segment j of slab s (sl its segments, hi the end of
+// the ray's slabs), as the volume stores it: voxel()'s float, or on a bf16
+// copy the 16 bits (voxel_raw), left raw for the rows to widen; 0, or zero
+// bits, for a slab at or past hi. Unlike read_raw, a zero-length segment is
+// read: its value enters the crossings' terms (slab_rows).
+template <class Vol>
+SIDDON_HD float segment_raw(const Vol& v, int s, int hi, const Slab& sl, int j) {
+  return s < hi ? voxel(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]) : 0.f;
+}
+
+template <int A>
+SIDDON_HD brick::bf16 segment_raw(const brick::Volume<A, brick::bf16>& v, int s, int hi,
+                                  const Slab& sl, int j) {
+  return s < hi ? voxel_raw(v, s, sl.y0 + sl.iy[j], sl.z0 + sl.iz[j]) : (brick::bf16)0;
+}
 
 // The fused march's summands of U slabs s0, s0 + step, ...,
 // s0 + (U - 1) step: t[u][0..8] the slab's d(value)/d(row) and t[u][9] its
 // value, the terms trace_fwdgrad adds (slab_rows into zeros: the same bits
 // once added); all 0 for a slab at or past hi, slab_range's end. Their
-// segments and reads first (3U loads in flight), then their rows.
+// segments and reads first (3U loads in flight), then their rows. The reads
+// stay as the volume stores them (segment_raw) until every one of them has
+// issued, so a bf16 copy's 3U 16-bit loads are in flight together too; each
+// is then widened, exactly, and the rows are the float32 ones on the
+// density rounded to bf16.
 template <int U, class Vol>
 SIDDON_HD void fused_terms(const Ray& r, const Vol& v, int s0, int step, int hi,
                            float t[U][kFusedRows]) {
+  using E = decltype(segment_raw(v, 0, 0, Slab(), 0));
   Slab sl[U];
-  float V[U][3];
+  E raw[U][3];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     int s = s0 + u * step;
     sl[u] = slab_segments(r, s);
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      V[u][j] = s < hi ? voxel(v, s, sl[u].y0 + sl[u].iy[j], sl[u].z0 + sl[u].iz[j]) : 0.f;
+    for (int j = 0; j < 3; ++j) raw[u][j] = segment_raw(v, s, hi, sl[u], j);
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -419,7 +444,10 @@ SIDDON_HD void fused_terms(const Ray& r, const Vol& v, int s0, int step, int hi,
     for (int k = 0; k < kFusedRows; ++k) t[u][k] = 0.f;
     int s = s0 + u * step;
     if (s < hi) {
-      float seg = slab_rows(r, sl[u], s, V[u], t[u]);
+      float V[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) V[j] = brick::widen(raw[u][j]);
+      float seg = slab_rows(r, sl[u], s, V, t[u]);
       t[u][kValueRow] = r.w * seg;
     }
   }

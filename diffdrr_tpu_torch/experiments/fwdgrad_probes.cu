@@ -27,7 +27,28 @@
 // 128 threads a block, as in the kernels. Each returns cudaGetLastError(),
 // or -1 for a combination it does not build (-2: another march axis than
 // this build's).
+//
+// Built with -DPROBE_BF16, the file holds the bf16 probes instead
+// (probe_siddon_fwdgrad_bf16 and probe_joseph_fwdgrad_bf16, below), on the
+// density's bf16 bricked copy, at G = 4, 8 or 16 lanes a ray and U = 1, 2
+// or 4 slabs (steps) in flight a lane:
+//   variant 0 the package's fwdgrad_lanes (fused_terms' reads kept raw
+//             until every one of the U slabs' (steps') loads has issued);
+//           1 the parent's (each read widened where it lands: fused_terms
+//             of the float32 copy over a volume whose voxel() is
+//             brick::load, as the first bf16 build had it);
+//           2 the raw loads only (per slab the three voxels around the
+//             ray's position, per step its window's 4, 8 in blend mode,
+//             U at a time, widened in the sums; the lanes' sums combined
+//             by the tree below);
+//           3 the march without loads (the float32 probe's kind 1 at the
+//             same G and U: every offset computed, nothing read).
+// probe_fwdgrad_bf16_attributes gives a variant's registers, local memory
+// and static shared memory a thread or block, and its resident blocks an
+// SM (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "joseph.cuh"
 #include "siddon.cuh"
@@ -83,6 +104,7 @@ __device__ __forceinline__ void tree_sum(float acc[N]) {
     for (int k = 0; k < N; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], o);
 }
 
+#if !defined(PROBE_BF16)
 // The parent kernels, one thread per ray on the strided density.
 __global__ void __launch_bounds__(kThreads)
 siddon_parent(const float* __restrict__ rows, int64_t n, siddon::Volume v,
@@ -371,3 +393,259 @@ extern "C" int probe_joseph_fwdgrad(int layout, int kind, int n_lanes, int unrol
                              brick::make_volume<probe::A>(bricked, bs_s, bs_y, bs_z, X, Y, Z), m,
                              out, arg, (cudaStream_t)stream);
 }
+#else  // PROBE_BF16
+using brick::bf16;
+using BV = brick::Volume<A, bf16>;
+
+// The bf16 copy as the first bf16 build read it: voxel() of the float32
+// code, each read widened where it lands (siddon::voxel and joseph::voxel
+// on a brick::Volume, brick::load). Over such a volume fused_terms is the
+// float32 copy's, as that build had it.
+struct SiddonWidened {
+  BV b;
+  int X, Y, Z;
+};
+struct JosephWidened {
+  BV b;
+  int X, Y, Z;
+};
+
+__host__ __device__ __forceinline__ float voxel(const SiddonWidened& v, int s, float fy,
+                                                float fz) {
+  return siddon::voxel(v.b, s, fy, fz);
+}
+
+__host__ __device__ __forceinline__ float voxel(const JosephWidened& v, int k, float fy,
+                                                float fz) {
+  return joseph::voxel(v.b, k, fy, fz);
+}
+
+// The volume variant V reads, W the family's widened copy: the bf16 copy
+// (0, 2), W (1), or NoLoad over the copy's geometry (3: the offsets are the
+// same in elements; nothing is read), made on the host so that NoLoad's
+// zero is a kernel argument.
+template <int V, class W>
+using VolOf = std::conditional_t<V == 1, W, std::conditional_t<V == 3, NoLoad, BV>>;
+
+template <int V, class W>
+VolOf<V, W> volume_of(const BV& b) {
+  if constexpr (V == 1) {
+    return W{b, b.X, b.Y, b.Z};
+  } else if constexpr (V == 3) {
+    return no_load(brick::make_volume<A>(static_cast<const float*>(nullptr), b.bs_s, b.bs_y,
+                                         b.bs_z, b.X, b.Y, b.Z));
+  } else {
+    return b;
+  }
+}
+
+// The raw loads only, Siddon: lane j of ray t / G takes slabs lo + j,
+// lo + j + G, ..., U at a time, each the three voxels at the ray's
+// position in the slab (rounded, as the segments' 2x2 picks them) loaded
+// raw before any is widened; the lanes' sums meet in the tree.
+template <int G, int U>
+__device__ __forceinline__ void siddon_loads_raw(const float* __restrict__ rows, int64_t n,
+                                                 const BV& v, float* __restrict__ out) {
+  int64_t t = thread_index();
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  float acc[1] = {0.f};
+  if (r < n) {
+    siddon::Ray ray = siddon::load_ray(rows, n, r);
+    int lo, hi;
+    siddon::slab_range(ray, v.X, &lo, &hi);
+    for (int s0 = lo + lane; s0 < hi; s0 += G * U) {
+      bf16 raw[U][3];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        int s = s0 + u * G;
+        float alpha = (float)s * ray.a + ray.b;
+        float fy = rintf(ray.gy + alpha * ray.dy);
+        float fz = rintf(ray.gz + alpha * ray.dz);
+        bool ok = s < hi;
+        raw[u][0] = ok ? siddon::voxel_raw(v, s, fy, fz) : (bf16)0;
+        raw[u][1] = ok ? siddon::voxel_raw(v, s, fy + 1.f, fz) : (bf16)0;
+        raw[u][2] = ok ? siddon::voxel_raw(v, s, fy + 1.f, fz + 1.f) : (bf16)0;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        acc[0] += (brick::widen(raw[u][0]) + brick::widen(raw[u][1])) + brick::widen(raw[u][2]);
+    }
+  }
+  tree_sum<G, 1>(acc);
+  if (r < n && lane == 0) out[r] = acc[0];
+}
+
+// The raw loads only, Joseph: lane j's steps lo + j, lo + j + G, ..., U at
+// a time, each its window (window_raw at the step's plane and position:
+// 4 loads, 8 in blend mode) loaded raw before any is widened.
+template <int G, int U>
+__device__ __forceinline__ void joseph_loads_raw(const float* __restrict__ rows, int64_t n,
+                                                 const BV& v, const joseph::March& m,
+                                                 float* __restrict__ out) {
+  int64_t t = thread_index();
+  int64_t r = t / G;
+  int lane = (int)(t % G);
+  float acc[1] = {0.f};
+  if (r < n) {
+    joseph::Ray ray = joseph::load_ray(rows, n, r);
+    int lo, hi;
+    joseph::step_range(ray, m, &lo, &hi);
+    for (int p0 = lo + lane; p0 < hi; p0 += G * U) {
+      bf16 raw[U][2][2][2];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        int p = p0 + u * G;
+        joseph::Step st;
+        st.k = (float)p * m.h;
+        float alpha = st.k * ray.a + ray.b;
+        st.k0 = (int)st.k;
+        st.fy = floorf(ray.gy + alpha * ray.dy);
+        st.fz = floorf(ray.gz + alpha * ray.dz);
+        joseph::window_raw(v, st, m.blend, p < hi, raw[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          acc[0] += (brick::widen(raw[u][q][0][0]) + brick::widen(raw[u][q][0][1])) +
+                    (brick::widen(raw[u][q][1][0]) + brick::widen(raw[u][q][1][1]));
+    }
+  }
+  tree_sum<G, 1>(acc);
+  if (r < n && lane == 0) out[r] = acc[0];
+}
+
+// One kernel a variant V (the numbering at the top), so each has SASS of
+// its own, on the volume VolOf<V, ...> (volume_of).
+template <int V, int G, int U>
+__global__ void __launch_bounds__(kThreads)
+siddon_fwdgrad_bf16(const float* __restrict__ rows, int64_t n, VolOf<V, SiddonWidened> v,
+                    float* __restrict__ out) {
+  if constexpr (V == 2) {
+    siddon_loads_raw<G, U>(rows, n, v, out);
+  } else {
+    siddon::fwdgrad_lanes<G, U>(rows, n, v, out, thread_index());
+  }
+}
+
+template <int V, int G, int U>
+__global__ void __launch_bounds__(kThreads)
+joseph_fwdgrad_bf16(const float* __restrict__ rows, int64_t n, VolOf<V, JosephWidened> v,
+                    joseph::March m, float* __restrict__ out, int* __restrict__ arg) {
+  if constexpr (V == 2) {
+    joseph_loads_raw<G, U>(rows, n, v, m, out);
+  } else {
+    joseph::fwdgrad_lanes<G, U>(rows, n, v, m, out, arg, thread_index());
+  }
+}
+
+template <int N>
+using IC = std::integral_constant<int, N>;
+
+// f(IC<V>(), IC<G>(), IC<U>()) for variant 0..3, G 4, 8 or 16 and U 1, 2
+// or 4; -1 for another.
+template <int V, int G, class F>
+int with_unroll(int unroll, F f) {
+  switch (unroll) {
+    case 1: return f(IC<V>(), IC<G>(), IC<1>());
+    case 2: return f(IC<V>(), IC<G>(), IC<2>());
+    case 4: return f(IC<V>(), IC<G>(), IC<4>());
+    default: return -1;
+  }
+}
+
+template <int V, class F>
+int with_lanes(int n_lanes, int unroll, F f) {
+  switch (n_lanes) {
+    case 4: return with_unroll<V, 4>(unroll, f);
+    case 8: return with_unroll<V, 8>(unroll, f);
+    case 16: return with_unroll<V, 16>(unroll, f);
+    default: return -1;
+  }
+}
+
+template <class F>
+int with_bf16_variant(int variant, int n_lanes, int unroll, F f) {
+  switch (variant) {
+    case 0: return with_lanes<0>(n_lanes, unroll, f);
+    case 1: return with_lanes<1>(n_lanes, unroll, f);
+    case 2: return with_lanes<2>(n_lanes, unroll, f);
+    case 3: return with_lanes<3>(n_lanes, unroll, f);
+    default: return -1;
+  }
+}
+
+// What probe_fwdgrad_bf16_attributes reports of one kernel: its registers,
+// local-memory bytes and static shared-memory bytes, and its resident
+// blocks an SM at kThreads threads.
+template <class K>
+int attributes(K kernel, int* res) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&res[3], kernel, kThreads, 0);
+  res[0] = a.numRegs;
+  res[1] = (int)a.localSizeBytes;
+  res[2] = (int)a.sharedSizeBytes;
+  return (int)err;
+}
+
+}  // namespace probe
+
+// The bf16 copy's arguments are those of siddon_fwdgrad_bf16 and
+// joseph_fwdgrad_bf16: the march axis, then the (s, y, z) axes' brick
+// strides and extents. Joseph's arg: NULL for sum mode, else the argmax
+// steps (max mode; variants 0, 1 and 3).
+extern "C" int probe_siddon_fwdgrad_bf16(int variant, int n_lanes, int unroll,
+                                         const float* rows, int64_t n, const brick::bf16* bricked,
+                                         int axis, int bs_s, int bs_y, int bs_z, int X, int Y,
+                                         int Z, float* out, void* stream) {
+  if (axis != probe::A) return -2;
+  if (n <= 0) return 0;
+  probe::BV v = brick::make_volume<probe::A>(bricked, bs_s, bs_y, bs_z, X, Y, Z);
+  int rc = probe::with_bf16_variant(variant, n_lanes, unroll, [&](auto var, auto g, auto u) {
+    constexpr int V = decltype(var)::value, G = decltype(g)::value;
+    probe::siddon_fwdgrad_bf16<V, G, decltype(u)::value>
+        <<<probe::n_blocks(n * G), probe::kThreads, 0, (cudaStream_t)stream>>>(
+            rows, n, probe::volume_of<V, probe::SiddonWidened>(v), out);
+    return 0;
+  });
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+extern "C" int probe_joseph_fwdgrad_bf16(int variant, int n_lanes, int unroll, const float* rows,
+                                         int64_t n, const brick::bf16* bricked, int axis,
+                                         int bs_s, int bs_y, int bs_z, int X, int Y, int Z,
+                                         float h, int n_steps, int blend, float* out, int* arg,
+                                         void* stream) {
+  if (axis != probe::A) return -2;
+  if (n <= 0) return 0;
+  if (variant == 2 && arg != nullptr) return -1;
+  probe::BV v = brick::make_volume<probe::A>(bricked, bs_s, bs_y, bs_z, X, Y, Z);
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n_steps;
+  m.blend = blend != 0;
+  int rc = probe::with_bf16_variant(variant, n_lanes, unroll, [&](auto var, auto g, auto u) {
+    constexpr int V = decltype(var)::value, G = decltype(g)::value;
+    probe::joseph_fwdgrad_bf16<V, G, decltype(u)::value>
+        <<<probe::n_blocks(n * G), probe::kThreads, 0, (cudaStream_t)stream>>>(
+            rows, n, probe::volume_of<V, probe::JosephWidened>(v), m, out, arg);
+    return 0;
+  });
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// res[0..3]: registers a thread, local-memory bytes a thread, static
+// shared-memory bytes a block, resident blocks an SM, of family 0 (Siddon)
+// or 1 (Joseph) at the variant, G and U.
+extern "C" int probe_fwdgrad_bf16_attributes(int family, int variant, int n_lanes, int unroll,
+                                             int* res) {
+  return probe::with_bf16_variant(variant, n_lanes, unroll, [&](auto var, auto g, auto u) {
+    constexpr int V = decltype(var)::value, G = decltype(g)::value, U = decltype(u)::value;
+    return family == 0 ? probe::attributes(probe::siddon_fwdgrad_bf16<V, G, U>, res)
+                       : probe::attributes(probe::joseph_fwdgrad_bf16<V, G, U>, res);
+  });
+}
+#endif  // PROBE_BF16

@@ -27,7 +27,8 @@ With ``--parent DIR`` (a checkout of another commit, e.g. unpacked with
 ``git archive``), its ``csrc/*.cu`` are built with this checkout's nvcc
 flags and every kernel's SASS is compared with this checkout's by name,
 each instruction without its address and encoding: the kernels whose code
-differs, and those in one build only.
+differs, and those in one build only; and for each forward or fused kernel
+that differs, the parent's loads in flight, counted as above.
 
 The bricked copy's kernel (``brick_copy_kernel``, its packed and general
 instantiations, and ``brick_probes.cu``'s variants, built as
@@ -36,9 +37,21 @@ instructions by opcode and width (``LDG.E.128`` a 16-byte load,
 ``STG.E.128`` a 16-byte store, ``UBLKCP`` a bulk copy) and their registers
 and local-memory (spill) bytes a thread.
 
-Each forward's registers a thread come from ``cuobjdump -res-usage``.
-Prints one line per kernel and, last, one JSON object; with ``--out`` also
-writes the SASS of the forward gathers there.
+The fused pose kernels (``siddon_fwdgrad_kernel``, ``joseph_fwdgrad_kernel``
+and the two-pass backwards' sum modes, ``siddon_bwd_rays_kernel`` and
+``joseph_bwd_rays_kernel``, which run the same lanes, each at every march
+axis and in both storages; and the bf16 build of ``fwdgrad_probes.cu``,
+-DPROBE_BF16 at march axis 2, every variant, G and U), under ``fused``:
+the same count of the copy's loads in the pass loop (the widest loop:
+``fwdgrad_lanes``' passes), the most in flight at once (a bf16 kernel's
+aim: 3U for Siddon with U slabs a lane, 4U for Joseph, 8U in blend mode,
+whose loads of the second plane are predicated in the same code), their
+registers and local-memory bytes a thread.
+
+Each kernel's registers and local-memory (spill) bytes a thread come from
+``cuobjdump -res-usage``. Prints one line per kernel and, last, one JSON
+object; with ``--out`` also writes the SASS of the forward gathers and the
+fused kernels there.
 """
 
 from __future__ import annotations
@@ -58,6 +71,8 @@ _NO_DEST = ("ST", "RED", "BRA", "EXIT", "RET", "CALL", "BSYNC", "BSSY", "WARPSYN
 _REG = re.compile(r"(?<![A-Z_])R(\d+)(\.64|\.128)?\b")
 _FORWARDS = ("siddon_fwd_kernel", "joseph_fwd_kernel", "probe::siddon_fwd_bf16",
              "probe::joseph_fwd_bf16")
+_FUSED = ("siddon_fwdgrad_kernel", "joseph_fwdgrad_kernel", "siddon_bwd_rays_kernel<",
+          "joseph_bwd_rays_kernel<", "probe::siddon_fwdgrad_bf16", "probe::joseph_fwdgrad_bf16")
 _COPIES = ("brick_copy_kernel", "probe::parent_copy", "probe::bulk_copy", "probe::reads_only",
            "probe::writes_only")
 _MEMORY_OP = re.compile(r"^(LDG|STG|LDS|STS|UBLKCP|LDGSTS)\b(\S*)")
@@ -206,6 +221,8 @@ def main(argv=None) -> int:
     libs["fwd_probes"] = build_sources(HERE / "fwd_probes.cu",
                                        [[f"-DBRICK_L{d}=2" for d in range(3)]])[0]
     libs["brick_probes"] = build_sources(HERE / "brick_probes.cu", [[]])[0]
+    libs["fwdgrad_probes_bf16"] = build_sources(HERE / "fwdgrad_probes.cu",
+                                                [["-DPROBE_BF16", "-DPROBE_AXIS=2"]])[0]
     sass, regs, local = {}, {}, {}
     for name, lib in libs.items():
         sass.update({(name, k): v for k, v in disassemble(lib).items()})
@@ -213,7 +230,7 @@ def main(argv=None) -> int:
         regs.update(zip(demangle(list(used)), used.values()))
         spilt = registers(lib, "LOCAL")
         local.update(zip(demangle(list(spilt)), spilt.values()))
-    report = {"kernels": {}, "copies": {}, "diff": None}
+    report = {"kernels": {}, "fused": {}, "copies": {}, "diff": None}
     for (lib, name), instrs in sorted(sass.items()):
         if lib in ("brick", "brick_probes") and any(c in name for c in _COPIES):
             ops = memory_ops(instrs)
@@ -222,17 +239,19 @@ def main(argv=None) -> int:
             print(f"[sass] {lib}: {name}: {regs.get(name)} registers, {local.get(name)} local "
                   f"bytes; {ops}", flush=True)
     for (lib, name), instrs in sorted(sass.items()):
-        if not any(f in name for f in _FORWARDS):
+        group = ("kernels" if any(f in name for f in _FORWARDS) else
+                 "fused" if any(f in name for f in _FUSED) else None)
+        if group is None:
             continue
         bits = 16 if ("unsigned short" in name or "_bf16" in name) else 32
         loop = main_loop(instrs)
         loads, peak, first = loads_in_flight(loop, bits)
-        report["kernels"][name] = dict(lib=lib, instructions=len(instrs), loop=len(loop),
-                                       loads=loads, peak=peak, first_use_run=first,
-                                       registers=regs.get(name))
-        print(f"[sass] {name}: {len(instrs)} instructions, {regs.get(name)} registers, loop "
-              f"{len(loop)}: {loads} LDG of {bits} bits, peak in flight {peak}, issued before "
-              f"the first read {first}", flush=True)
+        report[group][name] = dict(lib=lib, instructions=len(instrs), loop=len(loop),
+                                   loads=loads, peak=peak, first_use_run=first,
+                                   registers=regs.get(name), local_bytes=local.get(name))
+        print(f"[sass] {name}: {len(instrs)} instructions, {regs.get(name)} registers, "
+              f"{local.get(name)} local bytes, loop {len(loop)}: {loads} LDG of {bits} bits, "
+              f"peak in flight {peak}, issued before the first read {first}", flush=True)
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             safe = re.sub(r"[^A-Za-z0-9_]+", "_", name)[:150]
@@ -244,12 +263,24 @@ def main(argv=None) -> int:
         for name, lib in parent_libs.items():
             old.update({(name, k): v for k, v in disassemble(lib).items()})
         ours = {k: [t for _, t in v] for k, v in sass.items() if k[0] in build.SOURCES}
+        # The parent's loads in flight, for each of its forwards and fused kernels
+        parent_loads = {}
+        for (lib, name), instrs in old.items():
+            if any(f in name for f in _FORWARDS + _FUSED):
+                bits = 16 if "unsigned short" in name else 32
+                parent_loads[name] = dict(zip(("loads", "peak", "first_use_run"),
+                                              loads_in_flight(main_loop(instrs), bits)))
         old = {k: [t for _, t in v] for k, v in old.items()}
         same = sorted(k[1] for k in ours.keys() & old.keys() if ours[k] == old[k])
         differ = sorted(k[1] for k in ours.keys() & old.keys() if ours[k] != old[k])
         report["diff"] = dict(same=len(same), differ=differ,
                               only_here=sorted(k[1] for k in ours.keys() - old.keys()),
-                              only_parent=sorted(k[1] for k in old.keys() - ours.keys()))
+                              only_parent=sorted(k[1] for k in old.keys() - ours.keys()),
+                              parent_loads={n: parent_loads[n] for n in differ
+                                            if n in parent_loads})
+        for n, v in report["diff"]["parent_loads"].items():
+            print(f"[sass] parent {n}: {v['loads']} LDG, peak in flight {v['peak']}, issued "
+                  f"before the first read {v['first_use_run']}", flush=True)
         float_differ = [n for n in differ if "unsigned short" not in n]
         print(f"[sass] against {args.parent}: {len(same)} kernels the same instruction for "
               f"instruction, {len(differ)} differ ({len(float_differ)} of them not bf16): "

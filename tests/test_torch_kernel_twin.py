@@ -2258,15 +2258,19 @@ _FUSED_TWIN_SRC = r"""
 template <int N>
 using IC = std::integral_constant<int, N>;
 // f(G, U) of the variant: G lanes a ray and U slabs (steps) in flight, 0
-// taking the kernel's own (kFusedLanes, kFusedSlabs or kFusedSteps;
-// kBwdLanes, kBwdSlabs or kBwdSteps). A bf16 copy (T not float) takes the
-// kernel's own only.
+// taking the kernel's own for the copy's element T (kFusedLanes and
+// kFusedSlabsOf<T> or kFusedStepsOf<T>; kBwdLanes, kBwdSlabs or
+// kBwdSteps). A bf16 copy (T not float) takes the kernel's own only, but
+// in the build with FT_BF16_VARIANTS, which has the bf16 entry points
+// alone, each of them at every variant.
 template <class T, class F>
 static void with_variant(int variant, F f) {
+#if !defined(FT_BF16_VARIANTS)
   if constexpr (!std::is_same<T, float>::value) {
     f(IC<0>(), IC<0>());
     return;
   }
+#endif
   switch (variant) {
     case 0: f(IC<1>(), IC<0>()); break;
     case 1: f(IC<2>(), IC<0>()); break;
@@ -2324,7 +2328,7 @@ static void ft_siddon_t(int variant, const float* rows, int64_t R, COPY_ARGS(T),
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
     with_variant<T>(variant, [&](auto g, auto u) {
       constexpr int G = decltype(g)::value ? decltype(g)::value : siddon::kFusedLanes;
-      constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kFusedSlabs;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : siddon::kFusedSlabsOf<T>;
       constexpr int N = siddon::kFusedRows;
       for (int64_t r = 0; r < R; ++r) {
         siddon::Ray ray = siddon::load_ray(rows, R, r);
@@ -2449,7 +2453,7 @@ static int ft_joseph_t(int variant, int mip, const float* rows, int64_t R, COPY_
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
     with_variant<T>(variant, [&](auto g, auto u) {
       constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kFusedLanes;
-      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFusedSteps;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFusedStepsOf<T>;
       constexpr int N = joseph::kFusedRows;
       for (int64_t r = 0; r < R; ++r) {
         joseph::Ray ray = joseph::load_ray(rows, R, r);
@@ -2501,7 +2505,8 @@ static void ft_joseph_bwd_rays_mip_t(const float* rows, int64_t R, COPY_ARGS(T),
   });
 }
 // The C entry points: each function above on a float32 copy (every
-// variant) and, as *_bf16, on a bf16 copy (the kernels' own variant).
+// variant) and, as *_bf16, on a bf16 copy (the kernels' own variant; with
+// FT_BF16_VARIANTS these alone, at every variant).
 #define ENTRIES(S, E)                                                                          \
   extern "C" void ft_siddon##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),       \
                                float* out) {                                                   \
@@ -2534,13 +2539,15 @@ static void ft_joseph_bwd_rays_mip_t(const float* rows, int64_t R, COPY_ARGS(T),
                                             const int* arg, float* out) {                      \
     ft_joseph_bwd_rays_mip_t(rows, R, COPY, h, n, blend, g, arg, out);                         \
   }
-ENTRIES(, float)
 ENTRIES(_bf16, brick::bf16)
+#if !defined(FT_BF16_VARIANTS)
+ENTRIES(, float)
 // brick::to_bf16 (the bf16 copy's rounding) on the host: out[i] = the bits
 // of x[i] rounded to the nearest bf16, ties to even.
 extern "C" void ft_to_bf16(const float* x, int64_t n, brick::bf16* out) {
   for (int64_t i = 0; i < n; ++i) out[i] = brick::to_bf16(x[i]);
 }
+#endif
 """
 
 # (G, U) of each variant of the twin (None: the kernel's own), in its order.
@@ -2551,30 +2558,44 @@ _UNROLLED = (4, 5, 6)  # the kernel's G with U = 1, 2, 4
 _OWN = 7  # the kernel's own G and U
 
 
+def _fused_entries(so, suffixes):
+    """Sets the argument and result types of the fused twin's entry points
+    with each of ``suffixes`` ("" the float32 copy's, "_bf16" the bf16
+    copy's: the same arguments)."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    bvol = [ptr] + [i32] * 7
+    args = {
+        "ft_siddon": [i32, ptr, i64] + bvol + [ptr],
+        "ft_joseph": [i32, i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr, ptr],
+        "ft_joseph_ch": [i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32, i32, i32, ptr, ptr],
+        "ft_siddon_bwd_rays": [i32, ptr, i64] + bvol + [ptr, ptr],
+        "ft_joseph_bwd_rays": [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr, ptr],
+        "ft_siddon_bwd_rays_mip": [ptr, i64] + bvol + [ptr, ptr, ptr],
+        "ft_joseph_bwd_rays_mip": [ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr, ptr, ptr],
+    }
+    for fn, types in args.items():
+        for suffix in suffixes:
+            f = getattr(so, fn + suffix)
+            f.argtypes = types
+            f.restype = i32 if fn == "ft_joseph" else None
+    return so
+
+
+@pytest.fixture(scope="module")
+def ftwin_bf16(tmp_path_factory):
+    """The fused twin's bf16 entry points alone, each at every variant of
+    ``_FUSED_VARIANTS`` (the kernels' own: kFusedLanes and
+    kFusedSlabsOf<bf16> or kFusedStepsOf<bf16>)."""
+    so = _build_twin(tmp_path_factory, "ftwin_bf16", _FUSED_TWIN_SRC, ("FT_BF16_VARIANTS",))
+    return _fused_entries(so, ("_bf16",))
+
+
 @pytest.fixture(scope="module")
 def ftwin(tmp_path_factory):
     """The twin of the fused kernels' lanes (the package's brick shape)."""
     so = _build_twin(tmp_path_factory, "ftwin", _FUSED_TWIN_SRC)
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    bvol = [ptr] + [i32] * 7
-    so.ft_siddon.argtypes = [i32, ptr, i64] + bvol + [ptr]
-    so.ft_joseph.argtypes = [i32, i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr, ptr]
-    so.ft_joseph_ch.argtypes = [i32, ptr, i64] + bvol + [ptr, ctypes.c_float, i32, i32, i32,
-                                                          ptr, ptr]
-    so.ft_siddon_bwd_rays.argtypes = [i32, ptr, i64] + bvol + [ptr, ptr]
-    so.ft_joseph_bwd_rays.argtypes = [i32, ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr,
-                                                                ptr]
-    so.ft_siddon_bwd_rays_mip.argtypes = [ptr, i64] + bvol + [ptr, ptr, ptr]
-    so.ft_joseph_bwd_rays_mip.argtypes = [ptr, i64] + bvol + [ctypes.c_float, i32, i32, ptr,
-                                                             ptr, ptr]
-    names = ("ft_siddon", "ft_joseph", "ft_joseph_ch", "ft_siddon_bwd_rays",
-             "ft_joseph_bwd_rays", "ft_siddon_bwd_rays_mip", "ft_joseph_bwd_rays_mip")
-    for fn in names:  # the bf16 copy's entry points: the same arguments
-        getattr(so, f"{fn}_bf16").argtypes = getattr(so, fn).argtypes
-    for fn in names:
-        for f in (getattr(so, fn), getattr(so, f"{fn}_bf16")):
-            f.restype = i32 if fn == "ft_joseph" else None
-    so.ft_to_bf16.argtypes = [ptr, i64, ptr]
+    _fused_entries(so, ("", "_bf16"))
+    so.ft_to_bf16.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     so.ft_to_bf16.restype = None
     return so
 
@@ -3261,6 +3282,115 @@ def test_twin_joseph_bf16_instantiations_equal_f32_on_rounded(jtwin, btwin, ftwi
     assert torch.equal(_bits(res["bf16"][-2]), _bits(strided))
 
 
+def _variant_id(variant):
+    return "G{}-U{}".format(*(x or "own" for x in _FUSED_VARIANTS[variant]))
+
+
+_BF16_VARIANTS = pytest.mark.parametrize("variant", range(len(_FUSED_VARIANTS)), ids=_variant_id)
+
+
+def _assert_fused_reached(scene, value):
+    """The fused value row on a scene's rays: many finite positive sums,
+    and for "special" non-finite ones from the density (an infinity read
+    at a zero-length segment, whose value the crossings' terms take, makes
+    the slab's value a NaN)."""
+    assert (torch.isfinite(value) & (value > 0)).sum() > _reached(scene)
+    if scene == "special":
+        assert not torch.isfinite(value).all()
+
+
+def _nan_bits(t):
+    """``_bits`` with every NaN as one pattern. On the host a sum of two
+    NaNs keeps its first operand's payload, and which operand of a
+    commutative add comes first is the compiler's choice, which differs
+    between the variants' code (a NaN of the density against the default
+    NaN of 0 * inf); the card's arithmetic gives one canonical NaN. Every
+    other value, zeros' signs and infinities included, keeps its bits."""
+    return _bits(torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+                 if t.is_floating_point() else t)
+
+
+def _assert_variant_bits(got, ref, own, names):
+    """A bf16 variant's outputs ``got`` bit for bit the float32 twin's at
+    the same variant on the rounded density (``ref``) and the kernels' own
+    bf16 variant's (``own``), a NaN as a NaN (``_nan_bits``)."""
+    for name, a, b, c in zip(names, got, ref, own):
+        assert torch.equal(_nan_bits(a), _nan_bits(b)), f"{name} vs float32 on the rounded density"
+        assert torch.equal(_nan_bits(a), _nan_bits(c)), f"{name} vs the kernel's own bf16 variant"
+
+
+@_BF16_VARIANTS
+@pytest.mark.parametrize("scene", ["random", "special"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_siddon_fused_bf16_variants_equal_f32_on_rounded(ftwin, ftwin_bf16, axis, scene,
+                                                              variant):
+    """siddon_fwdgrad's lanes and the two-pass backward's sum mode on a bf16
+    copy (fused_terms' raw reads) at the variant's G lanes a ray and U slabs
+    in flight a lane (G = 1, 2, 8, 32 at the kernel's U; U = 1, 2, 4 at its
+    G; its own): bit for bit the float32 twin at the same variant on the
+    copy of the density rounded to bf16, and the kernels' own bf16 variant,
+    on every ray of ``_bf16_scene`` (-0.0, subnormals, +-inf and NaN in
+    "special"); the backward's rows the fused rows times g, bit for bit."""
+    rng = np.random.default_rng(330 + axis)
+    vol, rows = _bf16_scene(scene, rng, axis)
+    R = rows.shape[1]
+    g = torch.tensor(rng.normal(size=R), dtype=torch.float32)
+    bf, f32 = _copies(vol)
+
+    def run(so, copy, v):
+        fused, bwd = _out(10, R), _out(9, R)
+        _on_copy(so, "ft_siddon", copy, axis, (v, rows.data_ptr(), R), (fused.data_ptr(),))
+        _on_copy(so, "ft_siddon_bwd_rays", copy, axis, (v, rows.data_ptr(), R),
+                 (g.data_ptr(), bwd.data_ptr()))
+        return fused, bwd
+
+    got = run(ftwin_bf16, bf, variant)
+    _assert_variant_bits(got, run(ftwin, f32, variant), run(ftwin, bf, _OWN),
+                         ("fwdgrad", "bwd_rays"))
+    fused, bwd = got
+    _assert_fused_reached(scene, fused[9])
+    assert torch.equal(_nan_bits(bwd), _nan_bits(fused[:9] * g))
+
+
+@_BF16_VARIANTS
+@pytest.mark.parametrize("scene", ["random", "special"])
+@pytest.mark.parametrize("h", [1.0, 1.37], ids=["h1", "h1.37"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_fused_bf16_variants_equal_f32_on_rounded(ftwin, ftwin_bf16, axis, h, scene,
+                                                              variant):
+    """joseph_fwdgrad's lanes (sum and max mode: rows, values and argmax
+    steps) and the two-pass backward's sum mode on a bf16 copy (fused_terms'
+    raw windows) at every variant, as the Siddon test above, at integer h
+    and fractional h (blend mode: two planes a window)."""
+    rng = np.random.default_rng(340 + axis)
+    vol, rows = _bf16_scene(scene, rng, axis, quadrature="joseph", h=h)
+    R = rows.shape[1]
+    n = int(-(-vol.shape[axis] // h))
+    march = (h, n, int(J.is_blend(h)))
+    g = torch.tensor(rng.normal(size=R), dtype=torch.float32)
+    bf, f32 = _copies(vol)
+
+    def run(so, copy, v):
+        out = []
+        for mip in (0, 1):
+            fused, arg = _out(8, R), _out(R, dtype=torch.int32)
+            assert _on_copy(so, "ft_joseph", copy, axis, (v, mip, rows.data_ptr(), R),
+                            (*march, fused.data_ptr(), arg.data_ptr())) == 0
+            out += [fused] + ([arg] if mip else [])
+        bwd = _out(7, R)
+        _on_copy(so, "ft_joseph_bwd_rays", copy, axis, (v, rows.data_ptr(), R),
+                 (*march, g.data_ptr(), bwd.data_ptr()))
+        return out + [bwd]
+
+    got = run(ftwin_bf16, bf, variant)
+    _assert_variant_bits(got, run(ftwin, f32, variant), run(ftwin, bf, _OWN),
+                         ("fwdgrad", "fwdgrad_max", "fwdgrad_argmax", "bwd_rays"))
+    fused, _, arg, bwd = got
+    _assert_fused_reached(scene, fused[7])
+    assert (arg >= 0).sum() > _reached(scene)
+    assert torch.equal(_nan_bits(bwd), _nan_bits(fused[:7] * g))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dims", [(21, 23, 13), (130, 67, 133), (130, 68, 133), (9, 7, 133),
                                   (36, 40, 128), (6, 5, 1030)])
@@ -3286,6 +3416,17 @@ def test_cuda_brick_copy_bf16_matches_torch(dims):
     clear_cache()
 
 
+def _fused_bf16_cases(vol, rounded, axis, h, rows):
+    """(bf16, float32 on the rounded density) pairs of joseph_fwdgrad in
+    sum mode (its rows) and in max mode (rows and argmax steps) at stride
+    ``h`` over ``vol``'s extent along ``axis``."""
+    n = int(-(-vol.shape[axis] // h))
+    return [(J.joseph_fwdgrad(rows, vol, axis, h, n, "sum", "bf16")[0],
+             J.joseph_fwdgrad(rows, rounded, axis, h, n)[0]),
+            (J.joseph_fwdgrad(rows, vol, axis, h, n, "max", "bf16"),
+             J.joseph_fwdgrad(rows, rounded, axis, h, n, "max"))]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_cuda_bf16_kernels_equal_f32_on_rounded(axis):
@@ -3293,7 +3434,10 @@ def test_cuda_bf16_kernels_equal_f32_on_rounded(axis):
     density rounded to bf16, bit for bit (values, argmaxes, rows), and
     against its plain version on the finite rays (values 1e-4 of their
     largest, the float32 tests' tolerance); Joseph at integer and fractional
-    h; every ray of ``_fwd_rays``, the NaN ray too."""
+    h (1.37, and the lateral pose's 1.024 for the fused pose kernels); every
+    ray of ``_fwd_rays``, the NaN ray too. Along axis 0 also the fused pose
+    kernels (sum and max) at a lateral pose's depth: 512 slabs, Joseph at
+    the trilinear stride h = 511 / 499 and at h = 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(320 + axis)
@@ -3339,6 +3483,24 @@ def test_cuda_bf16_kernels_equal_f32_on_rounded(axis):
         plain = J.joseph_fwd_plain(jr[:, :-1], vol, axis, h, n, "bf16")  # the finite rays
         np.testing.assert_allclose(cases[-8][0][:-1].cpu(), plain.cpu(),
                                    atol=1e-4 * plain.abs().max().item())
+    cases += _fused_bf16_cases(vol, rounded, axis, 1.024, _fwd_rays(
+        rng, dims, axis, quadrature="joseph", h=1.024).cuda())
+    if axis == 0:  # a lateral pose's depth: 512 slabs
+        deep = (512, 40, 36)
+        vol_l = torch.tensor(rng.uniform(0.0, 1.0, deep), dtype=torch.float32, device="cuda")
+        rounded_l = _rounded(vol_l)
+        rows_l = _fwd_rays(rng, deep, 0).cuda()
+        got = K.siddon_fwdgrad(rows_l, vol_l, 0, "bf16")
+        cases.append((got, K.siddon_fwdgrad(rows_l, rounded_l, 0)))
+        _assert_fused_close(got[:, :-1].cpu(), K.siddon_fwdgrad_plain(
+            rows_l[:, :-1], vol_l, 0, "bf16").cpu(), 9, "siddon_fwdgrad lateral")
+        for h in (511 / 499, 1.0):
+            jr = _fwd_rays(rng, deep, 0, quadrature="joseph", h=h).cuda()
+            cases += _fused_bf16_cases(vol_l, rounded_l, 0, h, jr)
+            plain, _ = J.joseph_fwdgrad_plain(jr[:, :-1], vol_l, 0, h, int(-(-512 // h)), "sum",
+                                              "bf16")
+            _assert_fused_close(cases[-2][0][:, :-1].cpu(), plain.cpu(), 7,
+                                f"joseph_fwdgrad lateral h {h}")
     torch.cuda.synchronize()
     for i, (got, ref) in enumerate(cases):
         got = got if isinstance(got, tuple) else (got,)
