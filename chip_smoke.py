@@ -267,9 +267,10 @@ Phases (any failure raises and the exit code is non-zero):
      channel render and backward, 5 trilinear registration steps;
  13d. at the main path's shapes (the main cell, Joseph's fused kernel in
      sum and max, both modes of each two-pass backward, the forwards at
-     320,000 rays, the forwards and both fused pose kernels at the lateral
-     pose (axis 0, 512 slabs, Joseph at h = 1.024), the 512^3 cube's
-     forwards at 200^2 and 1000^2) each bf16
+     320,000 rays, the forwards, both fused pose kernels and both channel
+     kernels at the lateral pose (axis 0, 512 slabs, Joseph at h = 1.024;
+     the channel kernels also at h = 1), the 512^3 cube's forwards at
+     200^2 and 1000^2) each bf16
      instantiation equal, bit for bit, to the float32 one on the density
      rounded to bf16, and to its plain version within phase 3's tolerances
      (not at 1000^2), the CT's bf16 copy to its plain version bit for bit;
@@ -311,11 +312,14 @@ The bf16 instantiations have entries of their own (``<kernel>_bf16``, with
 phase 13's launches, ``ms_f32``/``bound_ms_f32`` beside them from the same
 call, ``library_ms`` null: no one PyTorch call reads a bf16 copy and
 computes in float32; brick_copy_bf16's and brick_copy's are phase 14's
-one call of each copy at 512x512x128); the two bf16 forwards' and the two
-bf16 fused pose kernels' at 200x200 also ``ms_lateral``, ``ms_lateral_f32``
-and ``bound_ms_lateral``, and theirs (the forwards' at every shape) a
-``design`` naming the raw 16-bit loads they keep in flight (the fused
-kernels': their lanes a ray and the slabs or steps a lane). ``library_ms``
+one call of each copy at 512x512x128); the two bf16 forwards', the two
+bf16 fused pose kernels' and the two bf16 channel kernels' at 200x200 also
+``ms_lateral``, ``ms_lateral_f32`` and ``bound_ms_lateral`` (the channel
+kernels' also ``ms_lateral_h1``, ``ms_lateral_h1_f32`` and
+``bound_ms_lateral_h1``: the lateral pose at h = 1), and theirs (the
+forwards' at every shape) a ``design`` naming the raw 16-bit loads they
+keep in flight (the fused and the channel kernels': their lanes a ray and
+the slabs or steps a lane). ``library_ms``
 is one PyTorch call over the same
 samples: F.grid_sample for the Joseph forwards; torch.ops.aten.grid_sampler_3d_backward's input
 gradient (grad_output g * scale) for joseph_bwd_vol and joseph_bwd_vol_ch
@@ -561,11 +565,13 @@ def raw_design(header: str, constant: str, unit: str) -> str:
             f"widened in the sums")
 
 
-def fused_raw_design(header: str, constant: str, unit: str, loads: int) -> str:
-    """A bf16 fused pose kernel's layout, for the record: its lanes a ray and
-    the ``unit`` (slabs or steps) of raw 16-bit loads a lane keeps in flight,
-    ``loads`` a unit, as the header ``csrc/<header>`` compiles them
-    (``kFusedLanes`` and ``constant<brick::bf16>``)."""
+def fused_raw_design(header: str, constant: str, unit: str, loads: int,
+                     lanes: str = "kFusedLanes") -> str:
+    """A bf16 lanes kernel's layout (the fused pose kernels', the channel
+    kernels'), for the record: its lanes a ray and the ``unit`` (slabs or
+    steps) of raw 16-bit loads a lane keeps in flight, ``loads`` a unit, as
+    the header ``csrc/<header>`` compiles them (``lanes`` and
+    ``constant<brick::bf16>``)."""
     import re
 
     text = (ROOT / "diffdrr_tpu_torch" / "csrc" / header).read_text()
@@ -573,10 +579,11 @@ def fused_raw_design(header: str, constant: str, unit: str, loads: int) -> str:
     def value(name):
         return int(re.search(rf"constexpr int {re.escape(name)} = (\d+);", text).group(1))
 
-    g, u = value("kFusedLanes"), value(f"{constant}<brick::bf16>")
+    g, u = value(lanes), value(f"{constant}<brick::bf16>")
     blend = f", {2 * loads * u} in blend mode" if loads == 4 else ""
     return (f"bf16 bricked copy, {g} lanes a ray, {u} {unit if u > 1 else unit[:-1]} a lane "
-            f"of raw 16-bit loads in flight ({loads * u}{blend}), widened before the rows")
+            f"of raw 16-bit loads in flight ({loads * u}{blend}), widened before the "
+            f"{'samples' if 'FwdCh' in constant else 'rows'}")
 
 
 def check_close(name, got, ref, rel):
@@ -2869,9 +2876,10 @@ def bf16_timings(T, reg, rec, rng, cube):
     held against the float32 one on the rounded CT and against its plain
     version, and both timed side by side (``side_by_side``), at the main
     cell (200^2, axis 2, h = 1), the forwards at the recon cells' 320,000
-    rays, and the forwards and the fused pose kernels at the lateral pose
-    (200^2, axis 0, 512 slabs, Joseph at the trilinear stride h = 1.024: two
-    planes a sample); the copies of the CT (the bf16
+    rays, and the forwards, the fused pose kernels and the channel kernels
+    at the lateral pose (200^2, axis 0, 512 slabs, Joseph at the trilinear
+    stride h = 1.024: two planes a sample; the channel kernels also at
+    h = 1); the copies of the CT (the bf16
     one bit for bit its plain version's); the 512^3 cube's (phase 5's
     subject) siddon_fwd and joseph_fwd at 200^2 and 1000^2."""
     import torch
@@ -2892,8 +2900,11 @@ def bf16_timings(T, reg, rec, rng, cube):
     jrows_v = jrays_of(drr, rec["rot_v"], rec["trans_v"], 2, 1.0)
     rows_l, _ = rays_of(drr, torch.tensor(LATERAL_ROT, device=dev), trans, axis=0)
     jrows_l, h_l, n_l = lateral_jrays(drr, dens)
+    jrows_l1 = jrays_of(drr, torch.tensor(LATERAL_ROT, device=dev), trans, 0, 1.0)
+    n_l1 = dens.shape[0]
     g = torch.tensor(rng.normal(size=rows_m.shape[1]), dtype=torch.float32, device=dev)
     gc = torch.tensor(rng.normal(size=(C, rows_m.shape[1])), dtype=torch.float32, device=dev)
+    gc_l = torch.tensor(rng.normal(size=(C, jrows_l.shape[1])), dtype=torch.float32, device=dev)
     s_arg = K.siddon_fwd_max(rows_m, dens, 2, "bf16")[1]
     j_arg = J.joseph_fwd_max(jrows_m, dens, 2, 1.0, X, "bf16")[1]
     chb = channel_bounds(C)
@@ -2948,6 +2959,13 @@ def bf16_timings(T, reg, rec, rng, cube):
         "joseph_bwd_rays_ch": (J.joseph_bwd_rays_ch, J.joseph_bwd_rays_ch_plain, check_rows,
                                jrows_m, (labels, 2, 1.0, X, gc), *jos, chb["bwd_rays_ch"]),
     }
+    for tag, rows, h, n in (("lateral", jrows_l, h_l, n_l), ("lateral h1", jrows_l1, 1.0, n_l1)):
+        cases[f"joseph_fwd_ch[{tag}]"] = (J.joseph_fwd_ch, J.joseph_fwd_ch_plain, close, rows,
+                                          (labels, 0, h, n, C), march_bound, (0, h, n),
+                                          chb["fwd_ch"])
+        cases[f"joseph_bwd_rays_ch[{tag}]"] = (
+            J.joseph_bwd_rays_ch, J.joseph_bwd_rays_ch_plain, check_rows, rows,
+            (labels, 0, h, n, gc_l), march_bound, (0, h, n), chb["bwd_rays_ch"])
     times = {name: side_by_side(name, kernel, plain, check, rows, dens, rnd, args, bnd, b_args,
                                 bkw)
              for name, (kernel, plain, check, rows, args, bnd, b_args, bkw) in cases.items()}
@@ -3053,7 +3071,11 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
     designs = {"siddon_fwd": raw_design("siddon.cuh", "kFwdSlabs", "slabs"),
                "joseph_fwd": raw_design("joseph.cuh", "kFwdStepsOf<brick::bf16>", "steps"),
                "siddon_fwdgrad": fused_raw_design("siddon.cuh", "kFusedSlabsOf", "slabs", 3),
-               "joseph_fwdgrad": fused_raw_design("joseph.cuh", "kFusedStepsOf", "steps", 4)}
+               "joseph_fwdgrad": fused_raw_design("joseph.cuh", "kFusedStepsOf", "steps", 4),
+               "joseph_fwd_ch": fused_raw_design("joseph.cuh", "kFwdChStepsOf", "steps", 4,
+                                                 "kFwdChLanesOf<brick::bf16>"),
+               "joseph_bwd_rays_ch": fused_raw_design("joseph.cuh", "kChannelStepsOf", "steps", 4,
+                                                      "kChannelLanesOf<brick::bf16>")}
     records = []
     for name, key, kernel, src, replaces in rows:
         t = times[key]
@@ -3061,7 +3083,8 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
         # the timed key, its MIP, max mode or lateral pose) and on phase 3's
         # volume (13a).
         err = max([errs[kernel]] + [times[k]["err"] for k in (key, f"{key}[mip]", f"{key}[max]",
-                                                              f"{key}[lateral]")
+                                                              f"{key}[lateral]",
+                                                              f"{key}[lateral h1]")
                                     if k in times and times[k]["err"] is not None])
         rec_ = {"name": name, "route": "cuda", "source": f"diffdrr_tpu_torch/csrc/{src}.cu",
                 "replaces": replaces, "launches": launches(f"{kernel}_bf16"),
@@ -3074,10 +3097,15 @@ def bf16_phase(T, small, rot_g, trans_g, subject, cube, rot0, trans, kw, main_er
             t_k = times[key.replace("200]", "1000]")]
             rec_.update(ms_1000=t_k["ms"], ms_1000_f32=t_k["ms_f32"],
                         bound_ms_1000=t_k["bound"][0])
-        if key in ("siddon_fwd", "joseph_fwd", "siddon_fwdgrad", "joseph_fwdgrad"):
+        if key in ("siddon_fwd", "joseph_fwd", "siddon_fwdgrad", "joseph_fwdgrad",
+                   "joseph_fwd_ch", "joseph_bwd_rays_ch"):
             t_l = times[f"{key}[lateral]"]
             rec_.update(ms_lateral=t_l["ms"], ms_lateral_f32=t_l["ms_f32"],
                         bound_ms_lateral=t_l["bound"][0])
+        if f"{key}[lateral h1]" in times:
+            t_l = times[f"{key}[lateral h1]"]
+            rec_.update(ms_lateral_h1=t_l["ms"], ms_lateral_h1_f32=t_l["ms_f32"],
+                        bound_ms_lateral_h1=t_l["bound"][0])
         if kernel in designs:
             rec_["design"] = designs[kernel]
         if key in ("siddon_bwd_rays", "joseph_bwd_rays"):

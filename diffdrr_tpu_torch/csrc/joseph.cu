@@ -218,6 +218,32 @@
 // joseph_bwd_rays_bf16's sum mode runs the same fused_terms through
 // fwdgrad_lanes, so it gets the raw windows with it, untuned (kBwdLanes,
 // kBwdSteps as in float32: 8 in flight; PERF.md).
+//
+// joseph_fwd_ch_bf16 and joseph_bwd_rays_ch_bf16 have a channel_samples
+// and a channel_terms of their own (joseph.cuh): each of a lane's U steps
+// loads its window raw (window_raw: 4 16-bit loads, 8 in blend mode) beside
+// its label, and only then are the windows widened and lerped
+// (widen_window) and the samples or terms formed, in step order (the ray
+// backward gathers the U cotangents its labels pick first), so the images
+// and rows are the float32 kernels' on the rounded density bit for bit. The
+// labelmap's copy keeps its int32 bits and label_at its plane rule. The
+// first bf16 build widened (and in blend mode lerped) each read where it
+// landed: 1 load in flight in the SASS, now 8 (4U, 8U in blend mode). G and
+// U by storage (kFwdChLanesOf<T>, kFwdChStepsOf<T>, kChannelLanesOf<T>,
+// kChannelStepsOf<T>) from the --storage bf16 probes of
+// max_channel_timing.py and channel_timing.py at G = 4, 8, 16 and U = 1, 2,
+// 4 (H100, one call). The forward: G = 4, U = 1, 0.107 ms at the main pose
+// (G = 8 0.113, G = 16 0.144; U = 2 the same, U = 4 5% slower at 94
+// registers and 5 blocks an SM), 0.359 at the lateral pose at h = 1.024 and
+// 0.296 at h = 1 (G = 8 0.375 and 0.310), where the widened build at the
+// parent's G = 8 took 0.119, 0.407 and 0.323; the march without loads
+// takes 0.079 of its 0.107 ms. At G = 4 a block holds 32 rays' sums, so all
+// C channels fit one march up to C = 1816. The ray backward: G = 8, U = 1,
+// 0.095 ms at the main pose (G = 16 0.098, U = 2 0.100, U = 4 0.119),
+// 0.339 at the lateral pose at h = 1.024 and 0.273 at h = 1, where the
+// widened build at the parent's G = 16 took 0.113, 0.387 and 0.285; its
+// march without loads 0.074 of the 0.095 ms. The float32 kernels keep their
+// G (8, 16), U = 1 and their SASS (PERF.md).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -367,35 +393,36 @@ joseph_bwd_vol_kernel(const float* __restrict__ rows, int64_t n_rays, joseph::Ma
   });
 }
 
-// G = kFwdChLanes lanes a ray on the bricked copies of the density and the
-// labelmap, in passes of G steps whose samples the ray's lane 0 adds in
-// step order to its channel sums (fwd_ch_lanes; the note at the top of this
-// file says why), the block's rays' sums in its dynamic shared memory,
-// [channel][ray]; the channels in tiles of `tile` (all C in one unless the
-// block's sums overflow its shared memory: joseph_fwd_ch below). A: the
-// march axis.
+// G = kFwdChLanesOf<T> lanes a ray on the bricked copies of the density
+// and the labelmap, in passes of G * U steps (U = kFwdChStepsOf<T>) whose
+// samples the ray's lane 0 adds in step order to its channel sums
+// (fwd_ch_lanes; the note at the top of this file says why), the block's
+// kThreads / G rays' sums in its dynamic shared memory, [channel][ray]; the
+// channels in tiles of `tile` (all C in one unless the block's sums
+// overflow its shared memory: joseph_fwd_ch below). A: the march axis.
 template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
 joseph_fwd_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                      joseph::BrickLabels<A> lab, joseph::March m, int n_channels, int tile,
                      float* __restrict__ out) {
-  constexpr int kRays = kThreads / joseph::kFwdChLanes;  // a block's rays
-  extern __shared__ float sums[];                        // [tile][kRays]
-  joseph::fwd_ch_lanes<joseph::kFwdChLanes, joseph::kFwdChSteps>(
-      rows, n_rays, vol, lab, m, n_channels, tile, sums + threadIdx.x / joseph::kFwdChLanes,
-      kRays, out, (int64_t)blockIdx.x * kThreads + threadIdx.x);
+  constexpr int G = joseph::kFwdChLanesOf<T>;
+  constexpr int kRays = kThreads / G;  // a block's rays
+  extern __shared__ float sums[];      // [tile][kRays]
+  joseph::fwd_ch_lanes<G, joseph::kFwdChStepsOf<T>>(
+      rows, n_rays, vol, lab, m, n_channels, tile, sums + threadIdx.x / G, kRays, out,
+      (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
 
-// G = kChannelLanes lanes a ray on the bricked copies of the density and
-// the labelmap, in passes of G steps whose summands the ray's rows take in
-// step order (bwd_rays_ch_lanes; the note at the top of this file says
-// why); A: the march axis.
+// G = kChannelLanesOf<T> lanes a ray on the bricked copies of the density
+// and the labelmap, in passes of G * U steps (U = kChannelStepsOf<T>) whose
+// summands the ray's rows take in step order (bwd_rays_ch_lanes; the note
+// at the top of this file says why); A: the march axis.
 template <int A, class T>
 __global__ void __launch_bounds__(kThreads)
 joseph_bwd_rays_ch_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                           joseph::BrickLabels<A> lab, joseph::March m, int n_channels,
                           const float* __restrict__ g, float* __restrict__ out) {
-  joseph::bwd_rays_ch_lanes<joseph::kChannelLanes, joseph::kChannelSteps>(
+  joseph::bwd_rays_ch_lanes<joseph::kChannelLanesOf<T>, joseph::kChannelStepsOf<T>>(
       rows, n_rays, vol, lab, m, n_channels, g, out,
       (int64_t)blockIdx.x * kThreads + threadIdx.x);
 }
@@ -539,17 +566,20 @@ int bwd_rays_mip(const float* rows, int64_t n_rays, Vol vol, float h, int n_step
   return (int)cudaGetLastError();
 }
 
-// joseph_fwd_ch's block holds C float sums for each of its kThreads /
-// kFwdChLanes rays in shared memory: all C channels in one march while
-// they fit the block's opt-in limit (227 KB on the H100: C <= 3632), else
-// tiles of as many as fit, one march a tile. Any C >= 1 runs.
+// joseph_fwd_ch's block holds C float sums for each of its kThreads / G
+// rays (G = kFwdChLanesOf<T>) in shared memory: all C channels in one march
+// while they fit the block's opt-in limit (227 KB on the H100: C <= 3632
+// at G = 8, 1816 at G = 4), else tiles of as many as fit, one march a
+// tile. Any C >= 1 runs. G sizes the grid (G threads a ray), the block's
+// rays and so the tile together.
 template <class T>
 int fwd_ch(const float* rows, int64_t n_rays, const T* vol, const float* labels, int axis,
            int bs_s, int bs_y, int bs_z, int X, int Y, int Z, float h, int n_steps, int blend,
            int n_channels, float* out, void* stream) {
   return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
     constexpr int A = decltype(a)::value;
-    constexpr int kRays = kThreads / joseph::kFwdChLanes;
+    constexpr int G = joseph::kFwdChLanesOf<T>;
+    constexpr int kRays = kThreads / G;
     if (n_rays <= 0 || n_channels <= 0) return 0;
     int dev, limit;
     cudaError_t err = cudaGetDevice(&dev);
@@ -564,7 +594,7 @@ int fwd_ch(const float* rows, int64_t n_rays, const T* vol, const float* labels,
       if (err != cudaSuccess) return (int)err;
     }
     joseph_fwd_ch_kernel<A, T>
-        <<<n_blocks(n_rays * joseph::kFwdChLanes), kThreads, bytes, (cudaStream_t)stream>>>(
+        <<<n_blocks(n_rays * G), kThreads, bytes, (cudaStream_t)stream>>>(
             rows, n_rays, v,
             joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
             make_march(h, n_steps, blend), n_channels, tile, out);
@@ -580,7 +610,8 @@ int bwd_rays_ch(const float* rows, int64_t n_rays, const T* vol, const float* la
     constexpr int A = decltype(a)::value;
     if (n_rays > 0) {
       joseph_bwd_rays_ch_kernel<A, T>
-          <<<n_blocks(n_rays * joseph::kChannelLanes), kThreads, 0, (cudaStream_t)stream>>>(
+          <<<n_blocks(n_rays * joseph::kChannelLanesOf<T>), kThreads, 0,
+             (cudaStream_t)stream>>>(
               rows, n_rays, v,
               joseph::BrickLabels<A>{brick::make_volume<A>(labels, bs_s, bs_y, bs_z, X, Y, Z)},
               make_march(h, n_steps, blend), n_channels, g, out);

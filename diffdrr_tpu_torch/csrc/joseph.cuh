@@ -858,6 +858,36 @@ JOSEPH_HD void channel_samples(const Ray& r, const Vol& v, const Lab& l, const M
   }
 }
 
+// channel_samples on a bf16 copy: U steps' windows loaded raw (window_raw:
+// 4U 16-bit loads in flight, 8U at a fractional h) beside their labels (the
+// labelmap's copy keeps its int32 bits, read by label_at as above), then
+// each window widened and lerped (widen_window) and its sample formed in
+// step order. The same float32 operations on the same values as the
+// float32 copy's channel_samples, so the channels and samples are its own
+// on the density rounded to bf16, bit for bit.
+template <int U, int A, class Lab>
+JOSEPH_HD void channel_samples(const Ray& r, const brick::Volume<A, brick::bf16>& v, const Lab& l,
+                               const March& m, int n_channels, int p0, int step, int hi, int c[U],
+                               float x[U]) {
+  Step st[U];
+  int lab[U];
+  brick::bf16 raw[U][2][2][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    st[u] = step_at(r, m, v.X, p0 + u * step);
+    bool read = p0 + u * step < hi && st[u].scale > 0.f;
+    lab[u] = read ? label_at(l, r, st[u], m.blend) : -1;
+    window_raw(v, st[u], m.blend, read, raw[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float win[2][2];
+    widen_window(raw[u], st[u], m.blend, win);
+    c[u] = channel_of(lab[u], n_channels);
+    x[u] = sample(st[u], win);
+  }
+}
+
 // A ray's running sums of the channels [c0, c0 + tile), at
 // sums[(c - c0) * stride] (the kernel's shared memory, or a host array),
 // with the sum of the last sample's channel held in acc (slot cur) until
@@ -894,9 +924,19 @@ JOSEPH_HD void flush(ChannelSums& s) {
 }
 
 // joseph_fwd_ch's lanes a ray (G) and the steps a lane keeps in flight
-// (U), from max_channel_timing.py's probes (joseph.cu says why these).
+// (U), from max_channel_timing.py's probes (joseph.cu says why these);
+// kFwdChLanesOf<T> and kFwdChStepsOf<T> on a copy of element T, a bf16
+// one's its own. G also sizes the kernel's launch and its block's sums.
 constexpr int kFwdChLanes = 8;
 constexpr int kFwdChSteps = 1;
+template <class T>
+constexpr int kFwdChLanesOf = kFwdChLanes;
+template <>
+constexpr int kFwdChLanesOf<brick::bf16> = 4;
+template <class T>
+constexpr int kFwdChStepsOf = kFwdChSteps;
+template <>
+constexpr int kFwdChStepsOf<brick::bf16> = 1;
 
 #if defined(__CUDACC__)
 // Thread t's part in joseph_fwd_ch (and the probes): lane t % G of ray
@@ -993,6 +1033,48 @@ JOSEPH_HD void channel_terms(const Ray& r, const Vol& v, const Lab& l, const Mar
   }
 }
 
+// channel_terms on a bf16 copy: U steps' windows loaded raw (window_raw:
+// 4U 16-bit loads in flight, 8U at a fractional h) beside their labels,
+// then the U cotangents their labels pick, then each window widened and
+// lerped (widen_window) and its terms formed in step order. The same
+// float32 operations on the same values as the float32 copy's
+// channel_terms, so the summands are its own on the density rounded to
+// bf16, bit for bit.
+template <int U, int A, class Lab>
+JOSEPH_HD void channel_terms(const Ray& r, const brick::Volume<A, brick::bf16>& v, const Lab& l,
+                             const March& m, int n_channels, const float* g, int64_t n_rays,
+                             int p0, int step, int hi, float t[U][kRows]) {
+  Step st[U];
+  int lab[U];
+  brick::bf16 raw[U][2][2][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    st[u] = step_at(r, m, v.X, p0 + u * step);
+    bool read = p0 + u * step < hi && st[u].inslab;
+    lab[u] = read ? label_at(l, r, st[u], m.blend) : -1;  // -1: no channel
+    window_raw(v, st[u], m.blend, read, raw[u]);
+  }
+  int c[U];
+  float gc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    c[u] = channel_of(lab[u], n_channels);
+    gc[u] = c[u] < 0 ? 0.f : g[c[u] * n_rays];
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) t[u][i] = 0.f;
+    if (c[u] < 0) continue;
+    float win[2][2];
+    widen_window(raw[u], st[u], m.blend, win);
+    float terms[kRows];
+    step_terms(r, st[u], win, terms);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) t[u][i] = terms[i] * gc[u];
+  }
+}
+
 // The channel pose backward: acc[0..6] = sum over steps of the step's 7
 // terms times the cotangent of its channel, step after step (the order of
 // sums that bwd_rays_ch_lanes keeps). No final product by g. A step that
@@ -1012,9 +1094,19 @@ JOSEPH_HD void trace_bwd_rays_ch(const Ray& r, const Volume& v, const Labels& l,
 }
 
 // joseph_bwd_rays_ch's lanes a ray (G), the steps a lane keeps in flight
-// (U), from channel_timing.py's probes (joseph.cu says why these).
+// (U), from channel_timing.py's probes (joseph.cu says why these);
+// kChannelLanesOf<T> and kChannelStepsOf<T> on a copy of element T, a bf16
+// one's its own.
 constexpr int kChannelLanes = 16;
 constexpr int kChannelSteps = 1;
+template <class T>
+constexpr int kChannelLanesOf = kChannelLanes;
+template <>
+constexpr int kChannelLanesOf<brick::bf16> = 8;
+template <class T>
+constexpr int kChannelStepsOf = kChannelSteps;
+template <>
+constexpr int kChannelStepsOf<brick::bf16> = 1;
 
 #if defined(__CUDACC__)
 // Thread t's part in joseph_bwd_rays_ch (and the probes): lane t % G of ray

@@ -29,7 +29,27 @@
 // 128 threads a block, as in the kernels. Each returns cudaGetLastError(),
 // or -1 for a combination it does not build (-2: another march axis than
 // this build's).
+//
+// Built with -DPROBE_BF16, the file holds the bf16 probes instead
+// (probe_bwd_rays_ch_bf16 and probe_bwd_rays_ch_bf16_attributes, below), on the density's
+// bf16 bricked copy and the labelmap's copy (its int32 bits), at G = 4, 8
+// or 16 lanes a ray and U = 1, 2 or 4 steps in flight a lane:
+//   variant 0 the package's bwd_rays_ch_lanes (channel_terms's bf16
+//             overload: the U steps' windows loaded raw with their labels,
+//             widened only once every load has issued);
+//           1 the parent's (channel_terms of the float32 copy over a
+//             volume whose voxel() is brick::load: each read widened, and
+//             in blend mode lerped, where it lands, as the first bf16 build
+//             had it);
+//           2 the march without loads (the float32 probe's kind 1 at the
+//             same G and U: every offset computed, nothing read, every
+//             label 0).
+// probe_bwd_rays_ch_bf16_attributes gives a variant's registers, local memory
+// and static shared memory a thread or block, and its resident blocks an
+// SM (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "joseph.cuh"
 
@@ -40,7 +60,6 @@
 namespace probe {
 
 constexpr int kThreads = 128;
-constexpr int kWarp = 32;
 constexpr int A = PROBE_AXIS;
 static_assert(kThreads == joseph::kFusedThreads,
               "bwd_rays_ch_lanes' hand-over is sized for blocks of kFusedThreads");
@@ -78,6 +97,17 @@ __host__ __device__ __forceinline__ int label_voxel(const NoLoadLabels& l, int k
                                                     float rz) {
   return (int)brick::offset(l.b, k, (int)ry, (int)rz) & l.zero;
 }
+
+joseph::March make_march(float h, int n_steps, int blend) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n_steps;
+  m.blend = blend != 0;
+  return m;
+}
+
+#if !defined(PROBE_BF16)
+constexpr int kWarp = 32;
 
 template <int G, int U, class Vol, class Lab>
 __global__ void __launch_bounds__(kThreads)
@@ -192,14 +222,6 @@ int rays_probe(int kind, int layout, int lab_layout, int n_lanes, int unroll,
   return (int)cudaGetLastError();
 }
 
-joseph::March make_march(float h, int n_steps, int blend) {
-  joseph::March m;
-  m.h = h;
-  m.n_steps = n_steps;
-  m.blend = blend != 0;
-  return m;
-}
-
 }  // namespace probe
 
 // The bricked arguments are those of joseph_bwd_rays_ch: the march axis,
@@ -245,3 +267,147 @@ extern "C" int probe_bwd_vol_ch(int kind, const float* rows, int64_t n, const in
   }
   return (int)cudaGetLastError();
 }
+#else  // PROBE_BF16
+using brick::bf16;
+using BV = brick::Volume<A, bf16>;
+
+// The bf16 copy as the parent's bf16 build read it: voxel() of the float32
+// code, each read widened where it lands (joseph::voxel on a
+// brick::Volume: brick::load). Over such a volume channel_terms is the float32
+// copy's, as that build had it.
+struct Widened {
+  BV b;
+  int X, Y, Z;
+};
+
+__host__ __device__ __forceinline__ float voxel(const Widened& v, int k, float fy, float fz) {
+  return joseph::voxel(v.b, k, fy, fz);
+}
+
+// The density and the labelmap that variant V reads: the bf16 copy and the
+// labelmap's copy (0), Widened and the labelmap's copy (1), or NoLoad and
+// NoLoadLabels over their geometry (2: the offsets are the same in
+// elements; nothing is read, every label 0), made on the host so that the
+// zeros are kernel arguments.
+template <int V>
+using VolOf = std::conditional_t<V == 1, Widened, std::conditional_t<V == 2, NoLoad, BV>>;
+template <int V>
+using LabOf = std::conditional_t<V == 2, NoLoadLabels, BrickLabels>;
+
+template <int V>
+VolOf<V> volume_of(const BV& b) {
+  if constexpr (V == 1) {
+    return Widened{b, b.X, b.Y, b.Z};
+  } else if constexpr (V == 2) {
+    return NoLoad{brick::make_volume<A>(static_cast<const float*>(nullptr), b.bs_s, b.bs_y,
+                                        b.bs_z, b.X, b.Y, b.Z),
+                  0, b.X, b.Y, b.Z};
+  } else {
+    return b;
+  }
+}
+
+template <int V>
+LabOf<V> labels_of(const BrickLabels& l) {
+  if constexpr (V == 2) {
+    return NoLoadLabels{l, 0, l.X, l.Y, l.Z};
+  } else {
+    return l;
+  }
+}
+
+template <int N>
+using IC = std::integral_constant<int, N>;
+
+// f(IC<V>(), IC<G>(), IC<U>()) for variant 0..2, G 4, 8 or 16 and U 1, 2
+// or 4; -1 for another.
+template <int V, int G, class F>
+int with_unroll(int unroll, F f) {
+  switch (unroll) {
+    case 1: return f(IC<V>(), IC<G>(), IC<1>());
+    case 2: return f(IC<V>(), IC<G>(), IC<2>());
+    case 4: return f(IC<V>(), IC<G>(), IC<4>());
+    default: return -1;
+  }
+}
+
+template <int V, class F>
+int with_lanes(int n_lanes, int unroll, F f) {
+  switch (n_lanes) {
+    case 4: return with_unroll<V, 4>(unroll, f);
+    case 8: return with_unroll<V, 8>(unroll, f);
+    case 16: return with_unroll<V, 16>(unroll, f);
+    default: return -1;
+  }
+}
+
+template <class F>
+int with_bf16_variant(int variant, int n_lanes, int unroll, F f) {
+  switch (variant) {
+    case 0: return with_lanes<0>(n_lanes, unroll, f);
+    case 1: return with_lanes<1>(n_lanes, unroll, f);
+    case 2: return with_lanes<2>(n_lanes, unroll, f);
+    default: return -1;
+  }
+}
+
+// Registers, local-memory bytes and static shared-memory bytes of one
+// kernel a thread or block, and its resident blocks an SM at kThreads
+// threads and `dynamic` bytes of dynamic shared memory.
+template <class K>
+int attributes(K kernel, size_t dynamic, int* res) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&res[3], kernel, kThreads, dynamic);
+  res[0] = a.numRegs;
+  res[1] = (int)a.localSizeBytes;
+  res[2] = (int)a.sharedSizeBytes;
+  return (int)err;
+}
+
+// One kernel a variant V (the numbering at the top), so each has SASS of its
+// own.
+template <int V, int G, int U>
+__global__ void __launch_bounds__(kThreads)
+rays_ch_bf16(const float* __restrict__ rows, int64_t n, VolOf<V> v, LabOf<V> l, joseph::March m,
+             int C, const float* __restrict__ g, float* __restrict__ out) {
+  joseph::bwd_rays_ch_lanes<G, U>(rows, n, v, l, m, C, g, out, thread_index());
+}
+
+}  // namespace probe
+
+// The bf16 copy's and the labelmap copy's arguments are those of
+// joseph_bwd_rays_ch_bf16: the march axis, then the (s, y, z) axes' brick
+// strides and extents; g the (C, n) cotangent, out (7, n).
+extern "C" int probe_bwd_rays_ch_bf16(int variant, int n_lanes, int unroll, const float* rows,
+                                      int64_t n, const brick::bf16* bricked, int axis, int bs_s,
+                                      int bs_y, int bs_z, int X, int Y, int Z,
+                                      const float* blabels, float h, int n_steps, int blend, int C,
+                                      const float* g, float* out, void* stream) {
+  if (axis != probe::A) return -2;
+  if (n <= 0) return 0;
+  probe::BV v = brick::make_volume<probe::A>(bricked, bs_s, bs_y, bs_z, X, Y, Z);
+  probe::BrickLabels l{brick::make_volume<probe::A>(blabels, bs_s, bs_y, bs_z, X, Y, Z)};
+  joseph::March m = probe::make_march(h, n_steps, blend);
+  int rc = probe::with_bf16_variant(variant, n_lanes, unroll, [&](auto var, auto gl, auto u) {
+    constexpr int V = decltype(var)::value, G = decltype(gl)::value;
+    probe::rays_ch_bf16<V, G, decltype(u)::value>
+        <<<probe::n_blocks(n * G), probe::kThreads, 0, (cudaStream_t)stream>>>(
+            rows, n, probe::volume_of<V>(v), probe::labels_of<V>(l), m, C, g, out);
+    return 0;
+  });
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// res[0..3]: registers a thread, local-memory bytes a thread, static
+// shared-memory bytes a block, resident blocks an SM, of the variant at G
+// and U.
+extern "C" int probe_bwd_rays_ch_bf16_attributes(int variant, int n_lanes, int unroll,
+                                                 int* res) {
+  return probe::with_bf16_variant(variant, n_lanes, unroll, [&](auto var, auto gl, auto u) {
+    constexpr int V = decltype(var)::value, G = decltype(gl)::value, U = decltype(u)::value;
+    return probe::attributes(probe::rays_ch_bf16<V, G, U>, 0, res);
+  });
+}
+#endif  // PROBE_BF16

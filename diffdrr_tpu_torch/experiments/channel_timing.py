@@ -2,6 +2,7 @@
 """Time the three channel kernels of a checkout on one CUDA card.
 
     python3 diffdrr_tpu_torch/experiments/channel_timing.py [--root DIR] [--no-probes]
+        [--storage f32|bf16]
 
 Imports ``diffdrr_tpu_torch`` from ``DIR`` (default: the checkout that holds
 this file), so one card can time two commits in turns: unpack each into a
@@ -49,6 +50,21 @@ per ray's march without its scatter (``march_only``: no shared memory, no
 atomics); the parent is held against the kernel (``max_rel_err``: the
 largest error relative to the gradient's largest value).
 
+``--storage bf16`` times ``joseph_bwd_rays_ch`` alone on the density's
+bf16 copy (the wrapper's ``storage="bf16"``: ``joseph_bwd_rays_ch_bf16``;
+the two other channel kernels read no bf16 copy), at the main pose, the
+lateral pose at h = 1.024 and the lateral pose at h = 1 (512 steps, no
+blend), with both cotangents, each with the float32 kernel's
+``kernel_f32`` and ``burst_f32`` from the same process beside it. Its
+probes are the file's build with -DPROBE_BF16 (the random cotangent): at
+G = 4, 8 and 16 lanes a ray and U = 1, 2 and 4 steps in flight a lane, the
+package's lanes on the bf16 copy (``raw``: its windows kept raw until the
+terms), the parent's (``widened``: each read widened where it lands) and
+the march without loads, each variant's registers and local memory a
+thread, static shared memory a block and resident blocks an SM
+(``attributes``); the two marches held against the package's kernel
+(``max_rel_err`` as above: 0, the same rows).
+
 Prints one line per case and, last, one JSON object with every number and
 the card (``nvidia-smi`` name and power limit). Fails without a card.
 """
@@ -71,6 +87,10 @@ KW = dict(parameterization="euler_angles", convention="ZXY")
 LANES = (1, 2, 4, 8, 16, 32)
 UNROLLS = (2, 4)
 N_CHANNELS = 7
+# channel_probes.cu's bf16 variants, by its numbering, and their G and U.
+BF16_VARIANTS = ("raw", "widened", "march_only")
+BF16_LANES = (4, 8, 16)
+BF16_UNROLLS = (1, 2, 4)
 
 
 def load_probes(axes):
@@ -90,6 +110,76 @@ def load_probes(axes):
         lib.probe_bwd_rays_ch.restype = lib.probe_bwd_vol_ch.restype = i32
         libs[axis] = lib
     return libs
+
+
+def load_bf16_probes(axes):
+    """channel_probes.cu's bf16 build (-DPROBE_BF16) once for each march axis
+    in ``axes``; the loaded libraries by axis."""
+    from diffdrr_tpu_torch.experiments.fwd_timing import build_sources
+
+    outs = build_sources(HERE / "channel_probes.cu",
+                         [["-DPROBE_BF16", f"-DPROBE_AXIS={a}"] for a in axes])
+    v, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+    libs = {}
+    for axis, out in zip(axes, outs):
+        lib = ctypes.CDLL(str(out))
+        lib.probe_bwd_rays_ch_bf16.argtypes = ([i32] * 3 + [v, i64, v] + [i32] * 7
+                                               + [v, f32, i32, i32, i32, v, v, v])
+        lib.probe_bwd_rays_ch_bf16_attributes.argtypes = [i32] * 3 + [v]
+        lib.probe_bwd_rays_ch_bf16.restype = i32
+        lib.probe_bwd_rays_ch_bf16_attributes.restype = i32
+        libs[axis] = lib
+    return libs
+
+
+def bf16_attributes(lib):
+    """{"<variant>_g<G>_u<U>": {registers, local_bytes, shared_bytes,
+    blocks_per_sm}} of the bf16 probes."""
+    res = (ctypes.c_int * 4)()
+    out = {}
+    for k, name in enumerate(BF16_VARIANTS):
+        for gl in BF16_LANES:
+            for u in BF16_UNROLLS:
+                rc = lib.probe_bwd_rays_ch_bf16_attributes(k, gl, u, res)
+                if rc != 0:
+                    raise RuntimeError(f"attributes {name} G {gl} U {u}: {rc}")
+                out[f"{name}_g{gl}_u{u}"] = dict(
+                    zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), res))
+    return out
+
+
+def bf16_probe_case(lib, rows, density, labels, axis, march, g, ref_rows, events_ms):
+    """Time the bf16 probes of joseph_bwd_rays_ch (see the module docstring)
+    on ``density``'s bf16 copy; ms by ``<variant>_g<G>_u<U>``, and the two
+    marches' ``max_rel_err`` against the kernel's rows ``ref_rows``."""
+    import torch
+
+    from diffdrr_tpu_torch.experiments.fwdgrad_timing import max_rel_err
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    rows = rows.contiguous()
+    n = rows.shape[1]
+    out = torch.empty((ref_rows.shape[0], n), dtype=torch.float32, device=rows.device)
+    bv, bl = brick.brick_density(density, "bf16"), brick.brick_density(labels)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(k, gl, u):
+        rc = lib.probe_bwd_rays_ch_bf16(k, gl, u, rows.data_ptr(), n, bv.data.data_ptr(),
+                                        *bv.args(axis), bl.data.data_ptr(), *march, N_CHANNELS,
+                                        g.data_ptr(), out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"bf16 probe rays {BF16_VARIANTS[k]} G {gl} U {u}: {rc}")
+
+    res, err = {}, {}
+    for k, name in enumerate(BF16_VARIANTS):
+        for gl in BF16_LANES:
+            for u in BF16_UNROLLS:
+                key = f"{name}_g{gl}_u{u}"
+                res[key] = events_ms(lambda: run(k, gl, u))
+                if name != "march_only":
+                    run(k, gl, u)
+                    err[key] = max_rel_err(out, ref_rows)
+    return res, err
 
 
 def probe_case(lib, rows, density, labels, axis, march, g, ref_rows, ref_grad, events_ms):
@@ -162,7 +252,11 @@ def main(argv=None) -> int:
     parser.add_argument("--root", type=Path, default=HERE.parents[1],
                         help="checkout whose diffdrr_tpu_torch is timed")
     parser.add_argument("--no-probes", action="store_true", help="time the cases only")
+    parser.add_argument("--storage", choices=("f32", "bf16"), default="f32",
+                        help="the density's copy joseph_bwd_rays_ch reads (bf16: "
+                             "storage='bf16', that kernel alone, float32 beside it)")
     args = parser.parse_args(argv)
+    bf16 = args.storage == "bf16"
     sys.path.insert(0, str(args.root.resolve()))
     import numpy as np
     import torch
@@ -184,10 +278,13 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     label = args.root.resolve().name
-    print(f"[channel_timing] {label}: package {Path(T.__file__).parent}; {card}", flush=True)
+    print(f"[channel_timing] {label} ({args.storage}): package {Path(T.__file__).parent}; "
+          f"{card}", flush=True)
     build.build_all()
     has_lanes = "bwd_rays_ch_lanes" in (build.CSRC / "joseph.cuh").read_text()
-    libs = None if args.no_probes or not has_lanes else load_probes((2, 0))
+    libs = (None if args.no_probes or not has_lanes
+            else (load_bf16_probes if bf16 else load_probes)((2, 0)))
+    attributes = bf16_attributes(libs[2]) if bf16 and libs is not None else None
     dev = torch.device("cuda")
     trans = torch.tensor(TRANS, device=dev)
     drr = T.DRR(T.load_example_ct(), sdd=1020.0, height=200, delx=2.0, renderer="trilinear")
@@ -196,12 +293,17 @@ def main(argv=None) -> int:
                      dtype=torch.float32, device=dev)
     cases = {}
 
-    for pose, rot in (("main", MAIN_ROT), ("lateral", LATERAL_ROT)):
+    poses = [("main", MAIN_ROT, None), ("lateral", LATERAL_ROT, None)]
+    if bf16:  # the lateral pose at h = 1 too: 512 steps, no blend
+        poses.append(("lateral h1", LATERAL_ROT, 1.0))
+    for pose, rot, h_pose in poses:
         src, tgt = drr.detector(T.convert(torch.tensor(rot, device=dev), trans, **KW))
         sv, tv = drr.affine_inverse(src), drr.affine_inverse(tgt)
         axis = int(torch.argmin(drr.worst_ratios(sv, tv)))
         wt = torch.linalg.vector_norm(tgt - src, dim=-1)[:, None, :]
         h, n = raymarch_steps(density.shape[axis], 500)
+        if h_pose is not None:
+            h, n = h_pose, density.shape[axis]
         march = (h, n, int(J.is_blend(h)))
         rows = prep_rays(sv, tv, wt, axis, density.shape, quadrature="joseph", h=h)
         R = rows.shape[1]
@@ -213,15 +315,37 @@ def main(argv=None) -> int:
         def fwd():
             return J.joseph_fwd_ch(rows, density, labels, axis, h, n, N_CHANNELS)
 
-        head = {"rays": R, "axis": axis, "h": h, "steps": n}
-        c = dict(head, kernel=events_ms(fwd), burst=burst_ms(fwd))
-        cases[f"joseph_fwd_ch {pose}"] = c
-        print(f"[channel_timing] {label} joseph_fwd_ch {pose} ({R} rays, axis {axis}, h {h:.6f}):"
-              f" kernel {c['kernel']:.4f} ms, burst {c['burst']:.4f}", flush=True)
+        head = {"rays": R, "axis": axis, "h": h, "steps": n, "storage": args.storage}
+        if not bf16:
+            c = dict(head, kernel=events_ms(fwd), burst=burst_ms(fwd))
+            cases[f"joseph_fwd_ch {pose}"] = c
+            print(f"[channel_timing] {label} joseph_fwd_ch {pose} ({R} rays, axis {axis}, "
+                  f"h {h:.6f}): kernel {c['kernel']:.4f} ms, burst {c['burst']:.4f}", flush=True)
         grad = torch.zeros(density.shape, dtype=torch.float32, device=dev)
         for cot, g in cots.items():
-            def rays_bwd():
-                return J.joseph_bwd_rays_ch(rows, density, labels, axis, h, n, g)
+            def rays_bwd(*storage):
+                return J.joseph_bwd_rays_ch(rows, density, labels, axis, h, n, g, *storage)
+
+            if bf16:
+                def bf16_bwd():
+                    return rays_bwd("bf16")
+
+                cr = dict(head, kernel=events_ms(bf16_bwd), burst=burst_ms(bf16_bwd),
+                          with_copy=events_ms(bf16_bwd, brick.clear_cache),
+                          kernel_f32=events_ms(rays_bwd), burst_f32=burst_ms(rays_bwd))
+                if libs is not None and cot == "random":
+                    cr["probes"], cr["max_rel_err"] = bf16_probe_case(
+                        libs[axis], rows, density, labels, axis, march, g, bf16_bwd(), events_ms)
+                cases[f"joseph_bwd_rays_ch {pose} {cot}"] = cr
+                print(f"[channel_timing] {label} joseph_bwd_rays_ch {pose} {cot} ({R} rays, "
+                      f"axis {axis}, h {h:.6f}, bf16): kernel {cr['kernel']:.4f} ms, burst "
+                      f"{cr['burst']:.4f}, with_copy {cr['with_copy']:.4f}, float32 kernel "
+                      f"{cr['kernel_f32']:.4f}, burst {cr['burst_f32']:.4f}", flush=True)
+                for k, v in cr.get("probes", {}).items():
+                    e = cr["max_rel_err"].get(k)
+                    print(f"[channel_timing] {label} bf16 probe {pose} {k} {v:.4f} ms"
+                          + ("" if e is None else f" (max rel err {e:.2e})"), flush=True)
+                continue
 
             def vol_bwd():
                 return J.joseph_bwd_vol_ch(rows, g, labels, density.shape, axis, h, n)
@@ -252,7 +376,10 @@ def main(argv=None) -> int:
                 e = cr["max_rel_err"].get(k)
                 print(f"[channel_timing] {label} probe {pose} {k} {v:.4f} ms"
                       + ("" if e is None else f" (max rel err {e:.2e})"), flush=True)
-    print(json.dumps({"label": label, "card": card, "cases": cases}), flush=True)
+    for k, a in (attributes or {}).items():
+        print(f"[channel_timing] {label} bf16 probe joseph_bwd_rays_ch {k}: {a}", flush=True)
+    print(json.dumps({"label": label, "card": card, "storage": args.storage, "cases": cases,
+                      "bf16_attributes": attributes}), flush=True)
     return 0
 
 

@@ -36,7 +36,27 @@
 //     kernel: bricked at its own G and U).
 // Each returns cudaGetLastError(), or -1 for a combination it does not
 // build (-2: another march axis than this build's).
+//
+// Built with -DPROBE_BF16, the file holds the bf16 probes instead
+// (probe_fwd_ch_bf16 and probe_fwd_ch_bf16_attributes, below), on the density's
+// bf16 bricked copy and the labelmap's copy (its int32 bits), at G = 4, 8
+// or 16 lanes a ray and U = 1, 2 or 4 steps in flight a lane:
+//   variant 0 the package's fwd_ch_lanes (channel_samples's bf16
+//             overload: the U steps' windows loaded raw with their labels,
+//             widened only once every load has issued);
+//           1 the parent's (channel_samples of the float32 copy over a
+//             volume whose voxel() is brick::load: each read widened, and
+//             in blend mode lerped, where it lands, as the first bf16 build
+//             had it);
+//           2 the march without loads (the float32 probe's kind 1 at the
+//             same G and U: every offset computed, nothing read, every
+//             label 0).
+// probe_fwd_ch_bf16_attributes gives a variant's registers, local memory
+// and static shared memory a thread or block, and its resident blocks an
+// SM (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "joseph.cuh"
 #include "siddon.cuh"
@@ -84,6 +104,15 @@ __host__ __device__ __forceinline__ int label_voxel(const NoLoadLabels& l, int k
   return (int)brick::offset(l.b, k, (int)ry, (int)rz) & l.zero;
 }
 
+joseph::March make_march(float h, int n_steps, int blend) {
+  joseph::March m;
+  m.h = h;
+  m.n_steps = n_steps;
+  m.blend = blend != 0;
+  return m;
+}
+
+#if !defined(PROBE_BF16)
 #define PROBE_UNROLL(CALL, G)   \
   switch (unroll) {             \
     case 1: CALL(G, 1); break;  \
@@ -262,14 +291,6 @@ int fwd_max_probe(int kind, int layout, int n_lanes, int unroll, const float* ro
   return (int)cudaGetLastError();
 }
 
-joseph::March make_march(float h, int n_steps, int blend) {
-  joseph::March m;
-  m.h = h;
-  m.n_steps = n_steps;
-  m.blend = blend != 0;
-  return m;
-}
-
 }  // namespace probe
 
 // The bricked arguments are those of joseph_fwd_ch and siddon_fwd_max: the
@@ -303,3 +324,153 @@ extern "C" int probe_fwd_max(int kind, int layout, int n_lanes, int unroll, cons
                               brick::make_volume<probe::A>(bricked, bs_s, bs_y, bs_z, X, Y, Z),
                               out, arg, (cudaStream_t)stream);
 }
+#else  // PROBE_BF16
+using brick::bf16;
+using BV = brick::Volume<A, bf16>;
+
+// The bf16 copy as the parent's bf16 build read it: voxel() of the float32
+// code, each read widened where it lands (joseph::voxel on a
+// brick::Volume: brick::load). Over such a volume channel_samples is the float32
+// copy's, as that build had it.
+struct Widened {
+  BV b;
+  int X, Y, Z;
+};
+
+__host__ __device__ __forceinline__ float voxel(const Widened& v, int k, float fy, float fz) {
+  return joseph::voxel(v.b, k, fy, fz);
+}
+
+// The density and the labelmap that variant V reads: the bf16 copy and the
+// labelmap's copy (0), Widened and the labelmap's copy (1), or NoLoad and
+// NoLoadLabels over their geometry (2: the offsets are the same in
+// elements; nothing is read, every label 0), made on the host so that the
+// zeros are kernel arguments.
+template <int V>
+using VolOf = std::conditional_t<V == 1, Widened, std::conditional_t<V == 2, NoLoad, BV>>;
+template <int V>
+using LabOf = std::conditional_t<V == 2, NoLoadLabels, BrickLabels>;
+
+template <int V>
+VolOf<V> volume_of(const BV& b) {
+  if constexpr (V == 1) {
+    return Widened{b, b.X, b.Y, b.Z};
+  } else if constexpr (V == 2) {
+    return NoLoad{brick::make_volume<A>(static_cast<const float*>(nullptr), b.bs_s, b.bs_y,
+                                        b.bs_z, b.X, b.Y, b.Z),
+                  0, b.X, b.Y, b.Z};
+  } else {
+    return b;
+  }
+}
+
+template <int V>
+LabOf<V> labels_of(const BrickLabels& l) {
+  if constexpr (V == 2) {
+    return NoLoadLabels{l, 0, l.X, l.Y, l.Z};
+  } else {
+    return l;
+  }
+}
+
+template <int N>
+using IC = std::integral_constant<int, N>;
+
+// f(IC<V>(), IC<G>(), IC<U>()) for variant 0..2, G 4, 8 or 16 and U 1, 2
+// or 4; -1 for another.
+template <int V, int G, class F>
+int with_unroll(int unroll, F f) {
+  switch (unroll) {
+    case 1: return f(IC<V>(), IC<G>(), IC<1>());
+    case 2: return f(IC<V>(), IC<G>(), IC<2>());
+    case 4: return f(IC<V>(), IC<G>(), IC<4>());
+    default: return -1;
+  }
+}
+
+template <int V, class F>
+int with_lanes(int n_lanes, int unroll, F f) {
+  switch (n_lanes) {
+    case 4: return with_unroll<V, 4>(unroll, f);
+    case 8: return with_unroll<V, 8>(unroll, f);
+    case 16: return with_unroll<V, 16>(unroll, f);
+    default: return -1;
+  }
+}
+
+template <class F>
+int with_bf16_variant(int variant, int n_lanes, int unroll, F f) {
+  switch (variant) {
+    case 0: return with_lanes<0>(n_lanes, unroll, f);
+    case 1: return with_lanes<1>(n_lanes, unroll, f);
+    case 2: return with_lanes<2>(n_lanes, unroll, f);
+    default: return -1;
+  }
+}
+
+// Registers, local-memory bytes and static shared-memory bytes of one
+// kernel a thread or block, and its resident blocks an SM at kThreads
+// threads and `dynamic` bytes of dynamic shared memory.
+template <class K>
+int attributes(K kernel, size_t dynamic, int* res) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&res[3], kernel, kThreads, dynamic);
+  res[0] = a.numRegs;
+  res[1] = (int)a.localSizeBytes;
+  res[2] = (int)a.sharedSizeBytes;
+  return (int)err;
+}
+
+// One kernel a variant V (the numbering at the top), so each has SASS of its
+// own: C * (kThreads / G) floats of dynamic shared memory, as the package's.
+template <int V, int G, int U>
+__global__ void __launch_bounds__(kThreads)
+fwd_ch_bf16(const float* __restrict__ rows, int64_t n, VolOf<V> v, LabOf<V> l, joseph::March m,
+            int C, float* __restrict__ out) {
+  extern __shared__ float sums[];
+  joseph::fwd_ch_lanes<G, U>(rows, n, v, l, m, C, C, sums + threadIdx.x / G, kThreads / G, out,
+                             thread_index());
+}
+
+}  // namespace probe
+
+// The bf16 copy's and the labelmap copy's arguments are those of
+// joseph_fwd_ch_bf16: the march axis, then the (s, y, z) axes' brick
+// strides and extents. All C channels in one march: -1 where their sums
+// pass 48 KB a block.
+extern "C" int probe_fwd_ch_bf16(int variant, int n_lanes, int unroll, const float* rows,
+                                 int64_t n, const brick::bf16* bricked, int axis, int bs_s,
+                                 int bs_y, int bs_z, int X, int Y, int Z, const float* blabels,
+                                 float h, int n_steps, int blend, int C, float* out,
+                                 void* stream) {
+  if (axis != probe::A) return -2;
+  if (n <= 0) return 0;
+  probe::BV v = brick::make_volume<probe::A>(bricked, bs_s, bs_y, bs_z, X, Y, Z);
+  probe::BrickLabels l{brick::make_volume<probe::A>(blabels, bs_s, bs_y, bs_z, X, Y, Z)};
+  joseph::March m = probe::make_march(h, n_steps, blend);
+  int rc = probe::with_bf16_variant(variant, n_lanes, unroll, [&](auto var, auto g, auto u) {
+    constexpr int V = decltype(var)::value, G = decltype(g)::value;
+    size_t smem = (size_t)C * (probe::kThreads / G) * sizeof(float);
+    if (smem > 48 * 1024) return -1;
+    probe::fwd_ch_bf16<V, G, decltype(u)::value>
+        <<<probe::n_blocks(n * G), probe::kThreads, smem, (cudaStream_t)stream>>>(
+            rows, n, probe::volume_of<V>(v), probe::labels_of<V>(l), m, C, out);
+    return 0;
+  });
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// res[0..3]: registers a thread, local-memory bytes a thread, static
+// shared-memory bytes a block, resident blocks an SM at C channels' sums,
+// of the variant at G and U.
+extern "C" int probe_fwd_ch_bf16_attributes(int variant, int n_lanes, int unroll, int C,
+                                            int* res) {
+  return probe::with_bf16_variant(variant, n_lanes, unroll, [&](auto var, auto g, auto u) {
+    constexpr int V = decltype(var)::value, G = decltype(g)::value, U = decltype(u)::value;
+    return probe::attributes(probe::fwd_ch_bf16<V, G, U>,
+                             (size_t)C * (probe::kThreads / G) * sizeof(float), res);
+  });
+}
+#endif  // PROBE_BF16

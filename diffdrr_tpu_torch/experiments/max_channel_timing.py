@@ -2,6 +2,7 @@
 """Time joseph_fwd_ch and siddon_fwd_max of a checkout on one CUDA card.
 
     python3 diffdrr_tpu_torch/experiments/max_channel_timing.py [--root DIR] [--no-probes]
+        [--storage f32|bf16]
 
 Imports ``diffdrr_tpu_torch`` from ``DIR`` (default: the checkout that holds
 this file), so one card can time two commits in turns: unpack each into a
@@ -47,6 +48,19 @@ thread per ray bricked at U = 1, 2, 4; the lanes as for
 march without loads is held against the package's kernel (``equal``: the
 same bits, and for ``siddon_fwd_max`` the same argmax).
 
+``--storage bf16`` times ``joseph_fwd_ch`` alone on the density's bf16
+copy (the wrapper's ``storage="bf16"``: ``joseph_fwd_ch_bf16``), at the
+main pose, the lateral pose at h = 1.024 and the lateral pose at h = 1 (512
+steps, no blend), each with the float32 kernel's ``kernel_f32`` and
+``burst_f32`` from the same process beside it. Its probes are the file's
+build with -DPROBE_BF16: at G = 4, 8 and 16 lanes a ray and U = 1, 2 and 4
+steps in flight a lane, the package's lanes on the bf16 copy (``raw``:
+its windows kept raw until the samples), the parent's (``widened``: each
+read widened where it lands) and the march without loads, each variant's
+registers and local memory a thread, static shared memory a block and
+resident blocks an SM at 7 channels (``attributes``); the two marches
+held against the package's kernel (``equal``: the same bits).
+
 Prints one line per case and, last, one JSON object with every number and
 the card (``nvidia-smi`` name and power limit). Fails without a card.
 """
@@ -69,6 +83,9 @@ KW = dict(parameterization="euler_angles", convention="ZXY")
 LANES = (1, 2, 4, 8, 16, 32)
 UNROLLS = (1, 2, 4)
 N_CHANNELS = 7
+# max_channel_probes.cu's bf16 variants, by its numbering, and their G.
+BF16_VARIANTS = ("raw", "widened", "march_only")
+BF16_LANES = (4, 8, 16)
 
 
 def load_probes(axes):
@@ -88,6 +105,75 @@ def load_probes(axes):
         lib.probe_fwd_ch.restype = lib.probe_fwd_max.restype = i32
         libs[axis] = lib
     return libs
+
+
+def load_bf16_probes(axes):
+    """max_channel_probes.cu's bf16 build (-DPROBE_BF16) once for each march
+    axis in ``axes``; the loaded libraries by axis."""
+    from diffdrr_tpu_torch.experiments.fwd_timing import build_sources
+
+    outs = build_sources(HERE / "max_channel_probes.cu",
+                         [["-DPROBE_BF16", f"-DPROBE_AXIS={a}"] for a in axes])
+    v, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+    libs = {}
+    for axis, out in zip(axes, outs):
+        lib = ctypes.CDLL(str(out))
+        lib.probe_fwd_ch_bf16.argtypes = ([i32] * 3 + [v, i64, v] + [i32] * 7
+                                          + [v, f32, i32, i32, i32, v, v])
+        lib.probe_fwd_ch_bf16_attributes.argtypes = [i32] * 4 + [v]
+        lib.probe_fwd_ch_bf16.restype = lib.probe_fwd_ch_bf16_attributes.restype = i32
+        libs[axis] = lib
+    return libs
+
+
+def bf16_attributes(lib):
+    """{"<variant>_g<G>_u<U>": {registers, local_bytes, shared_bytes,
+    blocks_per_sm}} of the bf16 probes at N_CHANNELS channels."""
+    res = (ctypes.c_int * 4)()
+    out = {}
+    for k, name in enumerate(BF16_VARIANTS):
+        for g in BF16_LANES:
+            for u in UNROLLS:
+                rc = lib.probe_fwd_ch_bf16_attributes(k, g, u, N_CHANNELS, res)
+                if rc != 0:
+                    raise RuntimeError(f"attributes {name} G {g} U {u}: {rc}")
+                out[f"{name}_g{g}_u{u}"] = dict(
+                    zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), res))
+    return out
+
+
+def bf16_probe_fwd_ch(lib, rows, density, labels, axis, march, ref, events_ms):
+    """Time the bf16 probes of joseph_fwd_ch (see the module docstring) on
+    ``density``'s bf16 copy; ms by ``<variant>_g<G>_u<U>`` and, for the two
+    marches, whether each gives the kernel's bits ``ref``."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    rows = rows.contiguous()
+    n = rows.shape[1]
+    out = torch.empty((N_CHANNELS, n), dtype=torch.float32, device=rows.device)
+    bv, bl = brick.brick_density(density, "bf16"), brick.brick_density(labels)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(k, g, u):
+        rc = lib.probe_fwd_ch_bf16(k, g, u, rows.data_ptr(), n, bv.data.data_ptr(),
+                                   *bv.args(axis), bl.data.data_ptr(), *march, N_CHANNELS,
+                                   out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"bf16 probe fwd_ch {BF16_VARIANTS[k]} G {g} U {u}: {rc}")
+
+    res, equal = {}, {}
+    for k, name in enumerate(BF16_VARIANTS):
+        for g in BF16_LANES:
+            for u in UNROLLS:
+                key = f"{name}_g{g}_u{u}"
+                res[key] = events_ms(lambda: run(k, g, u))
+                if name != "march_only":
+                    out.fill_(float("nan"))
+                    run(k, g, u)
+                    equal[key] = bool(torch.equal(_bits(out), _bits(ref)))
+    return res, equal
 
 
 def _bits(t):
@@ -210,7 +296,11 @@ def main(argv=None) -> int:
     parser.add_argument("--root", type=Path, default=HERE.parents[1],
                         help="checkout whose diffdrr_tpu_torch is timed")
     parser.add_argument("--no-probes", action="store_true", help="time the cases only")
+    parser.add_argument("--storage", choices=("f32", "bf16"), default="f32",
+                        help="the density's copy joseph_fwd_ch reads (bf16: storage='bf16', "
+                             "joseph_fwd_ch alone, float32 beside it)")
     args = parser.parse_args(argv)
+    bf16 = args.storage == "bf16"
     sys.path.insert(0, str(args.root.resolve()))
     import torch
 
@@ -231,10 +321,13 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     label = args.root.resolve().name
-    print(f"[max_channel_timing] {label}: package {Path(T.__file__).parent}; {card}", flush=True)
+    print(f"[max_channel_timing] {label} ({args.storage}): package {Path(T.__file__).parent}; "
+          f"{card}", flush=True)
     build.build_all()
     has_lanes = "fwd_ch_lanes" in (build.CSRC / "joseph.cuh").read_text()
-    libs = None if args.no_probes or not has_lanes else load_probes((2, 0))
+    libs = (None if args.no_probes or not has_lanes
+            else (load_bf16_probes if bf16 else load_probes)((2, 0)))
+    attributes = bf16_attributes(libs[2]) if bf16 and libs is not None else None
     dev = torch.device("cuda")
     trans = torch.tensor(TRANS, device=dev)
     drr = T.DRR(T.load_example_ct(), sdd=1020.0, height=200, delx=2.0, renderer="trilinear")
@@ -249,44 +342,63 @@ def main(argv=None) -> int:
         return {"kernel": events_ms(fn), "burst": burst_ms(fn),
                 "with_copy": events_ms(fn, brick.clear_cache), "burst_with_copy": burst_ms(fresh)}
 
-    for pose, rot in (("main", MAIN_ROT), ("lateral", LATERAL_ROT)):
+    poses = [("main", MAIN_ROT, None), ("lateral", LATERAL_ROT, None)]
+    if bf16:  # the lateral pose at h = 1 too: 512 steps, no blend
+        poses.append(("lateral h1", LATERAL_ROT, 1.0))
+    for pose, rot, h_pose in poses:
         src, tgt = drr.detector(T.convert(torch.tensor(rot, device=dev), trans, **KW))
         sv, tv = drr.affine_inverse(src), drr.affine_inverse(tgt)
         axis = int(torch.argmin(drr.worst_ratios(sv, tv)))
         wt = torch.linalg.vector_norm(tgt - src, dim=-1)[:, None, :]
         h, n = raymarch_steps(density.shape[axis], 500)
+        if h_pose is not None:
+            h, n = h_pose, density.shape[axis]
         march = (h, n, int(J.is_blend(h)))
         jrows = prep_rays(sv, tv, wt, axis, density.shape, quadrature="joseph", h=h)
         srows = prep_rays(sv, tv, wt, axis, density.shape)
         R = jrows.shape[1]
 
-        def fwd_ch():
-            return J.joseph_fwd_ch(jrows, density, labels, axis, h, n, N_CHANNELS)
+        def fwd_ch(*storage):
+            return J.joseph_fwd_ch(jrows, density, labels, axis, h, n, N_CHANNELS, *storage)
 
         def fwd_max():
             return K.siddon_fwd_max(srows, density, axis)
 
-        for name, fn, head in (
-                ("joseph_fwd_ch", fwd_ch, {"h": h, "steps": n}),
-                ("siddon_fwd_max", fwd_max, {"slabs": density.shape[axis]})):
-            c = dict(head, rays=R, axis=axis, **timings(fn))
+        runs = [("joseph_fwd_ch", fwd_ch, {"h": h, "steps": n})]
+        if bf16:
+            runs = [("joseph_fwd_ch", lambda: fwd_ch("bf16"), {"h": h, "steps": n})]
+        else:
+            runs.append(("siddon_fwd_max", fwd_max, {"slabs": density.shape[axis]}))
+        for name, fn, head in runs:
+            c = dict(head, rays=R, axis=axis, storage=args.storage, **timings(fn))
+            if bf16:
+                c.update(kernel_f32=events_ms(fwd_ch), burst_f32=burst_ms(fwd_ch))
             if libs is not None:
                 ref = fn()
-                if name == "joseph_fwd_ch":
+                if bf16:
+                    c["probes"], c["equal"] = bf16_probe_fwd_ch(
+                        libs[axis], jrows, density, labels, axis, march, ref, events_ms)
+                elif name == "joseph_fwd_ch":
                     c["probes"], c["equal"], c["shipped"] = probe_fwd_ch(
                         libs[axis], jrows, density, labels, axis, march, ref, events_ms)
                 else:
                     c["probes"], c["equal"], c["shipped"] = probe_fwd_max(
                         libs[axis], srows, density, axis, ref, events_ms)
             cases[f"{name} {pose}"] = c
-            print(f"[max_channel_timing] {label} {name} {pose} ({R} rays, axis {axis}): "
+            print(f"[max_channel_timing] {label} {name} {pose} ({R} rays, axis {axis}, "
+                  f"{args.storage}): "
                   + ", ".join(f"{k} {c[k]:.4f}" for k in ("kernel", "burst", "with_copy",
-                                                          "burst_with_copy")) + " ms", flush=True)
+                                                          "burst_with_copy", "kernel_f32",
+                                                          "burst_f32") if k in c) + " ms",
+                  flush=True)
             for k, v in c.get("probes", {}).items():
                 e = c["equal"].get(k)
                 print(f"[max_channel_timing] {label} probe {name} {pose} {k} {v:.4f} ms"
                       + ("" if e is None else f" (equal {e})"), flush=True)
-    print(json.dumps({"label": label, "card": card, "cases": cases}), flush=True)
+    for k, a in (attributes or {}).items():
+        print(f"[max_channel_timing] {label} bf16 probe joseph_fwd_ch {k}: {a}", flush=True)
+    print(json.dumps({"label": label, "card": card, "storage": args.storage, "cases": cases,
+                      "bf16_attributes": attributes}), flush=True)
     return 0
 
 

@@ -27,8 +27,9 @@ With ``--parent DIR`` (a checkout of another commit, e.g. unpacked with
 ``git archive``), its ``csrc/*.cu`` are built with this checkout's nvcc
 flags and every kernel's SASS is compared with this checkout's by name,
 each instruction without its address and encoding: the kernels whose code
-differs, and those in one build only; and for each forward or fused kernel
-that differs, the parent's loads in flight, counted as above.
+differs, and those in one build only; and for each forward, fused or
+channel kernel that differs, the parent's loads in flight, counted as
+above.
 
 The bricked copy's kernel (``brick_copy_kernel``, its packed and general
 instantiations, and ``brick_probes.cu``'s variants, built as
@@ -48,10 +49,20 @@ aim: 3U for Siddon with U slabs a lane, 4U for Joseph, 8U in blend mode,
 whose loads of the second plane are predicated in the same code), their
 registers and local-memory bytes a thread.
 
+The channel kernels (``joseph_fwd_ch_kernel`` and ``joseph_bwd_rays_ch_kernel``,
+each at every march axis and in both storages; and the bf16 builds of
+``max_channel_probes.cu`` and ``channel_probes.cu``, -DPROBE_BF16 at march
+axis 2, every variant, G and U), under ``channels``: the same count of the
+density copy's loads in the widest loop (the forward's: its channel tiles,
+each holding the pass loop; the ray backward's: its passes), the most in
+flight at once (a bf16 kernel's aim: 4U with U steps a lane, 8U in blend
+mode), their registers and local-memory bytes a thread. The labels' and
+the cotangents' loads are 32-bit and not counted in a bf16 kernel.
+
 Each kernel's registers and local-memory (spill) bytes a thread come from
 ``cuobjdump -res-usage``. Prints one line per kernel and, last, one JSON
-object; with ``--out`` also writes the SASS of the forward gathers and the
-fused kernels there.
+object; with ``--out`` also writes the SASS of the forward gathers, the
+fused and the channel kernels there.
 """
 
 from __future__ import annotations
@@ -73,6 +84,8 @@ _FORWARDS = ("siddon_fwd_kernel", "joseph_fwd_kernel", "probe::siddon_fwd_bf16",
              "probe::joseph_fwd_bf16")
 _FUSED = ("siddon_fwdgrad_kernel", "joseph_fwdgrad_kernel", "siddon_bwd_rays_kernel<",
           "joseph_bwd_rays_kernel<", "probe::siddon_fwdgrad_bf16", "probe::joseph_fwdgrad_bf16")
+_CHANNELS = ("joseph_fwd_ch_kernel", "joseph_bwd_rays_ch_kernel", "probe::fwd_ch_bf16",
+             "probe::rays_ch_bf16")
 _COPIES = ("brick_copy_kernel", "probe::parent_copy", "probe::bulk_copy", "probe::reads_only",
            "probe::writes_only")
 _MEMORY_OP = re.compile(r"^(LDG|STG|LDS|STS|UBLKCP|LDGSTS)\b(\S*)")
@@ -223,6 +236,9 @@ def main(argv=None) -> int:
     libs["brick_probes"] = build_sources(HERE / "brick_probes.cu", [[]])[0]
     libs["fwdgrad_probes_bf16"] = build_sources(HERE / "fwdgrad_probes.cu",
                                                 [["-DPROBE_BF16", "-DPROBE_AXIS=2"]])[0]
+    for probes in ("max_channel_probes", "channel_probes"):
+        libs[f"{probes}_bf16"] = build_sources(HERE / f"{probes}.cu",
+                                               [["-DPROBE_BF16", "-DPROBE_AXIS=2"]])[0]
     sass, regs, local = {}, {}, {}
     for name, lib in libs.items():
         sass.update({(name, k): v for k, v in disassemble(lib).items()})
@@ -230,7 +246,7 @@ def main(argv=None) -> int:
         regs.update(zip(demangle(list(used)), used.values()))
         spilt = registers(lib, "LOCAL")
         local.update(zip(demangle(list(spilt)), spilt.values()))
-    report = {"kernels": {}, "fused": {}, "copies": {}, "diff": None}
+    report = {"kernels": {}, "fused": {}, "channels": {}, "copies": {}, "diff": None}
     for (lib, name), instrs in sorted(sass.items()):
         if lib in ("brick", "brick_probes") and any(c in name for c in _COPIES):
             ops = memory_ops(instrs)
@@ -240,7 +256,8 @@ def main(argv=None) -> int:
                   f"bytes; {ops}", flush=True)
     for (lib, name), instrs in sorted(sass.items()):
         group = ("kernels" if any(f in name for f in _FORWARDS) else
-                 "fused" if any(f in name for f in _FUSED) else None)
+                 "fused" if any(f in name for f in _FUSED) else
+                 "channels" if any(f in name for f in _CHANNELS) else None)
         if group is None:
             continue
         bits = 16 if ("unsigned short" in name or "_bf16" in name) else 32
@@ -263,10 +280,11 @@ def main(argv=None) -> int:
         for name, lib in parent_libs.items():
             old.update({(name, k): v for k, v in disassemble(lib).items()})
         ours = {k: [t for _, t in v] for k, v in sass.items() if k[0] in build.SOURCES}
-        # The parent's loads in flight, for each of its forwards and fused kernels
+        # The parent's loads in flight, for each of its forwards, fused and
+        # channel kernels
         parent_loads = {}
         for (lib, name), instrs in old.items():
-            if any(f in name for f in _FORWARDS + _FUSED):
+            if any(f in name for f in _FORWARDS + _FUSED + _CHANNELS):
                 bits = 16 if "unsigned short" in name else 32
                 parent_loads[name] = dict(zip(("loads", "peak", "first_use_run"),
                                               loads_in_flight(main_loop(instrs), bits)))

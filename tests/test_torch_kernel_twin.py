@@ -1053,7 +1053,8 @@ static void bt_joseph_t(int unroll, const float* rows, int64_t R, COPY_ARGS(T), 
 }
 // f(G, U) of a variant of the MIP and channel forwards' lanes: G lanes a
 // ray and U slabs (steps) in flight a lane, 0 taking the kernel's own
-// (kMaxLanes and kMaxSlabs or kMaxSteps, kFwdChLanes and kFwdChSteps);
+// (kMaxLanes and kMaxSlabs or kMaxSteps, kFwdChLanesOf<T> and
+// kFwdChStepsOf<T>);
 // _FWD_VARIANTS in the tests lists them in this order. A bf16 copy (T not
 // float) takes the kernel's own only.
 template <int N>
@@ -1076,6 +1077,18 @@ static void with_lanes(int variant, F f) {
     case 8: f(IC<0>(), IC<4>()); break;
     default: f(IC<0>(), IC<0>()); break;
   }
+}
+// f(G, U) of a variant of joseph_fwd_ch's lanes: with_lanes<T>'s, or in the
+// build with CH_VARIANTS (the channel entry points alone, both copies at
+// every variant) ch_variant's: G = 4, 8, 16 at U = 1, 2, 4 and the
+// kernel's own.
+template <class T, class F>
+static void with_ch_lanes(int variant, F f) {
+#if defined(CH_VARIANTS)
+  ch_variant(variant, f);
+#else
+  with_lanes<T>(variant, f);
+#endif
 }
 // One ray's first maximum as the MIP forwards' lanes run it (fwd_max_lanes),
 // lane after lane: each of G lanes the first maximum of its slabs (steps)
@@ -1173,9 +1186,9 @@ static void bt_joseph_ch_t(int variant, int tile, const float* rows, int64_t R, 
     constexpr int A = decltype(a)::value;
     auto v = brick::make_volume<A>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
     joseph::BrickLabels<A> l{brick::make_volume<A>(blab, bs_s, bs_y, bs_z, X, Y, Z)};
-    with_lanes<T>(variant, [&](auto g, auto u) {
-      constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kFwdChLanes;
-      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdChSteps;
+    with_ch_lanes<T>(variant, [&](auto g, auto u) {
+      constexpr int G = decltype(g)::value ? decltype(g)::value : joseph::kFwdChLanesOf<T>;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdChStepsOf<T>;
       for (int64_t r = 0; r < R; ++r) {
         joseph::Ray ray = joseph::load_ray(rows, R, r);
         int lo, hi;
@@ -1201,7 +1214,8 @@ static void bt_joseph_ch_t(int variant, int tile, const float* rows, int64_t R, 
 }
 // The C entry points: each function above on a float32 copy (every
 // variant) and, as *_bf16, on a bf16 copy (the forwards at every unroll,
-// the lanes at the kernels' own variant).
+// the lanes at the kernels' own variant); with CH_VARIANTS the channel
+// lanes alone (CH_ENTRY), on both copies at every variant.
 #define ENTRIES(S, E)                                                                         \
   extern "C" void bt_siddon##S(int unroll, const float* rows, int64_t R, COPY_ARGS(E),       \
                                float* out) {                                                  \
@@ -1219,14 +1233,21 @@ static void bt_joseph_ch_t(int variant, int tile, const float* rows, int64_t R, 
                                   float h, int n, int blend, float* out, int* arg) {          \
     return bt_joseph_max_t(variant, rows, R, COPY, h, n, blend, out, arg);                    \
   }                                                                                           \
+  CH_ENTRY(S, E)
+#define CH_ENTRY(S, E)                                                                        \
   extern "C" void bt_joseph_ch##S(int variant, int tile, const float* rows, int64_t R,       \
                                   COPY_ARGS(E), const float* blab, float h, int n, int blend, \
                                   int C, float* out) {                                        \
     bt_joseph_ch_t(variant, tile, rows, R, COPY, blab, h, n, blend, C, out);                  \
   }
+#if defined(CH_VARIANTS)
+CH_ENTRY(, float)
+CH_ENTRY(_bf16, brick::bf16)
+#else
 ENTRIES(, float)
 #ifdef BF16_ENTRIES  // the kernels' own brick shape's build only
 ENTRIES(_bf16, brick::bf16)
+#endif
 #endif
 """
 
@@ -2145,16 +2166,24 @@ def test_cuda_joseph_fwd_ch_many_channels(n_channels):
     default 48 KB of shared memory holds (C > 768 for its 16 rays: the
     kernel opts in to more), more than its opt-in limit holds (C > 3632 at
     the H100's 227 KB: two tiles of channels, one march each) and three
-    tiles, equals its plain version exactly."""
+    tiles, equals its plain version exactly; and its bf16 instantiation
+    (32 rays a block at its G = 4: opt-in past C = 384, tiles past 1816, so
+    one, three and five tiles here) equals the float32 kernel on the
+    density rounded to bf16 bit for bit, and its plain version exactly."""
     vol, rows, _, n = _gpu_joseph_scene(1.37)
     rng = np.random.default_rng(n_channels)
     lab = torch.tensor(rng.integers(-1, n_channels + 1, tuple(vol.shape)), dtype=torch.int32,
                        device="cuda")
     got = J.joseph_fwd_ch(rows, vol, lab, 2, 1.37, n, n_channels)
     ref = J.joseph_fwd_ch_plain(rows, vol, lab, 2, 1.37, n, n_channels)
+    got_b = J.joseph_fwd_ch(rows, vol, lab, 2, 1.37, n, n_channels, "bf16")
+    ref_b = J.joseph_fwd_ch(rows, _rounded(vol), lab, 2, 1.37, n, n_channels)
+    plain_b = J.joseph_fwd_ch_plain(rows, vol, lab, 2, 1.37, n, n_channels, "bf16")
     torch.cuda.synchronize()
     assert (ref > 0).any(1).sum() > n_channels // 2
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert torch.equal(_bits(got_b), _bits(ref_b))
+    torch.testing.assert_close(got_b, plain_b, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -2406,9 +2435,22 @@ static void ft_joseph_bwd_rays_t(int variant, const float* rows, int64_t R, COPY
     return 0;
   });
 }
+// f(G, U) of a variant of joseph_bwd_rays_ch's lanes: with_variant<T>'s, or
+// in the build with CH_VARIANTS (the channel entry point alone, both copies
+// at every variant) ch_variant's: G = 4, 8, 16 at U = 1, 2, 4 and the
+// kernel's own.
+template <class T, class F>
+static void with_ch_variant(int variant, F f) {
+#if defined(CH_VARIANTS)
+  ch_variant(variant, f);
+#else
+  with_variant<T>(variant, f);
+#endif
+}
 // joseph_bwd_rays_ch's lanes (channel_terms, G and U of the variant, 0
-// taking kChannelLanes, kChannelSteps) on the bricked copies of the density
-// and the labelmap (blab, sharing the density copy's arguments): out (7, R).
+// taking kChannelLanesOf<T>, kChannelStepsOf<T>) on the bricked copies of
+// the density and the labelmap (blab, sharing the density copy's
+// arguments): out (7, R).
 template <class T>
 static void ft_joseph_ch_t(int variant, const float* rows, int64_t R, COPY_ARGS(T),
                              const float* blab, float h, int n, int blend, int C, const float* g,
@@ -2421,10 +2463,10 @@ static void ft_joseph_ch_t(int variant, const float* rows, int64_t R, COPY_ARGS(
     constexpr int A = decltype(a)::value;
     auto v = brick::make_volume<A>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
     joseph::BrickLabels<A> l{brick::make_volume<A>(blab, bs_s, bs_y, bs_z, X, Y, Z)};
-    with_variant<T>(variant, [&](auto lanes_g, auto u) {
+    with_ch_variant<T>(variant, [&](auto lanes_g, auto u) {
       constexpr int G = decltype(lanes_g)::value ? decltype(lanes_g)::value
-                                                 : joseph::kChannelLanes;
-      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kChannelSteps;
+                                                 : joseph::kChannelLanesOf<T>;
+      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kChannelStepsOf<T>;
       constexpr int N = joseph::kRows;
       for (int64_t r = 0; r < R; ++r) {
         joseph::Ray ray = joseph::load_ray(rows, R, r);
@@ -2506,7 +2548,8 @@ static void ft_joseph_bwd_rays_mip_t(const float* rows, int64_t R, COPY_ARGS(T),
 }
 // The C entry points: each function above on a float32 copy (every
 // variant) and, as *_bf16, on a bf16 copy (the kernels' own variant; with
-// FT_BF16_VARIANTS these alone, at every variant).
+// FT_BF16_VARIANTS these alone, at every variant; with CH_VARIANTS the
+// channel lanes alone, CH_ENTRY, on both copies at every variant).
 #define ENTRIES(S, E)                                                                          \
   extern "C" void ft_siddon##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),       \
                                float* out) {                                                   \
@@ -2521,11 +2564,7 @@ static void ft_joseph_bwd_rays_mip_t(const float* rows, int64_t R, COPY_ARGS(T),
                                         const float* g, float* out) {                          \
     ft_joseph_bwd_rays_t(variant, rows, R, COPY, h, n, blend, g, out);                         \
   }                                                                                            \
-  extern "C" void ft_joseph_ch##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),    \
-                                  const float* blab, float h, int n, int blend, int C,         \
-                                  const float* g, float* out) {                                \
-    ft_joseph_ch_t(variant, rows, R, COPY, blab, h, n, blend, C, g, out);                      \
-  }                                                                                            \
+  CH_ENTRY(S, E)                                                                               \
   extern "C" int ft_joseph##S(int variant, int mip, const float* rows, int64_t R,             \
                               COPY_ARGS(E), float h, int n, int blend, float* out, int* arg) { \
     return ft_joseph_t(variant, mip, rows, R, COPY, h, n, blend, out, arg);                    \
@@ -2539,8 +2578,19 @@ static void ft_joseph_bwd_rays_mip_t(const float* rows, int64_t R, COPY_ARGS(T),
                                             const int* arg, float* out) {                      \
     ft_joseph_bwd_rays_mip_t(rows, R, COPY, h, n, blend, g, arg, out);                         \
   }
+#define CH_ENTRY(S, E)                                                                         \
+  extern "C" void ft_joseph_ch##S(int variant, const float* rows, int64_t R, COPY_ARGS(E),    \
+                                  const float* blab, float h, int n, int blend, int C,         \
+                                  const float* g, float* out) {                                \
+    ft_joseph_ch_t(variant, rows, R, COPY, blab, h, n, blend, C, g, out);                      \
+  }
+#if defined(CH_VARIANTS)
+CH_ENTRY(, float)
+CH_ENTRY(_bf16, brick::bf16)
+#else
 ENTRIES(_bf16, brick::bf16)
-#if !defined(FT_BF16_VARIANTS)
+#endif
+#if !defined(FT_BF16_VARIANTS) && !defined(CH_VARIANTS)
 ENTRIES(, float)
 // brick::to_bf16 (the bf16 copy's rounding) on the host: out[i] = the bits
 // of x[i] rounded to the nearest bf16, ties to even.
@@ -3391,6 +3441,112 @@ def test_twin_joseph_fused_bf16_variants_equal_f32_on_rounded(ftwin, ftwin_bf16,
     assert torch.equal(_nan_bits(bwd), _nan_bits(fused[:7] * g))
 
 
+# (G, U) of the bf16 channel kernels' probes (G lanes a ray, U steps in
+# flight a lane; None: the kernel's own), in ch_variant's order.
+_CH_VARIANTS = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4), (16, 1), (16, 2), (16, 4),
+                (None, None))
+_CH_VARIANT_SRC = r"""
+#include <type_traits>
+// f(G, U) of variant v of _CH_VARIANTS (0, 0 past them: the kernel's own).
+template <class F>
+static void ch_variant(int v, F f) {
+  using std::integral_constant;
+  switch (v) {
+    case 0: f(integral_constant<int, 4>(), integral_constant<int, 1>()); break;
+    case 1: f(integral_constant<int, 4>(), integral_constant<int, 2>()); break;
+    case 2: f(integral_constant<int, 4>(), integral_constant<int, 4>()); break;
+    case 3: f(integral_constant<int, 8>(), integral_constant<int, 1>()); break;
+    case 4: f(integral_constant<int, 8>(), integral_constant<int, 2>()); break;
+    case 5: f(integral_constant<int, 8>(), integral_constant<int, 4>()); break;
+    case 6: f(integral_constant<int, 16>(), integral_constant<int, 1>()); break;
+    case 7: f(integral_constant<int, 16>(), integral_constant<int, 2>()); break;
+    case 8: f(integral_constant<int, 16>(), integral_constant<int, 4>()); break;
+    default: f(integral_constant<int, 0>(), integral_constant<int, 0>()); break;
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def chtwin(tmp_path_factory):
+    """The two channel twins' lane loops alone, on the float32 and the bf16
+    copy at every variant of ``_CH_VARIANTS``: (joseph_fwd_ch's,
+    ``bt_joseph_ch``; joseph_bwd_rays_ch's, ``ft_joseph_ch``), each a build
+    of its twin's source with CH_VARIANTS."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    bvol = [ptr] + [i32] * 7
+    fwd = _build_twin(tmp_path_factory, "chtwin_fwd", _CH_VARIANT_SRC + _BRICK_TWIN_SRC,
+                      ("CH_VARIANTS",))
+    bwd = _build_twin(tmp_path_factory, "chtwin_bwd", _CH_VARIANT_SRC + _FUSED_TWIN_SRC,
+                      ("CH_VARIANTS",))
+    for suffix in ("", "_bf16"):
+        f = getattr(fwd, "bt_joseph_ch" + suffix)
+        f.argtypes = [i32, i32, ptr, ctypes.c_int64] + bvol + [ptr, ctypes.c_float, i32, i32,
+                                                               i32, ptr]
+        f.restype = None
+        b = getattr(bwd, "ft_joseph_ch" + suffix)
+        b.argtypes = [i32, ptr, ctypes.c_int64] + bvol + [ptr, ctypes.c_float, i32, i32, i32,
+                                                          ptr, ptr]
+        b.restype = None
+    return fwd, bwd
+
+
+def _ch_variant_id(variant):
+    return "G{}-U{}".format(*(x or "own" for x in _CH_VARIANTS[variant]))
+
+
+@pytest.mark.parametrize("variant", range(len(_CH_VARIANTS)), ids=_ch_variant_id)
+@pytest.mark.parametrize("scene", ["random", "special"])
+@pytest.mark.parametrize("h", [1.0, 1.37, 0.5], ids=["h1", "h1.37", "h0.5"])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_twin_joseph_channel_bf16_variants_equal_f32_on_rounded(jtwin, chtwin, axis, h, scene,
+                                                                variant):
+    """joseph_fwd_ch's and joseph_bwd_rays_ch's lanes on a bf16 copy (the
+    raw windows of channel_samples' and channel_terms' bf16 overloads) at the
+    variant's G lanes a ray and U steps in flight a lane (every G and U the
+    probes try, and the kernels' own): image and rows bit for bit the float32
+    lanes' at the same variant on the copy of the density rounded to bf16,
+    and the strided serial trace_fwd_ch and trace_bwd_rays_ch on the rounded
+    density, a NaN as a NaN (``_nan_bits``); the forward also with its
+    channels in tiles of 2. Labels -1..C (-1 and C drop), the labelmap's
+    copy its int32 bits; integer h, a fractional h (blend mode: two planes a
+    window) and h = 0.5, where every other step's lerp fraction is 0.5, the
+    label's plane tie; every ray of ``_bf16_scene`` (-0.0, subnormals, +-inf
+    and NaN in "special")."""
+    rng = np.random.default_rng(350 + axis)
+    vol, rows = _bf16_scene(scene, rng, axis, quadrature="joseph", h=h)
+    dims = tuple(vol.shape)
+    C = 3
+    lab = torch.tensor(rng.integers(-1, C + 1, dims), dtype=torch.int32)
+    R = rows.shape[1]
+    n = int(-(-dims[axis] // h))
+    march = (h, n, int(J.is_blend(h)))
+    gc = torch.tensor(rng.normal(size=(C, R)), dtype=torch.float32)
+    gc[:, :5] = 0.0  # rays of a zero cotangent
+    blab = brick_density(lab)
+    fwd_so, bwd_so = chtwin
+
+    def run(copy, tile=0):
+        img, rows7 = _out(C, R), _out(7, R)
+        _on_copy(fwd_so, "bt_joseph_ch", copy, axis, (variant, tile, rows.data_ptr(), R),
+                 (blab.data.data_ptr(), *march, C, img.data_ptr()))
+        _on_copy(bwd_so, "ft_joseph_ch", copy, axis, (variant, rows.data_ptr(), R),
+                 (blab.data.data_ptr(), *march, C, gc.data_ptr(), rows7.data_ptr()))
+        return img, rows7
+
+    bf, f32 = _copies(vol)
+    got = run(bf)
+    serial = _JosephTwin(jtwin, rows, _rounded(vol), axis, h, n)
+    refs = {"float32 lanes": run(f32), "serial": (serial.fwd_ch(lab, C), serial.bwd_rays_ch(lab, gc))}
+    refs["bf16 lanes, tiles of 2"] = (run(bf, 2)[0], got[1])
+    for what, ref in refs.items():
+        for name, a, b in zip(("fwd_ch", "bwd_rays_ch"), got, ref):
+            assert torch.equal(_nan_bits(a), _nan_bits(b)), f"{name} vs {what}"
+    img, rows7 = got
+    assert (torch.isfinite(img) & (img > 0)).any(0).sum() > _reached(scene)
+    assert (torch.isfinite(rows7) & (rows7 != 0)).any(0).sum() > _reached(scene) // 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dims", [(21, 23, 13), (130, 67, 133), (130, 68, 133), (9, 7, 133),
                                   (36, 40, 128), (6, 5, 1030)])
@@ -3416,6 +3572,18 @@ def test_cuda_brick_copy_bf16_matches_torch(dims):
     clear_cache()
 
 
+def _channel_bf16_cases(vol, rounded, lab, axis, h, rows, rng):
+    """(bf16, float32 on the rounded density) pairs of joseph_fwd_ch and
+    joseph_bwd_rays_ch at 3 channels (labels -1..3 in ``lab``: -1 and 3
+    drop) at stride ``h`` over ``vol``'s extent along ``axis``."""
+    n = int(-(-vol.shape[axis] // h))
+    gc = torch.tensor(rng.normal(size=(3, rows.shape[1])), dtype=torch.float32, device="cuda")
+    return [(J.joseph_fwd_ch(rows, vol, lab, axis, h, n, 3, "bf16"),
+             J.joseph_fwd_ch(rows, rounded, lab, axis, h, n, 3)),
+            (J.joseph_bwd_rays_ch(rows, vol, lab, axis, h, n, gc, "bf16"),
+             J.joseph_bwd_rays_ch(rows, rounded, lab, axis, h, n, gc))]
+
+
 def _fused_bf16_cases(vol, rounded, axis, h, rows):
     """(bf16, float32 on the rounded density) pairs of joseph_fwdgrad in
     sum mode (its rows) and in max mode (rows and argmax steps) at stride
@@ -3434,10 +3602,11 @@ def test_cuda_bf16_kernels_equal_f32_on_rounded(axis):
     density rounded to bf16, bit for bit (values, argmaxes, rows), and
     against its plain version on the finite rays (values 1e-4 of their
     largest, the float32 tests' tolerance); Joseph at integer and fractional
-    h (1.37, and the lateral pose's 1.024 for the fused pose kernels); every
-    ray of ``_fwd_rays``, the NaN ray too. Along axis 0 also the fused pose
-    kernels (sum and max) at a lateral pose's depth: 512 slabs, Joseph at
-    the trilinear stride h = 511 / 499 and at h = 1."""
+    h (1.37, and the lateral pose's 1.024 for the fused pose kernels and
+    the channel kernels); every ray of ``_fwd_rays``, the NaN ray too. Along
+    axis 0 also the fused pose kernels (sum and max) and the channel kernels
+    at a lateral pose's depth: 512 slabs, Joseph at the trilinear stride
+    h = 511 / 499 and at h = 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(320 + axis)
@@ -3485,10 +3654,13 @@ def test_cuda_bf16_kernels_equal_f32_on_rounded(axis):
                                    atol=1e-4 * plain.abs().max().item())
     cases += _fused_bf16_cases(vol, rounded, axis, 1.024, _fwd_rays(
         rng, dims, axis, quadrature="joseph", h=1.024).cuda())
+    cases += _channel_bf16_cases(vol, rounded, lab, axis, 1.024, _fwd_rays(
+        rng, dims, axis, quadrature="joseph", h=1.024).cuda(), rng)
     if axis == 0:  # a lateral pose's depth: 512 slabs
         deep = (512, 40, 36)
         vol_l = torch.tensor(rng.uniform(0.0, 1.0, deep), dtype=torch.float32, device="cuda")
         rounded_l = _rounded(vol_l)
+        lab_l = torch.tensor(rng.integers(-1, 4, deep), dtype=torch.int32, device="cuda")
         rows_l = _fwd_rays(rng, deep, 0).cuda()
         got = K.siddon_fwdgrad(rows_l, vol_l, 0, "bf16")
         cases.append((got, K.siddon_fwdgrad(rows_l, rounded_l, 0)))
@@ -3501,6 +3673,11 @@ def test_cuda_bf16_kernels_equal_f32_on_rounded(axis):
                                               "bf16")
             _assert_fused_close(cases[-2][0][:, :-1].cpu(), plain.cpu(), 7,
                                 f"joseph_fwdgrad lateral h {h}")
+            cases += _channel_bf16_cases(vol_l, rounded_l, lab_l, 0, h, jr, rng)
+            plain = J.joseph_fwd_ch_plain(jr[:, :-1], vol_l, lab_l, 0, h, int(-(-512 // h)), 3,
+                                          "bf16")
+            np.testing.assert_allclose(cases[-2][0][:, :-1].cpu(), plain.cpu(),
+                                       atol=1e-4 * plain.abs().max().item())
     torch.cuda.synchronize()
     for i, (got, ref) in enumerate(cases):
         got = got if isinstance(got, tuple) else (got,)
