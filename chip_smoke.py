@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive diffdrr_tpu_torch on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py                    # all phases, one card, ~6-8 minutes
+    python3 chip_smoke.py                    # all phases, one card, ~8-9 minutes
     python3 chip_smoke.py --profile OUT.txt  # also profile registration and
                                              # reconstruction steps: the
                                              # device's busy share (in a
@@ -292,7 +292,25 @@ Phases (any failure raises and the exit code is non-zero):
      call's host work included); torch.Tensor.clone() of each density (the
      same bytes moved) and, at whole-brick extents, the one PyTorch call of
      each copy (view, permute, then contiguous or a rounding to contiguous
-     bf16), held bit for bit against the kernel's; the byte bounds.
+     bf16), held bit for bit against the kernel's; the byte bounds;
+ 15. the bench harness and the trilinear n_points cap:
+ 15a. phase 7b's 60 trilinear Adam steps from translation + 5 mm again,
+     with allow_oversample=True (all 500 samples, h ~ 0.265) and a target
+     rendered with the same options, under phase 7b's checks (launches,
+     NCC rising, render and fused rows against their plain versions at
+     that stride); its final pose errors (mm, rad) and median CUDA-event
+     ms a step logged beside phase 7b's capped run (n_points=500 at one
+     sample a plane, h = 1): a measurement, the cap stays;
+ 15b. diffdrr_tpu_torch.bench.run() in this process (the kernels already
+     built): the JAX bench.py's 13 metrics at full size, each render's
+     first output held against its plain version on the card (1e-4 * max,
+     pose gradients 1e-3 * max), the launches of its timed iterations and
+     of its windows exactly its own (siddon_fwd, siddon_fwdgrad,
+     joseph_fwd or joseph_fwdgrad 1 an iteration, brick_copy 0), every
+     time positive,
+     scaling skipped on one card; any error fails the run. The detail goes
+     to chiprun_out/bench_torch_detail.json and, as one JSON line
+     ``{"bench": ...}``, before the card line.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. In the record, ``brick_copy`` (the
@@ -778,23 +796,28 @@ def joseph_small(small, rot_g, trans_g, rng):
     return worst
 
 
-def trilinear_registration(T, subject, rot0, trans, kw, profile):
-    """Phase 7b: 60 trilinear registration steps at full size."""
+def trilinear_registration(T, subject, rot0, trans, kw, profile, opts=None):
+    """Phase 7b: 60 trilinear registration steps at full size, with the
+    render options ``opts`` (default: n_points=500 capped at one sample a
+    plane); phase 15a runs it again with allow_oversample=True."""
     import numpy as np
     import torch
 
     from diffdrr_tpu_torch.ops.kernels import brick
     from diffdrr_tpu_torch.ops.kernels import joseph as J
+    from diffdrr_tpu_torch.ops.kernels.raymarch import raymarch_steps
     from diffdrr_tpu_torch.registration import make_registration_step
 
+    opts = opts or {}
+    label = ", ".join(f"{k}={v}" for k, v in opts.items()) or "n_points=500 capped"
     drr = T.DRR(subject, sdd=1020.0, height=200, delx=2.0, renderer="trilinear")
     J.reset_launch_counts()
     brick.clear_cache()
     brick.brick_density.launches = 0
-    target = drr(rot0, trans, axis=2, **kw)
-    auto = drr(rot0, trans, **kw)
+    target = drr(rot0, trans, axis=2, **opts, **kw)
+    auto = drr(rot0, trans, **opts, **kw)
     init_fn, step_fn = make_registration_step(drr, target, "euler_angles", "ZXY",
-                                              lr_rotation=1e-3, lr_translation=1e-1)
+                                              lr_rotation=1e-3, lr_translation=1e-1, **opts)
     params, opt = init_fn(rot0, trans + 5.0)
     state = {"params": params, "opt": opt}
 
@@ -804,36 +827,41 @@ def trilinear_registration(T, subject, rot0, trans, kw, profile):
 
     scores, step_ms = events_step(step, N_REG_STEPS)
     launches = dict(joseph_launches(), brick_copy=brick.brick_density.launches)
-    log(f"[trilinear] registration launches {launches}")
+    log(f"[trilinear] registration ({label}) launches {launches}")
     # One CT: its bricked copy made once for the renders and all 60 steps.
-    expect_launches("trilinear registration", launches,
+    expect_launches(f"trilinear registration ({label})", launches,
                     {"joseph_fwd": 2, "joseph_fwdgrad": N_REG_STEPS, "joseph_fwd_max": 0,
                      "joseph_bwd_rays": 0, "joseph_bwd_vol": 0, "brick_copy": 1})
     scores = torch.stack(scores).tolist()
     if not (scores[-1] > scores[0] and np.isfinite(scores).all()):
-        raise AssertionError(f"trilinear registration NCC did not rise: {scores[0]} -> {scores[-1]}")
+        raise AssertionError(f"trilinear registration ({label}) NCC did not rise: {scores[0]} -> "
+                             f"{scores[-1]}")
     if target.shape != (1, 1, 200, 200) or not torch.isfinite(target).all():
         raise AssertionError(f"bad trilinear render {tuple(target.shape)}")
     check_close("trilinear auto-axis render", auto, target, 1e-6)
-    X = drr.density.shape[2]
-    rows_m = jrays_of(drr, rot0, trans, 2, 1.0)
-    err_fwd = check_close("joseph_fwd (trilinear h=1) 512x512x133 @200^2", target.reshape(-1),
-                          J.joseph_fwd_plain(rows_m, drr.density, 2, 1.0, X), 1e-4)
+    h, n = raymarch_steps(drr.density.shape[2], opts.get("n_points", 500),
+                          opts.get("allow_oversample", False))
+    rows_m = jrays_of(drr, rot0, trans, 2, h)
+    err_fwd = check_close(f"joseph_fwd (trilinear h={h:.4g}) 512x512x133 @200^2",
+                          target.reshape(-1), J.joseph_fwd_plain(rows_m, drr.density, 2, h, n),
+                          1e-4)
     p = state["params"]
-    rows_r = jrays_of(drr, p["rotation"].detach(), p["translation"].detach(), 2, 1.0)
-    got, _ = J.joseph_fwdgrad(rows_r, drr.density, 2, 1.0, X)
+    rows_r = jrays_of(drr, p["rotation"].detach(), p["translation"].detach(), 2, h)
+    got, _ = J.joseph_fwdgrad(rows_r, drr.density, 2, h, n)
     err_fg = check_rows("joseph_fwdgrad 512x512x133 @200^2", got,
-                        J.joseph_fwdgrad_plain(rows_r, drr.density, 2, 1.0, X)[0], 7)
+                        J.joseph_fwdgrad_plain(rows_r, drr.density, 2, h, n)[0], 7)
     t_err = (p["translation"].detach() - trans)[0].tolist()
+    r_err = (p["rotation"].detach() - rot0).abs().max().item()
     t_step = statistics.median(step_ms[5:])
     if profile is not None:
         profile_steps(step, "trilinear registration", t_step, profile, kernel="joseph_fwdgrad")
-    log(f"[trilinear] registration {N_REG_STEPS} steps: NCC {scores[0]:.5f} -> {scores[-1]:.5f}; "
-        f"translation error from (5, 5, 5) to ({t_err[0]:.3f}, {t_err[1]:.3f}, {t_err[2]:.3f}) "
-        f"mm; step median {t_step:.3f} ms (steps 6..{N_REG_STEPS}); render vs plain "
-        f"{err_fwd:.3e}, fused rows vs plain {err_fg:.3e}")
+    log(f"[trilinear] registration ({label}) {N_REG_STEPS} steps: NCC {scores[0]:.5f} -> "
+        f"{scores[-1]:.5f}; translation error from (5, 5, 5) to ({t_err[0]:.3f}, "
+        f"{t_err[1]:.3f}, {t_err[2]:.3f}) mm (norm {math.hypot(*t_err):.3f}), max rotation "
+        f"error {r_err:.2e} rad; step median {t_step:.3f} ms (steps 6..{N_REG_STEPS}); render "
+        f"vs plain {err_fwd:.3e}, fused rows vs plain {err_fg:.3e}")
     return dict(drr=drr, launches=launches, rows_m=rows_m, rows_r=rows_r, err_fwd=err_fwd,
-                err_fg=err_fg, t_step=t_step, target=target)
+                err_fg=err_fg, t_step=t_step, target=target, t_err=t_err, r_err=r_err)
 
 
 def joseph_mip(T, subject, rot0, trans, kw, rows_m):
@@ -3220,6 +3248,52 @@ def copy_phase(subject, cube, kernels) -> None:
     log(f"[copy] phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def trilinear_cap_phase(T, subject, rot0, trans, kw, capped) -> None:
+    """Phase 15a: phase 7b's trilinear registration again with
+    allow_oversample=True, beside phase 7b's capped run (``capped``)."""
+    literal = trilinear_registration(T, subject, rot0, trans, kw, None,
+                                     dict(n_points=500, allow_oversample=True))
+    for label, r in (("capped (phase 7b)", capped), ("literal, allow_oversample", literal)):
+        log(f"[cap] 15a n_points=500 {label}: final translation error {math.hypot(*r['t_err']):.3f} "
+            f"mm, max rotation error {r['r_err']:.2e} rad, step median {r['t_step']:.3f} ms")
+
+
+def bench_phase() -> dict:
+    """Phase 15b: the bench harness in this process; returns its detail."""
+    import torch
+
+    from diffdrr_tpu_torch import bench
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    brick.clear_cache()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    detail, _ = bench.run(smoke=False)
+    took = time.perf_counter() - t0
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "bench_torch_detail.json").write_text(json.dumps(detail, indent=1))
+    extra = detail["extra"]
+    for name, m in extra.items():
+        log(f"[bench] {name}: " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                                            for k, v in m.items()))
+    if detail.get("errors"):
+        raise AssertionError(f"bench: errors {detail['errors']}")
+    names = {m.name for m in bench.METRICS} | {bench.REG_NAME, "scaling"}
+    if set(extra) != names:
+        raise AssertionError(f"bench: metrics {sorted(extra)}, want {sorted(names)}")
+    for name, m in extra.items():
+        if name != "scaling" and not (m.get("ms", m.get("ms_per_iter", 0)) > 0
+                                      and m["window"]["ms"] > 0 and m["window"]["device_ms"] > 0):
+            raise AssertionError(f"bench: {name} has no positive time: {m}")
+    if torch.cuda.device_count() == 1 and "skipped" not in extra["scaling"]:
+        raise AssertionError(f"bench: scaling on one card must read skipped: {extra['scaling']}")
+    log(f"[bench] phase 15b took {took:.1f} s (nvcc {detail.get('build_s', 0):.2f} s, "
+        f"already built); headline {detail['value']:.6g} rays/s, vs_baseline "
+        f"{detail['vs_baseline']:.4g}")
+    return detail
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description="Drive diffdrr_tpu_torch on one CUDA card.")
     parser.add_argument("--profile", type=Path, metavar="OUT",
@@ -3865,8 +3939,15 @@ def main(argv) -> int:
 
     # 14. The bricked copy alone -----------------------------------------------
     copy_phase(subject, cube, kernels)
+
+    # 15. The trilinear n_points cap; the bench harness ------------------------
+    t15 = time.perf_counter()
+    trilinear_cap_phase(T, subject, rot0, trans, kw, tri)
     del subject, cube
+    bench_detail = bench_phase()
+    log(f"[bench] phase 15 took {time.perf_counter() - t15:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"bench": bench_detail}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

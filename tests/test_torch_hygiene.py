@@ -30,7 +30,8 @@ def test_import_pulls_in_no_jax():
         "diffdrr_tpu_torch.experiments.registration, diffdrr_tpu_torch.viz, "
         "diffdrr_tpu_torch.meshops, diffdrr_tpu_torch.scene_html, diffdrr_tpu_torch.native, "
         "diffdrr_tpu_torch.native.build, diffdrr_tpu_torch.native.mc_tables, "
-        "diffdrr_tpu_torch.experiments.gif\n"
+        "diffdrr_tpu_torch.experiments.gif, diffdrr_tpu_torch.bench, "
+        "diffdrr_tpu_torch.bench_scaling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'click', 'diffdrr_tpu', 'pandas', "
         "'matplotlib', 'imageio'))\n"
