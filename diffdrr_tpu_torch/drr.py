@@ -113,6 +113,7 @@ from .ops.kernels.siddon import siddon_slab_raycast
 from .ops.siddon import siddon_raycast
 from .ops.trilinear import trilinear_raycast
 from .pose import RigidTransform, convert
+from .profiling import annotate
 
 __all__ = ["DRR", "reshape_subsampled_drr"]
 
@@ -289,18 +290,19 @@ class DRR:
                 mask_to_channels: bool = False, degrees: bool = False,
                 **kwargs) -> torch.Tensor:
         """Render DRR(s) for a pose, or for pose parameters."""
-        if parameterization is None:
-            pose = args[0]
-        else:
-            pose = convert(*args, parameterization=parameterization,
-                           convention=convention, degrees=degrees)
-        source, target = self.detector(pose, calibration)
-        sample = None
-        if self.detector.n_subsample is not None:
-            # Only the sampled rays are rendered, taken from the full frame
-            # (whose corner rays judge the march axis, as in the JAX package).
-            target = self.detector.full_plane_target(pose, calibration)
-            sample = self.detector.subsample_index
+        with annotate("drr.pose"):
+            if parameterization is None:
+                pose = args[0]
+            else:
+                pose = convert(*args, parameterization=parameterization,
+                               convention=convention, degrees=degrees)
+            source, target = self.detector(pose, calibration)
+            sample = None
+            if self.detector.n_subsample is not None:
+                # Only the sampled rays are rendered, taken from the full frame
+                # (whose corner rays judge the march axis, as in the JAX package).
+                target = self.detector.full_plane_target(pose, calibration)
+                sample = self.detector.subsample_index
         if self.checkpoint_gradients:
             img = checkpoint(self._render, self.density, source, target, mask_to_channels,
                              sample, kwargs, use_reentrant=False)
@@ -348,42 +350,43 @@ class DRR:
         oracles' axis and sampling interval) comes from the whole set: the
         rays are the whole render's, bit for bit on the kernels (so
         ``parallel`` splits a render over several devices)."""
-        opts = {**self.renderer_kwargs, **kwargs}
-        unknown = set(opts) - _OPTIONS[self.renderer_name]
-        if unknown:
-            raise TypeError(f"unexpected renderer option(s) {sorted(unknown)}")
-        if not self.cache_volume:
-            brick.forget(density)
+        with annotate("drr.render"):
+            opts = {**self.renderer_kwargs, **kwargs}
+            unknown = set(opts) - _OPTIONS[self.renderer_name]
+            if unknown:
+                raise TypeError(f"unexpected renderer option(s) {sorted(unknown)}")
+            if not self.cache_volume:
+                brick.forget(density)
 
-        weights = torch.linalg.vector_norm(target - source, dim=-1)[:, None, :]
-        source = self.affine_inverse(source)
-        target = self.affine_inverse(target)
+            weights = torch.linalg.vector_norm(target - source, dim=-1)[:, None, :]
+            source = self.affine_inverse(source)
+            target = self.affine_inverse(target)
 
-        H, W = self.detector.height, self.detector.width
-        frame = (source, target) if target.shape[1] == H * W else None
-        if sample is not None:
-            target, weights = target[:, sample], weights[..., sample]
-        whole = (source, target)
-        if share is not None:
-            (b0, b1), (lo, hi) = share
-            if source.shape[0] > 1:
-                source = source[b0:b1]
-            target, weights = target[b0:b1, lo:hi], weights[b0:b1, :, lo:hi]
-        # Channels take the kernels for joseph and trilinear with a labelmap;
-        # Siddon channels, and channels without a labelmap, take the oracle.
-        channels = mask_to_channels and self.mask is not None
-        kernels = not mask_to_channels or (channels and self.renderer_name != "siddon")
-        if frame is not None and kernels and not opts.get("force_xla", False):
-            if self.renderer_name == "siddon":
-                img = self._render_slab(density, source, target, weights, opts, frame)
-            else:
-                img = self._render_march(density, source, target, weights, opts, frame,
-                                         channels)
-            if img is not None:
-                return img
-        if channels:
-            opts.update(mask=self.mask, n_channels=self.n_channels)
-        return self._render_oracle(density, source, target, weights, opts, whole, share)
+            H, W = self.detector.height, self.detector.width
+            frame = (source, target) if target.shape[1] == H * W else None
+            if sample is not None:
+                target, weights = target[:, sample], weights[..., sample]
+            whole = (source, target)
+            if share is not None:
+                (b0, b1), (lo, hi) = share
+                if source.shape[0] > 1:
+                    source = source[b0:b1]
+                target, weights = target[b0:b1, lo:hi], weights[b0:b1, :, lo:hi]
+            # Channels take the kernels for joseph and trilinear with a labelmap;
+            # Siddon channels, and channels without a labelmap, take the oracle.
+            channels = mask_to_channels and self.mask is not None
+            kernels = not mask_to_channels or (channels and self.renderer_name != "siddon")
+            if frame is not None and kernels and not opts.get("force_xla", False):
+                if self.renderer_name == "siddon":
+                    img = self._render_slab(density, source, target, weights, opts, frame)
+                else:
+                    img = self._render_march(density, source, target, weights, opts, frame,
+                                             channels)
+                if img is not None:
+                    return img
+            if channels:
+                opts.update(mask=self.mask, n_channels=self.n_channels)
+            return self._render_oracle(density, source, target, weights, opts, whole, share)
 
     def _render_slab(self, density, source, target, weights, opts, frame):
         """Siddon's slab kernels, or None for the oracle."""
@@ -397,7 +400,7 @@ class DRR:
         slab_guard = opts.get("slab_guard", True)
         ratios = None
         if axis is None or slab_guard:
-            ratios = self.worst_ratios(*frame).tolist()
+            ratios = _read(self.worst_ratios(*frame))
         if axis is None:
             axis = int(np.argmin(ratios))
         if slab_guard and not ratios[axis] <= 1.0 + 1e-6:
@@ -431,7 +434,7 @@ class DRR:
                 f"already saturated there; pass allow_oversample=True to honor n_points "
                 f"literally (reference semantics, proportionally slower)", stacklevel=5)
         if axis is None:
-            axis = int(np.argmin(self.worst_ratios(*frame).tolist()))
+            axis = int(np.argmin(_read(self.worst_ratios(*frame))))
         common = dict(axis=axis, voxel_shift=self.voxel_shift, eps=opts.get("eps", 1e-8),
                       reduce=reducefn, fused=opts.get("fused_pose_bwd", True),
                       storage=self.pallas_storage)
@@ -455,7 +458,7 @@ class DRR:
         if self.renderer_name == "joseph":
             axis, step = opts.get("axis"), opts.get("step")
             if axis is None:  # from the whole ray set, before any chunking
-                axis = int(torch.argmax(torch.abs(torch.mean(w_target - w_source, dim=(0, 1)))))
+                axis = _read(torch.argmax(torch.abs(torch.mean(w_target - w_source, dim=(0, 1)))))
             renderer = partial(renderer, axis=axis,
                                step=self.joseph_steps[axis] if step is None else step)
         opts = {k: v for k, v in opts.items() if k not in _KERNEL_ONLY}
@@ -544,6 +547,13 @@ class DRR:
         intrinsic_inv = torch.linalg.inv(self.detector.intrinsic)
         x = self.detector.sdd * torch.einsum("ij,bnj->bni", intrinsic_inv, homogeneous)
         return self.detector.reorient.compose(pose)(x)
+
+
+def _read(value: torch.Tensor):
+    """``value.tolist()``: a device value the render's host code needs, read
+    under a ``drr.sync`` span, whose length is the host's wait for the card."""
+    with annotate("drr.sync"):
+        return value.tolist()
 
 
 def reshape_subsampled_drr(img: torch.Tensor, detector: Detector,

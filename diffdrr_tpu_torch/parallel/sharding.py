@@ -52,6 +52,7 @@ from ..drr import DRR
 from ..ops._raygeom import alpha_minmax, reduce_img
 from ..ops.kernels._launch import check_precision, check_storage
 from ..pose import convert
+from ..profiling import annotate
 from .collectives import copy_to_mesh, gather_from_mesh, group_size, reduce_from_mesh
 from .multihost import _backend_for
 
@@ -493,9 +494,10 @@ def make_reconstruction_step(
     def loss_of(density, rotation, translation, measured):
         rotation, translation, measured = (torch.as_tensor(x, dtype=torch.float32, device=device)
                                            for x in (rotation, translation, measured))
-        pose = convert(rotation, translation, parameterization=parameterization,
-                       convention=convention)
-        source, target = det(pose)
+        with annotate("drr.pose"):
+            pose = convert(rotation, translation, parameterization=parameterization,
+                           convention=convention)
+            source, target = det(pose)
         B, N = target.shape[:2]
         views = rays = group = None
         if mesh is not None:

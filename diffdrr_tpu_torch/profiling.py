@@ -12,9 +12,28 @@ Counterpart of ``diffdrr_tpu/profiling.py`` on ``torch.profiler``:
 ``trace`` records the host's operators and, with a card, the device's
 kernels (CUPTI), the port's CUDA kernels by their names
 (``siddon_fwd_kernel``, ...), and writes a Chrome trace that Perfetto and
-TensorBoard open. ``render_cost`` counts what one forward render on the
-port's kernels reads, writes and computes, as ``chip_smoke.py``'s bounds
-count it; the TPU's tile, window, MXU and DMA terms have no counterpart.
+TensorBoard open. Under a running profiler the DRR's dispatch opens three
+spans of its own, through ``annotate``:
+
+* ``drr.pose``: the pose geometry of a call, ``convert`` and the
+  detector's source and target rays (``DRR.forward``, the reconstruction
+  step's loss);
+* ``drr.render``: one render, ``DRR._render``: the affine inverses, the
+  march axis, the ray packing and the kernels' launch (or the oracle);
+* ``drr.sync``: a read of a device value on the host inside a render (the
+  march axis and Siddon's slab guard from the corner rays, the Joseph
+  oracle's axis); its length is how long the host waited for the card.
+
+In a Chrome trace they sit on the host thread's row, ``drr.sync`` inside
+``drr.render``; the profiler mirrors each onto the card's row as a
+``gpu_user_annotation``. A ``drr.sync`` ends when the card has finished
+what was queued before it; the card then idles until the next kernel, and
+the spans the host was in meanwhile (the rest of ``drr.render``, the next
+``drr.pose``) name the dispatch it waited for.
+
+``render_cost`` counts what one forward render on the port's kernels
+reads, writes and computes, as ``chip_smoke.py``'s bounds count it; the
+TPU's tile, window, MXU and DMA terms have no counterpart.
 ``enable_compilation_cache`` points the kernels' build at one directory so
 that separate processes (a mesh's ranks, the CLIs) reuse one ``nvcc`` build.
 """
@@ -49,11 +68,18 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Label the enclosed work in profiler timelines (``record_function``); nests."""
-    with torch.profiler.record_function(name):
-        yield
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """Label the enclosed work in profiler timelines (``record_function``); nests.
+
+    With no profiler running it returns one shared ``nullcontext`` and opens
+    nothing, so a span on a hot path costs a flag test when no one traces.
+    """
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 # The float32 arithmetic a kernel does on the data (add, subtract, multiply,

@@ -13,9 +13,16 @@ not the work. The rule:
    bytes it must move and the operations it must do, over the card's peak
    rates).
 
-``profiling.trace`` then records which kernels ran and for how long. With
-``--cpu`` the same code times the kernels' plain versions with the host
-clock; those numbers describe the CPU, not the card.
+``profiling.trace`` then records which kernels ran and for how long, and
+the DRR's own spans: ``drr.pose`` (the pose's rays), ``drr.render`` (one
+render: the march axis, the ray packing, the kernels' launch) and, inside
+it, ``drr.sync`` (the host reading the march axis back, waiting for the
+card). In the Chrome trace (Perfetto, ``chrome://tracing``) they sit on
+the host thread's row above the operators they hold, and their mirrors
+(``gpu_user_annotation``) on the card's row. Where the card's row is empty,
+look straight up: the span the host was in names the dispatch the card
+waited for. With ``--cpu`` the same code times the kernels' plain versions
+with the host clock; those numbers describe the CPU, not the card.
 
 Run:  python diffdrr_tpu_torch/tutorials/07_timing.py [--cpu]
 """
@@ -117,9 +124,17 @@ with tempfile.TemporaryDirectory() as td:
     names = [e.key for e in prof.key_averages()]
     files = list(Path(td).glob("*.json"))
 assert files, "the profiler wrote no trace"
+spans = {}
+for e in prof.events():
+    if e.name.startswith("drr.") and e.device_type.name == "CPU":
+        spans.setdefault(e.name, []).append(e.time_range.elapsed_us() * 1e-3)
 kernels = sorted(n for n in names if "_kernel" in n)
 print(f"profiled 5 renders: {len(names)} operators; CUDA kernels {kernels or 'none (CPU)'}")
 if dev.type == "cuda":
     assert any("joseph_fwd" in n for n in kernels), kernels
+# One of each span a render: the host's wait in drr.sync, the rest its dispatch.
+assert all(len(spans.get(n, [])) == 5 for n in ("drr.pose", "drr.render", "drr.sync")), spans
+for name in ("drr.pose", "drr.render", "drr.sync"):
+    print(f"{name:10s} {sum(spans[name]) / 5:.3f} ms a render on the host")
 
 print("tutorial 07: all checks passed")
