@@ -53,14 +53,29 @@
 // 4x4x4 bricks (two lines each) those loads share a few lines (loads alone
 // 0.48 ms), and each thread reads kFwdSteps = 4 steps' windows before
 // adding them in step order, so the value is bit for bit the strided
-// serial one. (In blend mode those loads are not in flight together:
-// window's lerp multiplies each by 1 - fx as it lands, cuobjdump -sass,
-// PERF.md §6. The bf16 forward below keeps them apart.) The brick shape
-// is a compile-time constant (brick.cuh), so a voxel's address costs
-// constant shifts and masks and one multiply a brick stride. What bounds
-// it now: the loads still, at ~2x the march without them (0.20 ms of the
-// kernel's 0.43-0.46). At 1000x1000 on the 512^3 CT, rays ~0.4 voxel
-// apart, it is within ~2% of the strided kernel (PERF.md).
+// serial one. The brick shape is a compile-time constant (brick.cuh), so
+// a voxel's address costs constant shifts and masks and one multiply a
+// brick stride. What bounds it now: the loads still, at ~2x the march
+// without them (0.20 ms of the kernel's 0.43-0.46). At 1000x1000 on the
+// 512^3 CT, rays ~0.4 voxel apart, it is within ~2% of the strided kernel
+// (PERF.md).
+//
+// In blend mode (a fractional h: the trilinear march, h = 511/499 on 512
+// planes) window() lerps each plane pair as its loads land, so a thread
+// waited on each pair in turn (1 load in flight, cuobjdump -sass). There
+// the float32 kernel runs its Blend instantiation (fwd() below): each of
+// kFwdBlendSteps = 2 steps loads its window raw (trace_fwd_raw: window_raw,
+// 8 loads a step, the second plane's by the same predicates), and only
+// then are they lerped (widen_window, window()'s float32 operations in its
+// order) and summed in step order: 16 loads in flight, and the strided
+// serial march's bits. fwd_timing.py's order probes (H100, one call):
+// at render-b8's geometry (8 poses at 512^2 on the 512^3 CT, 2.1 M
+// threads) 11.95 ms against window()'s 14.63 at U = 4 (U = 1 11.88, U = 4
+// 12.67), at the lateral pose's 40,000 threads (h = 1.024) 0.404 against
+// 0.759 (U = 1 0.442, U = 4 0.396). At an integer h the raw order lost
+// (the cube at 1000^2: 3.90-4.33 ms against window()'s 3.52-3.58, at up
+// to 96 registers), so there the kernel keeps window() and kFwdSteps
+// (PERF.md §6).
 //
 // joseph_fwd_max, the MIP render's kernel, is joseph_fwd's march with a
 // compare in place of the sum. One thread per ray on the strided density it
@@ -195,10 +210,8 @@
 // steps from the probes at 1, 2, 4 and 8: even with 4 at 200^2 and 5%
 // slower at the lateral pose, but 11% faster at the recon-CLI's 320,000
 // rays and 10% on the cube at 1000^2, where more loads in flight cost more
-// than they hide (PERF.md). The float32 forward keeps window(), whose
-// lerp in blend mode reads each load as it lands: at the lateral pose
-// (h = 1.024) the bf16 forward is ~1.5-1.9x faster than it (PERF.md;
-// ROADMAP queue 2).
+// than they hide (PERF.md). The float32 forward loads its windows raw
+// in blend mode only (above).
 //
 // joseph_fwdgrad_bf16 has a fused_terms of its own (joseph.cuh), as the
 // forward has a trace_fwd: each of its U steps loads its window raw
@@ -247,6 +260,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "joseph.cuh"
 
@@ -259,16 +273,21 @@ constexpr unsigned kFullMask = 0xffffffffu;
 static_assert(kThreads == joseph::kFusedThreads,
               "the fused kernel's hand-over is sized for its blocks");
 
-// One thread per ray, reading the bricked copy with kFwdSteps steps' loads
-// in flight (the note at the top of this file says why); A: the march axis.
-template <int A, class T>
+// One thread per ray, reading the bricked copy with kFwdStepsOf<T> steps'
+// loads in flight; Blend (the float32 copy at a fractional h): kFwdBlendSteps
+// steps' windows loaded raw before any is lerped (trace_fwd_raw). The note
+// at the top of this file says why; A: the march axis.
+template <int A, class T, bool Blend = false>
 __global__ void __launch_bounds__(kThreads)
 joseph_fwd_kernel(const float* __restrict__ rows, int64_t n_rays, brick::Volume<A, T> vol,
                   joseph::March m, float* __restrict__ out) {
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
   joseph::Ray ray = joseph::load_ray(rows, n_rays, r);
-  out[r] = joseph::trace_fwd<joseph::kFwdStepsOf<T>>(ray, vol, m);
+  if constexpr (Blend)
+    out[r] = joseph::trace_fwd_raw<joseph::kFwdBlendSteps>(ray, vol, m);
+  else
+    out[r] = joseph::trace_fwd<joseph::kFwdStepsOf<T>>(ray, vol, m);
 }
 
 // G = kMaxLanes lanes a ray on the bricked copy, each lane the first
@@ -505,11 +524,19 @@ int fwd(const float* rows, int64_t n_rays, const T* vol, int axis, int bs_s, int
         int bs_z, int X, int Y, int Z, float h, int n_steps, int blend, float* out,
         void* stream) {
   return on_copy(vol, axis, bs_s, bs_y, bs_z, X, Y, Z, [&](auto a, auto v) {
-    if (n_rays > 0) {
-      joseph_fwd_kernel<decltype(a)::value, T>
-          <<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-              rows, n_rays, v, make_march(h, n_steps, blend), out);
+    constexpr int A = decltype(a)::value;
+    if (n_rays <= 0) return 0;
+    joseph::March m = make_march(h, n_steps, blend);
+    auto launch = [&](auto kernel) {
+      kernel<<<n_blocks(n_rays), kThreads, 0, (cudaStream_t)stream>>>(rows, n_rays, v, m, out);
+    };
+    if constexpr (std::is_same<T, float>::value) {
+      if (m.blend) {
+        launch(joseph_fwd_kernel<A, T, true>);
+        return 0;
+      }
     }
+    launch(joseph_fwd_kernel<A, T>);
     return 0;
   });
 }

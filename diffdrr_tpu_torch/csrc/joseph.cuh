@@ -257,18 +257,22 @@ JOSEPH_HD void step_range(const Ray& r, const March& m, int* lo, int* hi) {
 }
 
 // The loads joseph_fwd keeps in flight: the windows of this many steps;
-// kFwdStepsOf<T> on a copy of element T, a bf16 one's its own (joseph.cu
-// says why).
+// kFwdStepsOf<T> on a copy of element T, a bf16 one's its own, and
+// kFwdBlendSteps on the float32 copy in blend mode, its windows loaded raw
+// (trace_fwd_raw; joseph.cu says why).
 constexpr int kFwdSteps = 4;
 template <class T>
 constexpr int kFwdStepsOf = kFwdSteps;
 template <>
 constexpr int kFwdStepsOf<brick::bf16> = 2;
+constexpr int kFwdBlendSteps = 2;
 
 // sum over steps of sample * scale, from the strided density (Volume) or
-// its bricked copy (brick::Volume). U steps at a time: their windows first,
-// so up to 4U (8U in blend mode) loads are in flight, then their samples in
-// step order, so the value is bit for bit the U = 1 one.
+// its float32 bricked copy (brick::Volume; a bf16 one has its own below).
+// U steps at a time: their windows first, then their samples in step
+// order, so the value is bit for bit the U = 1 one. window() lerps each
+// plane pair as its loads land: in blend mode the thread waits on each
+// pair in turn (trace_fwd_raw below does not).
 template <int U = 1, class Vol>
 JOSEPH_HD float trace_fwd(const Ray& r, const Vol& v, const March& m) {
   int lo, hi;
@@ -295,15 +299,15 @@ JOSEPH_HD float trace_fwd(const Ray& r, const Vol& v, const March& m) {
   return acc;
 }
 
-// The step's window on a bf16 copy as the copy stores it, where `read`:
-// raw[q][m][n] the 16 bits of window's voxel at plane k0 + q, y = fy + m,
-// z = fz + n, plane k0 + 1 only in blend mode, by voxel's bounds test
-// (each plane's part once); zero bits (+0.0 widened, as voxel's 0) outside
-// the volume and where nothing is read. All of them are loaded before any
-// is widened.
-template <int A>
-JOSEPH_HD void window_raw(const brick::Volume<A, brick::bf16>& v, const Step& s, bool blend,
-                          bool read, brick::bf16 raw[2][2][2]) {
+// The step's window on a bricked copy as the copy stores it, where `read`:
+// raw[q][m][n] the element (a float, or a bf16's 16 bits) of window's voxel
+// at plane k0 + q, y = fy + m, z = fz + n, plane k0 + 1 only in blend mode,
+// by voxel's bounds test (each plane's part once); zero (+0.0, or zero bits
+// widened to +0.0: voxel's 0) outside the volume and where nothing is read.
+// All of them are loaded before any is widened or lerped.
+template <int A, class T>
+JOSEPH_HD void window_raw(const brick::Volume<A, T>& v, const Step& s, bool blend, bool read,
+                          T raw[2][2][2]) {
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     int k = s.k0 + q;
@@ -316,16 +320,17 @@ JOSEPH_HD void window_raw(const brick::Volume<A, brick::bf16>& v, const Step& s,
         float fz = s.fz + (float)n;
         bool ok = plane && fy >= 0.f && fy < (float)v.Y && fz >= 0.f && fz < (float)v.Z;
         raw[q][m][n] = ok ? brick::load_raw(v.data + brick::offset(v, k, (int)fy, (int)fz))
-                          : (brick::bf16)0;
+                          : (T)0;
       }
     }
   }
 }
 
-// window's 2 x 2 from window_raw's bits: each widened, then lerped across
-// the plane pair in blend mode by window's float32 operations in its order.
-JOSEPH_HD void widen_window(const brick::bf16 raw[2][2][2], const Step& s, bool blend,
-                            float win[2][2]) {
+// window's 2 x 2 from window_raw's elements: each widened (the identity for
+// a float), then lerped across the plane pair in blend mode by window's
+// float32 operations in its order.
+template <class T>
+JOSEPH_HD void widen_window(const T raw[2][2][2], const Step& s, bool blend, float win[2][2]) {
   for (int m = 0; m < 2; ++m) {
     for (int n = 0; n < 2; ++n) {
       float w0 = brick::widen(raw[0][m][n]);
@@ -334,21 +339,21 @@ JOSEPH_HD void widen_window(const brick::bf16 raw[2][2][2], const Step& s, bool 
   }
 }
 
-// trace_fwd on a bf16 copy: U steps' windows loaded raw first (window_raw:
-// 4U loads in flight, 8U in blend mode), then each widened and lerped
-// (widen_window) and its sample added in step order. The same float32
-// operations on the same values as the float32 copy's trace_fwd, so the
-// value is its value on the density rounded to bf16, bit for bit.
-template <int U = 1, int A>
-JOSEPH_HD float trace_fwd(const Ray& r, const brick::Volume<A, brick::bf16>& v,
-                          const March& m) {
+// trace_fwd on a bricked copy (float32 or bf16) with its windows loaded raw:
+// U steps' windows first (window_raw: 4U loads in flight, 8U in blend
+// mode), then each widened and lerped (widen_window) and its sample added
+// in step order. The same float32 operations on the same values as the
+// strided serial march's, so the value is its value (on a bf16 copy: on
+// the density rounded to bf16) bit for bit, whatever U.
+template <int U = 1, int A, class T>
+JOSEPH_HD float trace_fwd_raw(const Ray& r, const brick::Volume<A, T>& v, const March& m) {
   int lo, hi;
   step_range(r, m, &lo, &hi);
   float acc = 0.f;
   for (int p0 = lo; p0 < hi; p0 += U) {
     Step st[U];
     bool in[U];
-    brick::bf16 raw[U][2][2][2];
+    T raw[U][2][2][2];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       st[u] = step_at(r, m, v.X, p0 + u);
@@ -365,6 +370,14 @@ JOSEPH_HD float trace_fwd(const Ray& r, const brick::Volume<A, brick::bf16>& v,
     }
   }
   return acc;
+}
+
+// trace_fwd on a bf16 copy: its windows loaded raw in either mode (a read
+// widened where it lands would make the thread wait on it there).
+template <int U = 1, int A>
+JOSEPH_HD float trace_fwd(const Ray& r, const brick::Volume<A, brick::bf16>& v,
+                          const March& m) {
+  return trace_fwd_raw<U>(r, v, m);
 }
 
 // MIP: the largest sample * scale and its step. A strict > keeps the first

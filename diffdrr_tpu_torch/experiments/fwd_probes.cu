@@ -16,6 +16,11 @@
 //             of the ray's range, the voxels at the ray's position there,
 //             none of the segment or tent arithmetic: two voxels a Siddon
 //             slab, the four in-plane neighbours a Joseph step at integer h);
+//             3 (Joseph, bricked) the forward with its windows loaded raw
+//             before any is lerped (trace_fwd_raw: the float32 kernel's
+//             order in blend mode; kind 0 bricked is window()'s, which
+//             lerps each plane pair as its loads land, the kernel's order
+//             at an integer h);
 //   unroll  1, 2 or 4.
 // One thread per ray, 128 threads a block, as in the kernels. Each returns
 // cudaGetLastError(), or -1 for a combination it does not build.
@@ -58,6 +63,12 @@ __host__ __device__ __forceinline__ float voxel(const NoLoad<A>& v, int k, float
     return 0.f;
   return (float)((int)brick::offset(v.b, k, (int)fy, (int)fz) & v.zero);
 }
+
+// A float32 bricked copy (trace_fwd_raw reads only those here).
+template <class Vol>
+struct IsBricked : std::false_type {};
+template <int A>
+struct IsBricked<brick::Volume<A>> : std::true_type {};
 
 unsigned int n_blocks(int64_t n) { return (unsigned int)((n + kThreads - 1) / kThreads); }
 
@@ -133,6 +144,15 @@ joseph_fwd(const float* __restrict__ rows, int64_t n, Vol v, joseph::March m,
   int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= n) return;
   out[r] = joseph::trace_fwd<U>(joseph::load_ray(rows, n, r), v, m);
+}
+
+template <int U, int A>
+__global__ void __launch_bounds__(kThreads)
+joseph_fwd_raw(const float* __restrict__ rows, int64_t n, brick::Volume<A> v, joseph::March m,
+               float* __restrict__ out) {
+  int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n) return;
+  out[r] = joseph::trace_fwd_raw<U>(joseph::load_ray(rows, n, r), v, m);
 }
 
 template <int U, class Vol>
@@ -229,9 +249,16 @@ template <class Vol>
 int joseph_launch(int kind, int unroll, const float* rows, int64_t n, Vol v, joseph::March m,
                   float* out, cudaStream_t st) {
 #define J_FWD(U) joseph_fwd<U><<<n_blocks(n), kThreads, 0, st>>>(rows, n, v, m, out)
+#define J_RAW(U) joseph_fwd_raw<U><<<n_blocks(n), kThreads, 0, st>>>(rows, n, v, m, out)
 #define J_LOADS(U) joseph_loads<U><<<n_blocks(n), kThreads, 0, st>>>(rows, n, v, m, out)
   if (kind == 0) {
     PROBE_UNROLL(J_FWD)
+  } else if (kind == 3) {
+    if constexpr (IsBricked<Vol>::value) {
+      PROBE_UNROLL(J_RAW)
+    } else {
+      return -1;
+    }
   } else if (kind == 2) {
     if (m.blend) return -1;
     PROBE_UNROLL(J_LOADS)
@@ -239,6 +266,7 @@ int joseph_launch(int kind, int unroll, const float* rows, int64_t n, Vol v, jos
     return -1;
   }
 #undef J_FWD
+#undef J_RAW
 #undef J_LOADS
   return (int)cudaGetLastError();
 }
@@ -272,6 +300,7 @@ int joseph_probe(int layout, int kind, int unroll, const float* rows, int64_t n,
                  cudaStream_t st) {
   if (kind == 1)
     return layout == 1 ? joseph_launch(0, unroll, rows, n, no_load(bv), m, out, st) : -1;
+  if (kind == 3) return layout == 1 ? joseph_launch(3, unroll, rows, n, bv, m, out, st) : -1;
   return layout == 0 ? joseph_launch(kind, unroll, rows, n, jv, m, out, st)
                      : joseph_launch(kind, unroll, rows, n, bv, m, out, st);
 }

@@ -2,7 +2,7 @@
 """Time the two forward gathers of a checkout on one CUDA card.
 
     python3 diffdrr_tpu_torch/experiments/fwd_timing.py [--root DIR]
-        [--no-probes | --bf16-only | --copy-only]
+        [--no-probes | --bf16-only | --copy-only] [--case NAME ...]
 
 Imports ``diffdrr_tpu_torch`` from ``DIR`` (default: the checkout that holds
 this file), so one card can time two commits in turns: unpack each into a
@@ -19,8 +19,12 @@ the recon cell's rays (8 views of 200x200 on the 512x512x133 CT) and at one
 and at the main pose's 200x200 view (h = 1); both at the lateral pose's
 200x200 view (march axis 0, the CT's 512 planes; Joseph at the trilinear
 stride h = 1.024, which blends two planes a sample); both on the 512^3 CT
-at 200x200 and 1000x1000. For each, median CUDA-event times
-(``scatter_timing.events_ms``):
+at 200x200 and 1000x1000; and ``joseph_fwd render-b8``, the benchmark cell
+``render-b8-chest512-trilinear``'s render: 8 poses at 512x512 (delx
+400/512) on the 512^3 CT, each the main pose plus N(0, 0.1) rad, N(0, 15)
+mm (a fixed seed), rendered by a trilinear DRR (n_points 500, h = 511/499),
+whose own rows, march axis and stride ``joseph_fwd`` is timed on. For
+each, median CUDA-event times (``scatter_timing.events_ms``):
 
   * ``kernel``: the wrapper with the density's bricked copy already made
     (in a checkout without the copy: the wrapper, which is the kernel);
@@ -43,6 +47,16 @@ bricked); the rays taken in 8x4 detector patches instead of rows of 32; and,
 for Joseph at the recon-CLI's rays, ``F.grid_sample`` (trilinear, zero
 padding) over the same sample points (``chip_smoke.grid_sample_ms`` of the
 checkout that holds this file).
+
+Order probes (the 4x4x4 build, every Joseph case; with the float32 probes;
+a checkout whose ``csrc/joseph.cuh`` has ``trace_fwd_raw``): the float32
+forward on the bricked copy with its windows loaded raw before any is
+lerped (``raw_u<U>``, the kernel's order in blend mode) and in window()'s
+order, each plane pair lerped as its loads land (``window_u<U>``, its
+order at an integer h), at U = 1, 2 and 4 steps in flight, each also with
+the rays taken in 8x4 detector patches (``raw_patch_u<U>``,
+``window_patch_u<U>``) where the rays are whole views; ``same_bits``:
+every variant's output equal to ``raw_u1``'s bit for bit.
 
 bf16 probes (the 4x4x4 build's ``probe_*_fwd_bf16``, on the bf16 copy, at
 every case but the cube at 200x200; ``--bf16-only`` runs these and the
@@ -79,6 +93,9 @@ torch.contiguous_format)``, each held bit for bit against the package's
 copy; the byte bounds (the density read once, the copy written once, at
 3.35 TB/s). A checkout without ``brick.packed_path`` (one before the
 packed path) is timed through ``brick_density`` alone.
+
+``--case NAME`` (repeatable) times only the cases whose name contains one
+of the NAMEs, and no copy cases.
 
 Prints one line per case and, last, one JSON object with every number and
 the card (``nvidia-smi`` name and power limit). Fails without a card.
@@ -347,6 +364,49 @@ def probe_case(libs, family, rows, density, axis, march, events_ms, side=200):
     return res
 
 
+def order_probe_case(lib, rows, density, axis, march, events_ms, side):
+    """Time the float32 Joseph forward's load orders on the 4x4x4 bricked
+    copy (see the module docstring); ms by name, and ``same_bits``."""
+    import torch
+
+    from diffdrr_tpu_torch.ops.kernels import brick
+
+    rows = rows.contiguous()
+    n = rows.shape[1]
+    bv = brick_copy(density, brick.BRICK)
+    orders = {"raw": rows}
+    if n % (side * side) == 0:
+        orders["patch"] = rows[:, patch_order(n, side, side).to(rows.device)].contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+
+    def run(kind, unroll, order):
+        out = outs.setdefault((kind, unroll, order),
+                              torch.empty(n, dtype=torch.float32, device=rows.device))
+        r = orders[order]
+        rc = lib.probe_joseph_fwd(1, kind, unroll, r.data_ptr(), n, density.data_ptr(), 0, 0, 0,
+                                  bv.data.data_ptr(), *bv.args(axis), *march, out.data_ptr(),
+                                  stream)
+        if rc != 0:
+            raise RuntimeError(f"order probe {kind}/{unroll}/{order} failed: {rc}")
+
+    res = {}
+    for u in (1, 2, 4):
+        for kind, name in ((3, "raw"), (0, "window")):
+            for order in orders:
+                key = f"{name}_u{u}" if order == "raw" else f"{name}_patch_u{u}"
+                res[key] = events_ms(lambda: run(kind, u, order))
+    torch.cuda.synchronize()
+    if "patch" in orders:  # back to row order: the patch permutation's inverse
+        inv = torch.argsort(patch_order(n, side, side)).to(rows.device)
+        for key in [k for k in outs if k[2] == "patch"]:
+            outs[key] = outs[key][inv]
+    ref = outs[(3, 1, "raw")]
+    res["same_bits"] = all(torch.equal(o.view(torch.int32), ref.view(torch.int32))
+                           for o in outs.values())
+    return res
+
+
 def bf16_probe_case(lib, family, rows, density, axis, march, events_ms):
     """Time fwd_probes.cu's bf16 probes on ``density``'s bf16 copy (see the
     module docstring); ms by name: ``<variant>_u<U>`` and ``loads_only_u<U>``
@@ -392,6 +452,8 @@ def main(argv=None) -> int:
                         help="time the cases and the bf16 probes, not the float32 probes")
     parser.add_argument("--copy-only", action="store_true",
                         help="time the copy cases alone, with their probes")
+    parser.add_argument("--case", action="append", default=[],
+                        help="time only the cases whose name contains this (repeatable)")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
     import torch
@@ -420,7 +482,7 @@ def main(argv=None) -> int:
     print(f"[fwd_timing] {label}: package {Path(T.__file__).parent}; {card}", flush=True)
     build.build_all()
     copies = {}
-    if brick is not None and not args.bf16_only:
+    if brick is not None and not args.bf16_only and not args.case:
         copy_lib = (None if args.no_probes or not hasattr(brick, "packed_path")
                     else build_copy_probes())
         for name, density in copy_densities().items():
@@ -453,6 +515,8 @@ def main(argv=None) -> int:
 
     def case(name, family, rows, density, march=(), probes=False, library=False, side=200,
              axis=2, bf16_probes=True):
+        if args.case and not any(c in name for c in args.case):
+            return
         def fwd(*storage):
             if family == "siddon":
                 return K.siddon_fwd(rows, density, axis, *storage)
@@ -468,6 +532,10 @@ def main(argv=None) -> int:
             c["f32_bf16"] = [events_ms(lambda: fwd(s)) for s in (None, "bf16", "bf16", None)]
         if probes and libs is not None and not args.bf16_only:
             c["probes"] = probe_case(libs, family, rows, density, axis, march, events_ms, side)
+        if (family == "joseph" and libs is not None and not args.bf16_only
+                and "trace_fwd_raw" in (build.CSRC / "joseph.cuh").read_text()):
+            c["order_probes"] = order_probe_case(libs[(4, 4, 4)], rows, density, axis, march,
+                                                 events_ms, side)
         if bf16 and bf16_probes and libs is not None:
             c["bf16_probes"] = bf16_probe_case(libs[(4, 4, 4)], family, rows, density, axis,
                                                march, events_ms)
@@ -482,7 +550,7 @@ def main(argv=None) -> int:
             extra += ", f32/bf16/bf16/f32 " + " ".join(f"{v:.4f}" for v in c["f32_bf16"])
         print(f"[fwd_timing] {label} {name} ({c['rays']} rays): kernel {c['kernel']:.4f} ms"
               + extra, flush=True)
-        for group in ("probes", "bf16_probes"):
+        for group in ("probes", "order_probes", "bf16_probes"):
             for k, v in c.get(group, {}).items():
                 print(f"[fwd_timing] {label} {group[:-1]} {name} {k} {v:.4g}", flush=True)
 
@@ -516,9 +584,42 @@ def main(argv=None) -> int:
         case(f"joseph_fwd cube {side}^2", "joseph",
              rows_of(drr_c, rot0, trans0, quadrature="joseph", h=1.0), drr_c.density,
              (1.0, 512, 0), probes=side == 1000, side=side, bf16_probes=side == 1000)
+    render_b8(T, J, dev, case)
     print(json.dumps({"label": label, "card": card, "cases": cases, "copies": copies}),
           flush=True)
     return 0
+
+
+def render_b8(T, J, dev, case):
+    """The ``joseph_fwd render-b8`` case (see the module docstring): the
+    rows, march axis and stride that a trilinear DRR's render of the poses
+    hands ``joseph_fwd``, caught on the way in."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(8)
+    rot = torch.tensor(np.array([[0.0, np.pi / 2, 0.0]]) + rng.normal(0.0, 0.1, (8, 3)),
+                       dtype=torch.float32, device=dev)
+    trans = torch.tensor(np.array(BENCH_TRANS) + rng.normal(0.0, 15.0, (8, 3)),
+                         dtype=torch.float32, device=dev)
+    cube = T.load_example_ct(shape=(512, 512, 512), spacing=(0.703125,) * 3)
+    drr = T.DRR(cube, sdd=1020.0, height=512, delx=400 / 512, renderer="trilinear")
+    got, march = {}, J.JosephMarch
+
+    class Spy:  # joseph_march_raycast calls JosephMarch.apply by its module's name
+        @staticmethod
+        def apply(density, rows, axis, h, n_steps, *rest):
+            got.update(rows=rows.detach().clone(), axis=axis, h=h, n=n_steps)
+            return march.apply(density, rows, axis, h, n_steps, *rest)
+
+    J.JosephMarch = Spy
+    try:
+        with torch.no_grad():
+            drr(rot, trans, **KW)
+    finally:
+        J.JosephMarch = march
+    case("joseph_fwd render-b8", "joseph", got["rows"], drr.density,
+         (got["h"], got["n"], int(J.is_blend(got["h"]))), side=512, axis=got["axis"])
 
 
 if __name__ == "__main__":

@@ -20,8 +20,19 @@ Joseph, when every load of a batch issues before the first of them is read;
 1 or 2 when each read is widened where it lands. ``first_use_run`` is the
 number of such loads issued before the first one is read. The walk takes
 the instructions in address order, both arms of a branch alike: a load
-read at once on one arm only (the float32 Joseph forward's lerp, taken in
-blend mode alone) counts as read.
+read at once on one arm only counts as read.
+
+The float32 ``joseph_fwd_kernel``'s blend-mode instantiation (``Blend``
+true, at each march axis) loads its windows raw before any lerp: under
+``float32_blend_forward`` its ``first_use_run``, the 32-bit loads issued
+before the first read of a loaded value, is the batch a thread waits on
+together (8U with U = ``kFwdBlendSteps``; window()'s order, which lerps each
+pair as it lands, gives 1). ``fwd_probes.cu``'s float32 Joseph forwards
+(``probe::joseph_fwd``: strided and bricked in window()'s order, and
+``probe::joseph_fwd_raw``, bricked in the raw order, each at U = 1, 2, 4)
+are counted beside it. The parent's kernels are matched by name, the
+``Blend`` false instantiation of ``joseph_fwd_kernel`` with a parent's
+kernel of its first two template arguments where the parent has no third.
 
 With ``--parent DIR`` (a checkout of another commit, e.g. unpacked with
 ``git archive``), its ``csrc/*.cu`` are built with this checkout's nvcc
@@ -81,7 +92,7 @@ _NO_DEST = ("ST", "RED", "BRA", "EXIT", "RET", "CALL", "BSYNC", "BSSY", "WARPSYN
             "BAR", "BPT", "JMP", "YIELD")
 _REG = re.compile(r"(?<![A-Z_])R(\d+)(\.64|\.128)?\b")
 _FORWARDS = ("siddon_fwd_kernel", "joseph_fwd_kernel", "probe::siddon_fwd_bf16",
-             "probe::joseph_fwd_bf16")
+             "probe::joseph_fwd_bf16", "probe::joseph_fwd<", "probe::joseph_fwd_raw<")
 _FUSED = ("siddon_fwdgrad_kernel", "joseph_fwdgrad_kernel", "siddon_bwd_rays_kernel<",
           "joseph_bwd_rays_kernel<", "probe::siddon_fwdgrad_bf16", "probe::joseph_fwdgrad_bf16")
 _CHANNELS = ("joseph_fwd_ch_kernel", "joseph_bwd_rays_ch_kernel", "probe::fwd_ch_bf16",
@@ -89,6 +100,15 @@ _CHANNELS = ("joseph_fwd_ch_kernel", "joseph_bwd_rays_ch_kernel", "probe::fwd_ch
 _COPIES = ("brick_copy_kernel", "probe::parent_copy", "probe::bulk_copy", "probe::reads_only",
            "probe::writes_only")
 _MEMORY_OP = re.compile(r"^(LDG|STG|LDS|STS|UBLKCP|LDGSTS)\b(\S*)")
+# joseph_fwd_kernel's third template argument, Blend, true or false.
+_BLEND = re.compile(r", (\(bool\)1|true)>")
+_NOT_BLEND = re.compile(r"(joseph_fwd_kernel<[^<>]*?), (\(bool\)0|false)>")
+
+
+def parent_name(name: str) -> str:
+    """``name`` as the parent, before ``joseph_fwd_kernel`` took its Blend
+    argument, names the same code: the Blend false instantiation."""
+    return _NOT_BLEND.sub(r"\1>", name)
 
 
 def _tool(name):
@@ -246,7 +266,8 @@ def main(argv=None) -> int:
         regs.update(zip(demangle(list(used)), used.values()))
         spilt = registers(lib, "LOCAL")
         local.update(zip(demangle(list(spilt)), spilt.values()))
-    report = {"kernels": {}, "fused": {}, "channels": {}, "copies": {}, "diff": None}
+    report = {"kernels": {}, "fused": {}, "channels": {}, "copies": {}, "diff": None,
+              "float32_blend_forward": {}}
     for (lib, name), instrs in sorted(sass.items()):
         if lib in ("brick", "brick_probes") and any(c in name for c in _COPIES):
             ops = memory_ops(instrs)
@@ -269,6 +290,10 @@ def main(argv=None) -> int:
         print(f"[sass] {name}: {len(instrs)} instructions, {regs.get(name)} registers, "
               f"{local.get(name)} local bytes, loop {len(loop)}: {loads} LDG of {bits} bits, "
               f"peak in flight {peak}, issued before the first read {first}", flush=True)
+        if lib == "joseph" and "joseph_fwd_kernel<" in name and _BLEND.search(name):
+            report["float32_blend_forward"][name] = first
+            print(f"[sass] float32 blend forward {name}: {first} LDG of 32 bits issued before "
+                  f"the first read of a loaded value", flush=True)
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             safe = re.sub(r"[^A-Za-z0-9_]+", "_", name)[:150]
@@ -279,7 +304,8 @@ def main(argv=None) -> int:
         old = {}
         for name, lib in parent_libs.items():
             old.update({(name, k): v for k, v in disassemble(lib).items()})
-        ours = {k: [t for _, t in v] for k, v in sass.items() if k[0] in build.SOURCES}
+        ours = {(k[0], k[1] if (k[0], k[1]) in old else parent_name(k[1])): [t for _, t in v]
+                for k, v in sass.items() if k[0] in build.SOURCES}
         # The parent's loads in flight, for each of its forwards, fused and
         # channel kernels
         parent_loads = {}

@@ -383,7 +383,8 @@ def joseph_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
                n_steps: int, storage=None) -> torch.Tensor:
     """Line integrals ``(R,)`` of the rays ``rows (9, R)`` through ``density``.
     The kernel reads the density's bricked copy (``brick.bricked``: made
-    once for an unchanged density), bf16 under ``storage="bf16"``."""
+    once for an unchanged density), bf16 under ``storage="bf16"``; a float32
+    launch at a fractional ``h`` also counts in ``launches_blend``."""
     check("joseph", rows, density, axis, storage)
     _check_march(h, n_steps)
     if runs_plain("joseph_fwd", rows):
@@ -394,6 +395,8 @@ def joseph_fwd(rows: torch.Tensor, density: torch.Tensor, axis: int, h: float,
     call("joseph", vol.entry("joseph_fwd"), rows.device, rows.data_ptr(), rows.shape[1],
          vol.data.data_ptr(), *vol.args(axis), *_march(h, n_steps), out.data_ptr())
     count_launch(joseph_fwd, storage)
+    if storage is None and is_blend(h):
+        joseph_fwd.launches_blend += 1
     return out
 
 
@@ -603,6 +606,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in BF16_KERNELS:
         fn.launches_bf16 = 0
+    # Of joseph_fwd's float32 launches, those at a fractional stride (blend mode).
+    joseph_fwd.launches_blend = 0
 
 
 reset_launch_counts()

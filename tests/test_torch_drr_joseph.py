@@ -88,6 +88,26 @@ def test_kernel_path_matches_jax_kernels(jscene, renderer):
     ref = np.asarray(fn(*rays, axis=2, **PALLAS)).reshape(got.shape)
     _close(got, ref, 1e-4)
     assert sum(k.launches for k in J.KERNELS) == 0  # the CPU ran the plain versions
+    assert J.joseph_fwd.launches_blend == 0
+
+
+def test_no_other_launches_holds_a_subcount_only_where_named():
+    """launch_counts() has joseph_fwd_blend, a part of joseph_fwd's count;
+    no_other_launches holds it where ``want`` names it and lets it be
+    otherwise, and holds every kernel's count as before."""
+    from diffdrr_tpu_torch.ops.kernels import (SUBCOUNTS, launch_counts, no_other_launches,
+                                               reset_launch_counts)
+
+    reset_launch_counts()
+    counts = launch_counts()
+    assert set(SUBCOUNTS) <= set(counts) and not any(counts.values())
+    got = dict(counts, joseph_fwd=2, joseph_fwd_blend=1)
+    no_other_launches("blend unnamed", got, {"joseph_fwd": 2})
+    no_other_launches("blend named", got, {"joseph_fwd": 2, "joseph_fwd_blend": 1})
+    for want in ({"joseph_fwd": 2, "joseph_fwd_blend": 0}, {"joseph_fwd": 1},
+                 {"joseph_fwd": 2, "joseph_fwd_blend": 1, "siddon_fwd": 1}):
+        with pytest.raises(AssertionError, match="launches"):
+            no_other_launches("held", got, want)
 
 
 def test_joseph_pinned_axis_marches_its_stride(jscene):

@@ -1013,7 +1013,8 @@ static void with_axis(int axis, F f) {
 }
 // trace_fwd on the bricked copy with `unroll` slabs (steps) in flight; 0
 // takes the kernels' own count (kFwdSlabs; kFwdStepsOf for the copy's
-// element T).
+// element T, kFwdBlendSteps for the float32 copy in blend mode, where
+// joseph_fwd runs trace_fwd_raw).
 template <class F>
 static void each_unroll(int unroll, F f) {
   switch (unroll) {
@@ -1045,7 +1046,16 @@ static void bt_joseph_t(int unroll, const float* rows, int64_t R, COPY_ARGS(T), 
   with_axis(axis, [&](auto a) {
     auto v = brick::make_volume<decltype(a)::value>(bvol, bs_s, bs_y, bs_z, X, Y, Z);
     each_unroll(unroll, [&](auto u) {
-      constexpr int U = decltype(u)::value ? decltype(u)::value : joseph::kFwdStepsOf<T>;
+      constexpr int N = decltype(u)::value;
+      if constexpr (std::is_same<T, float>::value) {
+        if (m.blend) {  // joseph_fwd_kernel's Blend instantiation
+          constexpr int U = N ? N : joseph::kFwdBlendSteps;
+          for (int64_t r = 0; r < R; ++r)
+            out[r] = joseph::trace_fwd_raw<U>(joseph::load_ray(rows, R, r), v, m);
+          return;
+        }
+      }
+      constexpr int U = N ? N : joseph::kFwdStepsOf<T>;
       for (int64_t r = 0; r < R; ++r)
         out[r] = joseph::trace_fwd<U>(joseph::load_ray(rows, R, r), v, m);
     });
@@ -1380,14 +1390,16 @@ def test_twin_siddon_bricked_equals_strided(twin, btwin, axis, brick_shape):
 
 
 @_BRICKS
-@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6, 0.26],
-                         ids=["h1", "h4", "h1.37", "h0.6", "h0.26"])
+@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6, 0.26, 511 / 499, 1.024],
+                         ids=["h1", "h4", "h1.37", "h0.6", "h0.26", "h511_499", "h1.024"])
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_twin_joseph_bricked_equals_strided(jtwin, btwin, axis, h, brick_shape):
-    """joseph::trace_fwd on the bricked copy, at every unroll, equals the
-    strided serial trace_fwd bit for bit, at integer h and at fractional h
-    (whose last steps lerp toward plane X, which reads 0), and the plain
-    version to 1e-6 * max on the finite rays."""
+    """joseph_fwd's march on the bricked copy (at fractional h trace_fwd_raw,
+    its windows loaded raw, then lerped), at every unroll, equals the
+    strided serial trace_fwd (window's lerp as each load lands) bit for bit,
+    at integer h and at fractional h (whose last steps lerp toward plane X,
+    which reads 0; 511/499 is the trilinear march's stride on 512 planes at
+    n_points 500), and the plain version to 1e-6 * max on the finite rays."""
     rng = np.random.default_rng(90 + axis)
     vol, vol_f = _densities(rng, _BRICK_DIMS)
     rows = _fwd_rays(rng, _BRICK_DIMS, axis, quadrature="joseph", h=h)
@@ -2038,11 +2050,12 @@ def test_cuda_siddon_fwd_bricked_matches_plain(axis):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6])
+@pytest.mark.parametrize("h", [1.0, 4.0, 1.37, 0.6, 511 / 499])
 @pytest.mark.parametrize("axis", [0, 2])
 def test_cuda_joseph_fwd_bricked_matches_plain(axis, h):
     """On a card: joseph_fwd (bricked copy) against its plain version, atol
-    1e-4 * max, at 64x64 with mixed rays and at 200x200."""
+    1e-4 * max, at 64x64 with mixed rays and at 200x200 (h = 511/499: the
+    trilinear march's stride on 512 planes at n_points 500)."""
     for label, vol, geo, extra in _gpu_fwd_scenes(axis):
         rows = prep_rays(*geo, axis, vol.shape, quadrature="joseph", h=h)
         if extra is not None:
@@ -2055,6 +2068,25 @@ def test_cuda_joseph_fwd_bricked_matches_plain(axis, h):
         assert (ref > 0).sum() > rows.shape[1] // 2, label
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * ref.abs().max().item(),
                                    msg=label)
+
+
+@pytest.mark.gpu
+def test_cuda_joseph_fwd_counts_blend_launches():
+    """On a card: a float32 joseph_fwd at a fractional h counts once in
+    launch_counts()'s joseph_fwd and once in joseph_fwd_blend; at h = 1, and
+    a bf16 one at a fractional h, in joseph_fwd_blend not at all."""
+    from diffdrr_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    (_, vol, geo, _), *_ = _gpu_fwd_scenes(2)
+    reset_launch_counts()
+    for h, storage, want in ((511 / 499, None, (1, 0, 1)), (1.0, None, (2, 0, 1)),
+                             (1.37, "bf16", (2, 1, 1)), (0.6, None, (3, 1, 2))):
+        rows = prep_rays(*geo, 2, vol.shape, quadrature="joseph", h=h)
+        J.joseph_fwd(rows, vol, 2, h, int(-(-vol.shape[2] // h)), storage)
+        got = launch_counts()
+        assert (got["joseph_fwd"], got["joseph_fwd_bf16"], got["joseph_fwd_blend"]) == want, h
+    reset_launch_counts()
+    assert launch_counts()["joseph_fwd_blend"] == 0
 
 
 def _gpu_scene_rows(axis, vol, geo, extra, **prep):
